@@ -24,19 +24,23 @@
 // it reads tables[b, p] and lengths[b] on its own (no scalar prefetch).
 // Each page's (bs, D) K and V tiles of the head are staged in shared
 // memory as f32; q rows, the accumulator and the running (m, l) live in
-// shared memory for the whole sweep.  Scores are computed one (row, token)
-// pair per warp with the D-long dot split over lanes (consecutive lanes on
-// consecutive addresses, so no bank conflicts) and a shuffle reduction.
+// shared memory for the whole sweep.  The next page's tile is loaded into
+// registers (all of a thread's loads in flight at once) while the current
+// page is computed, so a page costs about one compute phase instead of a
+// chain of device-memory round trips.  Scores are computed one (row,
+// token) pair per warp with the D-long dot split over lanes (consecutive
+// lanes on consecutive addresses, so no bank conflicts) and a shuffle
+// reduction; the online-softmax update takes one warp per row.
 //
 // What bounds it on the H100: bytes.  Every K and V element of each row's
 // reach is read once from device memory (sum_b (lengths[b] + K - 1) * Hkv
 // * D * 2 * sizeof(T)); the arithmetic is ~4 flops per byte.  Known gaps,
 // left for later work:
 //   * one block per (b, kv_head): at B = 8, Hkv = 8 only 64 blocks are in
-//     flight on 132 SMs;
+//     flight on 132 SMs, so each block's page sweep is latency-bound;
 //   * the page sweep is not split across blocks (flash-decoding);
-//   * no TMA or cp.async pipelining: each page's load waits for the
-//     previous page's compute;
+//   * no TMA or cp.async pipelining, only the one-page register prefetch;
+//     the loads are 2- or 4-byte scalars, not 16-byte vectors;
 //   * no tensor cores for the (K*g x D) products.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,8 +50,11 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int THREADS = 128;
+constexpr int THREADS = 256;
 constexpr int WARP = 32;
+// tile elements per thread held in registers for the next page; a larger
+// tile (bs * D > THREADS * PREFETCH) loads the rest synchronously
+constexpr int PREFETCH = 16;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -71,6 +78,49 @@ __host__ __device__ inline size_t smem_floats(int R, int D, int bs) {
          + 2 * (size_t)bs * D   // K and V tiles of the current page
          + (size_t)R * bs       // scores, then softmax weights
          + 3 * (size_t)R;       // running max, running sum, correction
+}
+
+// the next page's K/V tile, THREADS * PREFETCH elements, in registers
+struct Prefetch {
+  float k[PREFETCH];
+  float v[PREFETCH];
+};
+
+template <typename T>
+__device__ __forceinline__ void load_tile(Prefetch& r, const T* k_pages,
+                                          const T* v_pages, size_t page,
+                                          int h, int Hkv, int D, int bs) {
+#pragma unroll
+  for (int u = 0; u < PREFETCH; ++u) {
+    const int i = threadIdx.x + u * THREADS;
+    if (i < bs * D) {
+      const int t = i / D, d = i % D;
+      const size_t src = ((page * bs + t) * Hkv + h) * D + d;
+      r.k[u] = to_f32(k_pages[src]);
+      r.v[u] = to_f32(v_pages[src]);
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_tile(const Prefetch& r, float* k_s,
+                                           float* v_s, const T* k_pages,
+                                           const T* v_pages, size_t page,
+                                           int h, int Hkv, int D, int bs) {
+#pragma unroll
+  for (int u = 0; u < PREFETCH; ++u) {
+    const int i = threadIdx.x + u * THREADS;
+    if (i < bs * D) {
+      k_s[i] = r.k[u];
+      v_s[i] = r.v[u];
+    }
+  }
+  for (int i = threadIdx.x + PREFETCH * THREADS; i < bs * D; i += THREADS) {
+    const int t = i / D, d = i % D;
+    const size_t src = ((page * bs + t) * Hkv + h) * D + d;
+    k_s[i] = to_f32(k_pages[src]);
+    v_s[i] = to_f32(v_pages[src]);
+  }
 }
 
 template <typename T>
@@ -116,16 +166,18 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   // pages holding a position below the last query's reach len + K - 1
   int n_pages = (len + K - 1 + bs - 1) / bs;
   if (n_pages > W) n_pages = W;
+  const int* row_table = tables + (size_t)b * W;
+  Prefetch next;
+  size_t page = (size_t)row_table[0];
+  load_tile(next, k_pages, v_pages, page, h, Hkv, D, bs);
   for (int p = 0; p < n_pages; ++p) {
-    const size_t page = (size_t)tables[(size_t)b * W + p];
     __syncthreads();  // the previous page's tiles and weights are consumed
-    for (int i = tid; i < bs * D; i += blockDim.x) {
-      const int t = i / D, d = i % D;
-      const size_t src = ((page * bs + t) * Hkv + h) * D + d;
-      k_s[i] = to_f32(k_pages[src]);
-      v_s[i] = to_f32(v_pages[src]);
-    }
+    store_tile(next, k_s, v_s, k_pages, v_pages, page, h, Hkv, D, bs);
     __syncthreads();
+    if (p + 1 < n_pages) {  // in flight while this page is computed
+      page = (size_t)row_table[p + 1];
+      load_tile(next, k_pages, v_pages, page, h, Hkv, D, bs);
+    }
     // scores: one (row, token) pair per warp, D split over the lanes
     for (int pair = warp; pair < R * bs; pair += n_warps) {
       const int r = pair / bs, t = pair % bs;
@@ -143,22 +195,30 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
       if (lane == 0) w_s[pair] = s;
     }
     __syncthreads();
-    // online softmax update, one thread per accumulator row
-    for (int r = tid; r < R; r += blockDim.x) {
+    // online softmax update, one warp per accumulator row
+    for (int r = warp; r < R; r += n_warps) {
+      float* wr = w_s + r * bs;
+      float mx = NEG_INF;
+      for (int t = lane; t < bs; t += WARP) mx = fmaxf(mx, wr[t]);
+      for (int off = WARP / 2; off > 0; off /= 2)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_prev = m_s[r];
-      float m_new = m_prev;
-      for (int t = 0; t < bs; ++t) m_new = fmaxf(m_new, w_s[r * bs + t]);
+      const float m_new = fmaxf(m_prev, mx);
       float sum = 0.f;
-      for (int t = 0; t < bs; ++t) {
-        const float s = w_s[r * bs + t];
+      for (int t = lane; t < bs; t += WARP) {
+        const float s = wr[t];
         const float w = (s <= 0.5f * NEG_INF) ? 0.f : expf(s - m_new);
-        w_s[r * bs + t] = w;
+        wr[t] = w;
         sum += w;
       }
-      const float corr = expf(m_prev - m_new);
-      l_s[r] = l_s[r] * corr + sum;
-      m_s[r] = m_new;
-      c_s[r] = corr;
+      for (int off = WARP / 2; off > 0; off /= 2)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (lane == 0) {
+        const float corr = expf(m_prev - m_new);
+        l_s[r] = l_s[r] * corr + sum;
+        m_s[r] = m_new;
+        c_s[r] = corr;
+      }
     }
     __syncthreads();
     for (int i = tid; i < R * D; i += blockDim.x) {
