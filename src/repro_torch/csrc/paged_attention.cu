@@ -86,10 +86,10 @@ struct Prefetch {
   float v[PREFETCH];
 };
 
-template <typename T>
+template <typename T, int D>
 __device__ __forceinline__ void load_tile(Prefetch& r, const T* k_pages,
                                           const T* v_pages, size_t page,
-                                          int h, int Hkv, int D, int bs) {
+                                          int h, int Hkv, int bs) {
 #pragma unroll
   for (int u = 0; u < PREFETCH; ++u) {
     const int i = threadIdx.x + u * THREADS;
@@ -102,11 +102,11 @@ __device__ __forceinline__ void load_tile(Prefetch& r, const T* k_pages,
   }
 }
 
-template <typename T>
+template <typename T, int D>
 __device__ __forceinline__ void store_tile(const Prefetch& r, float* k_s,
                                            float* v_s, const T* k_pages,
                                            const T* v_pages, size_t page,
-                                           int h, int Hkv, int D, int bs) {
+                                           int h, int Hkv, int bs) {
 #pragma unroll
   for (int u = 0; u < PREFETCH; ++u) {
     const int i = threadIdx.x + u * THREADS;
@@ -123,14 +123,15 @@ __device__ __forceinline__ void store_tile(const Prefetch& r, float* k_s,
   }
 }
 
-template <typename T>
+// D (head_dim) is a compile-time constant: the tile and dot loops unroll
+// and the element -> (token, dim) maps are shifts, not divisions
+template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                        const T* __restrict__ v_pages,
                        const int* __restrict__ tables,
                        const int* __restrict__ lengths, T* __restrict__ out,
-                       int K, int H, int Hkv, int D, int bs, int W,
-                       float scale) {
+                       int K, int H, int Hkv, int bs, int W, float scale) {
   const int h = blockIdx.x;  // kv head
   const int b = blockIdx.y;  // batch row
   const int g = H / Hkv;
@@ -169,14 +170,14 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const int* row_table = tables + (size_t)b * W;
   Prefetch next;
   size_t page = (size_t)row_table[0];
-  load_tile(next, k_pages, v_pages, page, h, Hkv, D, bs);
+  load_tile<T, D>(next, k_pages, v_pages, page, h, Hkv, bs);
   for (int p = 0; p < n_pages; ++p) {
     __syncthreads();  // the previous page's tiles and weights are consumed
-    store_tile(next, k_s, v_s, k_pages, v_pages, page, h, Hkv, D, bs);
+    store_tile<T, D>(next, k_s, v_s, k_pages, v_pages, page, h, Hkv, bs);
     __syncthreads();
     if (p + 1 < n_pages) {  // in flight while this page is computed
       page = (size_t)row_table[p + 1];
-      load_tile(next, k_pages, v_pages, page, h, Hkv, D, bs);
+      load_tile<T, D>(next, k_pages, v_pages, page, h, Hkv, bs);
     }
     // scores: one (row, token) pair per warp, D split over the lanes
     for (int pair = warp; pair < R * bs; pair += n_warps) {
@@ -187,6 +188,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
         const float* qr = q_s + r * D;
         const float* kt = k_s + t * D;
         float part = 0.f;
+#pragma unroll
         for (int d = lane; d < D; d += WARP) part += qr[d] * kt[d];
         for (int off = WARP / 2; off > 0; off /= 2)
           part += __shfl_xor_sync(0xffffffffu, part, off);
@@ -225,6 +227,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
       const int r = i / D, d = i % D;
       const float* wr = w_s + r * bs;
       float a = acc[i] * c_s[r];
+#pragma unroll 4
       for (int t = 0; t < bs; ++t) a += wr[t] * v_s[t * D + d];
       acc[i] = a;
     }
@@ -238,23 +241,49 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
+template <typename T, int D>
+cudaError_t launch_d(const void* q, const void* k_pages, const void* v_pages,
+                     const void* tables, const void* lengths, void* out,
+                     int B, int K, int H, int Hkv, int bs, int W,
+                     cudaStream_t stream) {
+  const size_t smem = smem_floats(K * (H / Hkv), D, bs) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_attention_kernel<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(Hkv, B);
+  paged_attention_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_pages),
+      static_cast<const T*>(v_pages), static_cast<const int*>(tables),
+      static_cast<const int*>(lengths), static_cast<T*>(out), K, H, Hkv, bs,
+      W, 1.0f / sqrtf((float)D));
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    const void* tables, const void* lengths, void* out, int B,
                    int K, int H, int Hkv, int D, int bs, int W,
                    cudaStream_t stream) {
-  const size_t smem = smem_floats(K * (H / Hkv), D, bs) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(Hkv, B);
-  paged_attention_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), static_cast<const int*>(tables),
-      static_cast<const int*>(lengths), static_cast<T*>(out), K, H, Hkv, D,
-      bs, W, 1.0f / sqrtf((float)D));
-  return cudaGetLastError();
+  switch (D) {
+    case 16:
+      return launch_d<T, 16>(q, k_pages, v_pages, tables, lengths, out, B, K,
+                             H, Hkv, bs, W, stream);
+    case 32:
+      return launch_d<T, 32>(q, k_pages, v_pages, tables, lengths, out, B, K,
+                             H, Hkv, bs, W, stream);
+    case 64:
+      return launch_d<T, 64>(q, k_pages, v_pages, tables, lengths, out, B, K,
+                             H, Hkv, bs, W, stream);
+    case 128:
+      return launch_d<T, 128>(q, k_pages, v_pages, tables, lengths, out, B,
+                              K, H, Hkv, bs, W, stream);
+    case 256:
+      return launch_d<T, 256>(q, k_pages, v_pages, tables, lengths, out, B,
+                              K, H, Hkv, bs, W, stream);
+    default:
+      return cudaErrorInvalidValue;  // the wrapper refuses other head dims
+  }
 }
 
 }  // namespace

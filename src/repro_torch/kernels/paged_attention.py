@@ -24,6 +24,8 @@ from repro_torch.kernels.ref import paged_attention_ref
 __all__ = ["paged_attention", "paged_attention_ref"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
+# head dims the kernel is compiled for (a template parameter)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 # dynamic shared memory one block may use on Hopper (232,448 bytes)
 _SMEM_LIMIT = 232_448
 
@@ -54,10 +56,10 @@ def _check(q, k_pages, v_pages, tables, lengths) -> None:
             f"{tuple(k_pages.shape)}, {tuple(v_pages.shape)}")
     B, K, H, D = q.shape
     _, bs, Hkv, Dk = k_pages.shape
-    if Dk != D or H % Hkv:
+    if Dk != D or H % Hkv or D not in HEAD_DIMS:
         raise ValueError(
-            f"paged_attention kernel: head_dim {D} vs pool {Dk}, heads "
-            f"{H} not a multiple of kv heads {Hkv}")
+            f"paged_attention kernel: head_dim {D} (pool {Dk}) must be one "
+            f"of {HEAD_DIMS}, heads {H} a multiple of kv heads {Hkv}")
     if tables.dim() != 2 or tables.shape[0] != B or tables.shape[1] < 1 \
             or tuple(lengths.shape) != (B,):
         raise ValueError(
@@ -71,7 +73,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     lengths: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel: decode/verify attention over paged KV.
 
-    q: (B, H, D) or (B, K, H, D), float32 or bfloat16; k_pages/v_pages:
+    q: (B, H, D) or (B, K, H, D), float32 or bfloat16, D in
+    :data:`HEAD_DIMS`; k_pages/v_pages:
     (P+1, bs, Hkv, D) in q's dtype; tables: (B, W) int32 page ids, every
     entry a valid page of the pool; lengths: (B,) int32 >= 1, tokens the
     first query of each row sees (query t sees ``lengths[b] + t``).

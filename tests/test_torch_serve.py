@@ -108,3 +108,32 @@ def test_cli_serves_smoke_on_cpu(tmp_path):
     assert payload["device"] == "cpu"
     assert sorted(payload["results"]) == ["0", "1", "2", "3"]
     assert all(len(v) == 5 for v in payload["results"].values())
+
+
+@pytest.mark.cuda
+def test_scheduler_on_card_matches_cpu():
+    """The smoke trace served on the card (CUDA and Triton kernels) gives
+    the CPU path's tokens at f32, and both kernels were launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.configs import qwen3_06b as tq
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serve.scheduler import Request, Scheduler
+
+    cfg = dataclasses.replace(tq.SMOKE, dtype="float32")
+    cpu_model = init_lm(cfg, device="cpu")
+    results = {}
+    for device in ("cpu", "cuda"):
+        model = init_lm(cfg, device=device)
+        model.load_state_dict(cpu_model.state_dict())
+        s = Scheduler(cfg, model, num_slots=2, max_len=30, block_size=4,
+                      device=device)
+        for r in _trace(cfg.vocab_size, 0.0):
+            s.submit(Request(**r))
+        before = (pa.paged_attention.launches, rn.rmsnorm.launches)
+        results[device] = {k: v.tolist() for k, v in s.run().items()}
+    assert results["cuda"] == results["cpu"]
+    assert pa.paged_attention.launches > before[0]
+    assert rn.rmsnorm.launches > before[1]
