@@ -49,13 +49,7 @@ class ModelConfig:
         return self.num_kv_heads * self.resolved_head_dim
 
 
-def replace(cfg, **kw):
-    """``dataclasses.replace`` that tolerates nested dotted keys."""
-    direct = {k: v for k, v in kw.items() if "." not in k}
-    nested = {k: v for k, v in kw.items() if "." in k}
-    out = dataclasses.replace(cfg, **direct) if direct else cfg
-    for k, v in nested.items():
-        head, rest = k.split(".", 1)
-        sub = getattr(out, head)
-        out = dataclasses.replace(out, **{head: replace(sub, **{rest: v})})
-    return out
+def replace(cfg: ModelConfig, **kw) -> ModelConfig:
+    """A copy of ``cfg`` with the given fields replaced (the port's config
+    has no nested sub-configs, so no dotted keys)."""
+    return dataclasses.replace(cfg, **kw)

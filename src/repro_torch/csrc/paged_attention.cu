@@ -11,36 +11,41 @@
 //     one kv head into R = K * g accumulator rows; row r = t * g + j is
 //     query token t, q head h * g + j;
 //   * row r reaches `lengths[b] + r / g` tokens (the causal staircase of a
-//     K-token verify); positions past the reach score NEG_INF = -1e30 and
-//     get zero weight;
+//     K-token verify); positions past a row's reach get zero weight (the
+//     Pallas kernel's NEG_INF = -1e30 scores);
 //   * pages with p * bs >= lengths[b] + K - 1 lie past every row's reach
 //     and are skipped, so null-page table tails are never read;
 //   * online softmax with running (m, l) and the accumulator in f32; the
 //     output is written in q's dtype.
 //
 // Design.  The TPU grid (batch, kv_head, page) ran in order on one core,
-// carrying the accumulator in VMEM across the page axis.  Here one thread
-// block owns one (b, kv_head) pair and loops over that row's pages itself;
-// it reads tables[b, p] and lengths[b] on its own (no scalar prefetch).
-// Each page's (bs, D) K and V tiles of the head are staged in shared
-// memory as f32; q rows, the accumulator and the running (m, l) live in
-// shared memory for the whole sweep.  The next page's tile is loaded into
-// registers (all of a thread's loads in flight at once) while the current
-// page is computed, so a page costs about one compute phase instead of a
-// chain of device-memory round trips.  Scores are computed one (row,
-// token) pair per warp with the D-long dot split over lanes (consecutive
-// lanes on consecutive addresses, so no bank conflicts) and a shuffle
-// reduction; the online-softmax update takes one warp per row.
+// carrying the accumulator in VMEM across the page axis.  On Hopper a
+// lone block sweeping its pages behind a barrier per page is bound by that
+// chain's latency, so here the sweep is split inside the block instead:
+//   * one block per (b, kv_head, group of ROWS accumulator rows); it reads
+//     tables[b, p] and lengths[b] itself (no scalar prefetch);
+//   * each of its NW warps takes every NW-th page of the row and keeps, in
+//     registers, its rows' q, accumulator and running (m, l); lane l holds
+//     dims l, l + 32, ... of each row, so one token's K (or V) is one
+//     coalesced load per 32 dims, and a dot product is E fmas plus a
+//     5-step shuffle reduction;
+//   * a page is read in groups of TG tokens whose loads are all issued
+//     before any is used, so a group costs about one memory round trip;
+//   * no barrier inside the sweep: the NW partial softmax states merge once
+//     at the end through shared memory (m = max, l and acc rescaled).
+// head_dim D is a template parameter (16..256), so every D loop unrolls.
 //
 // What bounds it on the H100: bytes.  Every K and V element of each row's
 // reach is read once from device memory (sum_b (lengths[b] + K - 1) * Hkv
 // * D * 2 * sizeof(T)); the arithmetic is ~4 flops per byte.  Known gaps,
 // left for later work:
-//   * one block per (b, kv_head): at B = 8, Hkv = 8 only 64 blocks are in
-//     flight on 132 SMs, so each block's page sweep is latency-bound;
-//   * the page sweep is not split across blocks (flash-decoding);
-//   * no TMA or cp.async pipelining, only the one-page register prefetch;
-//     the loads are 2- or 4-byte scalars, not 16-byte vectors;
+//   * at B = 8, Hkv = 8, K = 1 only 64 blocks are in flight on 132 SMs;
+//     the sweep is not split across blocks (flash-decoding);
+//   * more than ROWS accumulator rows (K * g > 4, e.g. K = 5 with g = 2)
+//     take one block per group of ROWS rows, each re-reading the K/V;
+//   * no TMA or cp.async pipelining: a group's loads wait for the previous
+//     group's math; the loads are 2- or 4-byte scalars, not 16-byte
+//     vectors;
 //   * no tensor cores for the (K*g x D) products.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,11 +55,10 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int THREADS = 256;
 constexpr int WARP = 32;
-// tile elements per thread held in registers for the next page; a larger
-// tile (bs * D > THREADS * PREFETCH) loads the rest synchronously
-constexpr int PREFETCH = 16;
+constexpr int NW = 8;                 // warps per block
+constexpr int THREADS = NW * WARP;
+constexpr int ROWS = 4;               // accumulator rows per block
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -72,59 +76,18 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// floats of dynamic shared memory one block needs
-__host__ __device__ inline size_t smem_floats(int R, int D, int bs) {
-  return 2 * (size_t)R * D      // q rows (pre-scaled), accumulator
-         + 2 * (size_t)bs * D   // K and V tiles of the current page
-         + (size_t)R * bs       // scores, then softmax weights
-         + 3 * (size_t)R;       // running max, running sum, correction
-}
-
-// the next page's K/V tile, THREADS * PREFETCH elements, in registers
-struct Prefetch {
-  float k[PREFETCH];
-  float v[PREFETCH];
-};
-
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(Prefetch& r, const T* k_pages,
-                                          const T* v_pages, size_t page,
-                                          int h, int Hkv, int bs) {
+__device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
-  for (int u = 0; u < PREFETCH; ++u) {
-    const int i = threadIdx.x + u * THREADS;
-    if (i < bs * D) {
-      const int t = i / D, d = i % D;
-      const size_t src = ((page * bs + t) * Hkv + h) * D + d;
-      r.k[u] = to_f32(k_pages[src]);
-      r.v[u] = to_f32(v_pages[src]);
-    }
-  }
+  for (int off = WARP / 2; off > 0; off /= 2)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
 }
 
-template <typename T, int D>
-__device__ __forceinline__ void store_tile(const Prefetch& r, float* k_s,
-                                           float* v_s, const T* k_pages,
-                                           const T* v_pages, size_t page,
-                                           int h, int Hkv, int bs) {
-#pragma unroll
-  for (int u = 0; u < PREFETCH; ++u) {
-    const int i = threadIdx.x + u * THREADS;
-    if (i < bs * D) {
-      k_s[i] = r.k[u];
-      v_s[i] = r.v[u];
-    }
-  }
-  for (int i = threadIdx.x + PREFETCH * THREADS; i < bs * D; i += THREADS) {
-    const int t = i / D, d = i % D;
-    const size_t src = ((page * bs + t) * Hkv + h) * D + d;
-    k_s[i] = to_f32(k_pages[src]);
-    v_s[i] = to_f32(v_pages[src]);
-  }
+// shared memory of the final merge: NW warps' (m, l, acc[ROWS][D])
+constexpr size_t merge_bytes(int D) {
+  return sizeof(float) * (size_t)NW * ROWS * (D + 2);
 }
 
-// D (head_dim) is a compile-time constant: the tile and dot loops unroll
-// and the element -> (token, dim) maps are shifts, not divisions
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
@@ -132,112 +95,114 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                        const int* __restrict__ tables,
                        const int* __restrict__ lengths, T* __restrict__ out,
                        int K, int H, int Hkv, int bs, int W, float scale) {
-  const int h = blockIdx.x;  // kv head
-  const int b = blockIdx.y;  // batch row
+  constexpr int E = (D + WARP - 1) / WARP;  // dims per lane
+  constexpr int TG = WARP / E;              // tokens per load group
+  const int h = blockIdx.x;                 // kv head
+  const int b = blockIdx.y;                 // batch row
+  const int r0 = blockIdx.z * ROWS;         // first accumulator row
   const int g = H / Hkv;
-  const int R = K * g;
-  const int tid = threadIdx.x;
-  const int lane = tid % WARP;
-  const int warp = tid / WARP;
-  const int n_warps = blockDim.x / WARP;
+  const int rows = min(ROWS, K * g - r0);
+  const int lane = threadIdx.x % WARP;
+  const int warp = threadIdx.x / WARP;
   const int len = lengths[b];
 
-  extern __shared__ float smem[];
-  float* q_s = smem;            // R * D
-  float* acc = q_s + R * D;     // R * D
-  float* k_s = acc + R * D;     // bs * D
-  float* v_s = k_s + bs * D;    // bs * D
-  float* w_s = v_s + bs * D;    // R * bs
-  float* m_s = w_s + R * bs;    // R
-  float* l_s = m_s + R;         // R
-  float* c_s = l_s + R;         // R
-
-  for (int i = tid; i < R * D; i += blockDim.x) {
-    const int r = i / D, d = i % D;
-    const int t = r / g, j = r % g;
-    const size_t src = (((size_t)b * K + t) * H + h * g + j) * D + d;
-    q_s[i] = to_f32(q[src]) * scale;
-    acc[i] = 0.f;
-  }
-  for (int r = tid; r < R; r += blockDim.x) {
-    m_s[r] = NEG_INF;
-    l_s[r] = 0.f;
-  }
-
-  // pages holding a position below the last query's reach len + K - 1
-  int n_pages = (len + K - 1 + bs - 1) / bs;
-  if (n_pages > W) n_pages = W;
-  const int* row_table = tables + (size_t)b * W;
-  Prefetch next;
-  size_t page = (size_t)row_table[0];
-  load_tile<T, D>(next, k_pages, v_pages, page, h, Hkv, bs);
-  for (int p = 0; p < n_pages; ++p) {
-    __syncthreads();  // the previous page's tiles and weights are consumed
-    store_tile<T, D>(next, k_s, v_s, k_pages, v_pages, page, h, Hkv, bs);
-    __syncthreads();
-    if (p + 1 < n_pages) {  // in flight while this page is computed
-      page = (size_t)row_table[p + 1];
-      load_tile<T, D>(next, k_pages, v_pages, page, h, Hkv, bs);
-    }
-    // scores: one (row, token) pair per warp, D split over the lanes
-    for (int pair = warp; pair < R * bs; pair += n_warps) {
-      const int r = pair / bs, t = pair % bs;
-      const int pos = p * bs + t;
-      float s = NEG_INF;
-      if (pos < len + r / g) {  // warp-uniform
-        const float* qr = q_s + r * D;
-        const float* kt = k_s + t * D;
-        float part = 0.f;
+  float qr[ROWS][E], acc[ROWS][E], m[ROWS], l[ROWS];
+  int reach[ROWS];
 #pragma unroll
-        for (int d = lane; d < D; d += WARP) part += qr[d] * kt[d];
-        for (int off = WARP / 2; off > 0; off /= 2)
-          part += __shfl_xor_sync(0xffffffffu, part, off);
-        s = part;
-      }
-      if (lane == 0) w_s[pair] = s;
+  for (int i = 0; i < ROWS; ++i) {
+    const int r = r0 + i;
+    const int t = r / g, j = r % g;
+    reach[i] = i < rows ? len + t : 0;  // rows past K * g reach nothing
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int d = lane + e * WARP;
+      acc[i][e] = 0.f;
+      qr[i][e] = (i < rows && d < D)
+                     ? to_f32(q[(((size_t)b * K + t) * H + h * g + j) * D +
+                                d]) * scale
+                     : 0.f;
     }
-    __syncthreads();
-    // online softmax update, one warp per accumulator row
-    for (int r = warp; r < R; r += n_warps) {
-      float* wr = w_s + r * bs;
-      float mx = NEG_INF;
-      for (int t = lane; t < bs; t += WARP) mx = fmaxf(mx, wr[t]);
-      for (int off = WARP / 2; off > 0; off /= 2)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int t = lane; t < bs; t += WARP) {
-        const float s = wr[t];
-        const float w = (s <= 0.5f * NEG_INF) ? 0.f : expf(s - m_new);
-        wr[t] = w;
-        sum += w;
+  }
+  const int last = len + (r0 + rows - 1) / g;  // widest reach of the block
+  int n_pages = (last + bs - 1) / bs;
+  if (n_pages > W) n_pages = W;
+  const size_t token_stride = (size_t)Hkv * D;
+
+  for (int p = warp; p < n_pages; p += NW) {
+    const size_t base =
+        ((size_t)tables[(size_t)b * W + p] * bs * Hkv + h) * D;
+    for (int t0 = 0; t0 < bs; t0 += TG) {
+      float kv[TG][E], vv[TG][E];
+#pragma unroll
+      for (int u = 0; u < TG; ++u) {
+        const bool ok = t0 + u < bs && p * bs + t0 + u < last;
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const int d = lane + e * WARP;
+          const size_t src = base + (size_t)(t0 + u) * token_stride + d;
+          kv[u][e] = ok && d < D ? to_f32(k_pages[src]) : 0.f;
+          vv[u][e] = ok && d < D ? to_f32(v_pages[src]) : 0.f;
+        }
       }
-      for (int off = WARP / 2; off > 0; off /= 2)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        l_s[r] = l_s[r] * corr + sum;
-        m_s[r] = m_new;
-        c_s[r] = corr;
+#pragma unroll
+      for (int u = 0; u < TG; ++u) {
+        const int pos = p * bs + t0 + u;
+        if (t0 + u >= bs || pos >= last) break;  // warp-uniform
+#pragma unroll
+        for (int i = 0; i < ROWS; ++i) {
+          if (pos >= reach[i]) continue;          // warp-uniform
+          float s = 0.f;
+#pragma unroll
+          for (int e = 0; e < E; ++e) s += qr[i][e] * kv[u][e];
+          s = warp_sum(s);
+          const float m_new = fmaxf(m[i], s);
+          const float corr = expf(m[i] - m_new);
+          const float w = expf(s - m_new);
+          l[i] = l[i] * corr + w;
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            acc[i][e] = acc[i][e] * corr + w * vv[u][e];
+          m[i] = m_new;
+        }
       }
     }
-    __syncthreads();
-    for (int i = tid; i < R * D; i += blockDim.x) {
-      const int r = i / D, d = i % D;
-      const float* wr = w_s + r * bs;
-      float a = acc[i] * c_s[r];
-#pragma unroll 4
-      for (int t = 0; t < bs; ++t) a += wr[t] * v_s[t * D + d];
-      acc[i] = a;
+  }
+
+  // merge the NW warps' partial softmax states
+  extern __shared__ float smem[];
+  float* m_w = smem;                 // NW * ROWS
+  float* l_w = m_w + NW * ROWS;      // NW * ROWS
+  float* a_w = l_w + NW * ROWS;      // NW * ROWS * D
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    if (lane == 0) {
+      m_w[warp * ROWS + i] = m[i];
+      l_w[warp * ROWS + i] = l[i];
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int d = lane + e * WARP;
+      if (d < D) a_w[(warp * ROWS + i) * D + d] = acc[i][e];
     }
   }
   __syncthreads();
-  for (int i = tid; i < R * D; i += blockDim.x) {
-    const int r = i / D, d = i % D;
-    const int t = r / g, j = r % g;
-    const size_t dst = (((size_t)b * K + t) * H + h * g + j) * D + d;
-    out[dst] = from_f32<T>(acc[i] / fmaxf(l_s[r], 1e-30f));
+  for (int idx = threadIdx.x; idx < rows * D; idx += THREADS) {
+    const int i = idx / D, d = idx % D;
+    float M = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) M = fmaxf(M, m_w[w * ROWS + i]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float c = expf(m_w[w * ROWS + i] - M);
+      L += l_w[w * ROWS + i] * c;
+      A += a_w[(w * ROWS + i) * D + d] * c;
+    }
+    const int r = r0 + i, t = r / g, j = r % g;
+    out[(((size_t)b * K + t) * H + h * g + j) * D + d] =
+        from_f32<T>(A / fmaxf(L, 1e-30f));
   }
 }
 
@@ -246,13 +211,9 @@ cudaError_t launch_d(const void* q, const void* k_pages, const void* v_pages,
                      const void* tables, const void* lengths, void* out,
                      int B, int K, int H, int Hkv, int bs, int W,
                      cudaStream_t stream) {
-  const size_t smem = smem_floats(K * (H / Hkv), D, bs) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_attention_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(Hkv, B);
-  paged_attention_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+  const int row_blocks = (K * (H / Hkv) + ROWS - 1) / ROWS;
+  const dim3 grid(Hkv, B, row_blocks);
+  paged_attention_kernel<T, D><<<grid, THREADS, merge_bytes(D), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), static_cast<const int*>(tables),
       static_cast<const int*>(lengths), static_cast<T*>(out), K, H, Hkv, bs,
@@ -290,8 +251,9 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
 
 // C entry point, loaded with ctypes by repro_torch.kernels.paged_attention.
 // Shapes: q/out (B, K, H, D); k_pages/v_pages (P+1, bs, Hkv, D); tables
-// (B, W) int32; lengths (B,) int32; all contiguous, on the current device.
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// (B, W) int32; lengths (B,) int32; all contiguous, on the current device;
+// D in {16, 32, 64, 128, 256}.  Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
 extern "C" int repro_paged_attention(const void* q, const void* k_pages,
                                      const void* v_pages, const void* tables,
                                      const void* lengths, void* out, int B,
@@ -304,11 +266,4 @@ extern "C" int repro_paged_attention(const void* q, const void* k_pages,
               : launch<float>(q, k_pages, v_pages, tables, lengths, out, B,
                               K, H, Hkv, D, bs, W, s);
   return static_cast<int>(err);
-}
-
-// Dynamic shared memory (bytes) one block of the kernel needs; the Python
-// wrapper refuses shapes above the card's 227 KB per block.
-extern "C" long long repro_paged_attention_smem(int K, int g, int D,
-                                                int bs) {
-  return (long long)(smem_floats(K * g, D, bs) * sizeof(float));
 }

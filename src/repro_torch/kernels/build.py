@@ -91,8 +91,6 @@ def load_library() -> ctypes.CDLL:
         lib.repro_paged_attention.argtypes = [p, p, p, p, p, p,
                                               i, i, i, i, i, i, i, i, p]
         lib.repro_paged_attention.restype = i
-        lib.repro_paged_attention_smem.argtypes = [i, i, i, i]
-        lib.repro_paged_attention_smem.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 

@@ -26,8 +26,6 @@ __all__ = ["paged_attention", "paged_attention_ref"]
 _DTYPES = (torch.float32, torch.bfloat16)
 # head dims the kernel is compiled for (a template parameter)
 HEAD_DIMS = (16, 32, 64, 128, 256)
-# dynamic shared memory one block may use on Hopper (232,448 bytes)
-_SMEM_LIMIT = 232_448
 
 
 def _check(q, k_pages, v_pages, tables, lengths) -> None:
@@ -74,10 +72,11 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     """Launch the CUDA kernel: decode/verify attention over paged KV.
 
     q: (B, H, D) or (B, K, H, D), float32 or bfloat16, D in
-    :data:`HEAD_DIMS`; k_pages/v_pages:
-    (P+1, bs, Hkv, D) in q's dtype; tables: (B, W) int32 page ids, every
-    entry a valid page of the pool; lengths: (B,) int32 >= 1, tokens the
-    first query of each row sees (query t sees ``lengths[b] + t``).
+    :data:`HEAD_DIMS`; k_pages/v_pages: (P+1, bs, Hkv, D) in q's dtype;
+    tables: (B, W) int32 page ids, every entry a valid page of the pool
+    (the kernel does not bounds-check them); lengths: (B,) int32 >= 1,
+    tokens the first query of each row sees (query t sees
+    ``lengths[b] + t``).
     Returns q's shape and dtype.  Counts each launch in
     ``paged_attention.launches``.
     """
@@ -88,12 +87,6 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     B, K, H, D = q.shape
     _, bs, Hkv, _ = k_pages.shape
     lib = build.load_library()
-    smem = lib.repro_paged_attention_smem(K, H // Hkv, D, bs)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"paged_attention kernel: K={K}, group={H // Hkv}, D={D}, "
-            f"bs={bs} need {smem} bytes of shared memory per block "
-            f"(limit {_SMEM_LIMIT})")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

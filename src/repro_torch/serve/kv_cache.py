@@ -57,11 +57,6 @@ class BlockManager:
         self._free = list(range(self.num_blocks))
 
     @property
-    def free_blocks(self) -> int:
-        """Pages on the free list (excludes pinned-idle pages)."""
-        return len(self._free)
-
-    @property
     def used_blocks(self) -> int:
         """Pages materialized to some request (incl. pinned/shared)."""
         return self.num_blocks - len(self._free)
@@ -385,7 +380,6 @@ class PagedLayout:
         self.max_blocks_per_seq = blocks_for(self.max_seq, block_size)
         self.shard = PageShard(num_pages, block_size, pin_prefix=pin_prefix)
         self.null_page = num_pages
-        self.pin_prefix = bool(pin_prefix)
         self.cache = lm.init_cache(cfg, pages=(num_pages, block_size),
                                    device=self.device)
         self.num_slots = num_slots

@@ -10,7 +10,7 @@ from __future__ import annotations
 import random
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Iterator, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 
 def percentile(xs: Union[Sequence[float], "BoundedSeries"],
@@ -41,9 +41,7 @@ class Histogram:
     """Fixed-bucket histogram: O(len(bounds)) memory forever.
 
     ``bounds`` are inclusive upper edges; values above the last bound
-    land in the implicit ``+Inf`` bucket.  ``bucket_counts`` yields
-    per-bucket (non-cumulative) counts for the finite bounds — the
-    Prometheus exporter accumulates them into cumulative ``le`` series.
+    land in the implicit ``+Inf`` bucket.
     """
 
     __slots__ = ("bounds", "counts", "total", "sum")
@@ -65,10 +63,6 @@ class Histogram:
         self.total += 1
         self.sum += v
 
-    def bucket_counts(self) -> List[tuple]:
-        """Per-bucket ``(upper_bound, count)`` pairs for finite bounds."""
-        return list(zip(self.bounds, self.counts[:-1]))
-
 
 class BoundedSeries:
     """Latency series with bounded memory.
@@ -77,11 +71,8 @@ class BoundedSeries:
     ``exact_cap`` samples the storage degrades to a deterministic
     Algorithm-R reservoir of ``reservoir`` samples, while a fixed-bucket
     :class:`Histogram` keeps exact counts/sum forever.  ``percentile``
-    answers from whichever representation is live; ``mean`` and ``sum``
-    are always exact (from the histogram accumulators).
-
-    Duck-types the old ``List[float]`` usage: ``append``, ``len()``,
-    truthiness, and iteration (over the stored sample) keep working.
+    answers from whichever representation is live; ``mean`` is always
+    exact (from the histogram accumulators).
     """
 
     __slots__ = ("exact_cap", "reservoir", "hist", "_sample", "_rng")
@@ -95,25 +86,10 @@ class BoundedSeries:
         self._rng = random.Random(0x5EED)  # deterministic across runs
 
     @property
-    def count(self) -> int:
-        """Total samples observed (exact, never truncated)."""
-        return self.hist.total
-
-    @property
-    def sum(self) -> float:
-        """Exact sum of all samples observed."""
-        return self.hist.sum
-
-    @property
     def mean(self) -> float:
         """Exact mean of all samples observed (NaN when empty)."""
         n = self.hist.total
         return self.hist.sum / n if n else float("nan")
-
-    @property
-    def exact(self) -> bool:
-        """Whether the stored sample still holds every observation."""
-        return self.hist.total <= self.exact_cap
 
     def append(self, v: float) -> None:
         """Observe one sample (list-compatible name)."""
@@ -141,9 +117,6 @@ class BoundedSeries:
 
     def __len__(self) -> int:
         return self.hist.total
-
-    def __iter__(self) -> Iterator[float]:
-        return iter(self._sample)
 
 
 @dataclass

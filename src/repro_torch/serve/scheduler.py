@@ -158,11 +158,6 @@ class Scheduler:
         self.stats = ServeStats(slots=num_slots)
         self._head_share = None
 
-    @property
-    def model(self) -> lm.LM:
-        """The weights currently serving."""
-        return self.session.model
-
     # -- request intake ----------------------------------------------------
     def _reject(self, msg: str):
         self.stats.rejected += 1

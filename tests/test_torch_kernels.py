@@ -58,7 +58,7 @@ def test_paged_attention_ref_matches_jax_oracle_and_pallas(H, Hkv, D, bs, W,
                                                            dtype):
     """K in {1, 3, 5}: the plain version == the jnp oracle == the Pallas
     kernel (interpret); K = 1 also through the 3-D single-token q."""
-    jax = pytest.importorskip("jax")
+    pytest.importorskip("jax")
     import jax.numpy as jnp
     from repro.kernels import ops as jops
     from repro.kernels import ref as jref
@@ -89,7 +89,7 @@ def test_paged_attention_ref_matches_jax_oracle_and_pallas(H, Hkv, D, bs, W,
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_ref_matches_pallas(d, dtype):
     """The plain version == the Pallas kernel (interpret) and its oracle."""
-    jax = pytest.importorskip("jax")
+    pytest.importorskip("jax")
     import jax.numpy as jnp
     from repro.kernels import ops as jops
     from repro.kernels import ref as jref

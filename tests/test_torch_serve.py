@@ -58,21 +58,22 @@ def weights():
     return jcfg, params, tcfg, model
 
 
-@pytest.mark.parametrize("temperature,chunk,policy", [
-    (0.0, 0, "continuous"),
-    (0.8, 0, "continuous"),
-    (0.0, 4, "continuous"),
-    (0.8, 4, "static"),
+@pytest.mark.parametrize("temperature,chunk,policy,pin", [
+    (0.0, 0, "continuous", False),
+    (0.8, 0, "continuous", False),
+    (0.0, 4, "continuous", False),
+    (0.8, 4, "static", False),
+    (0.0, 0, "continuous", True),
 ])
 def test_scheduler_token_identity_with_jax(weights, temperature, chunk,
-                                           policy):
+                                           policy, pin):
     from repro.serve.scheduler import Request as JRequest
     from repro.serve.scheduler import Scheduler as JScheduler
     from repro_torch.serve.scheduler import Request, Scheduler
 
     jcfg, params, tcfg, model = weights
     kw = dict(num_slots=2, max_len=30, block_size=4, prefill_chunk=chunk,
-              policy=policy)
+              policy=policy, pin_prefix=pin)
     js = JScheduler(jcfg, params, telemetry=False, **kw)
     ts = Scheduler(tcfg, model, device="cpu", **kw)
     for r in _trace(jcfg.vocab_size, temperature):
@@ -91,6 +92,8 @@ def test_scheduler_token_identity_with_jax(weights, temperature, chunk,
         # only the continuous trace shares prefixes and splits widths
         assert ts.pool.prefix_hits >= 1
         assert td["ragged_splits"] > 0
+    if pin:
+        assert ts.pool.as_dict()["pinned_blocks"] > 0
 
 
 def test_cli_serves_smoke_on_cpu(tmp_path):
