@@ -10,7 +10,9 @@ and never prints the final ``ok`` line):
 2. the build: both kernels from a cold ``build/repro_torch`` (nvcc for
    the CUDA C++ paged attention, Triton's JIT for RMSNorm), in parallel;
 3. each kernel against its plain PyTorch version on the card at the
-   serving shapes (f32 2e-5, bf16 2e-2), with its time (CUDA events,
+   serving shapes (decode rows; a free slot's idle row in a pow2-wide
+   table; the widest one-shot prefill's norm rows) within f32 2e-5,
+   bf16 2e-2, with its time (CUDA events,
    median of 30 after warm-up, L2 flushed before each launch), the plain
    version's time, one PyTorch library call's time and the bound;
 4. serve: qwen3-0.6b at full width in bf16 (random weights from a seed)
@@ -151,8 +153,12 @@ def phase_build(torch):
           "rmsnorm_triton_s": round(triton_s, 3), "ptxas": ptxas})
 
 
-def _paged_inputs(torch, gen, B, H, Hkv, D, bs, K, dtype, lengths):
-    W = -(-(int(max(lengths)) + K - 1) // bs)
+def _paged_inputs(torch, gen, B, H, Hkv, D, bs, K, dtype, lengths, W=None):
+    """Random q and pools, scattered tables with null-page tails.  ``W``
+    widens the tables past the longest reach (the scheduler's pow2 width
+    bucket); a row of length 1 is idle, as the scheduler passes a free
+    slot: its table holds the null page only."""
+    W = W or -(-(int(max(lengths)) + K - 1) // bs)
     P = B * W                                   # pages; page P is null
     dt = getattr(torch, dtype)
     q = torch.randn((B, K, H, D), generator=gen, device="cuda").to(dt)
@@ -165,6 +171,8 @@ def _paged_inputs(torch, gen, B, H, Hkv, D, bs, K, dtype, lengths):
     for b, n in enumerate(lengths):
         used = -(-(int(n) + K - 1) // bs)
         tables[b, used:] = P                    # null-page tail
+        if n == 1:
+            tables[b] = P                       # idle row
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     return q, kp, vp, tables.contiguous(), lens
 
@@ -199,13 +207,19 @@ def phase_kernels(torch, timer):
     gen.manual_seed(0)
     rng_lengths = torch.randint(100, 601, (8,), generator=gen,
                                 device="cuda").tolist()
+    # the serve phase's decode step: its widths are pow2 buckets capped at
+    # 36 pages (32 for up to 512 tokens), free slots are idle rows
+    bucket_lengths = [min(n, 500) for n in rng_lengths[:-1]] + [1]
     results = {"paged_attention": [], "rmsnorm": []}
-    cases = [(D, K, dt) for dt in ("bfloat16", "float32")
-             for K in (1, 5) for D in (128,)] + [(64, 1, "bfloat16")]
-    for D, K, dtype in cases:
+    cases = [(D, K, dt, rng_lengths, None) for dt in ("bfloat16", "float32")
+             for K in (1, 5) for D in (128,)]
+    cases += [(64, 1, "bfloat16", rng_lengths, None)]
+    cases += [(128, 1, dt, bucket_lengths, 32)
+              for dt in ("bfloat16", "float32")]
+    for D, K, dtype, case_lengths, width in cases:
         B, H, Hkv, bs = 8, 16, 8, 16
         args = _paged_inputs(torch, gen, B, H, Hkv, D, bs, K, dtype,
-                             rng_lengths)
+                             case_lengths, W=width)
         q, kp, vp, tables, lengths = args
         got = pa.paged_attention(*args)
         want = ref.paged_attention_ref(*args)
@@ -218,15 +232,15 @@ def phase_kernels(torch, timer):
         lib_fn = _sdpa_call(torch, *args)
         lib_err = (lib_fn().transpose(1, 2).float() - want.float()).abs()
         esize = q.element_size()
-        reach = sum(int(n) + K - 1 for n in rng_lengths)
+        reach = sum(int(n) + K - 1 for n in case_lengths)
         moved = 2 * q.numel() * esize + 2 * reach * Hkv * D * esize \
             + tables.numel() * 4 + lengths.numel() * 4
-        ops = sum((int(n) + t) * H * D * 4 for n in rng_lengths
+        ops = sum((int(n) + t) * H * D * 4 for n in case_lengths
                   for t in range(K))
         b_ms, b_by = bound(moved, ops, dtype)
         case = {"kernel": "paged_attention", "dtype": dtype, "B": B, "H": H,
                 "Hkv": Hkv, "D": D, "bs": bs, "K": K, "W": tables.shape[1],
-                "lengths": rng_lengths, "max_abs_err": err.max().item(),
+                "lengths": case_lengths, "max_abs_err": err.max().item(),
                 "tol": tol, "library_max_abs_err": lib_err.max().item(),
                 "kernel_ms": timer.ms(lambda: pa.paged_attention(*args)),
                 "plain_ms": timer.ms(
@@ -236,8 +250,14 @@ def phase_kernels(torch, timer):
         emit(case)
         results["paged_attention"].append(case)
 
-    for shape, dtype in [((8, 1024), "bfloat16"), ((8, 16, 128), "bfloat16"),
-                         ((8, 1024), "float32"), ((8, 16, 128), "float32")]:
+    # decode rows (ln1/ln2/final, q-norm, k-norm) in both dtypes, and the
+    # serve phase's widest one-shot prefill (a 512-token bucket) in bf16
+    rms_shapes = [((8, 1024), dt) for dt in ("bfloat16", "float32")]
+    rms_shapes += [((8, 16, 128), dt) for dt in ("bfloat16", "float32")]
+    rms_shapes += [((8, 8, 128), dt) for dt in ("bfloat16", "float32")]
+    rms_shapes += [((512, 1024), "bfloat16"), ((512, 16, 128), "bfloat16"),
+                   ((512, 8, 128), "bfloat16")]
+    for shape, dtype in rms_shapes:
         dt = getattr(torch, dtype)
         x = torch.randn(shape, generator=gen, device="cuda").to(dt)
         s = torch.randn(shape[-1], generator=gen, device="cuda").to(dt)

@@ -33,7 +33,9 @@
 //     before any is used, so a group costs about one memory round trip;
 //   * no barrier inside the sweep: the NW partial softmax states merge once
 //     at the end through shared memory (m = max, l and acc rescaled).
-// head_dim D is a template parameter (16..256), so every D loop unrolls.
+// head_dim D is a template parameter, built for the head dims of the
+// ported configs (16: qwen3 smoke, 64, 128: qwen3), so every D loop
+// unrolls.
 //
 // What bounds it on the H100: bytes.  Every K and V element of each row's
 // reach is read once from device memory (sum_b (lengths[b] + K - 1) * Hkv
@@ -230,17 +232,11 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
     case 16:
       return launch_d<T, 16>(q, k_pages, v_pages, tables, lengths, out, B, K,
                              H, Hkv, bs, W, stream);
-    case 32:
-      return launch_d<T, 32>(q, k_pages, v_pages, tables, lengths, out, B, K,
-                             H, Hkv, bs, W, stream);
     case 64:
       return launch_d<T, 64>(q, k_pages, v_pages, tables, lengths, out, B, K,
                              H, Hkv, bs, W, stream);
     case 128:
       return launch_d<T, 128>(q, k_pages, v_pages, tables, lengths, out, B,
-                              K, H, Hkv, bs, W, stream);
-    case 256:
-      return launch_d<T, 256>(q, k_pages, v_pages, tables, lengths, out, B,
                               K, H, Hkv, bs, W, stream);
     default:
       return cudaErrorInvalidValue;  // the wrapper refuses other head dims
@@ -252,7 +248,7 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
 // C entry point, loaded with ctypes by repro_torch.kernels.paged_attention.
 // Shapes: q/out (B, K, H, D); k_pages/v_pages (P+1, bs, Hkv, D); tables
 // (B, W) int32; lengths (B,) int32; all contiguous, on the current device;
-// D in {16, 32, 64, 128, 256}.  Launches on `stream` and returns
+// D in {16, 64, 128}.  Launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 extern "C" int repro_paged_attention(const void* q, const void* k_pages,
                                      const void* v_pages, const void* tables,

@@ -25,7 +25,7 @@ __all__ = ["paged_attention", "paged_attention_ref"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # head dims the kernel is compiled for (a template parameter)
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 64, 128)
 
 
 def _check(q, k_pages, v_pages, tables, lengths) -> None:

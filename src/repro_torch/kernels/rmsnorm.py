@@ -75,7 +75,8 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
 
     x: (..., d) float32 or bfloat16, contiguous, on a CUDA device; scale:
     (d,) float32 or bfloat16 on the same device.  f32 statistics, output
-    in x's dtype.  Counts each launch in ``rmsnorm.launches``.
+    in x's dtype.  Counts each launch in ``rmsnorm.launches``; an x with
+    no rows launches nothing and counts nothing.
     """
     if not x.is_cuda or scale.device != x.device:
         raise ValueError(f"rmsnorm kernel: x and scale must lie on one "
@@ -97,7 +98,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
         with torch.cuda.device(x.device):
             kernel[(rows,)](x, scale, y, d, eps, BLOCK=block,
                             num_warps=4 if block >= 1024 else 1)
-    rmsnorm.launches += 1
+        rmsnorm.launches += 1
     return y
 
 

@@ -88,9 +88,11 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
     the JAX weights through :mod:`repro_torch.bridge`.
     """
     dev = resolve_device(device)
-    with torch.device("meta"):
+    # built on the device itself, not on "meta": a module's default init
+    # on meta goes through torch._refs, whose first call imports
+    # torch._dynamo (seconds of host time) for weights overwritten below
+    with torch.device(dev):
         model = LM(cfg)
-    model.to_empty(device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     with torch.no_grad():

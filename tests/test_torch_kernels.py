@@ -9,6 +9,8 @@ Triton kernels have no CPU mode: their tests carry the ``cuda`` marker
 and skip without a card (run them on one with
 ``python -m pytest -m cuda tests/test_torch_kernels.py``).
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -57,12 +59,17 @@ HEADS = [(4, 4, 32, 4, 3),       # MHA
 def test_paged_attention_ref_matches_jax_oracle_and_pallas(H, Hkv, D, bs, W,
                                                            dtype):
     """K in {1, 3, 5}: the plain version == the jnp oracle == the Pallas
-    kernel (interpret); K = 1 also through the 3-D single-token q."""
-    pytest.importorskip("jax")
+    kernel (interpret); K = 1 also through the 3-D single-token q.  Both
+    JAX sides run under ``jax.jit``, as the JAX model runs them: one
+    compile per shape instead of one dispatch per jnp op."""
+    jax = pytest.importorskip("jax")
     import jax.numpy as jnp
     from repro.kernels import ops as jops
     from repro.kernels import ref as jref
 
+    oracle = jax.jit(jref.paged_attention_ref)
+    pallas_kernel = jax.jit(functools.partial(jops.paged_attention,
+                                              interpret=True))
     jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
     for K in (1, 3, 5):
         q, kp, vp, tables, lengths = _paged_case(3, H, Hkv, D, bs, W, K,
@@ -72,9 +79,8 @@ def test_paged_attention_ref_matches_jax_oracle_and_pallas(H, Hkv, D, bs, W,
         jargs = (jnp.asarray(q, jdt), jnp.asarray(kp, jdt),
                  jnp.asarray(vp, jdt), jnp.asarray(tables),
                  jnp.asarray(lengths))
-        want = np.asarray(jref.paged_attention_ref(*jargs), np.float32)
-        pallas = np.asarray(jops.paged_attention(*jargs, interpret=True),
-                            np.float32)
+        want = np.asarray(oracle(*jargs), np.float32)
+        pallas = np.asarray(pallas_kernel(*jargs), np.float32)
         got = ref.paged_attention_ref(
             _torch(q, dtype), _torch(kp, dtype), _torch(vp, dtype),
             _torch(tables), _torch(lengths))
@@ -141,10 +147,16 @@ def _card():
     return torch.device("cuda")
 
 
+# the kernel is built for head dims 16, 64 and 128 only
+CARD_HEADS = [(4, 4, 64, 4, 3),          # MHA
+              (8, 2, 64, 8, 2),          # GQA 4:1
+              (4, 1, 64, 4, 4),          # MQA
+              (16, 8, 128, 16, 40),      # qwen3-0.6b
+              (4, 2, 16, 4, 3)]          # qwen3 smoke
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("H,Hkv,D,bs,W", HEADS + [(16, 8, 128, 16, 40),
-                                                  (4, 2, 16, 4, 3),
-                                                  (8, 8, 256, 8, 5)])
+@pytest.mark.parametrize("H,Hkv,D,bs,W", CARD_HEADS)
 @pytest.mark.parametrize("K", [1, 3, 5])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_paged_attention_kernel_matches_plain_on_card(H, Hkv, D, bs, W, K,
@@ -173,3 +185,22 @@ def test_rmsnorm_kernel_matches_plain_on_card(shape, dtype):
     tol = TOL[dtype]
     torch.testing.assert_close(got.float(), ref.rmsnorm_ref(x, s).float(),
                                atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_count_only_launches_on_card():
+    """A launch adds one to its wrapper's count; an empty x launches
+    nothing and counts nothing; a refused head dim counts nothing."""
+    dev = _card()
+    before = rn.rmsnorm.launches
+    y = rn.rmsnorm(torch.empty((0, 128), device=dev),
+                   torch.ones(128, device=dev))
+    assert y.shape == (0, 128) and rn.rmsnorm.launches == before
+    rn.rmsnorm(torch.ones((2, 128), device=dev), torch.ones(128, device=dev))
+    assert rn.rmsnorm.launches == before + 1
+    before = pa.paged_attention.launches
+    q, kp, vp, tables, lengths = _paged_case(2, 4, 4, 32, 4, 3, 1)
+    args = [_torch(a).to(dev) for a in (q, kp, vp, tables, lengths)]
+    with pytest.raises(ValueError, match="head_dim"):
+        pa.paged_attention(*args)
+    assert pa.paged_attention.launches == before

@@ -32,11 +32,24 @@ def both():
     """JAX smoke weights at f32 and the port's model loaded with them."""
     jcfg = dataclasses.replace(jax_qwen3.SMOKE, dtype="float32")
     tcfg = dataclasses.replace(qwen3_06b.SMOKE, dtype="float32")
-    params, _ = jlm.init_lm(jcfg, jax.random.PRNGKey(0))
+    params = _jax_init(jcfg, jax.random.PRNGKey(0))
     tree = jax.tree.map(np.asarray, params)
     model = tlm.init_lm(tcfg, seed=0, device="cpu")
     load_jax_params(model, tree)
     return jcfg, params, tree, model
+
+
+@functools.partial(jax.jit, static_argnums=(0,))
+def _jax_init(cfg, key):
+    """JAX weights, initialised under jit: one compile instead of one
+    dispatch per jnp op (the values need only be the same on both sides,
+    which the bridge makes them)."""
+    return jlm.init_lm(cfg, key)[0]
+
+
+@functools.partial(jax.jit, static_argnums=(1,))
+def _jax_forward(params, cfg, toks):
+    return jlm.lm_forward(params, cfg, {"tokens": toks})[0]
 
 
 @functools.partial(jax.jit, static_argnums=(1,))
@@ -78,7 +91,7 @@ def test_bridge_loads_every_jax_weight(both):
 
 def test_bridge_carries_bf16_exactly():
     cfg = qwen3_06b.SMOKE                                   # bfloat16
-    params, _ = jlm.init_lm(jax_qwen3.SMOKE, jax.random.PRNGKey(1))
+    params = _jax_init(jax_qwen3.SMOKE, jax.random.PRNGKey(1))
     tree = jax.tree.map(np.asarray, params)
     model = load_jax_params(tlm.init_lm(cfg, device="cpu"), tree)
     assert model.embed.weight.dtype == torch.bfloat16
@@ -106,7 +119,7 @@ def test_lm_forward_matches_jax(both):
     jcfg, params, _, model = both
     toks = np.random.default_rng(0).integers(
         0, jcfg.vocab_size, (2, 11)).astype(np.int32)
-    ref, _ = jlm.lm_forward(params, jcfg, {"tokens": jnp.asarray(toks)})
+    ref = _jax_forward(params, jcfg, jnp.asarray(toks))
     with torch.no_grad():
         out = tlm.lm_forward(model, torch.from_numpy(toks).long())
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)

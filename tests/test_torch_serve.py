@@ -52,7 +52,9 @@ def weights():
 
     jcfg = dataclasses.replace(jq.SMOKE, dtype="float32")
     tcfg = dataclasses.replace(tq.SMOKE, dtype="float32")
-    params, _ = jax_init_lm(jcfg, jax.random.PRNGKey(0))
+    # initialised under jit: one compile instead of one dispatch per op
+    params = jax.jit(lambda key: jax_init_lm(jcfg, key)[0])(
+        jax.random.PRNGKey(0))
     model = init_lm(tcfg, device="cpu")
     load_jax_params(model, jax.tree.map(np.asarray, params))
     return jcfg, params, tcfg, model
