@@ -7,14 +7,20 @@ Phases, each of which raises on failure (a failing run exits non-zero
 and never prints the final ``ok`` line):
 
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
-2. the build: both kernels from a cold ``build/repro_torch`` (nvcc for
-   the CUDA C++ paged attention, Triton's JIT for RMSNorm), in parallel;
-3. each kernel against its plain PyTorch version on the card at the
-   serving shapes (decode rows; a free slot's idle row in a pow2-wide
+2. the build: every kernel from a cold ``build/repro_torch`` (one nvcc
+   per CUDA C++ source — paged attention, flash attention — started
+   together and linked into one library; Triton's JIT for the RMSNorm
+   forward and backward), nvcc and Triton in parallel;
+3. each serving kernel against its plain PyTorch version on the card at
+   the serving shapes (decode rows; a free slot's idle row in a pow2-wide
    table; the widest one-shot prefill's norm rows) within f32 2e-5,
    bf16 2e-2, with its time (CUDA events,
    median of 30 after warm-up, L2 flushed before each launch), the plain
    version's time, one PyTorch library call's time and the bound;
+3b. the training kernels the same way: flash-attention forward and
+   backward at the train cell's heads with B = 1 (S = 4096), a ragged
+   S = 1000 (bf16 and f32) and MHA, and the RMSNorm forward and backward
+   at the train cell's three row shapes;
 4. serve: qwen3-0.6b at full width in bf16 (random weights from a seed)
    through the continuous-batching paged scheduler: 16 requests, 8
    slots, prompts 128/256/512, 64 new tokens each, greedy; every logit
@@ -23,12 +29,24 @@ and never prints the final ``ok`` line):
 5. an f32 recompute at full width: 2 served requests re-run through the
    dense causal forward (no pages, no paged kernel) must pick the served
    token at every generated position, save top-2 ties within 1e-4;
-6. a ``kernels`` line, the ``nvidia-smi`` line, and the ``ok`` line.
+6. train: qwen3-0.6b at full width in bf16 (seed 0), B = 4, S = 4096,
+   Adam lr 1e-3, clip 1.0, remat full, 6 steps through
+   ``repro_torch.launch.train``'s functions; every loss finite, the
+   validation loss (seed 987654) lower after the steps than before, a
+   nonzero finite gradient on every parameter, and per step 56 flash
+   forward, 28 flash backward, 225 RMSNorm forward and 113 RMSNorm
+   backward launches; prints step time, tokens/s, peak memory and mfu;
+7. train parity: full width at 2 layers, f32, TF32 off, B = 1,
+   S = 4096: two train steps through the kernels against two through
+   their plain versions on the same card (loss, every gradient, each
+   tensor's weight update; tolerances at ``PARITY_TOL``);
+8. a ``kernels`` line, the ``nvidia-smi`` line, and the ``ok`` line.
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and ``triton``; exits 1
 without a card and 2 when run outside a checkout of the repo.
 """
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -44,10 +62,34 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 REPLACES = {"paged_attention": "src/repro/kernels/paged_attention.py:106",
-            "rmsnorm": "src/repro/kernels/rmsnorm.py:25"}
+            "rmsnorm": "src/repro/kernels/rmsnorm.py:25",
+            "rmsnorm_bwd": "src/repro/kernels/rmsnorm.py:25",
+            "flash_attention_fwd": "src/repro/kernels/flash_attention.py:85",
+            "flash_attention_bwd": "src/repro/kernels/flash_attention.py:85"}
 SOURCES = {"paged_attention": "src/repro_torch/csrc/paged_attention.cu",
-           "rmsnorm": "src/repro_torch/kernels/rmsnorm.py"}
-ROUTES = {"paged_attention": "cuda", "rmsnorm": "triton"}
+           "rmsnorm": "src/repro_torch/kernels/rmsnorm.py",
+           "rmsnorm_bwd": "src/repro_torch/kernels/rmsnorm.py",
+           "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
+           "flash_attention_bwd": "src/repro_torch/csrc/flash_attention.cu"}
+ROUTES = {"paged_attention": "cuda", "rmsnorm": "triton",
+          "rmsnorm_bwd": "triton", "flash_attention_fwd": "cuda",
+          "flash_attention_bwd": "cuda"}
+# the train phase: qwen3-0.6b FULL, bf16
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 4096, 6
+# kernel launches per train step with remat full: 28 attention layers,
+# each forward once and recomputed once; 4 norms per block (ln1, ln2,
+# q-norm, k-norm) plus the final norm, the block norms recomputed
+TRAIN_PER_STEP = {"flash_attention_fwd": 56, "flash_attention_bwd": 28,
+                  "rmsnorm": 225, "rmsnorm_bwd": 113}
+# train parity (f32, TF32 off): the loss to 1e-5 of itself; each gradient
+# to 1e-4 of its largest entry (attention sums 64-key tiles on the card
+# and 1024-key chunks in the plain version, the norms reduce in other
+# orders); each weight tensor's Adam update (lr 1e-3) to 1e-3 of its L2
+# norm, and no weight more than one lr apart: Adam's first steps move an
+# element by about lr * g / (|g| + 1e-8), so where |g| is near 1e-8 an
+# f32 rounding gap in g shows as a visible fraction of lr
+PARITY_TOL = {"loss_rel": 1e-5, "grad_rel": 1e-4, "update_rel": 1e-3,
+              "weight_abs": 1e-3}
 
 
 def emit(obj) -> None:
@@ -139,7 +181,9 @@ def phase_build(torch):
         t0 = time.perf_counter()
         for d in (1024, 128):                  # one compile per BLOCK
             x = torch.ones((2, d), device="cuda", dtype=torch.bfloat16)
-            rn.rmsnorm(x, torch.ones(d, device="cuda"))
+            s = torch.ones(d, device="cuda", dtype=torch.bfloat16)
+            rn.rmsnorm(x, s)
+            rn.rmsnorm_bwd(x, s, x)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -149,7 +193,8 @@ def phase_build(torch):
         triton_s = f_triton.result()
     ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "paged_attention_nvcc_s": round(nvcc_s, 3),
+    emit({"phase": "build", "nvcc_s": round(nvcc_s, 3),
+          "sources": [str(p.relative_to(ROOT)) for p in build.sources()],
           "rmsnorm_triton_s": round(triton_s, 3), "ptxas": ptxas})
 
 
@@ -408,6 +453,321 @@ def phase_recompute(torch):
           f"recompute at {len(mismatches)} positions")
 
 
+def _within(got, want, tol) -> tuple:
+    """(ok, max |err|) of ``|got - want| <= tol + tol * |want|``, in f32."""
+    err = (got.float() - want.float()).abs()
+    ok = bool((err <= tol + tol * want.float().abs()).all())
+    return ok, err.max().item()
+
+
+def _sdpa_train(torch, q, k, v, causal):
+    """SDPA on the (B, S, H, D) tensors viewed as (B, H, S, D): forward,
+    and a retained graph whose backward is the library's backward time."""
+    import torch.nn.functional as F
+
+    def fwd(a, b, c):
+        return F.scaled_dot_product_attention(
+            a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
+            is_causal=causal, enable_gqa=True)
+
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = fwd(*leaves)
+    return (lambda: fwd(q, k, v)), out, leaves
+
+
+def phase_train_kernels(torch, timer):
+    """Flash attention and the RMSNorm forward/backward at the train
+    phase's shapes, each against its plain version (same inputs)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    results = {"flash_attention_fwd": [], "flash_attention_bwd": [],
+               "rmsnorm": [], "rmsnorm_bwd": []}
+    # (B, S, H, Hkv, D, dtype): the train cell's heads at B = 1, a ragged
+    # S in both dtypes, MHA
+    cases = [(1, 4096, 16, 8, 128, "bfloat16"),
+             (1, 1000, 16, 8, 128, "bfloat16"),
+             (1, 1000, 16, 8, 128, "float32"),
+             (1, 4096, 16, 16, 128, "bfloat16")]
+    for B, S, H, Hkv, D, dtype in cases:
+        dt = getattr(torch, dtype)
+        q, do = (torch.randn((B, S, H, D), generator=gen,
+                             device="cuda").to(dt) for _ in range(2))
+        k, v = (torch.randn((B, S, Hkv, D), generator=gen,
+                            device="cuda").to(dt) for _ in range(2))
+        tol = TOL[dtype]
+        out, lse = fa.flash_attention_fwd(q, k, v, True)
+        want_out, want_lse = ref.flash_attention_fwd_ref(q, k, v, True)
+        grads = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
+        want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, True)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, got, w in (("out", out, want_out), ("lse", lse, want_lse),
+                             ("dq", grads[0], want[0]),
+                             ("dk", grads[1], want[1]),
+                             ("dv", grads[2], want[2])):
+            ok, errs[name] = _within(got, w, tol)
+            check(ok, f"flash attention {dtype} B={B} S={S} H={H} "
+                  f"Hkv={Hkv}: {name} max |err| {errs[name]} over {tol}")
+        del want_out, want_lse, want
+        es = q.element_size()
+        pairs = B * H * S * (S + 1) // 2          # causal (query, key) pairs
+        qo = B * S * H * D * es
+        kv = 2 * B * S * Hkv * D * es
+        lse_b = B * S * H * 4
+        lib_fwd, lib_out, leaves = _sdpa_train(torch, q, k, v, True)
+        shape = {"dtype": dtype, "B": B, "S": S, "H": H, "Hkv": Hkv, "D": D,
+                 "causal": True, "tol": tol}
+        b_ms, b_by = bound(2 * qo + kv + lse_b, 4 * D * pairs, dtype)
+        case = {"kernel": "flash_attention_fwd", **shape,
+                "max_abs_err": max(errs["out"], errs["lse"]),
+                "kernel_ms": timer.ms(
+                    lambda: fa.flash_attention_fwd(q, k, v, True)),
+                "plain_ms": timer.ms(
+                    lambda: ref.flash_attention_fwd_ref(q, k, v, True)),
+                "library_ms": timer.ms(lib_fwd), "bound_ms": b_ms,
+                "bound_by": b_by, "flops": 4 * D * pairs}
+        emit(case)
+        results["flash_attention_fwd"].append(case)
+        b_ms, b_by = bound(3 * qo + 2 * kv + lse_b, 10 * D * pairs, dtype)
+        case = {"kernel": "flash_attention_bwd", **shape,
+                "max_abs_err": max(errs["dq"], errs["dk"], errs["dv"]),
+                "kernel_ms": timer.ms(lambda: fa.flash_attention_bwd(
+                    q, k, v, out, lse, do, True)),
+                "plain_ms": timer.ms(lambda: ref.flash_attention_bwd_ref(
+                    q, k, v, out, lse, do, True)),
+                "library_ms": timer.ms(lambda: torch.autograd.grad(
+                    lib_out, leaves, do.transpose(1, 2), retain_graph=True)),
+                "bound_ms": b_ms, "bound_by": b_by, "flops": 10 * D * pairs}
+        emit(case)
+        results["flash_attention_bwd"].append(case)
+        del lib_out, leaves, grads
+        torch.cuda.empty_cache()
+
+    # the train cell's norm rows: ln1/ln2/final (B*S, 1024), q-norm
+    # (B*S*16, 128), k-norm (B*S*8, 128)
+    rows = TRAIN_B * TRAIN_S
+    for shape in ((rows, 1024), (rows * 16, 128), (rows * 8, 128)):
+        dtype = "bfloat16"
+        x, dy = (torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        s = torch.randn(shape[-1], generator=gen, device="cuda").to(
+            torch.bfloat16)
+        tol = TOL[dtype]
+        ok, err = _within(rn.rmsnorm(x, s, 1e-6), ref.rmsnorm_ref(x, s, 1e-6),
+                          tol)
+        check(ok, f"rmsnorm {shape}: max |err| {err} over {tol}")
+        xs = x.numel() * x.element_size()
+        ss = s.numel() * s.element_size()
+        b_ms, b_by = bound(2 * xs + ss, 4 * x.numel(), dtype)
+        case = {"kernel": "rmsnorm", "dtype": dtype, "shape": list(shape),
+                "path": "train", "max_abs_err": err, "tol": tol,
+                "kernel_ms": timer.ms(lambda: rn.rmsnorm(x, s, 1e-6)),
+                "plain_ms": timer.ms(lambda: ref.rmsnorm_ref(x, s, 1e-6)),
+                "library_ms": timer.ms(
+                    lambda: F.rms_norm(x, (shape[-1],), s, 1e-6)),
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": 2 * xs + ss}
+        emit(case)
+        results["rmsnorm"].append(case)
+
+        dx, ds = rn.rmsnorm_bwd(x, s, dy, 1e-6)
+        rdx, rds = ref.rmsnorm_bwd_ref(x, s, dy, 1e-6)
+        ok_x, err_x = _within(dx, rdx, tol)
+        ok_s, err_s = _within(ds, rds, tol)
+        check(ok_x and ok_s, f"rmsnorm_bwd {shape}: max |err| dx {err_x}, "
+              f"dscale {err_s} over {tol}")
+        xl, sl = x.detach().requires_grad_(), s.detach().requires_grad_()
+        lib_y = F.rms_norm(xl, (shape[-1],), sl, 1e-6)
+        moved = 3 * xs + 2 * ss
+        b_ms, b_by = bound(moved, 8 * x.numel(), dtype)
+        case = {"kernel": "rmsnorm_bwd", "dtype": dtype,
+                "shape": list(shape), "max_abs_err": max(err_x, err_s),
+                "tol": tol,
+                "kernel_ms": timer.ms(lambda: rn.rmsnorm_bwd(x, s, dy, 1e-6)),
+                "plain_ms": timer.ms(
+                    lambda: ref.rmsnorm_bwd_ref(x, s, dy, 1e-6)),
+                "library_ms": timer.ms(lambda: torch.autograd.grad(
+                    lib_y, (xl, sl), dy, retain_graph=True)),
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": moved}
+        emit(case)
+        results["rmsnorm_bwd"].append(case)
+        del lib_y, xl, sl
+    return results
+
+
+def _train_counters():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+
+    return {"flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_bwd": fa.flash_attention_bwd,
+            "rmsnorm": rn.rmsnorm, "rmsnorm_bwd": rn.rmsnorm_bwd}
+
+
+def _check_grads(torch, model, where):
+    """Every parameter holds a finite gradient with a nonzero entry."""
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())
+           or not bool((p.grad != 0).any())]
+    check(not bad, f"{where}: {len(bad)} parameters without a nonzero "
+          f"finite gradient, e.g. {bad[:5]}")
+
+
+def phase_train(torch):
+    """Train qwen3-0.6b FULL through the launcher's functions."""
+    from repro_torch.launch import train as tl
+
+    args = tl.build_parser().parse_args([
+        "--arch", "qwen3-0.6b", "--steps", str(TRAIN_STEPS), "--batch",
+        str(TRAIN_B), "--seq", str(TRAIN_S), "--lr", "1e-3", "--optimizer",
+        "adam", "--remat", "full", "--seed", "0"])
+    t0 = time.perf_counter()
+    tr = tl.build_trainer(args)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg, model = tr.cfg, tr.state["model"]
+    check(cfg.dtype == "bfloat16" and tr.opt_cfg.grad_clip_norm == 1.0,
+          "train config: bf16 weights and clip 1.0 expected")
+    n_params = sum(p.numel() for p in model.parameters())
+    val = tl.device_batch(cfg, TRAIN_B, TRAIN_S, tl.VAL_SEED, tr.device)
+    val_before = float(tr.metric(model, val))
+    batches = [tl.device_batch(cfg, TRAIN_B, TRAIN_S, i, tr.device)
+               for i in range(TRAIN_STEPS)]
+    counters = _train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, lrs, gnorms, step_s, per_step = [], [], [], [], []
+    for i, batch in enumerate(batches):
+        before = {n: fn.launches for n, fn in counters.items()}
+        t0 = time.perf_counter()
+        _, m = tr.step(tr.state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        per_step.append({n: fn.launches - before[n]
+                         for n, fn in counters.items()})
+        losses.append(float(m["loss"]))
+        lrs.append(float(m["lr"]))
+        gnorms.append(float(m["grad_norm"]))
+        if i in (0, TRAIN_STEPS - 1):
+            _check_grads(torch, model, f"train step {i}")
+    launches = {n: fn.launches for n, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    val_after = float(tr.metric(model, val))
+    check(all(map(math.isfinite, losses + gnorms)),
+          f"non-finite train loss or grad norm: {losses} {gnorms}")
+    check(math.isfinite(val_after) and val_after < val_before,
+          f"validation loss did not fall: {val_before} -> {val_after}")
+    for i, got in enumerate(per_step):
+        check(got == TRAIN_PER_STEP, f"train step {i} launches {got} != "
+              f"{TRAIN_PER_STEP}")
+    step = statistics.median(step_s[-4:])
+    tokens = TRAIN_B * TRAIN_S
+    attn_flops = 2 * TRAIN_B * cfg.num_heads * TRAIN_S ** 2 \
+        * cfg.resolved_head_dim
+    model_flops = 6 * n_params * tokens + 3 * attn_flops * cfg.num_layers
+    stats = {"phase": "train", "arch": cfg.name, "dtype": cfg.dtype,
+             "params": n_params, "batch": TRAIN_B, "seq": TRAIN_S,
+             "steps": TRAIN_STEPS, "optimizer": tr.opt_cfg.name,
+             "lr": tr.opt_cfg.lr, "warmup_steps": tr.opt_cfg.warmup_steps,
+             "remat": args.remat, "init_s": init_s, "losses": losses,
+             "lrs": lrs, "grad_norms": gnorms, "step_s": step_s,
+             "step_ms": step * 1e3, "tokens_per_s": tokens / step,
+             "peak_mem_gib": peak / 2**30,
+             "mfu": model_flops / step / PEAK_OPS_PER_S["bfloat16"],
+             "model_flops_per_step": model_flops,
+             "val_before": val_before, "val_after": val_after,
+             "launches": launches, "launches_per_step": per_step[-1],
+             "grads_checked": "every parameter, steps 0 and last"}
+    emit(stats)
+    del tr, model, batches, val
+    return launches, stats
+
+
+def phase_train_parity(torch):
+    """Two f32 train steps through the kernels == through the plain
+    versions (same card, same weights and batches)."""
+    from repro_torch.configs.base import OptimizerConfig, replace
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.launch import train as tl
+    from repro_torch.train.steps import init_lm_state, make_lm_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = replace(get_config("qwen3-0.6b"), dtype="float32", num_layers=2)
+    opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=1)
+    batches = [tl.device_batch(cfg, 1, TRAIN_S, i, "cuda") for i in range(2)]
+    plain = {(fa, "flash_attention_fwd"): fa.flash_attention_fwd_ref,
+             (fa, "flash_attention_bwd"): fa.flash_attention_bwd_ref,
+             (rn, "rmsnorm"): rn.rmsnorm_ref,
+             (rn, "rmsnorm_bwd"): rn.rmsnorm_bwd_ref}
+
+    def run(use_plain):
+        saved = {key: getattr(*key) for key in plain}
+        if use_plain:                  # the ops dispatch reads these names
+            for (mod, name), fn in plain.items():
+                setattr(mod, name, fn)
+        try:
+            state = init_lm_state(cfg, opt_cfg, seed=0, device="cuda")
+            step = make_lm_train_step(cfg, opt_cfg, remat="full")
+            losses, grads = [], []
+            init = {n: p.detach().clone() for n, p in
+                    state["model"].named_parameters()}
+            for batch in batches:
+                _, m = step(state, batch)
+                losses.append(float(m["loss"]))
+                grads.append({n: p.grad.clone() for n, p in
+                              state["model"].named_parameters()})
+            updates = {n: p.detach() - init[n] for n, p in
+                       state["model"].named_parameters()}
+        finally:
+            for (mod, name), fn in saved.items():
+                setattr(mod, name, fn)
+        return losses, grads, updates
+
+    k_loss, k_grads, k_u = run(False)
+    p_loss, p_grads, p_u = run(True)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(k_loss, p_loss))
+    grad_rel, worst = 0.0, ""
+    for kg, pg in zip(k_grads, p_grads):
+        for n in pg:
+            rel = ((kg[n] - pg[n]).abs().max()
+                   / pg[n].abs().max().clamp(min=1e-30)).item()
+            if rel > grad_rel:
+                grad_rel, worst = rel, n
+    # the two runs start from the same weights: the weights' gap is the
+    # updates' gap
+    w_err = max((k_u[n] - p_u[n]).abs().max().item() for n in p_u)
+    upd_rel = max((torch.linalg.vector_norm(k_u[n] - p_u[n])
+                   / torch.linalg.vector_norm(p_u[n]).clamp(min=1e-30)
+                   ).item() for n in p_u)
+    check(min(torch.linalg.vector_norm(u).item() for u in p_u.values()) > 0,
+          "train parity: a weight tensor did not move")
+    emit({"phase": "train_parity", "dtype": "float32", "allow_tf32": False,
+          "layers": cfg.num_layers, "batch": 1, "seq": TRAIN_S, "steps": 2,
+          "optimizer": "adam", "lr": opt_cfg.lr,
+          "losses_kernel": k_loss, "losses_plain": p_loss,
+          "loss_rel_err": loss_rel, "grad_rel_err": grad_rel,
+          "worst_grad": worst, "update_rel_err": upd_rel,
+          "weight_abs_err": w_err, "tol": PARITY_TOL})
+    check(loss_rel <= PARITY_TOL["loss_rel"],
+          f"train parity: loss rel err {loss_rel}")
+    check(grad_rel <= PARITY_TOL["grad_rel"],
+          f"train parity: gradient {worst} rel err {grad_rel}")
+    check(upd_rel <= PARITY_TOL["update_rel"],
+          f"train parity: weight update rel err {upd_rel}")
+    check(w_err <= PARITY_TOL["weight_abs"],
+          f"train parity: weight abs err {w_err}")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repo (src/repro_torch "
@@ -424,23 +784,43 @@ def main() -> int:
     phase_build(torch)
     timer = Timer(torch)
     cases = phase_kernels(torch, timer)
-    launches = phase_serve(torch)
+    train_cases = phase_train_kernels(torch, timer)
+    for name, rows in train_cases.items():
+        cases.setdefault(name, []).extend(rows)
+    del timer
+    torch.cuda.empty_cache()
+    serve_launches = phase_serve(torch)
     torch.cuda.empty_cache()
     phase_recompute(torch)
+    torch.cuda.empty_cache()
+    train_launches, _ = phase_train(torch)
+    torch.cuda.empty_cache()
+    phase_train_parity(torch)
 
-    # the kernels line reports each kernel at the shape the serve phase
-    # gives it most: bf16, one query token, head_dim 128 / d = 1024
+    # the kernels line reports each kernel at the shape its path gives it
+    # most: paged attention and the RMSNorm forward at the serve decode
+    # shape (bf16, one query token, head_dim 128 / d = 1024), the training
+    # kernels at the train cell's (bf16, B = 1, S = 4096; 16384 x 1024)
     headline = {
         "paged_attention": lambda c: (c["dtype"], c["D"], c["K"])
         == ("bfloat16", 128, 1),
         "rmsnorm": lambda c: (c["dtype"], c["shape"]) == ("bfloat16",
-                                                          [8, 1024])}
+                                                          [8, 1024]),
+        "rmsnorm_bwd": lambda c: c["shape"] == [TRAIN_B * TRAIN_S, 1024],
+        "flash_attention_fwd": lambda c: (c["dtype"], c["S"], c["Hkv"])
+        == ("bfloat16", TRAIN_S, 8),
+        "flash_attention_bwd": lambda c: (c["dtype"], c["S"], c["Hkv"])
+        == ("bfloat16", TRAIN_S, 8)}
+    by_path = {"serve": serve_launches, "train": train_launches}
     kernels = []
     for name, rows in cases.items():
         main_case = next(c for c in rows if headline[name](c))
+        counts = {path: launches[name] for path, launches in by_path.items()
+                  if name in launches}
         kernels.append({
             "name": name, "route": ROUTES[name], "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name], "launches": sum(counts.values()),
+            "launches_by_path": counts,
             "max_abs_err": main_case["max_abs_err"],
             "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],

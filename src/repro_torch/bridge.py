@@ -1,4 +1,5 @@
-"""Carry weights of the JAX package's dense LM into the port.
+"""Carry weights (and optimizer state) of the JAX package's dense LM into
+the port.
 
 Input is the JAX params pytree already converted to numpy (the caller
 runs ``jax.tree.map(np.asarray, params)``; this module imports no JAX):
@@ -13,6 +14,9 @@ runs ``jax.tree.map(np.asarray, params)``; this module imports no JAX):
 
 JAX keeps dense weights ``(d_in, d_out)`` for ``x @ W``; the port's
 ``nn.Linear`` keeps ``(d_out, d_in)``, so they are transposed here.
+
+:func:`opt_state_from_jax` carries an optimizer state of
+``repro.optim.optimizers`` the same way, name by name.
 """
 from __future__ import annotations
 
@@ -65,3 +69,36 @@ def load_jax_params(model: LM, tree) -> LM:
     values are cast to the model's dtype and device)."""
     model.load_state_dict(params_from_jax(tree, model.cfg), strict=True)
     return model
+
+
+def opt_state_from_jax(opt_state, cfg: ModelConfig) -> Dict[str, object]:
+    """The port's optimizer state (:mod:`repro_torch.optim.optimizers`)
+    from a JAX one already converted to numpy.
+
+    Adam's ``m``/``v`` and SGD's ``mom`` are params-shaped and cross like
+    the weights.  Adafactor's ``vr``/``vc`` cross for the leaves whose
+    factoring both packages share: for a transposed dense weight JAX's row
+    factor is the port's column factor and the other way round; the
+    embedding and the final norm cross as they are.  The stacked norm
+    scales and biases are left out: JAX factors each ``(L, d)`` stack as a
+    matrix, the port keeps one ``(d,)`` vector per layer.  ``step`` becomes a 0-dim
+    int32 tensor.
+    """
+    out: Dict[str, object] = {"step": torch.tensor(int(opt_state["step"]),
+                                                   dtype=torch.int32)}
+    for key in ("m", "v", "mom"):
+        if key in opt_state:
+            out[key] = params_from_jax(opt_state[key], cfg)
+    if "vr" in opt_state:
+        vr = params_from_jax(opt_state["vr"], cfg)
+        vc = params_from_jax(opt_state["vc"], cfg)
+        out["vr"], out["vc"] = {}, {}
+        for name in vr:
+            if name.startswith("blocks.") and name.endswith(("scale",
+                                                             "bias")):
+                continue                 # a stacked vector: not shared
+            if name.endswith(".weight") and name != "embed.weight":
+                out["vr"][name], out["vc"][name] = vc[name], vr[name]
+            else:
+                out["vr"][name], out["vc"][name] = vr[name], vc[name]
+    return out

@@ -2,7 +2,8 @@
 
 A copy of the dense-family part of ``repro.configs.base.ModelConfig``
 (same field names, defaults and derived properties), so configs compare
-field by field across the two packages.
+field by field across the two packages, and a whole copy of its
+``OptimizerConfig``.
 """
 from __future__ import annotations
 
@@ -28,6 +29,10 @@ class ModelConfig:
     qk_norm: bool = False            # qwen3
     qkv_bias: bool = False           # qwen1.5/2.5
     rope_theta: float = 10_000.0
+    # 'auto': flash attention (online softmax over KV chunks; the card's
+    # flash kernels) from S = 4096 up, dense below
+    attn_impl: str = "auto"          # auto | dense | chunked
+    attn_chunk: int = 1024           # KV chunk of the plain flash version
 
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
@@ -47,6 +52,24 @@ class ModelConfig:
     def kv_dim(self) -> int:
         """Width of each of the key and value projections."""
         return self.num_kv_heads * self.resolved_head_dim
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    """Optimizer and schedule (``repro.configs.base.OptimizerConfig``)."""
+
+    name: str = "adam"               # adam | adamw | adafactor | sgd
+    lr: float = 1e-3                 # paper: Adam, initial lr 0.001
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    grad_clip_norm: float = 1.0
+    warmup_steps: int = 100
+    schedule: str = "constant"       # constant | cosine | linear
+    total_steps: int = 10_000
+    # moment dtype: 'float32' for fidelity, 'bfloat16' to halve optimizer HBM
+    moment_dtype: str = "float32"
 
 
 def replace(cfg: ModelConfig, **kw) -> ModelConfig:

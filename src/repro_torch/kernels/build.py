@@ -1,8 +1,9 @@
 """Build and load the port's CUDA C++ kernels (nvcc + ctypes).
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, ``build/repro_torch/libkernels.so``
-at the root of the checkout, and loaded with :mod:`ctypes`.  The build runs
+Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` (one
+``nvcc`` per source, all started together) and linked into one shared
+library with a plain C interface, ``build/repro_torch/libkernels.so`` at
+the root of the checkout, and loaded with :mod:`ctypes`.  The build runs
 at first use (or when a source is newer than the library) and never when a
 module is imported: hosts without a card or ``nvcc`` import the package
 freely.  Triton's compile cache is pointed into the same directory, so
@@ -15,6 +16,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import List, Optional
 
@@ -23,7 +25,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIBRARY = BUILD_DIR / "libkernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -55,25 +57,36 @@ def stale() -> bool:
     return any(src.stat().st_mtime > built for src in sources())
 
 
-def build_library(extra_flags: Optional[List[str]] = None) -> str:
-    """Compile every source into :data:`LIBRARY`; returns nvcc's output.
-
-    The library is written to a temporary name and renamed into place,
-    so a concurrent reader never loads a half-written file.
-    """
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, *(extra_flags or []), "-o", tmp,
-           *map(str, sources())]
+def _run(cmd: List[str]) -> str:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        os.unlink(tmp)
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
             f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, LIBRARY)
     return proc.stdout + proc.stderr
+
+
+def build_library(extra_flags: Optional[List[str]] = None) -> str:
+    """Compile every source into :data:`LIBRARY`; returns nvcc's output.
+
+    Each source compiles to an object of its own in parallel, then one
+    ``nvcc -shared`` links them.  The library is written to a temporary
+    name and renamed into place, so a concurrent reader never loads a
+    half-written file.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [str(Path(tmpdir) / (src.stem + ".o")) for src in sources()]
+        compiles = [[nvcc(), *NVCC_FLAGS, *(extra_flags or []), "-c",
+                     str(src), "-o", obj]
+                    for src, obj in zip(sources(), objs)]
+        with ThreadPoolExecutor(max_workers=len(compiles)) as pool:
+            logs = list(pool.map(_run, compiles))
+        lib = str(Path(tmpdir) / LIBRARY.name)
+        logs.append(_run([nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", lib,
+                          *objs]))
+        os.replace(lib, LIBRARY)
+    return "".join(logs)
 
 
 def load_library() -> ctypes.CDLL:
@@ -91,6 +104,10 @@ def load_library() -> ctypes.CDLL:
         lib.repro_paged_attention.argtypes = [p, p, p, p, p, p,
                                               i, i, i, i, i, i, i, i, p]
         lib.repro_paged_attention.restype = i
+        lib.repro_flash_attention_fwd.argtypes = [p] * 5 + [i] * 7 + [p]
+        lib.repro_flash_attention_fwd.restype = i
+        lib.repro_flash_attention_bwd.argtypes = [p] * 10 + [i] * 7 + [p]
+        lib.repro_flash_attention_bwd.restype = i
         _lib = lib
     return _lib
 

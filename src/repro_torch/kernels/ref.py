@@ -53,3 +53,127 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * scale.float()).to(x.dtype)
+
+
+def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                    eps: float = 1e-6):
+    """Gradients of :func:`rmsnorm_ref` given the output cotangent ``dy``.
+
+    With ``r = rsqrt(mean(x**2) + eps)`` per row, in f32:
+    ``dx = r*s*dy - x * r**3 * mean(x*s*dy)`` (cast to x's dtype) and
+    ``dscale = sum over rows of dy*x*r`` (cast to scale's dtype).
+    """
+    d = x.shape[-1]
+    xf = x.float().reshape(-1, d)
+    dyf = dy.float().reshape(-1, d)
+    sf = scale.float()
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    sdy = sf * dyf
+    c = (xf * sdy).mean(dim=-1, keepdim=True)
+    dx = r * sdy - xf * (r * r * r) * c
+    dscale = (dyf * xf * r).sum(dim=0)
+    return dx.reshape(x.shape).to(x.dtype), dscale.to(scale.dtype)
+
+
+def _kv_chunk(Sk: int, k_chunk: int) -> int:
+    """The largest chunk <= ``k_chunk`` that divides ``Sk`` (as JAX's
+    ``_flash_fwd_scan`` picks it)."""
+    C = min(k_chunk, Sk)
+    while Sk % C:
+        C -= 1
+    return C
+
+
+def _causal_mask(S: int, c0: int, C: int, device) -> torch.Tensor:
+    """(S, C) bool: query position >= key position ``c0 + j``."""
+    q_pos = torch.arange(S, device=device)
+    kv_pos = c0 + torch.arange(C, device=device)
+    return q_pos[:, None] >= kv_pos[None, :]
+
+
+def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, causal: bool = True,
+                            k_chunk: int = 1024):
+    """Flash-attention forward: online softmax over KV chunks, in f32.
+
+    q: (B, S, H, D); k/v: (B, S, Hkv, D), q head ``h`` reads kv head
+    ``h // (H // Hkv)``.  The chunked scan of JAX's ``_flash_fwd_scan``
+    (``repro.models.layers``), chunk for chunk.  Returns ``out`` (q's shape
+    and dtype) and ``lse`` (B, S, H) f32, the log-sum-exp of each query
+    row's scaled scores (``-inf`` for a row that sees no key).
+    """
+    B, S, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    C = _kv_chunk(Sk, k_chunk)
+    qg = (q.float() * (1.0 / math.sqrt(D))).reshape(B, S, Hkv, g, D)
+    acc = torch.zeros((B, S, Hkv, g, D), device=q.device)
+    m = torch.full((B, S, Hkv, g), float("-inf"), device=q.device)
+    l = torch.zeros((B, S, Hkv, g), device=q.device)
+    for c0 in range(0, Sk, C):
+        kb = k[:, c0:c0 + C].float()
+        vb = v[:, c0:c0 + C].float()
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qg, kb)
+        if causal:
+            mask = _causal_mask(S, c0, C, q.device)
+            s = s.masked_fill(~mask[None, :, None, None, :], float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_safe = torch.where(torch.isfinite(m_new), m_new,
+                             torch.zeros_like(m_new))
+        p = torch.where(torch.isfinite(s), torch.exp(s - m_safe[..., None]),
+                        torch.zeros_like(s))
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
+                           torch.zeros_like(m))
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bqhgk,bkhd->bqhgd", p,
+                                                   vb)
+        m = m_new
+    l = l.clamp(min=1e-30)
+    out = (acc / l[..., None]).reshape(B, S, H, D).to(q.dtype)
+    lse = torch.where(torch.isfinite(m), m + torch.log(l),
+                      torch.full_like(m, float("-inf")))
+    return out, lse.reshape(B, S, H)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            lse: torch.Tensor, dout: torch.Tensor,
+                            causal: bool = True, k_chunk: int = 1024):
+    """Flash-attention backward from the forward's residuals, in f32.
+
+    JAX's ``_flash_vjp_bwd``: ``delta = rowsum(out * dout)``; per KV chunk,
+    P is recomputed from ``lse``, ``dV = P^T dO``, ``dS = P (dO V^T -
+    delta) * scale``, ``dK = dS^T Q`` (summed over the g query heads of
+    each kv head) and ``dQ += dS K``.  Returns (dq, dk, dv) in the dtypes
+    of q, k and v.
+    """
+    B, S, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    C = _kv_chunk(Sk, k_chunk)
+    scale = 1.0 / math.sqrt(D)
+    qg = q.float().reshape(B, S, Hkv, g, D)
+    og = out.float().reshape(B, S, Hkv, g, D)
+    dog = dout.float().reshape(B, S, Hkv, g, D)
+    delta = (og * dog).sum(dim=-1)                         # (B, S, Hkv, g)
+    lse = lse.reshape(B, S, Hkv, g)
+    lse_safe = torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))
+    dq = torch.zeros((B, S, Hkv, g, D), device=q.device)
+    dks, dvs = [], []
+    for c0 in range(0, Sk, C):
+        kb = k[:, c0:c0 + C].float()
+        vb = v[:, c0:c0 + C].float()
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qg * scale, kb)
+        if causal:
+            mask = _causal_mask(S, c0, C, q.device)
+            s = s.masked_fill(~mask[None, :, None, None, :], float("-inf"))
+        p = torch.where(torch.isfinite(s), torch.exp(s - lse_safe[..., None]),
+                        torch.zeros_like(s))
+        dvs.append(torch.einsum("bqhgk,bqhgd->bkhd", p, dog))
+        dp = torch.einsum("bqhgd,bkhd->bqhgk", dog, vb)
+        ds = p * (dp - delta[..., None]) * scale
+        dq = dq + torch.einsum("bqhgk,bkhd->bqhgd", ds, kb)
+        dks.append(torch.einsum("bqhgk,bqhgd->bkhd", ds, qg))
+    dk = torch.cat(dks, dim=1).to(k.dtype)
+    dv = torch.cat(dvs, dim=1).to(v.dtype)
+    return dq.reshape(B, S, H, D).to(q.dtype), dk, dv

@@ -4,8 +4,10 @@ The counterparts of ``repro.models.layers``: RMSNorm (every call goes
 through :func:`repro_torch.kernels.ops.rmsnorm`), RoPE, the GQA attention
 projections with qk-norm, paged decode/verify attention (through
 :func:`repro_torch.kernels.ops.paged_attention`), chunked-prefill
-attention over the gathered pages (plain PyTorch, as in JAX), dense
-causal attention for the full forward, and the SwiGLU MLP.
+attention over the gathered pages (plain PyTorch, as in JAX), causal
+attention for the full forward (dense below S = 4096, flash attention
+through :func:`repro_torch.kernels.ops.flash_attention` from there, as
+``repro.models.layers.causal_attention`` dispatches), and the SwiGLU MLP.
 
 Layouts follow the JAX package at every public function: activations
 ``(B, S, d)``, heads ``(B, S, H, D)``, KV pools ``(P+1, bs, Hkv, D)``
@@ -148,29 +150,45 @@ class Attention(nn.Module):
         return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def dense_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
-    """Causal grouped-query attention without a cache (q: (B, S, H, D),
-    k/v: (B, S, Hkv, D)); f32 scores, materializes (S, S)."""
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Grouped-query attention without a cache (q: (B, S, H, D), k/v:
+    (B, S, Hkv, D)); f32 scores, materializes (S, S)."""
     B, S, H, D = q.shape
     Hkv = k.shape[2]
     qh = q.reshape(B, S, Hkv, H // Hkv, D)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qh.float(),
                           k.float()) / math.sqrt(D)
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
-    scores = scores.masked_fill(~mask, float("-inf"))
+    if causal:
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~mask, float("-inf"))
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", w.to(v.dtype), v)
     return out.reshape(B, S, H, D)
 
 
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     causal: bool = True, impl: str = "auto",
+                     k_chunk: int = 1024) -> torch.Tensor:
+    """Dense attention for ``impl="dense"`` or (``"auto"``) S < 4096, flash
+    attention otherwise (``repro.models.layers.causal_attention``)."""
+    if impl not in ("auto", "dense", "chunked"):
+        raise ValueError(f"unknown attn_impl {impl!r}")
+    if impl == "dense" or (impl == "auto" and q.shape[1] < 4096):
+        return dense_attention(q, k, v, causal)
+    return ops.flash_attention(q, k, v, causal, k_chunk)
+
+
 def attention_block(attn: Attention, x: torch.Tensor, cos: torch.Tensor,
                     sin: torch.Tensor) -> torch.Tensor:
-    """Full-sequence causal attention (no cache): the forward pass."""
+    """Full-sequence causal attention (no cache): the forward pass, through
+    the config's ``attn_impl`` dispatch."""
     B, S, _ = x.shape
+    cfg = attn.cfg
     q, k, v = attn.project_qkv(x, cos, sin)
-    out = dense_attention(q, k, v)
-    return attn.wo(out.reshape(B, S, attn.cfg.q_dim))
+    out = causal_attention(q, k, v, impl=cfg.attn_impl,
+                           k_chunk=cfg.attn_chunk)
+    return attn.wo(out.reshape(B, S, cfg.q_dim))
 
 
 class PagedWrite(NamedTuple):

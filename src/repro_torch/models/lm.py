@@ -3,9 +3,11 @@
 The counterpart of ``repro.models.lm`` for the dense family.  The JAX
 package stacks each period's layer weights and drives them with
 ``lax.scan``; here the layers are an ``nn.ModuleList`` walked in a Python
-loop.  Three entry points:
+loop.  Four entry points:
 
-  ``lm_forward``   full causal forward, no cache (the recompute yardstick)
+  ``lm_forward``   full causal forward, no cache (training, and the serve
+                   recompute yardstick), optionally rematerialized per block
+  ``lm_loss``      next-token cross entropy over ``lm_forward``'s logits
   ``lm_prefill``   one chunked-prefill slice of one request, scattered
                    into the paged pools (``_prefill_chunk`` in JAX)
   ``lm_decode``    K >= 1 tokens per row over the paged pools (block
@@ -16,11 +18,12 @@ returns a new pool pytree each call and donates the old one.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -151,16 +154,57 @@ def _rope(model: LM, positions: torch.Tensor):
     return L.rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
 
 
-def lm_forward(model: LM, tokens: torch.Tensor) -> torch.Tensor:
+REMAT = ("none", "full", "dots", "dots_no_batch")
+
+
+def lm_forward(model: LM, tokens: torch.Tensor,
+               remat: str = "none") -> torch.Tensor:
     """Full causal forward without a cache: tokens (B, S) -> logits
-    (B, S, V).  Dense attention, no pages, no paged kernel."""
+    (B, S, V).  Attention follows the config's ``attn_impl`` (dense below
+    S = 4096, flash from there); no pages, no paged kernel.
+
+    ``remat="full"`` recomputes each block in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant), the granularity of JAX's
+    ``_remat_wrap``: only the blocks' inputs are kept.  It takes effect
+    only where autograd records.  JAX's ``"dots"`` policies, which save the
+    matmul outputs, are not ported.
+    """
+    if remat not in REMAT:
+        raise ValueError(f"unknown remat {remat!r}; one of {REMAT}")
+    if remat in ("dots", "dots_no_batch"):
+        raise NotImplementedError(
+            f"remat={remat!r} is not ported to repro_torch yet; see "
+            "ROADMAP.md queue A")
     x = model.embed(tokens)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     cos, sin = _rope(model, positions)
+    recompute = remat == "full" and torch.is_grad_enabled()
     for block in model.blocks:
-        x = _apply_block(block, x, cos, sin, "train")
+        if recompute:
+            x = checkpoint(_apply_block, block, x, cos, sin, "train",
+                           use_reentrant=False)
+        else:
+            x = _apply_block(block, x, cos, sin, "train")
     return _logits(model, x)
+
+
+def lm_loss(model: LM, batch: Dict[str, torch.Tensor],
+            remat: str = "none") -> Tuple[torch.Tensor,
+                                          Dict[str, torch.Tensor]]:
+    """Next-token cross entropy (``repro.models.lm.lm_loss``, dense
+    family): logits in f32, ``logsumexp`` minus the gold logit, averaged
+    over the positions whose label is ``>= 0``.  ``batch`` holds
+    ``tokens`` and ``labels``, (B, S) integer tensors on the model's
+    device.  Returns (loss, {"ce": loss})."""
+    logits = lm_forward(model, batch["tokens"], remat)
+    labels = batch["labels"].long()
+    lg = logits.float()
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = lg.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    ce = ((logz - gold) * mask).sum() / mask.sum().clamp(min=1.0)
+    return ce, {"ce": ce}
 
 
 @torch.no_grad()

@@ -5,7 +5,8 @@
   ``repro_torch``);
 * a static scan of ``src/repro_torch`` and ``chip_smoke.py`` finds no
   JAX and no ``repro.`` import;
-* entry points default to CUDA and raise without a card;
+* entry points (serving and training, the train CLI module included)
+  default to CUDA and raise without a card;
 * ``chip_smoke.py`` fails, printing no result, without a card and in a
   directory that holds nothing else of the repo;
 * public symbols of the port carry docstrings (ruff's D1, re-checked).
@@ -95,6 +96,36 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Scheduler(cfg, model)
     Scheduler(cfg, model, device="cpu")          # asked for: fine
+
+
+def test_train_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch):
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.train.steps import init_lm_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("qwen3-0.6b", smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_lm_state(cfg, OptimizerConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tlaunch.main(["--arch", "qwen3-0.6b", "--smoke", "--steps", "1"])
+    init_lm_state(cfg, OptimizerConfig(), device="cpu")    # asked for
+
+
+def test_train_cli_module_raises_without_a_card():
+    """``python -m repro_torch.launch.train`` with its default ``--device
+    cuda`` exits non-zero, naming the missing card, and trains nothing."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "qwen3-0.6b", "--smoke", "--steps", "1"], env=env,
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert "[train] done" not in proc.stdout
 
 
 def test_scheduler_raises_on_unported_arguments():

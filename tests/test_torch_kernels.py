@@ -3,7 +3,8 @@ the kernels themselves against the plain versions on a CUDA card.
 
 On the CPU, ``repro_torch.kernels.ref`` is held against
 ``repro.kernels.ref`` and against the Pallas kernels run in interpret
-mode, on the same numpy inputs.  Tolerances: f32 2e-5; bf16 2e-2,
+mode, on the same numpy inputs; the differentiable ops (flash attention,
+RMSNorm) against the JAX model's functions and their ``jax.vjp``.  Tolerances: f32 2e-5; bf16 2e-2,
 compared in f32 (as ``tests/test_paged.py`` states them).  The CUDA and
 Triton kernels have no CPU mode: their tests carry the ``cuda`` marker
 and skip without a card (run them on one with
@@ -16,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
@@ -204,3 +206,195 @@ def test_kernel_wrappers_count_only_launches_on_card():
     with pytest.raises(ValueError, match="head_dim"):
         pa.paged_attention(*args)
     assert pa.paged_attention.launches == before
+
+
+# ---------------------------------------------------------------------------
+# flash attention and the RMSNorm backward (the training slice)
+# ---------------------------------------------------------------------------
+
+# (B, S, H, Hkv, D, k_chunk, causal): GQA with S a multiple of the chunk,
+# MHA, S = 20 that the requested chunk 8 does not divide (both packages
+# then sweep 5-key chunks), and a non-causal GQA case
+FLASH_CASES = {"gqa": (2, 24, 4, 2, 16, 8, True),
+               "mha": (1, 16, 4, 4, 16, 8, True),
+               "ragged": (2, 20, 4, 2, 16, 8, True),
+               "full": (1, 16, 4, 2, 16, 8, False)}
+
+
+def _flash_inputs(B, S, H, Hkv, D, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    do = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_attention_matches_jax_twin_vjp_and_pallas(case):
+    """``ops.flash_attention`` on the CPU (the plain versions inside the
+    autograd Function) == ``layers.flash_attention_jax`` forward and its
+    ``jax.vjp``, and == the Pallas kernel in interpret mode (which takes
+    (B, H, S, D)).  f32, 2e-5: the packages sum in different orders."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    from repro.models import layers as jlayers
+
+    B, S, H, Hkv, D, chunk, causal = FLASH_CASES[case]
+    q, k, v, do = _flash_inputs(B, S, H, Hkv, D)
+
+    @jax.jit
+    def jax_side(q, k, v, do):
+        out, vjp = jax.vjp(lambda a, b, c: jlayers.flash_attention_jax(
+            a, b, c, causal, chunk), q, k, v)
+        pallas = jops.flash_attention(
+            q.transpose(0, 2, 1, 3), k.transpose(0, 2, 1, 3),
+            v.transpose(0, 2, 1, 3), causal=causal, interpret=True)
+        return out, vjp(do), pallas.transpose(0, 2, 1, 3)
+
+    want, want_grads, pallas = jax_side(*map(jnp.asarray, (q, k, v, do)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    got = ops.flash_attention(tq, tk, tv, causal, chunk)
+    got.backward(torch.from_numpy(do))
+    tol = dict(atol=TOL["float32"], rtol=TOL["float32"])
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **tol)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(pallas),
+                               **tol)
+    for t, w in zip((tq, tk, tv), want_grads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), **tol)
+
+
+def test_flash_attention_fwd_ref_lse_and_bwd_ref_contract():
+    """The plain versions' own contract: lse is the log-sum-exp of each
+    row's scaled causal scores, and the backward equals autograd of the
+    dense attention at f32 (2e-5)."""
+    from repro_torch.models.layers import dense_attention
+
+    q, k, v, do = (torch.from_numpy(a) for a in _flash_inputs(2, 20, 4, 2,
+                                                             16, seed=3))
+    out, lse = ref.flash_attention_fwd_ref(q, k, v, True, 8)
+    scores = torch.einsum("bqhgd,bkhd->bqhgk", q.reshape(2, 20, 2, 2, 16),
+                          k) / 4.0
+    mask = torch.ones(20, 20, dtype=torch.bool).tril()
+    scores = scores.masked_fill(~mask[None, :, None, None, :], float("-inf"))
+    torch.testing.assert_close(lse, torch.logsumexp(scores, -1).reshape(
+        2, 20, 4), atol=2e-5, rtol=2e-5)
+    qd, kd, vd = (t.clone().requires_grad_() for t in (q, k, v))
+    dense = dense_attention(qd, kd, vd)
+    dense.backward(do)
+    torch.testing.assert_close(out, dense.detach(), atol=2e-5, rtol=2e-5)
+    grads = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, True, 8)
+    for got, t in zip(grads, (qd, kd, vd)):
+        torch.testing.assert_close(got, t.grad, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("d", [128, 1024])
+def test_rmsnorm_grads_match_jax(d):
+    """``ops.rmsnorm`` differentiated on the CPU (the plain backward inside
+    the autograd Function) == ``jax.vjp`` of ``layers.rmsnorm``; f32,
+    2e-5 (dscale sums 128 rows)."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.models import layers as jlayers
+
+    rng = np.random.default_rng(d)
+    x = rng.standard_normal((8, 16, d)).astype(np.float32)
+    s = rng.standard_normal((d,)).astype(np.float32)
+    dy = rng.standard_normal((8, 16, d)).astype(np.float32)
+
+    @jax.jit
+    def jax_side(x, s, dy):
+        y, vjp = jax.vjp(lambda a, b: jlayers.rmsnorm({"scale": b}, a, 1e-6),
+                         x, s)
+        return y, vjp(dy)
+
+    want, (wdx, wds) = jax_side(*map(jnp.asarray, (x, s, dy)))
+    tx, ts = (torch.from_numpy(a).requires_grad_() for a in (x, s))
+    got = ops.rmsnorm(tx, ts, 1e-6)
+    got.backward(torch.from_numpy(dy))
+    tol = dict(atol=TOL["float32"], rtol=TOL["float32"])
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **tol)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(wdx), **tol)
+    np.testing.assert_allclose(ts.grad.numpy(), np.asarray(wds), **tol)
+
+
+def test_training_wrappers_refuse_cpu_tensors():
+    """The flash and RMSNorm-backward wrappers launch or raise: no
+    fallback on a CPU tensor, and nothing counted."""
+    q, k, v, do = (torch.from_numpy(a) for a in _flash_inputs(1, 8, 4, 2, 16))
+    lse = torch.zeros(1, 8, 4)
+    before = (fa.flash_attention_fwd.launches,
+              fa.flash_attention_bwd.launches, rn.rmsnorm_bwd.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_fwd(q, k, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_bwd(q, k, v, q, lse, do)
+    with pytest.raises(ValueError, match="CUDA"):
+        rn.rmsnorm_bwd(torch.randn(2, 64), torch.randn(64),
+                       torch.randn(2, 64))
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches,
+            rn.rmsnorm_bwd.launches) == before
+
+
+# (B, S, H, Hkv, D): the train cell's heads at B = 1, a ragged S, MHA, the
+# smoke widths
+CARD_FLASH = [(1, 1024, 16, 8, 128), (2, 200, 16, 8, 128),
+              (1, 256, 8, 8, 64), (2, 100, 4, 2, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hkv,D", CARD_FLASH)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernels_match_plain_on_card(B, S, H, Hkv, D, causal,
+                                                     dtype):
+    dev = _card()
+    q, k, v, do = (_torch(a, dtype).to(dev)
+                   for a in _flash_inputs(B, S, H, Hkv, D))
+    out, lse = fa.flash_attention_fwd(q, k, v, causal)
+    want_out, want_lse = ref.flash_attention_fwd_ref(q, k, v, causal)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    tol = dict(atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(out.float(), want_out.float(), **tol)
+    torch.testing.assert_close(lse, want_lse, **tol)
+    for got, w in zip(grads, want):
+        torch.testing.assert_close(got.float(), w.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4096, 1024), (512, 16, 128), (3, 100)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_bwd_kernel_matches_plain_on_card(shape, dtype):
+    dev = _card()
+    x, dy = (torch.randn(shape, device=dev).to(TORCH_DT[dtype])
+             for _ in range(2))
+    s = torch.randn(shape[-1], device=dev).to(TORCH_DT[dtype])
+    got = rn.rmsnorm_bwd(x, s, dy, 1e-6)
+    want = ref.rmsnorm_bwd_ref(x, s, dy, 1e-6)
+    torch.cuda.synchronize()
+    tol = dict(atol=TOL[dtype], rtol=TOL[dtype])
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_training_ops_count_one_launch_per_pass_on_card():
+    """Forward and backward through ``ops`` launch each kernel once and
+    count it once."""
+    dev = _card()
+    q, k, v, do = (_torch(a, "bfloat16").to(dev).requires_grad_()
+                   for a in _flash_inputs(1, 64, 4, 2, 64))
+    counts = lambda: (fa.flash_attention_fwd.launches,
+                      fa.flash_attention_bwd.launches, rn.rmsnorm.launches,
+                      rn.rmsnorm_bwd.launches)
+    before = counts()
+    out = ops.flash_attention(q, k, v)
+    y = ops.rmsnorm(out, torch.ones(64, device=dev, dtype=torch.bfloat16,
+                                    requires_grad=True))
+    y.backward(do.detach())
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1, 1, 1)
+    assert q.grad is not None and torch.isfinite(q.grad.float()).all()
