@@ -39,9 +39,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, **others) -> None:
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"flash_attention kernel: {name} must lie on "
                              f"q's CUDA device {q.device}, got {t.device}")
-        if not t.is_contiguous() or t.data_ptr() % 4:
+        if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash_attention kernel: {name} must be "
-                             "contiguous and 4-byte aligned")
+                             "contiguous and 16-byte aligned")
         want = torch.float32 if name == "lse" else q.dtype
         if t.dtype != want:
             raise TypeError(f"flash_attention kernel: {name} must be "
