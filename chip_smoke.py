@@ -35,7 +35,8 @@ and never prints the final ``ok`` line):
    validation loss (seed 987654) lower after the steps than before, a
    nonzero finite gradient on every parameter, and per step 56 flash
    forward, 28 flash backward, 225 RMSNorm forward and 113 RMSNorm
-   backward launches; prints step time, tokens/s, peak memory and mfu;
+   backward launches; prints step time, tokens/s, peak memory and mfu,
+   then profiles one more step (device time by kernel group, busy share);
 7. train parity: full width at 2 layers, f32, TF32 off, B = 1,
    S = 4096: two train steps through the kernels against two through
    their plain versions on the same card (loss, every gradient, each
@@ -618,6 +619,50 @@ def _check_grads(torch, model, where):
           f"finite gradient, e.g. {bad[:5]}")
 
 
+# device-time groups of the train step's profile, by kernel name
+PROFILE_GROUPS = (("flash_attention_fwd", ("flash_fwd",)),
+                  ("flash_attention_bwd", ("flash_bwd",)),
+                  ("rmsnorm", ("rmsnorm",)),
+                  ("matmul", ("gemm", "sm90", "cutlass", "nvjet", "xmma",
+                              "cublas")))
+
+
+def _profile_step(torch, step, state, batch):
+    """One more train step under torch.profiler: device time by kernel
+    group, the busiest kernels, and the device's busy share of the step's
+    wall time (None where the profiler saw no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {}
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
+    busy = sum(kernels.values())
+    groups = {name: 0.0 for name, _ in PROFILE_GROUPS}
+    groups["other"] = 0.0
+    for name, ms in kernels.items():
+        low = name.lower()
+        group = next((g for g, keys in PROFILE_GROUPS
+                      if any(k in low for k in keys)), "other")
+        groups[group] += ms
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "busy_share": busy / (wall * 1e3) if busy else None,
+            "group_ms": groups, "kernels": len(kernels),
+            "top": [[name[:80], ms] for name, ms in top]}
+
+
 def phase_train(torch):
     """Train qwen3-0.6b FULL through the launcher's functions."""
     from repro_torch.launch import train as tl
@@ -660,6 +705,7 @@ def phase_train(torch):
     launches = {n: fn.launches for n, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     val_after = float(tr.metric(model, val))
+    profile = _profile_step(torch, tr.step, tr.state, batches[0])
     check(all(map(math.isfinite, losses + gnorms)),
           f"non-finite train loss or grad norm: {losses} {gnorms}")
     check(math.isfinite(val_after) and val_after < val_before,
@@ -684,7 +730,8 @@ def phase_train(torch):
              "model_flops_per_step": model_flops,
              "val_before": val_before, "val_after": val_after,
              "launches": launches, "launches_per_step": per_step[-1],
-             "grads_checked": "every parameter, steps 0 and last"}
+             "grads_checked": "every parameter, steps 0 and last",
+             "profiled_step": profile}
     emit(stats)
     del tr, model, batches, val
     return launches, stats

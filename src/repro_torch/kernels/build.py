@@ -24,8 +24,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 # <checkout>/build/repro_torch (this file is <checkout>/src/repro_torch/kernels)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIBRARY = BUILD_DIR / "libkernels.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -83,8 +83,7 @@ def build_library(extra_flags: Optional[List[str]] = None) -> str:
         with ThreadPoolExecutor(max_workers=len(compiles)) as pool:
             logs = list(pool.map(_run, compiles))
         lib = str(Path(tmpdir) / LIBRARY.name)
-        logs.append(_run([nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", lib,
-                          *objs]))
+        logs.append(_run([nvcc(), *ARCH_FLAGS, "-shared", "-o", lib, *objs]))
         os.replace(lib, LIBRARY)
     return "".join(logs)
 

@@ -14,9 +14,9 @@ holds the kernels against, are :func:`flash_attention_fwd_ref` and
 Both wrappers only ever launch: they raise for a tensor that is not on a
 CUDA device and for any dtype, shape or layout the kernels do not take.
 The autograd wiring and the device dispatch live in
-:func:`repro_torch.kernels.ops.flash_attention`.  ``k_chunk`` is taken for
-the plain versions' signature and not used: the kernels sweep 64-key
-tiles, which changes nothing but the f32 summation order.
+:func:`repro_torch.kernels.ops.flash_attention`.  The kernels sweep 64-key
+tiles where the plain versions sweep ``k_chunk``-key chunks, which changes
+nothing but the f32 summation order.
 """
 from __future__ import annotations
 
@@ -63,7 +63,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, **others) -> None:
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True, k_chunk: int = 1024):
+                        causal: bool = True):
     """Launch the forward kernel.
 
     q: (B, S, H, D); k/v: (B, S, Hkv, D); float32 or bfloat16, contiguous,
@@ -100,8 +100,7 @@ flash_attention_fwd.launches = 0
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
-                        dout: torch.Tensor, causal: bool = True,
-                        k_chunk: int = 1024):
+                        dout: torch.Tensor, causal: bool = True):
     """Launch the backward kernels (the delta pre-pass, dK/dV, then dQ).
 
     The residuals of :func:`flash_attention_fwd` (q, k, v, out, lse) and the

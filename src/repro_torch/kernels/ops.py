@@ -70,7 +70,7 @@ class _FlashAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             out, lse = ref.flash_attention_fwd_ref(q, k, v, causal, k_chunk)
         else:
-            out, lse = fa.flash_attention_fwd(q, k, v, causal, k_chunk)
+            out, lse = fa.flash_attention_fwd(q, k, v, causal)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.k_chunk = causal, k_chunk
         return out
@@ -78,10 +78,9 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        args = (q, k, v, out, lse, dout.contiguous(), ctx.causal,
-                ctx.k_chunk)
+        args = (q, k, v, out, lse, dout.contiguous(), ctx.causal)
         if q.device.type == "cpu":
-            dq, dk, dv = ref.flash_attention_bwd_ref(*args)
+            dq, dk, dv = ref.flash_attention_bwd_ref(*args, ctx.k_chunk)
         else:
             dq, dk, dv = fa.flash_attention_bwd(*args)
         return dq, dk, dv, None, None

@@ -1,8 +1,12 @@
 """Plain PyTorch versions of the port's kernels (the allclose references).
 
-Each mirrors the jnp oracle of the same name in ``repro.kernels.ref``.  On
-the CPU the model runs through these; on the card ``chip_smoke.py`` holds
-each hand-written kernel against them on the same inputs.
+The paged-attention and RMSNorm forwards mirror the jnp oracles of the same
+name in ``repro.kernels.ref``; the flash-attention forward and backward
+mirror the JAX model's ``_flash_fwd_scan`` and ``_flash_vjp_bwd``
+(``repro.models.layers``), and the RMSNorm backward the gradient JAX takes
+of ``layers.rmsnorm``.  On the CPU the model runs through these; on the
+card ``chip_smoke.py`` holds each hand-written kernel against them on the
+same inputs.
 """
 from __future__ import annotations
 

@@ -162,6 +162,7 @@ def test_three_train_steps_match_jax(cfgs, weights, remat):
             tstate["model"].named_parameters()))
     tstep = tsteps.make_lm_train_step(tcfg, OptimizerConfig(
         lr=1e-3, warmup_steps=2), remat=remat)
+    lrs = []
     for i in range(3):
         jb, tb = _batch(jcfg, seed=i)
         jstate, jm = jstep(jstate, jb)
@@ -169,15 +170,18 @@ def test_three_train_steps_match_jax(cfgs, weights, remat):
         for key in ("loss", "lr", "grad_norm"):
             np.testing.assert_allclose(tm[key].item(), float(jm[key]),
                                        err_msg=f"step {i} {key}", **TOL)
-    assert tm["lr"].item() == pytest.approx(1e-3)
+        lrs.append(tm["lr"].item())
+    assert lrs == pytest.approx([0.0, 5e-4, 1e-3])
     _assert_named(dict(tstate["model"].named_parameters()),
                   params_from_jax(_np(jstate["params"]), tcfg), **TOL)
     want = opt_state_from_jax(_np(jstate["opt_state"]), tcfg)
     assert int(tstate["opt_state"]["step"]) == int(want["step"]) == 3
-    # m to 1e-5 of its scale; v holds squared gradients (~1e-6 and below),
-    # so its atol is scaled down with it
+    # m to 1e-5 of its scale; v holds squared gradients (1e-6 and below):
+    # its atol is scaled down with it, and its rtol is twice the
+    # gradients' (a square doubles a relative error)
     _assert_named(tstate["opt_state"]["m"], want["m"], **TOL)
-    _assert_named(tstate["opt_state"]["v"], want["v"], atol=1e-9, rtol=1e-4)
+    _assert_named(tstate["opt_state"]["v"], want["v"], atol=1e-10,
+                  rtol=2e-5)
 
 
 def _random_tree(seed):
@@ -212,6 +216,36 @@ def test_optimizers_match_jax_on_a_random_tree(name, wd):
             assert int(ts["step"]) == int(js["step"]) == 3
         else:
             _assert_named(ts[key], js[key], **tol)
+
+
+def test_adafactor_state_crosses_the_bridge_name_by_name(cfgs, weights):
+    """Two Adafactor updates of the model's weights with the same random
+    gradients in both packages: ``opt_state_from_jax`` maps JAX's factored
+    moments onto the port's (row and column factors swap with the
+    transposed dense weights) for every leaf both factor alike; the stacked
+    norm scales, factored as (L, d) matrices in JAX only, are left out."""
+    _, tcfg = cfgs
+    rng = np.random.default_rng(11)
+    tree = _np(weights)
+    grads = jax.tree.map(
+        lambda a: rng.standard_normal(a.shape).astype(np.float32), tree)
+    jo = jopt.make_adafactor(jbase.OptimizerConfig(name="adafactor"))
+    to = topt.make_adafactor(OptimizerConfig(name="adafactor"))
+    jp, tp = weights, params_from_jax(tree, tcfg)
+    tg = params_from_jax(grads, tcfg)
+    js, ts = jo.init(jp), to.init(tp)
+    jupdate = jax.jit(jo.update)
+    for lr in (1e-3, 2e-3):
+        jp, js = jupdate(grads, js, jp, jnp.float32(lr))
+        tp, ts = to.update(tg, ts, tp, torch.tensor(lr))
+    want = opt_state_from_jax(_np(js), tcfg)
+    left_out = set(tp) - set(want["vr"])
+    assert left_out == {n for n in tp if n.startswith("blocks.")
+                        and n.endswith("scale")}
+    for key in ("vr", "vc"):
+        _assert_named({n: ts[key][n] for n in want[key]}, want[key],
+                      atol=1e-7, rtol=1e-5)
+    assert int(ts["step"]) == int(want["step"]) == 2
 
 
 @pytest.mark.parametrize("schedule", ["constant", "cosine", "linear"])
