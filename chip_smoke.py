@@ -17,19 +17,19 @@ and never prints the final ``ok`` line):
    bf16 2e-2, with its time (CUDA events,
    median of 30 after warm-up, L2 flushed before each launch), the plain
    version's time, one PyTorch library call's time and the bound;
-3b. the training kernels the same way: flash-attention forward and
+4. the training kernels the same way: flash-attention forward and
    backward at the train cell's heads with B = 1 (S = 4096), a ragged
    S = 1000 (bf16 and f32) and MHA, and the RMSNorm forward and backward
    at the train cell's three row shapes;
-4. serve: qwen3-0.6b at full width in bf16 (random weights from a seed)
+5. serve: qwen3-0.6b at full width in bf16 (random weights from a seed)
    through the continuous-batching paged scheduler: 16 requests, 8
    slots, prompts 128/256/512, 64 new tokens each, greedy; every logit
    row must be finite and both kernels' launch counters must match the
    decode and prefill steps taken;
-5. an f32 recompute at full width: 2 served requests re-run through the
+6. an f32 recompute at full width: 2 served requests re-run through the
    dense causal forward (no pages, no paged kernel) must pick the served
    token at every generated position, save top-2 ties within 1e-4;
-6. train: qwen3-0.6b at full width in bf16 (seed 0), B = 4, S = 4096,
+7. train: qwen3-0.6b at full width in bf16 (seed 0), B = 4, S = 4096,
    Adam lr 1e-3, clip 1.0, remat full, 6 steps through
    ``repro_torch.launch.train``'s functions; every loss finite, the
    validation loss (seed 987654) lower after the steps than before, a
@@ -37,11 +37,11 @@ and never prints the final ``ok`` line):
    forward, 28 flash backward, 225 RMSNorm forward and 113 RMSNorm
    backward launches; prints step time, tokens/s, peak memory and mfu,
    then profiles one more step (device time by kernel group, busy share);
-7. train parity: full width at 2 layers, f32, TF32 off, B = 1,
+8. train parity: full width at 2 layers, f32, TF32 off, B = 1,
    S = 4096: two train steps through the kernels against two through
    their plain versions on the same card (loss, every gradient, each
    tensor's weight update; tolerances at ``PARITY_TOL``);
-8. a ``kernels`` line, the ``nvidia-smi`` line, and the ``ok`` line.
+9. a ``kernels`` line, the ``nvidia-smi`` line, and the ``ok`` line.
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and ``triton``; exits 1
 without a card and 2 when run outside a checkout of the repo.

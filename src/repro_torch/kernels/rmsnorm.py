@@ -111,13 +111,10 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check(x: torch.Tensor, scale: torch.Tensor, dy=None) -> None:
-    for t in (scale, dy):
-        if t is not None and (not x.is_cuda or t.device != x.device):
-            raise ValueError(f"rmsnorm kernel: tensors must lie on one "
-                             f"CUDA device, got {x.device} and {t.device}")
-    if not x.is_cuda:
-        raise ValueError(f"rmsnorm kernel: x must lie on a CUDA device, "
-                         f"got {x.device}")
+    tensors = [t for t in (x, scale, dy) if t is not None]
+    if not x.is_cuda or any(t.device != x.device for t in tensors):
+        raise ValueError(f"rmsnorm kernel: x, scale and dy must lie on one "
+                         f"CUDA device, got {[str(t.device) for t in tensors]}")
     if x.dtype not in _DTYPES or scale.dtype not in _DTYPES:
         raise TypeError(f"rmsnorm kernel takes float32/bfloat16, got "
                         f"{x.dtype} and {scale.dtype}")
@@ -129,7 +126,7 @@ def _check(x: torch.Tensor, scale: torch.Tensor, dy=None) -> None:
         raise ValueError(f"rmsnorm kernel: dy must match x "
                          f"({tuple(x.shape)}, {x.dtype}), got "
                          f"({tuple(dy.shape)}, {dy.dtype})")
-    if not all(t.is_contiguous() for t in (x, scale, dy) if t is not None):
+    if not all(t.is_contiguous() for t in tensors):
         raise ValueError("rmsnorm kernel: x, scale and dy must be "
                          "contiguous")
 

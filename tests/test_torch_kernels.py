@@ -4,8 +4,9 @@ the kernels themselves against the plain versions on a CUDA card.
 On the CPU, ``repro_torch.kernels.ref`` is held against
 ``repro.kernels.ref`` and against the Pallas kernels run in interpret
 mode, on the same numpy inputs; the differentiable ops (flash attention,
-RMSNorm) against the JAX model's functions and their ``jax.vjp``.  Tolerances: f32 2e-5; bf16 2e-2,
-compared in f32 (as ``tests/test_paged.py`` states them).  The CUDA and
+RMSNorm) against the JAX model's functions and their ``jax.vjp``.
+Tolerances: f32 2e-5; bf16 2e-2, compared in f32 (as
+``tests/test_paged.py`` states them).  The CUDA and
 Triton kernels have no CPU mode: their tests carry the ``cuda`` marker
 and skip without a card (run them on one with
 ``python -m pytest -m cuda tests/test_torch_kernels.py``).
