@@ -8,7 +8,8 @@ and never prints the final ``ok`` line):
 
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
 2. the build: every kernel from a cold ``build/repro_torch`` (one nvcc
-   per CUDA C++ source — paged attention, flash attention — started
+   per CUDA C++ source — paged attention, flash attention, the selective
+   scan, the sLSTM — started
    together and linked into one library; Triton's JIT for the RMSNorm
    forward and backward), nvcc and Triton in parallel;
 3. each serving kernel against its plain PyTorch version on the card at
@@ -41,7 +42,29 @@ and never prints the final ``ok`` line):
    S = 4096: two train steps through the kernels against two through
    their plain versions on the same card (loss, every gradient, each
    tensor's weight update; tolerances at ``PARITY_TOL``);
-9. a ``kernels`` line, the ``nvidia-smi`` line, and the ``ok`` line.
+9. the recurrent slice's kernels against their plain versions in f32
+   (``|err| <= 1e-4 + 1e-4 |want|`` over up to 500 sequential steps, y /
+   h and the final state): the selective scan at jamba's serve shape
+   (B = 1, S = 500, d_in = 16384, N = 16), a ragged S = 37 and B = 2; the
+   sLSTM at xlstm-125m's (B = 1, S = 500, d = 768, H = 4) and at (3, 33,
+   96, 2); and the kernels the recurrent serve phases give new widths:
+   paged attention at jamba's 8 query heads per KV head, RMSNorm at
+   d = 768 and d = 8192;
+10. serve_xlstm: xlstm-125m FULL in bf16 (seed 0), 16 requests, 8 slots,
+    16-token pages, prompts 100/300/500, 64 new tokens, greedy; every
+    logit row finite, 3 sLSTM-scan launches per prefill and 13 RMSNorm
+    launches per model call;
+11. serve_hybrid: jamba without experts, one period at the published
+    widths (``jamba_15_large.NOEXP_8L``, ~9.0 B parameters) in bf16 (seed
+    0), 8 requests, 8 slots, prompts 100/300/500, 32 new tokens; every
+    logit row finite, 7 selective-scan launches per prefill, 1
+    paged-attention launch per decode step and 17 RMSNorm launches per
+    model call;
+12. recompute_recurrent: both configs in f32, TF32 off, 2 requests each
+    (prompts 100 and 300, 16 new tokens): every served token is the
+    argmax of ``lm_forward`` over the served sequence, save top-2 ties
+    within 1e-4;
+13. a ``kernels`` line, the ``nvidia-smi`` line, and the ``ok`` line.
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and ``triton``; exits 1
 without a card and 2 when run outside a checkout of the repo.
@@ -66,15 +89,22 @@ REPLACES = {"paged_attention": "src/repro/kernels/paged_attention.py:106",
             "rmsnorm": "src/repro/kernels/rmsnorm.py:25",
             "rmsnorm_bwd": "src/repro/kernels/rmsnorm.py:25",
             "flash_attention_fwd": "src/repro/kernels/flash_attention.py:85",
-            "flash_attention_bwd": "src/repro/kernels/flash_attention.py:85"}
+            "flash_attention_bwd": "src/repro/kernels/flash_attention.py:85",
+            "mamba_scan": "src/repro/kernels/mamba_scan.py:65",
+            "slstm_scan": "src/repro/kernels/slstm.py:86"}
 SOURCES = {"paged_attention": "src/repro_torch/csrc/paged_attention.cu",
            "rmsnorm": "src/repro_torch/kernels/rmsnorm.py",
            "rmsnorm_bwd": "src/repro_torch/kernels/rmsnorm.py",
            "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
-           "flash_attention_bwd": "src/repro_torch/csrc/flash_attention.cu"}
+           "flash_attention_bwd": "src/repro_torch/csrc/flash_attention.cu",
+           "mamba_scan": "src/repro_torch/csrc/mamba_scan.cu",
+           "slstm_scan": "src/repro_torch/csrc/slstm.cu"}
 ROUTES = {"paged_attention": "cuda", "rmsnorm": "triton",
           "rmsnorm_bwd": "triton", "flash_attention_fwd": "cuda",
-          "flash_attention_bwd": "cuda"}
+          "flash_attention_bwd": "cuda", "mamba_scan": "cuda",
+          "slstm_scan": "cuda"}
+# the scans: f32 over up to 500 sequential steps
+SCAN_TOL = 1e-4
 # the train phase: qwen3-0.6b FULL, bf16
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 4096, 6
 # kernel launches per train step with remat full: 28 attention layers,
@@ -180,7 +210,7 @@ def phase_build(torch):
 
     def triton():
         t0 = time.perf_counter()
-        for d in (1024, 128):                  # one compile per BLOCK
+        for d in (1024, 128, 8192):            # one compile per BLOCK
             x = torch.ones((2, d), device="cuda", dtype=torch.bfloat16)
             s = torch.ones(d, device="cuda", dtype=torch.bfloat16)
             rn.rmsnorm(x, s)
@@ -242,13 +272,77 @@ def _sdpa_call(torch, q, kp, vp, tables, lengths):
     return lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=mask)
 
 
-def phase_kernels(torch, timer):
+def _paged_check(torch, timer, gen, B, H, Hkv, D, bs, K, dtype, lengths,
+                 width=None):
+    """The paged kernel against its plain version on one random case,
+    timed beside SDPA over pages gathered beforehand; returns the case."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    args = _paged_inputs(torch, gen, B, H, Hkv, D, bs, K, dtype, lengths,
+                         W=width)
+    q, kp, vp, tables, lens = args
+    got = pa.paged_attention(*args)
+    want = ref.paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    tol = TOL[dtype]
+    check(bool((err <= tol + tol * want.float().abs()).all()),
+          f"paged_attention {dtype} H={H} Hkv={Hkv} D={D} K={K}: max |err| "
+          f"{err.max().item()} over tolerance {tol}")
+    lib_fn = _sdpa_call(torch, *args)
+    lib_err = (lib_fn().transpose(1, 2).float() - want.float()).abs()
+    esize = q.element_size()
+    reach = sum(int(n) + K - 1 for n in lengths)
+    moved = 2 * q.numel() * esize + 2 * reach * Hkv * D * esize \
+        + tables.numel() * 4 + lens.numel() * 4
+    ops = sum((int(n) + t) * H * D * 4 for n in lengths for t in range(K))
+    b_ms, b_by = bound(moved, ops, dtype)
+    case = {"kernel": "paged_attention", "dtype": dtype, "B": B, "H": H,
+            "Hkv": Hkv, "D": D, "bs": bs, "K": K, "W": tables.shape[1],
+            "lengths": lengths, "max_abs_err": err.max().item(),
+            "tol": tol, "library_max_abs_err": lib_err.max().item(),
+            "kernel_ms": timer.ms(lambda: pa.paged_attention(*args)),
+            "plain_ms": timer.ms(lambda: ref.paged_attention_ref(*args)),
+            "library_ms": timer.ms(lib_fn), "bound_ms": b_ms,
+            "bound_by": b_by, "bytes": moved}
+    emit(case)
+    return case
+
+
+def _rms_check(torch, timer, gen, shape, dtype):
+    """The RMSNorm kernel against its plain version on one random case,
+    timed beside ``F.rms_norm``; returns the case."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rn
 
+    dt = getattr(torch, dtype)
+    x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    s = torch.randn(shape[-1], generator=gen, device="cuda").to(dt)
+    got = rn.rmsnorm(x, s, 1e-6)
+    want = ref.rmsnorm_ref(x, s, 1e-6)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    tol = TOL[dtype]
+    check(bool((err <= tol + tol * want.float().abs()).all()),
+          f"rmsnorm {dtype} {shape}: max |err| {err.max().item()} "
+          f"over tolerance {tol}")
+    moved = 2 * x.numel() * x.element_size() + s.numel() * s.element_size()
+    b_ms, b_by = bound(moved, 4 * x.numel(), dtype)
+    case = {"kernel": "rmsnorm", "dtype": dtype, "shape": list(shape),
+            "max_abs_err": err.max().item(), "tol": tol,
+            "kernel_ms": timer.ms(lambda: rn.rmsnorm(x, s, 1e-6)),
+            "plain_ms": timer.ms(lambda: ref.rmsnorm_ref(x, s, 1e-6)),
+            "library_ms": timer.ms(
+                lambda: F.rms_norm(x, (shape[-1],), s, 1e-6)),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": moved}
+    emit(case)
+    return case
+
+
+def phase_kernels(torch, timer):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rng_lengths = torch.randint(100, 601, (8,), generator=gen,
@@ -263,38 +357,9 @@ def phase_kernels(torch, timer):
     cases += [(128, 1, dt, bucket_lengths, 32)
               for dt in ("bfloat16", "float32")]
     for D, K, dtype, case_lengths, width in cases:
-        B, H, Hkv, bs = 8, 16, 8, 16
-        args = _paged_inputs(torch, gen, B, H, Hkv, D, bs, K, dtype,
-                             case_lengths, W=width)
-        q, kp, vp, tables, lengths = args
-        got = pa.paged_attention(*args)
-        want = ref.paged_attention_ref(*args)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs()
-        tol = TOL[dtype]
-        check(bool((err <= tol + tol * want.float().abs()).all()),
-              f"paged_attention {dtype} D={D} K={K}: max |err| "
-              f"{err.max().item()} over tolerance {tol}")
-        lib_fn = _sdpa_call(torch, *args)
-        lib_err = (lib_fn().transpose(1, 2).float() - want.float()).abs()
-        esize = q.element_size()
-        reach = sum(int(n) + K - 1 for n in case_lengths)
-        moved = 2 * q.numel() * esize + 2 * reach * Hkv * D * esize \
-            + tables.numel() * 4 + lengths.numel() * 4
-        ops = sum((int(n) + t) * H * D * 4 for n in case_lengths
-                  for t in range(K))
-        b_ms, b_by = bound(moved, ops, dtype)
-        case = {"kernel": "paged_attention", "dtype": dtype, "B": B, "H": H,
-                "Hkv": Hkv, "D": D, "bs": bs, "K": K, "W": tables.shape[1],
-                "lengths": case_lengths, "max_abs_err": err.max().item(),
-                "tol": tol, "library_max_abs_err": lib_err.max().item(),
-                "kernel_ms": timer.ms(lambda: pa.paged_attention(*args)),
-                "plain_ms": timer.ms(
-                    lambda: ref.paged_attention_ref(*args)),
-                "library_ms": timer.ms(lib_fn), "bound_ms": b_ms,
-                "bound_by": b_by, "bytes": moved}
-        emit(case)
-        results["paged_attention"].append(case)
+        results["paged_attention"].append(_paged_check(
+            torch, timer, gen, 8, 16, 8, D, 16, K, dtype, case_lengths,
+            width))
 
     # decode rows (ln1/ln2/final, q-norm, k-norm) in both dtypes, and the
     # serve phase's widest one-shot prefill (a 512-token bucket) in bf16
@@ -304,36 +369,17 @@ def phase_kernels(torch, timer):
     rms_shapes += [((512, 1024), "bfloat16"), ((512, 16, 128), "bfloat16"),
                    ((512, 8, 128), "bfloat16")]
     for shape, dtype in rms_shapes:
-        dt = getattr(torch, dtype)
-        x = torch.randn(shape, generator=gen, device="cuda").to(dt)
-        s = torch.randn(shape[-1], generator=gen, device="cuda").to(dt)
-        got = rn.rmsnorm(x, s, 1e-6)
-        want = ref.rmsnorm_ref(x, s, 1e-6)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs()
-        tol = TOL[dtype]
-        check(bool((err <= tol + tol * want.float().abs()).all()),
-              f"rmsnorm {dtype} {shape}: max |err| {err.max().item()} "
-              f"over tolerance {tol}")
-        moved = 2 * x.numel() * x.element_size() + s.numel() * s.element_size()
-        b_ms, b_by = bound(moved, 4 * x.numel(), dtype)
-        case = {"kernel": "rmsnorm", "dtype": dtype, "shape": list(shape),
-                "max_abs_err": err.max().item(), "tol": tol,
-                "kernel_ms": timer.ms(lambda: rn.rmsnorm(x, s, 1e-6)),
-                "plain_ms": timer.ms(lambda: ref.rmsnorm_ref(x, s, 1e-6)),
-                "library_ms": timer.ms(
-                    lambda: F.rms_norm(x, (shape[-1],), s, 1e-6)),
-                "bound_ms": b_ms, "bound_by": b_by, "bytes": moved}
-        emit(case)
-        results["rmsnorm"].append(case)
+        results["rmsnorm"].append(_rms_check(torch, timer, gen, shape,
+                                             dtype))
     return results
 
 
 def _check_finite(torch, session, counter):
-    """Wrap a session's step/prefill so every logit row is checked."""
+    """Wrap a session's step and both prefills so every logit row is
+    checked."""
     import numpy as np
 
-    step, prefill = session.step, session.prefill_chunk
+    step = session.step
 
     def checked_step(*a, **k):
         out = step(*a, **k)
@@ -341,13 +387,17 @@ def _check_finite(torch, session, counter):
         counter[0] += out.shape[0] * out.shape[1]
         return out
 
-    def checked_prefill(*a, **k):
-        out = prefill(*a, **k)
-        check(bool(np.isfinite(out).all()), "non-finite prefill logits")
-        counter[0] += 1
-        return out
+    def checked(prefill):
+        def run(*a, **k):
+            out = prefill(*a, **k)
+            check(bool(np.isfinite(out).all()), "non-finite prefill logits")
+            counter[0] += 1
+            return out
+        return run
 
-    session.step, session.prefill_chunk = checked_step, checked_prefill
+    session.step = checked_step
+    session.prefill = checked(session.prefill)
+    session.prefill_chunk = checked(session.prefill_chunk)
 
 
 def phase_serve(torch):
@@ -414,7 +464,7 @@ def phase_recompute(torch):
     from repro_torch.configs.base import replace
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import build_requests
-    from repro_torch.models.lm import init_lm, lm_forward
+    from repro_torch.models.lm import init_lm
     from repro_torch.serve.scheduler import Scheduler
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -428,6 +478,21 @@ def phase_recompute(torch):
     for r in reqs:
         sched.submit(r)
     sched.run()
+    checked, ties, mismatches = _recompute_check(torch, model, sched, reqs,
+                                                 max_new)
+    emit({"phase": "recompute", "dtype": "float32", "allow_tf32": False,
+          "positions": checked, "ties": ties, "tie_count": len(ties),
+          "mismatches": mismatches})
+    check(not mismatches, f"served tokens differ from the f32 dense "
+          f"recompute at {len(mismatches)} positions")
+
+
+def _recompute_check(torch, model, sched, reqs, max_new):
+    """Re-run each served request through ``lm_forward`` (no cache): every
+    generated token must be the argmax of its position's logits, save
+    top-2 ties within 1e-4.  Returns (positions, ties, mismatches)."""
+    from repro_torch.models.lm import lm_forward
+
     ties, mismatches, checked = [], [], 0
     with torch.no_grad():
         for r in reqs:
@@ -447,11 +512,7 @@ def phase_recompute(torch):
                                        "served": served,
                                        "recompute": int(row.argmax()),
                                        "gap": gap})
-    emit({"phase": "recompute", "dtype": "float32", "allow_tf32": False,
-          "positions": checked, "ties": ties, "tie_count": len(ties),
-          "mismatches": mismatches})
-    check(not mismatches, f"served tokens differ from the f32 dense "
-          f"recompute at {len(mismatches)} positions")
+    return checked, ties, mismatches
 
 
 def _within(got, want, tol) -> tuple:
@@ -619,17 +680,21 @@ def _check_grads(torch, model, where):
           f"finite gradient, e.g. {bad[:5]}")
 
 
-# device-time groups of the train step's profile, by kernel name
+# device-time groups of the profiled train step and serve calls, by
+# kernel name
 PROFILE_GROUPS = (("flash_attention_fwd", ("flash_fwd",)),
                   ("flash_attention_bwd", ("flash_bwd",)),
                   ("rmsnorm", ("rmsnorm",)),
+                  ("paged_attention", ("paged_attention",)),
+                  ("mamba_scan", ("mamba_scan",)),
+                  ("slstm_scan", ("slstm_scan",)),
                   ("matmul", ("gemm", "sm90", "cutlass", "nvjet", "xmma",
                               "cublas")))
 
 
-def _profile_step(torch, step, state, batch):
-    """One more train step under torch.profiler: device time by kernel
-    group, the busiest kernels, and the device's busy share of the step's
+def _profile(torch, fn):
+    """One call of ``fn`` under torch.profiler: device time by kernel
+    group, the busiest kernels, and the device's busy share of the call's
     wall time (None where the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -637,7 +702,7 @@ def _profile_step(torch, step, state, batch):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(state, batch)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = {}
@@ -705,7 +770,7 @@ def phase_train(torch):
     launches = {n: fn.launches for n, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     val_after = float(tr.metric(model, val))
-    profile = _profile_step(torch, tr.step, tr.state, batches[0])
+    profile = _profile(torch, lambda: tr.step(tr.state, batches[0]))
     check(all(map(math.isfinite, losses + gnorms)),
           f"non-finite train loss or grad norm: {losses} {gnorms}")
     check(math.isfinite(val_after) and val_after < val_before,
@@ -815,6 +880,232 @@ def phase_train_parity(torch):
           f"train parity: weight abs err {w_err}")
 
 
+def _scan_case(torch, timer, name, fn, plain, args, moved, ops):
+    """A scan kernel against its plain version (every output, f32, within
+    ``SCAN_TOL``), timed; ``library_ms`` is None: no PyTorch call computes
+    either recurrence."""
+    got = fn(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    flat = lambda out: [t for x in out for t in
+                        (x if isinstance(x, (tuple, list)) else (x,))]
+    errs = []
+    for g, w in zip(flat(got), flat(want)):
+        ok, err = _within(g, w, SCAN_TOL)
+        check(ok, f"{name} {[tuple(a.shape) for a in args]}: max |err| "
+              f"{err} over tolerance {SCAN_TOL}")
+        errs.append(err)
+    b_ms, b_by = bound(moved, ops, "float32")
+    return {"kernel": name, "dtype": "float32", "max_abs_err": max(errs),
+            "tol": SCAN_TOL, "kernel_ms": timer.ms(lambda: fn(*args)),
+            "plain_ms": timer.ms(lambda: plain(*args)), "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": moved, "ops": ops}
+
+
+def phase_recurrent_kernels(torch, timer):
+    """The selective scan and the sLSTM against their plain versions at
+    the recurrent serve phases' shapes, and paged attention and RMSNorm at
+    the new widths those phases give them."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import slstm as sl
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    results = {"mamba_scan": [], "slstm_scan": [], "paged_attention": [],
+               "rmsnorm": []}
+    for B, S, d, N in ((1, 500, 16384, 16), (1, 37, 16384, 16),
+                       (2, 500, 16384, 16)):
+        rand = lambda *shape: torch.randn(shape, generator=gen,
+                                          device="cuda")
+        # dt around the model's softplus(dt_bias = -4.6) ~ 0.01
+        dt = F.softplus(rand(B, S, d) - 4.6)
+        a = -torch.arange(1, N + 1, dtype=torch.float32,
+                          device="cuda").repeat(d, 1)
+        args = (dt, rand(B, S, d), rand(B, S, N), rand(B, S, N), a)
+        moved = 4 * (3 * B * S * d + 2 * B * S * N + d * N + B * d * N)
+        # per (step, channel, state): exp, two products, two fmas
+        case = _scan_case(torch, timer, "mamba_scan", ms.mamba_scan,
+                          ref.mamba_scan_ref, args, moved, 5 * B * S * d * N)
+        case.update(B=B, S=S, d_in=d, N=N)
+        emit(case)
+        results["mamba_scan"].append(case)
+    for B, S, d, H in ((1, 500, 768, 4), (3, 33, 96, 2)):
+        dh = d // H
+        gx = torch.randn((B, S, 4 * d), generator=gen, device="cuda")
+        r = torch.randn((H, dh, 4 * dh), generator=gen,
+                        device="cuda") / math.sqrt(dh)
+        moved = 4 * (5 * B * S * d + H * dh * 4 * dh + 4 * B * d)
+        # per step: the (dh x 4dh) product of every head, ~16 flops of
+        # gate math per channel
+        ops = B * S * (8 * d * dh + 16 * d)
+        case = _scan_case(torch, timer, "slstm_scan", sl.slstm_scan,
+                          ref.slstm_ref, (gx, r), moved, ops)
+        case.update(B=B, S=S, d=d, H=H)
+        emit(case)
+        results["slstm_scan"].append(case)
+    # jamba's decode step: 64 query heads over 8 KV heads (g = 8), one
+    # attention layer, prompts up to 500 + 32 new tokens
+    lengths = torch.randint(100, 533, (8,), generator=gen,
+                            device="cuda").tolist()
+    for dtype in ("bfloat16", "float32"):
+        results["paged_attention"].append(_paged_check(
+            torch, timer, gen, 8, 64, 8, 128, 16, 1, dtype, lengths))
+    # xlstm-125m (d = 768, a masked 1024 block) and jamba (d = 8192, one
+    # 8192-wide row per program): decode rows and a 500-token prefill
+    for d in (768, 8192):
+        for shape, dtype in (((8, d), "bfloat16"), ((8, d), "float32"),
+                             ((500, d), "bfloat16")):
+            results["rmsnorm"].append(_rms_check(torch, timer, gen, shape,
+                                                 dtype))
+    return results
+
+
+def _serve_phase(torch, phase, cfg, n_req, prompt_lens, max_new, expect):
+    """Serve a trace through the scheduler on the card and hold the kernel
+    counters to ``expect``: {kernel: (step counter, launches per count)},
+    the counters set to 0 just before the run and read just after."""
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import slstm as sl
+    from repro_torch.launch.serve import build_requests
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serve.scheduler import Scheduler
+
+    counters = {"mamba_scan": ms.mamba_scan, "slstm_scan": sl.slstm_scan,
+                "paged_attention": pa.paged_attention, "rmsnorm": rn.rmsnorm}
+    t0 = time.perf_counter()
+    model = init_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    sched = Scheduler(cfg, model, num_slots=8, block_size=16,
+                      max_len=max(prompt_lens) + max_new, device="cuda")
+    rows = [0]
+    _check_finite(torch, sched.session, rows)
+    reqs = build_requests(cfg, n_req, prompt_lens, max_new, seed=0)
+    for r in reqs:
+        sched.submit(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    results = sched.run()
+    launches = {n: fn.launches for n, fn in counters.items()}
+    st = sched.stats.as_dict()
+    profiled = _profile_serve(torch, sched, reqs[prompt_lens.index(
+        max(prompt_lens))].prompt)
+    check(st["completed"] == n_req and len(results) == n_req,
+          f"{phase}: {st['completed']} of {n_req} requests completed")
+    check(all(len(results[r.rid]) == max_new for r in reqs),
+          f"{phase}: a request ended short of max_new")
+    check(st["prefill_chunks"] == 0 and st["prefills"] == n_req
+          and st["padded_prefill_tokens"] == st["prefill_tokens"]
+          == sum(r.prompt_len for r in reqs),
+          f"{phase}: expected one exact-length prefill per request, got "
+          f"{st['prefills']} prefills, {st['prefill_chunks']} chunks")
+    counts = {"prefills": st["prefills"],
+              "decode_steps": st["decode_steps"],
+              "model_calls": st["prefills"] + st["decode_steps"]}
+    for name, (per, k) in expect.items():
+        check(launches[name] == k * counts[per] > 0,
+              f"{phase}: {name} launches {launches[name]} != {k} x "
+              f"{counts[per]} {per}")
+    emit({"phase": phase, "arch": cfg.name, "dtype": cfg.dtype,
+          "params": n_params, "init_s": init_s, "requests": n_req,
+          "slots": 8, "block_size": 16, "prompt_lens": prompt_lens,
+          "max_new": max_new, "completed": st["completed"],
+          "tokens_per_s": st["tokens_per_s"], "wall_s": st["wall_s"],
+          "ttft_p50_s": st["ttft_p50_s"], "ttft_p99_s": st["ttft_p99_s"],
+          "tpot_mean_s": st["tpot_mean_s"], **counts,
+          "logit_rows_checked": rows[0], "launches": launches,
+          "expected_per": {n: list(v) for n, v in expect.items()},
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "sample": results[0][:8].tolist(), "profiled": profiled})
+    return {n: launches[n] for n in expect}
+
+
+def _profile_serve(torch, sched, prompt):
+    """After a serve run (every slot free): one more exact-length prefill
+    of ``prompt`` and one decode step over all slots, each under
+    torch.profiler."""
+    import numpy as np
+
+    pool, session = sched.pool, sched.session
+    P = len(prompt)
+    pool.admit("profiled", P + 1)
+    index = np.full((pool.num_slots,), -1, np.int32)
+    index[pool.slot_of("profiled")] = P
+    tokens = np.zeros((pool.num_slots, 1), np.int32)
+    out = {"prompt_len": P,
+           "prefill": _profile(torch, lambda: session.prefill("profiled",
+                                                             prompt)),
+           "decode_step": _profile(torch, lambda: session.step(
+               tokens, index, width=pool.table_width_for(P + 1)))}
+    pool.release("profiled")
+    return out
+
+
+def phase_serve_recurrent(torch):
+    """serve_xlstm and serve_hybrid: the two recurrent families at full
+    width in bf16 through the scheduler."""
+    from repro_torch.configs.jamba_15_large import NOEXP_8L
+    from repro_torch.configs.registry import get_config
+
+    out = {"serve_xlstm": _serve_phase(
+        torch, "serve_xlstm", get_config("xlstm-125m"), 16, [100, 300, 500],
+        64, {"slstm_scan": ("prefills", 3),
+             "rmsnorm": ("model_calls", 13)})}
+    torch.cuda.empty_cache()
+    out["serve_hybrid"] = _serve_phase(
+        torch, "serve_hybrid", NOEXP_8L, 8, [100, 300, 500], 32,
+        {"mamba_scan": ("prefills", 7), "paged_attention": ("decode_steps", 1),
+         "rmsnorm": ("model_calls", 17)})
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_recompute_recurrent(torch):
+    """Both recurrent configs in f32 (TF32 off): two served requests each
+    re-run through ``lm_forward`` must pick every served token."""
+    from repro_torch.configs.base import replace
+    from repro_torch.configs.jamba_15_large import NOEXP_8L
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import build_requests
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serve.scheduler import Scheduler
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    prompt_lens, max_new = [100, 300], 16
+    report = {}
+    for base in (get_config("xlstm-125m"), NOEXP_8L):
+        cfg = replace(base, dtype="float32")
+        model = init_lm(cfg, seed=1, device="cuda")
+        sched = Scheduler(cfg, model, num_slots=2, block_size=16,
+                          max_len=max(prompt_lens) + max_new, device="cuda")
+        reqs = build_requests(cfg, 2, prompt_lens, max_new, seed=1)
+        for r in reqs:
+            sched.submit(r)
+        sched.run()
+        checked, ties, mismatches = _recompute_check(torch, model, sched,
+                                                     reqs, max_new)
+        report[cfg.name] = {"positions": checked, "ties": ties,
+                            "tie_count": len(ties),
+                            "mismatches": mismatches}
+        del model, sched
+        torch.cuda.empty_cache()
+    emit({"phase": "recompute_recurrent", "dtype": "float32",
+          "allow_tf32": False, "prompt_lens": prompt_lens,
+          "max_new": max_new, **report})
+    for name, r in report.items():
+        check(not r["mismatches"], f"{name}: served tokens differ from the "
+              f"f32 recompute at {len(r['mismatches'])} positions")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repo (src/repro_torch "
@@ -831,9 +1122,10 @@ def main() -> int:
     phase_build(torch)
     timer = Timer(torch)
     cases = phase_kernels(torch, timer)
-    train_cases = phase_train_kernels(torch, timer)
-    for name, rows in train_cases.items():
-        cases.setdefault(name, []).extend(rows)
+    for more in (phase_train_kernels(torch, timer),
+                 phase_recurrent_kernels(torch, timer)):
+        for name, rows in more.items():
+            cases.setdefault(name, []).extend(rows)
     del timer
     torch.cuda.empty_cache()
     serve_launches = phase_serve(torch)
@@ -843,11 +1135,16 @@ def main() -> int:
     train_launches, _ = phase_train(torch)
     torch.cuda.empty_cache()
     phase_train_parity(torch)
+    torch.cuda.empty_cache()
+    recurrent_launches = phase_serve_recurrent(torch)
+    phase_recompute_recurrent(torch)
 
     # the kernels line reports each kernel at the shape its path gives it
     # most: paged attention and the RMSNorm forward at the serve decode
     # shape (bf16, one query token, head_dim 128 / d = 1024), the training
-    # kernels at the train cell's (bf16, B = 1, S = 4096; 16384 x 1024)
+    # kernels at the train cell's (bf16, B = 1, S = 4096; 16384 x 1024),
+    # the scans at the recurrent serve phases' longest prompt (f32, B = 1,
+    # S = 500)
     headline = {
         "paged_attention": lambda c: (c["dtype"], c["D"], c["K"])
         == ("bfloat16", 128, 1),
@@ -857,8 +1154,11 @@ def main() -> int:
         "flash_attention_fwd": lambda c: (c["dtype"], c["S"], c["Hkv"])
         == ("bfloat16", TRAIN_S, 8),
         "flash_attention_bwd": lambda c: (c["dtype"], c["S"], c["Hkv"])
-        == ("bfloat16", TRAIN_S, 8)}
-    by_path = {"serve": serve_launches, "train": train_launches}
+        == ("bfloat16", TRAIN_S, 8),
+        "mamba_scan": lambda c: (c["B"], c["S"]) == (1, 500),
+        "slstm_scan": lambda c: (c["B"], c["S"]) == (1, 500)}
+    by_path = {"serve": serve_launches, "train": train_launches,
+               **recurrent_launches}
     kernels = []
     for name, rows in cases.items():
         main_case = next(c for c in rows if headline[name](c))

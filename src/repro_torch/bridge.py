@@ -1,32 +1,50 @@
-"""Carry weights (and optimizer state) of the JAX package's dense LM into
-the port.
+"""Carry weights (and optimizer state) of the JAX package's LMs into the
+port.
 
 Input is the JAX params pytree already converted to numpy (the caller
 runs ``jax.tree.map(np.asarray, params)``; this module imports no JAX):
 
 * ``embed`` (V, d);
-* ``body``: a 1-tuple holding the per-layer-stacked leaves, each with a
-  leading layer axis — ``ln1.scale``, ``mixer.{wq, wk, wv, wo}`` (plus
-  ``bq, bk, bv`` with qkv bias and ``q_norm, k_norm`` with qk-norm),
-  ``ln2.scale``, ``ffn.{wi, wg, wo}``;
+* ``body``: a tuple of R stacks, one per position j of the layer period
+  (``repro.models.lm._grouping``); each leaf of ``body[j]`` has a leading
+  axis over the P periods, and entry p is layer ``j + p*R`` (JAX's
+  ``prefix`` stack of dense layers before the body comes only with MoE,
+  which the port does not build);
 * ``final_norm.scale``; ``lm_head`` (d, V) only when embeddings are not
   tied.
 
+A layer's leaves: ``ln1.scale`` (and ``ln2.scale`` with an FFN), the
+mixer's — attention ``wq, wk, wv, wo`` (plus ``bq, bk, bv`` with qkv bias
+and ``q_norm, k_norm`` with qk-norm); Mamba ``in_proj, conv_w, conv_b,
+x_proj, dt_proj, dt_bias, A_log, D, out_proj``; mLSTM ``up, wq, wk, wv,
+w_if, b_if, down``; sLSTM ``w_x, r_h, bias, up_g, up_v, down`` — and the
+SwiGLU ``ffn.{wi, wg, wo}``.
+
 JAX keeps dense weights ``(d_in, d_out)`` for ``x @ W``; the port's
-``nn.Linear`` keeps ``(d_out, d_in)``, so they are transposed here.
+``nn.Linear`` keeps ``(d_out, d_in)``, so those are transposed here.  The
+other weights (conv, ``A_log``, ``r_h``, biases, scales) keep JAX's layout.
 
 :func:`opt_state_from_jax` carries an optimizer state of
-``repro.optim.optimizers`` the same way, name by name.
+``repro.optim.optimizers`` the same way.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.lm import LM
+from repro_torch.models.lm import LM, grouping
+
+# JAX leaves that are dense (d_in, d_out) weights: nn.Linear in the port
+_DENSE = {"wq", "wk", "wv", "wo", "in_proj", "x_proj", "dt_proj",
+          "out_proj", "up", "w_if", "down", "w_x", "up_g", "up_v", "wi",
+          "wg"}
+# JAX leaf paths whose port name is not ``<path>`` / ``<path>.weight``
+_RENAME = {"embed": "embed.weight", "mixer.bq": "mixer.wq.bias", "mixer.bk": "mixer.wk.bias",
+           "mixer.bv": "mixer.wv.bias", "mixer.q_norm": "mixer.q_norm.scale",
+           "mixer.k_norm": "mixer.k_norm.scale"}
 
 
 def _tensor(a) -> torch.Tensor:
@@ -36,31 +54,48 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _flat(tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
+    """(dotted path, leaf) of a nested dict, in insertion order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}.")
+        else:
+            yield prefix + k, v
+
+
+def _port_name(path: str) -> Tuple[str, bool]:
+    """The port's name for a JAX leaf path within a layer (or at the top)
+    and whether the weight is transposed on the way."""
+    if path in _RENAME:
+        return _RENAME[path], False
+    if path.split(".")[-1] in _DENSE or path == "lm_head":
+        return path + ".weight", True
+    return path, False
+
+
+def _leaves(tree, R: int) -> Iterator[Tuple[Optional[int], str, bool,
+                                            object]]:
+    """(period position j or None outside the blocks, port name, whether
+    transposed, JAX leaf) of every leaf of a params-shaped tree; a block
+    leaf is the whole ``body[j]`` stack."""
+    top = {k: v for k, v in tree.items() if k != "body"}
+    for path, leaf in _flat(top):
+        yield (None, *_port_name(path), leaf)
+    for j in range(R):
+        for path, leaf in _flat(tree["body"][j]):
+            yield (j, *_port_name(path), leaf)
+
+
 def params_from_jax(tree, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """State dict for :class:`repro_torch.models.lm.LM` from the JAX tree."""
-    if len(tree["body"]) != 1:
-        raise ValueError("the bridge carries dense stacks (one period); "
-                         f"got {len(tree['body'])} periods")
-    body = tree["body"][0]
-    mix, ffn = body["mixer"], body["ffn"]
-    sd = {"embed.weight": tree["embed"],
-          "final_norm.scale": tree["final_norm"]["scale"]}
-    for i in range(cfg.num_layers):
-        p = f"blocks.{i}."
-        sd[p + "ln1.scale"] = body["ln1"]["scale"][i]
-        sd[p + "ln2.scale"] = body["ln2"]["scale"][i]
-        for n in ("wq", "wk", "wv", "wo"):
-            sd[p + f"mixer.{n}.weight"] = np.asarray(mix[n][i]).T
-        if cfg.qkv_bias:
-            for n in ("q", "k", "v"):
-                sd[p + f"mixer.w{n}.bias"] = mix["b" + n][i]
-        if cfg.qk_norm:
-            sd[p + "mixer.q_norm.scale"] = mix["q_norm"][i]
-            sd[p + "mixer.k_norm.scale"] = mix["k_norm"][i]
-        for n in ("wi", "wg", "wo"):
-            sd[p + f"ffn.{n}.weight"] = np.asarray(ffn[n][i]).T
-    if not cfg.tie_embeddings:
-        sd["lm_head.weight"] = np.asarray(tree["lm_head"]).T
+    _, R, P = grouping(cfg)
+    sd = {}
+    for j, name, transpose, leaf in _leaves(tree, R):
+        entries = [(name, leaf)] if j is None else \
+            [(f"blocks.{j + p * R}.{name}", leaf[p]) for p in range(P)]
+        for key, a in entries:
+            a = np.asarray(a)
+            sd[key] = a.T if transpose else a
     return {k: _tensor(v) for k, v in sd.items()}
 
 
@@ -76,29 +111,26 @@ def opt_state_from_jax(opt_state, cfg: ModelConfig) -> Dict[str, object]:
     from a JAX one already converted to numpy.
 
     Adam's ``m``/``v`` and SGD's ``mom`` are params-shaped and cross like
-    the weights.  Adafactor's ``vr``/``vc`` cross for the leaves whose
-    factoring both packages share: for a transposed dense weight JAX's row
-    factor is the port's column factor and the other way round; the
-    embedding and the final norm cross as they are.  The stacked norm
-    scales and biases are left out: JAX factors each ``(L, d)`` stack as a
-    matrix, the port keeps one ``(d,)`` vector per layer.  ``step`` becomes a 0-dim
-    int32 tensor.
+    the weights.  Adafactor's ``vr``/``vc`` are keyed by leaf, as the
+    port's are by group (:func:`repro_torch.models.lm.param_groups`): a
+    stacked leaf of ``body[j]`` crosses whole under
+    ``"blocks[j::R].<name>"``.  For a transposed dense weight JAX's
+    row factor is the port's column factor and the other way round.
+    ``step`` becomes a 0-dim int32 tensor.
     """
     out: Dict[str, object] = {"step": torch.tensor(int(opt_state["step"]),
                                                    dtype=torch.int32)}
     for key in ("m", "v", "mom"):
         if key in opt_state:
             out[key] = params_from_jax(opt_state[key], cfg)
-    if "vr" in opt_state:
-        vr = params_from_jax(opt_state["vr"], cfg)
-        vc = params_from_jax(opt_state["vc"], cfg)
-        out["vr"], out["vc"] = {}, {}
-        for name in vr:
-            if name.startswith("blocks.") and name.endswith(("scale",
-                                                             "bias")):
-                continue                 # a stacked vector: not shared
-            if name.endswith(".weight") and name != "embed.weight":
-                out["vr"][name], out["vc"][name] = vc[name], vr[name]
-            else:
-                out["vr"][name], out["vc"][name] = vr[name], vc[name]
+    if "vr" not in opt_state:
+        return out
+    _, R, _ = grouping(cfg)
+    out["vr"], out["vc"] = {}, {}
+    for (j, name, transpose, vr), (_, _, _, vc) in zip(
+            _leaves(opt_state["vr"], R), _leaves(opt_state["vc"], R)):
+        key = name if j is None else f"blocks[{j}::{R}].{name}"
+        if transpose:
+            vr, vc = vc, vr
+        out["vr"][key], out["vc"][key] = _tensor(vr), _tensor(vc)
     return out

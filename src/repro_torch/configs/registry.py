@@ -2,21 +2,25 @@
 
 Only the architectures the port serves so far are registered; every other
 arch of ``repro.configs.registry`` raises ``NotImplementedError``.
+``jamba-1.5-large-398b`` resolves to its published config, whose MoE
+layers raise when a model is built (ROADMAP queue A8); the port serves
+``jamba_15_large.NOEXP_8L``, one period without experts.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import qwen3_06b
+from repro_torch.configs import jamba_15_large, qwen3_06b, xlstm_125m
 from repro_torch.configs.base import ModelConfig
 
-ARCHS: Dict[str, object] = {qwen3_06b.ARCH_ID: qwen3_06b}
+ARCHS: Dict[str, object] = {m.ARCH_ID: m for m in (qwen3_06b, xlstm_125m,
+                                                   jamba_15_large)}
 
 # archs of the JAX package the port does not serve yet (ROADMAP queue A)
 UNPORTED = (
     "phi3.5-moe-42b-a6.6b", "deepseek-moe-16b", "codeqwen1.5-7b",
-    "qwen2.5-3b", "granite-8b", "xlstm-125m", "qwen2-vl-7b",
-    "jamba-1.5-large-398b", "musicgen-medium", "icf-cyclegan",
+    "qwen2.5-3b", "granite-8b", "qwen2-vl-7b", "musicgen-medium",
+    "icf-cyclegan",
 )
 
 

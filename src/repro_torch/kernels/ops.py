@@ -15,9 +15,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mamba_scan as ms
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import slstm as sl
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -92,3 +94,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     D) -> (B, S, H, D), differentiable in q, k and v: CPU -> the plain
     chunked versions, CUDA -> the CUDA forward and backward kernels."""
     return _FlashAttention.apply(q, k, v, causal, k_chunk)
+
+
+def mamba_scan(dt: torch.Tensor, xc: torch.Tensor, bm: torch.Tensor,
+               cm: torch.Tensor, a: torch.Tensor):
+    """Selective scan -> (y, final state) (see ``ref.mamba_scan_ref``):
+    CPU -> plain version, CUDA -> the CUDA kernel.  Forward only: neither
+    it nor the TPU kernel has a backward."""
+    if dt.device.type == "cpu":
+        return ref.mamba_scan_ref(dt, xc, bm, cm, a)
+    return ms.mamba_scan(dt, xc, bm, cm, a)
+
+
+def slstm_scan(gx: torch.Tensor, r_h: torch.Tensor):
+    """sLSTM recurrence -> (h, (h, c, n, m) final) (see ``ref.slstm_ref``):
+    CPU -> plain version, CUDA -> the CUDA kernel.  Forward only: neither
+    it nor the TPU kernel has a backward."""
+    if gx.device.type == "cpu":
+        return ref.slstm_ref(gx, r_h)
+    return sl.slstm_scan(gx, r_h)

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the port's kernels (the allclose references).
 
-The paged-attention and RMSNorm forwards mirror the jnp oracles of the same
-name in ``repro.kernels.ref``; the flash-attention forward and backward
+The paged-attention and RMSNorm forwards and the two scans mirror the jnp
+oracles of the same name in ``repro.kernels.ref`` (the scans also return
+the final state, which serving keeps); the flash-attention forward and backward
 mirror the JAX model's ``_flash_fwd_scan`` and ``_flash_vjp_bwd``
 (``repro.models.layers``), and the RMSNorm backward the gradient JAX takes
 of ``layers.rmsnorm``.  On the CPU the model runs through these; on the
@@ -181,3 +182,69 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     dk = torch.cat(dks, dim=1).to(k.dtype)
     dv = torch.cat(dvs, dim=1).to(v.dtype)
     return dq.reshape(B, S, H, D).to(q.dtype), dk, dv
+
+
+def mamba_scan_ref(dt: torch.Tensor, xc: torch.Tensor, bm: torch.Tensor,
+                   cm: torch.Tensor, a: torch.Tensor):
+    """Sequential selective scan, in f32.
+
+    dt/xc: (B, S, d) step sizes (post-softplus) and activations; bm/cm:
+    (B, S, N); a: (d, N), negative.  From ``h = 0``, per step
+    ``h = exp(dt_t a) h + (dt_t xc_t) bm_t`` and ``y_t = h . cm_t``.
+    Returns ``y`` (B, S, d) and the state after the last step ``h``
+    (B, d, N).
+    """
+    B, S, d = dt.shape
+    h = torch.zeros((B, d, a.shape[1]), dtype=torch.float32,
+                    device=dt.device)
+    ys = []
+    for t in range(S):
+        da = torch.exp(dt[:, t, :, None] * a)
+        dbx = (dt[:, t] * xc[:, t])[..., None] * bm[:, t, None, :]
+        h = da * h + dbx
+        ys.append(torch.einsum("bdn,bn->bd", h, cm[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
+def slstm_step(gates: torch.Tensor, state):
+    """One sLSTM update from the full gate pre-activations ``gates`` (B, 4d)
+    ``[i|f|z|o]`` and ``state = (h, c, n, m)``, (B, d) each: stabilised
+    exponential gating, ``n`` clamped at 1e-6.  Returns the new state."""
+    _, c0, n0, m0 = state
+    it, ft, zt, ot = gates.chunk(4, dim=-1)
+    lf = torch.nn.functional.logsigmoid(ft)
+    m1 = torch.maximum(lf + m0, it)
+    ip = torch.exp(it - m1)
+    fp = torch.exp(lf + m0 - m1)
+    c1 = fp * c0 + ip * torch.tanh(zt)
+    n1 = torch.clamp(fp * n0 + ip, min=1e-6)
+    h1 = torch.sigmoid(ot) * c1 / n1
+    return h1, c1, n1, m1
+
+
+def slstm_recurrent(h: torch.Tensor, r_h: torch.Tensor) -> torch.Tensor:
+    """The block-diagonal recurrent term: h (B, d) through r_h (H, dh,
+    4dh), regrouped from per-head ``[i|f|z|o]`` to the (B, 4d) gate
+    layout."""
+    B, d = h.shape
+    H, dh = r_h.shape[:2]
+    rec = torch.einsum("bhd,hde->bhe", h.reshape(B, H, dh), r_h)
+    return rec.reshape(B, H, 4, dh).transpose(1, 2).reshape(B, 4 * d)
+
+
+def slstm_ref(gx: torch.Tensor, r_h: torch.Tensor):
+    """Sequential sLSTM over S, in f32.
+
+    gx: (B, S, 4d) input gate pre-activations ``[i|f|z|o]``; r_h: (H, dh,
+    4dh) block-diagonal recurrent weights.  From ``h = c = n = 0`` and
+    ``m = -1e9``.  Returns ``h`` (B, S, d) and the final state ``(h, c, n,
+    m)``, (B, d) each.
+    """
+    B, S, d4 = gx.shape
+    z = torch.zeros((B, d4 // 4), dtype=torch.float32, device=gx.device)
+    state = (z, z, z, torch.full_like(z, -1e9))
+    hs = []
+    for t in range(S):
+        state = slstm_step(gx[:, t] + slstm_recurrent(state[0], r_h), state)
+        hs.append(state[0])
+    return torch.stack(hs, dim=1), state

@@ -10,10 +10,11 @@ the same step and validation batches as the JAX launcher (step ``i`` uses
   python -m repro_torch.launch.train --arch qwen3-0.6b --batch 4 --seq 4096
   python -m repro_torch.launch.train --arch qwen3-0.6b --smoke --device cpu
 
-Not ported yet (ROADMAP.md queue A3): ``--arch icf-cyclegan`` (the
+Not ported yet: training the recurrent archs (``xlstm-125m``,
+``jamba-1.5-large-398b``; ROADMAP.md queue A7), ``--arch icf-cyclegan`` (the
 paper's CycleGAN) and the checkpoint flags (``--ckpt-dir``,
 ``--ckpt-every``, ``--no-resume``; ``checkpoint/ckpt.py`` writes a JAX
-tree-path format and is ported with the LTFB slice).
+tree-path format and is ported with the LTFB slice; queue A3).
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, OptimizerConfig
 from repro_torch.configs.registry import ARCHS, UNPORTED, get_config
 from repro_torch.data.tokens import train_batch
+from repro_torch.models.lm import has_recurrent
 from repro_torch.train.steps import (init_lm_state, make_lm_eval_metric,
                                      make_lm_train_step)
 
@@ -55,6 +57,11 @@ def build_trainer(args) -> Trainer:
             "repro_torch yet; see ROADMAP.md queue A3")
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    if has_recurrent(cfg):
+        raise NotImplementedError(
+            f"--arch {args.arch}: training the recurrent families is not "
+            "ported to repro_torch yet (the scan kernels have no backward); "
+            "see ROADMAP.md queue A7")
     opt_cfg = OptimizerConfig(name=args.optimizer, lr=args.lr,
                               warmup_steps=min(100, args.steps // 10 + 1))
     state = init_lm_state(cfg, opt_cfg, seed=args.seed, device=device)

@@ -1,10 +1,11 @@
-"""Transformer building blocks of the port (dense family).
+"""Transformer building blocks of the port.
 
 The counterparts of ``repro.models.layers``: RMSNorm (every call goes
 through :func:`repro_torch.kernels.ops.rmsnorm`), RoPE, the GQA attention
 projections with qk-norm, paged decode/verify attention (through
 :func:`repro_torch.kernels.ops.paged_attention`), chunked-prefill
-attention over the gathered pages (plain PyTorch, as in JAX), causal
+attention over the gathered pages (plain PyTorch, as in JAX), the
+exact-length one-shot prefill of a whole prompt into its pages, causal
 attention for the full forward (dense below S = 4096, flash attention
 through :func:`repro_torch.kernels.ops.flash_attention` from there, as
 ``repro.models.layers.causal_attention`` dispatches), and the SwiGLU MLP.
@@ -284,6 +285,27 @@ def attention_decode_paged(attn: Attention, x: torch.Tensor, cache: Cache,
     _write_pages(cache, k_new, v_new, w)
     out = ops.paged_attention(q, cache["k"], cache["v"], w.tables, w.lengths)
     return attn.wo(out.reshape(B, K, attn.cfg.q_dim))
+
+
+def attention_prefill_paged(attn: Attention, x: torch.Tensor, cache: Cache,
+                            cos: torch.Tensor, sin: torch.Tensor,
+                            w: PagedWrite) -> torch.Tensor:
+    """A whole prompt of one request at ``hist_len = 0``, exact length.
+
+    x: (1, P, d).  The prompt's K/V are scattered into the request's pages
+    (``w`` from :func:`chunk_write` with ``C = prompt_len = P``), and the
+    prompt attends causally over itself through the config's
+    ``attn_impl`` dispatch, as ``repro.models.layers.attention_prefill``
+    does before the JAX package scatters its cache into the pool.  Returns
+    the attention output (1, P, d).
+    """
+    _, P, _ = x.shape
+    cfg = attn.cfg
+    q, k, v = attn.project_qkv(x, cos, sin)
+    _write_pages(cache, k, v, w)
+    out = causal_attention(q, k, v, impl=cfg.attn_impl,
+                           k_chunk=cfg.attn_chunk)
+    return attn.wo(out.reshape(1, P, cfg.q_dim))
 
 
 def attention_chunk_paged(attn: Attention, x: torch.Tensor, cache: Cache,

@@ -15,22 +15,27 @@ moments are ``{name: tensor}`` dicts (the model's ``named_parameters``);
 ``update`` returns new dicts and changes nothing in place.
 
 One difference from the JAX package is structural, not in the formulas:
-JAX stacks each weight of all layers into one leaf, the port keeps one
-tensor per layer.  Adam and SGD work element by element and do not see
-it; Adafactor's update clip (the RMS of the leaf's update) and its
-factoring of a stacked norm scale (an (L, d) matrix in JAX, a (d,)
-vector here) do.
+JAX stacks each weight of the layers of a period into one leaf, the port
+keeps one tensor per layer.  Adam and SGD work element by element and do
+not see it.  Adafactor does: its update clip is the RMS of a whole leaf's
+update, and it factors a stacked norm scale as an (L, d) matrix.  So
+Adafactor takes a ``grouping`` (:func:`repro_torch.models.lm.param_groups`
+for a model), stacks each group's tensors as JAX stacks the leaf, and
+clips and factors over the stack; its ``vr``/``vc`` are keyed by group.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import (Callable, Dict, Iterable, List, NamedTuple, Optional,
+                    Tuple)
 
 import torch
 
 from repro_torch.configs.base import OptimizerConfig
 
 Tensors = Dict[str, torch.Tensor]
+# parameter names -> {group key: member names in stack order}
+Grouping = Callable[[Iterable[str]], Dict[str, List[str]]]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -116,20 +121,44 @@ def make_adam(cfg: OptimizerConfig) -> Optimizer:
     return Optimizer(init, update)
 
 
-def make_adafactor(cfg: OptimizerConfig) -> Optimizer:
-    """Adafactor: factored second moments for tensors of rank >= 2, the
-    ``1 - t**-0.8`` decay, update clipping at RMS 1."""
+def _stacked(tensors: Tensors, key: str, members: List[str]
+             ) -> torch.Tensor:
+    """A group's tensors as one leaf: stacked along a new leading axis, as
+    JAX stacks a period's layers; a lone tensor outside the stack (its
+    key is its own name) as it is."""
+    if members == [key]:
+        return tensors[key]
+    return torch.stack([tensors[n] for n in members])
+
+
+def make_adafactor(cfg: OptimizerConfig,
+                   grouping: Optional[Grouping] = None) -> Optimizer:
+    """Adafactor: factored second moments for leaves of rank >= 2, the
+    ``1 - t**-0.8`` decay, update clipping at RMS 1.
+
+    A leaf is a group of ``grouping(names)`` (each tensor its own leaf
+    without one): the group's tensors stacked, so the clip and the
+    factoring span the stack as in the JAX package.  ``vr``/``vc`` are
+    keyed by group.
+    """
+
+    def groups_of(params: Tensors) -> Dict[str, List[str]]:
+        return grouping(params) if grouping is not None \
+            else {n: [n] for n in params}
 
     def init(params: Tensors) -> dict:
         vr, vc = {}, {}
-        for n, p in params.items():
-            kw = dict(dtype=torch.float32, device=p.device)
-            if p.dim() >= 2:
-                vr[n] = torch.zeros(p.shape[:-1], **kw)
-                vc[n] = torch.zeros(p.shape[:-2] + p.shape[-1:], **kw)
+        for key, members in groups_of(params).items():
+            p0 = params[members[0]]
+            shape = p0.shape if members == [key] \
+                else (len(members),) + p0.shape
+            kw = dict(dtype=torch.float32, device=p0.device)
+            if len(shape) >= 2:
+                vr[key] = torch.zeros(shape[:-1], **kw)
+                vc[key] = torch.zeros(shape[:-2] + shape[-1:], **kw)
             else:
-                vr[n] = torch.zeros(p.shape, **kw)
-                vc[n] = torch.zeros((1,), **kw)      # unused pad slot
+                vr[key] = torch.zeros(shape, **kw)
+                vc[key] = torch.zeros((1,), **kw)    # unused pad slot
         return {"vr": vr, "vc": vc, "step": _step0(params)}
 
     def update(grads: Tensors, state: dict, params: Tensors,
@@ -140,9 +169,10 @@ def make_adafactor(cfg: OptimizerConfig) -> Optimizer:
         beta = 1.0 - t ** (-0.8)
         eps = 1e-30
         new_p, new_vr, new_vc = {}, {}, {}
-        for n, p in params.items():
-            g32 = grads[n].float()
-            vr, vc = state["vr"][n], state["vc"][n]
+        for key, members in groups_of(params).items():
+            p = _stacked(params, key, members)
+            g32 = _stacked(grads, key, members).float()
+            vr, vc = state["vr"][key], state["vc"][key]
             if p.dim() >= 2:
                 nvr = beta * vr + (1 - beta) * torch.mean(g32 * g32, dim=-1)
                 nvc = beta * vc + (1 - beta) * torch.mean(g32 * g32, dim=-2)
@@ -156,8 +186,12 @@ def make_adafactor(cfg: OptimizerConfig) -> Optimizer:
             u = g32 / torch.sqrt(v + 1e-12)
             rms = torch.sqrt(torch.mean(u ** 2) + 1e-12)
             u = u / torch.clamp(rms, min=1.0)
-            new_p[n] = (p.float() - lr_ * u).to(p.dtype)
-            new_vr[n], new_vc[n] = nvr, nvc
+            new = (p.float() - lr_ * u).to(p.dtype)
+            if members == [key]:
+                new_p[key] = new
+            else:
+                new_p.update(zip(members, new.unbind(0)))
+            new_vr[key], new_vc[key] = nvr, nvc
         return new_p, {"vr": new_vr, "vc": new_vc, "step": step}
 
     return Optimizer(init, update)
@@ -184,12 +218,14 @@ def make_sgd(cfg: OptimizerConfig, momentum: float = 0.9) -> Optimizer:
     return Optimizer(init, update)
 
 
-def make_optimizer(cfg: OptimizerConfig) -> Optimizer:
-    """The optimizer ``cfg.name`` names."""
+def make_optimizer(cfg: OptimizerConfig,
+                   grouping: Optional[Grouping] = None) -> Optimizer:
+    """The optimizer ``cfg.name`` names; ``grouping`` reaches Adafactor,
+    the only leaf-wise one."""
     if cfg.name in ("adam", "adamw"):
         return make_adam(cfg)
     if cfg.name == "adafactor":
-        return make_adafactor(cfg)
+        return make_adafactor(cfg, grouping)
     if cfg.name == "sgd":
         return make_sgd(cfg)
     raise ValueError(cfg.name)

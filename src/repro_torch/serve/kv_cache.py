@@ -5,10 +5,11 @@ lazy page materialization, refcounts, pinning) and :class:`PageShard`
 (the prefix cache: copy-on-admit sharing of fully filled prompt pages) —
 is a copy of ``repro.serve.kv_cache`` (no weight hot swap yet, so no
 prefix invalidation).  :class:`PagedLayout` is the single-shard layout:
-one ``(num_pages + 1, block_size, Hkv, D)`` pool per layer on the device
-(the last page is the null page) plus host-side numpy block tables,
+one ``(num_pages + 1, block_size, Hkv, D)`` pool per attention layer on the
+device (the last page is the null page), ``num_slots`` dense state rows per
+recurrent (Mamba / xLSTM) layer, and host-side numpy block tables,
 uploaded to the device for each step.  Decode and prefill write the pools
-in place.
+and rows in place.
 """
 from __future__ import annotations
 
@@ -364,9 +365,15 @@ class PagedLayout:
     and defaults to the whole pool.  With ``pin_prefix=True`` registered
     prompt pages stay resident after their holders release (reclaimed
     oldest-first under pressure).  ``cache`` is a list of per-layer
-    ``{"k", "v"}`` pools on ``device``; ``tables`` (num_slots,
+    entries on ``device`` (:func:`repro_torch.models.lm.init_cache`):
+    ``{"k", "v"}`` pools for attention layers and ``num_slots`` state rows
+    for recurrent ones, row ``slot`` belonging to the request in that
+    slot.  A pure-recurrent stack (xLSTM) holds no pools at all; its page
+    accounting still runs, as in JAX.  ``tables`` (num_slots,
     max_blocks_per_seq) int32 lives on the host, idle rows pointing at the
-    null page.
+    null page.  The one-shot prefill writes a request's pages and its slot
+    row in place (:func:`~repro_torch.models.lm.lm_prefill_exact`), where
+    the JAX layout scatters a dense prefill cache (``insert_prefill``).
     """
 
     def __init__(self, cfg: ModelConfig, num_slots: int, num_pages: int,
@@ -381,7 +388,8 @@ class PagedLayout:
         self.shard = PageShard(num_pages, block_size, pin_prefix=pin_prefix)
         self.null_page = num_pages
         self.cache = lm.init_cache(cfg, pages=(num_pages, block_size),
-                                   device=self.device)
+                                   num_slots=num_slots, device=self.device)
+        self.has_recurrent = lm.has_recurrent(cfg)
         self.num_slots = num_slots
         self._free_slots = list(range(num_slots))
         self._slot_of: Dict[Any, int] = {}

@@ -1,7 +1,8 @@
 """Continuous-batching LM serving scheduler of the port (paged KV cache).
 
 The counterpart of ``repro.serve.scheduler.Scheduler`` for the paged
-layout and the dense family.  Per scheduler step:
+layout and the dense, hybrid (jamba) and ssm (xLSTM) families.  Per
+scheduler step:
 
   1. *admission* — pop queued requests while a slot AND a full
      token-budget page reservation (prompt + max new tokens) are
@@ -12,7 +13,11 @@ layout and the dense family.  Per scheduler step:
      idle periods).  ``policy="static"`` admits only into an empty batch.
   2. *prefill* — one ``prefill_chunk``-token slice per step and
      prefilling request (``prefill_chunk=0``: the whole prompt, padded to
-     a pow2 bucket), interleaved with decode.
+     a pow2 bucket), interleaved with decode.  A stack with any recurrent
+     (Mamba / xLSTM) layer instead prefills each admitted prompt in one
+     shot at its exact length, and shares no prefixes: padding would feed
+     its state extra steps, a shared prefix would skip them, and the state
+     cannot resume mid-prompt.
   3. *decode* — one batched ``session.step`` over every slot; each row's
      next token is sampled on the host.  On the CPU (the plain-version
      gather pays each row's full table width) a round whose one long row
@@ -142,13 +147,20 @@ class Scheduler:
                                 pin_prefix=pin_prefix, device=self.device)
         self.max_seq = self.pool.max_seq
         self.session = DecodeSession(cfg, model, self.pool)
-        self.prefix_sharing = bool(prefix_sharing)
+        # right-padding and chunking prompts is only sound for
+        # attention-only stacks: recurrent layers prefill one-shot at the
+        # exact prompt length, with no prefix sharing (as in JAX)
+        self._can_pad = not self.pool.has_recurrent
+        self.prefix_sharing = bool(prefix_sharing) and self._can_pad
         # ragged gather-width grouping pays only for the plain version on
-        # the CPU; the CUDA kernel skips each row's unused pages itself
-        self._group_decode = self.device.type == "cpu"
+        # the CPU (the CUDA kernel skips each row's unused pages itself),
+        # and needs a cache with no per-slot rows
+        self._group_decode = self.device.type == "cpu" and self._can_pad
         self.queue: deque[Request] = deque()
         self.active: Dict[Any, _Active] = {}
         self.prefilling: Dict[Any, _Active] = {}
+        # one-shot prefills admitted this step, run after admission
+        self._pending_onepass: List[_Active] = []
         self._by_slot: Dict[int, _Active] = {}
         self._next_token = np.zeros((num_slots,), np.int32)
         # -1 marks a row that holds no request (KV writes go to the null
@@ -214,7 +226,8 @@ class Scheduler:
         return self.pool.can_admit(total, shared_pages=shared)
 
     def _admit(self, req: Request) -> None:
-        """Claim slot + pages; the prefill runs in :meth:`_prefill_step`."""
+        """Claim slot + pages; the prefill runs in :meth:`_prefill_phase`
+        (chunked) or one-shot right after admission."""
         total = req.prompt_len + req.max_new
         head = self._head_share
         shared = head[1] if head is not None and head[0] == req.rid \
@@ -223,9 +236,31 @@ class Scheduler:
         slot, shared_len = self.pool.admit(
             req.rid, total, shared=shared,
             prompt=req.prompt if self.prefix_sharing else None)
-        self.prefilling[req.rid] = _Active(
-            req=req, slot=slot, pf_pos=shared_len,
-            submit_t=getattr(req, "_submit_t", time.perf_counter()))
+        act = _Active(req=req, slot=slot, pf_pos=shared_len,
+                      submit_t=getattr(req, "_submit_t", time.perf_counter()))
+        if self._can_pad:
+            self.prefilling[req.rid] = act
+        else:
+            self._pending_onepass.append(act)
+
+    def _prefill_onepass(self, act: _Active) -> None:
+        """Exact-length one-shot prefill into the request's pages and slot
+        row (stacks with recurrent layers)."""
+        P = act.req.prompt_len
+        last = self.session.prefill(act.req.rid, act.req.prompt)
+        self.stats.prefills += 1
+        self.stats.prefill_tokens += P
+        self.stats.padded_prefill_tokens += P
+        self._start_decoding(act, last)
+
+    def _prefill_phase(self) -> None:
+        """The prefills admission deferred: every one-shot prefill, then
+        one round of chunked-prefill slices."""
+        for act in self._pending_onepass:
+            self._prefill_onepass(act)
+        self._pending_onepass.clear()
+        if self.prefilling:
+            self._prefill_step()
 
     def _prefill_step(self) -> None:
         """Advance chunked prefills: one chunk per prefilling request,
@@ -324,12 +359,12 @@ class Scheduler:
             admitted += 1
 
     def step(self) -> None:
-        """One scheduler iteration: admission, one round of chunked
-        prefill, one batched decode round, completion."""
+        """One scheduler iteration: admission, the one-shot prefills and
+        one round of chunked prefill, one batched decode round,
+        completion."""
         self.stats.start()
         self._admission_phase()
-        if self.prefilling:
-            self._prefill_step()
+        self._prefill_phase()
         if self.active:
             self._decode_round()
         self.stats.sample_step(len(self.queue),

@@ -1,15 +1,19 @@
 """DecodeSession of the port: weights + a paged layout behind two calls.
 
 The counterpart of ``repro.serve.session.DecodeSession`` for the paged
-layout and the dense family:
+layout:
 
+  ``prefill(rid, prompt)``        the whole prompt at exact length into
+                                  rid's pages and slot row (any stack)
   ``prefill_chunk(rid, ...)``     one chunked-prefill slice into rid's pages
+                                  (attention-only stacks)
   ``step(tokens, index, ...)``    K >= 1 tokens per row over the pools
 
 Host arrays (numpy) go in; the session uploads them to the layout's
-device, runs :func:`repro_torch.models.lm.lm_prefill` /
-:func:`~repro_torch.models.lm.lm_decode`, which write the pools in
-place, and hands back logits.  The JAX session instead donates the cache
+device, runs :func:`repro_torch.models.lm.lm_prefill_exact` /
+:func:`~repro_torch.models.lm.lm_prefill` /
+:func:`~repro_torch.models.lm.lm_decode`, which write the pools and state
+rows in place, and hands back logits.  The JAX session instead donates the cache
 pytree to a jitted step and rebinds the returned one.
 """
 from __future__ import annotations
@@ -43,6 +47,23 @@ class DecodeSession:
     def device(self) -> torch.device:
         """Device the weights and pools live on."""
         return self.layout.device
+
+    def prefill(self, rid, prompt: np.ndarray) -> np.ndarray:
+        """The whole prompt of `rid` at its exact length (no padding: a
+        recurrent layer would fold padding into its state), written into
+        rid's pages and slot row.  Returns the last token's logits row
+        (V,) as float32 on the host."""
+        P = int(len(prompt))
+        self.layout.ensure(rid, P)
+        slot = self.layout.slot_of(rid)
+        width = self.layout.table_width_for(P)
+        tables = _upload(self.layout.tables[slot:slot + 1, :width],
+                         np.int32, self.device)
+        logits = lm.lm_prefill_exact(
+            self.model, _upload(np.asarray(prompt)[None], np.int64,
+                                self.device),
+            self.layout.cache, tables, slot)
+        return logits[0, -1].float().cpu().numpy()
 
     def prefill_chunk(self, rid, chunk: np.ndarray, hist_len: int,
                       prompt_len: int, chunk_bucket: int,

@@ -1,6 +1,8 @@
 """LM train and eval steps of the port (``repro.train.steps``, LM part).
 
 ``init_lm_state``        model and optimizer state from a seed
+``make_optimizer``       the optimizer, its leaves grouped as JAX stacks
+                         them (Adafactor clips and factors per group)
 ``make_lm_train_step``   loss + grads + global-norm clip + lr schedule +
                          optimizer update (the ``train_4k`` cells' step)
 ``make_lm_eval_metric``  held-out cross entropy (the tournament metric)
@@ -14,6 +16,7 @@ until the next step.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, Tuple
 
 import torch
@@ -32,7 +35,15 @@ def init_lm_state(cfg: ModelConfig, opt_cfg: OptimizerConfig, seed: int = 0,
     model = lm.init_lm(cfg, seed=seed, device=device).train()
     params = dict(model.named_parameters())
     return {"model": model,
-            "opt_state": opt_lib.make_optimizer(opt_cfg).init(params)}
+            "opt_state": make_optimizer(cfg, opt_cfg).init(params)}
+
+
+def make_optimizer(cfg: ModelConfig,
+                   opt_cfg: OptimizerConfig) -> opt_lib.Optimizer:
+    """The optimizer for a model of ``cfg``, its leaves grouped as the JAX
+    package stacks them (:func:`repro_torch.models.lm.param_groups`)."""
+    return opt_lib.make_optimizer(
+        opt_cfg, grouping=functools.partial(lm.param_groups, cfg))
 
 
 def make_lm_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
@@ -45,7 +56,7 @@ def make_lm_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
     JAX.  Metrics are 0-dim tensors on the device: ``loss``, ``ce``,
     ``lr`` and, with clipping, ``grad_norm``.
     """
-    optimizer = opt_lib.make_optimizer(opt_cfg)
+    optimizer = make_optimizer(cfg, opt_cfg)
 
     def train_step(state: State, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[State, Dict[str, torch.Tensor]]:

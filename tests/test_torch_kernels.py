@@ -4,7 +4,9 @@ the kernels themselves against the plain versions on a CUDA card.
 On the CPU, ``repro_torch.kernels.ref`` is held against
 ``repro.kernels.ref`` and against the Pallas kernels run in interpret
 mode, on the same numpy inputs; the differentiable ops (flash attention,
-RMSNorm) against the JAX model's functions and their ``jax.vjp``.
+RMSNorm) against the JAX model's functions and their ``jax.vjp``; the two
+scans (selective scan, sLSTM), output and final state, against the JAX
+oracles, the Pallas kernels and the JAX package's stepped recurrences.
 Tolerances: f32 2e-5; bf16 2e-2, compared in f32 (as
 ``tests/test_paged.py`` states them).  The CUDA and
 Triton kernels have no CPU mode: their tests carry the ``cuda`` marker
@@ -19,10 +21,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mamba_scan as ms
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import slstm as sl
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -399,3 +403,161 @@ def test_training_ops_count_one_launch_per_pass_on_card():
     torch.cuda.synchronize()
     assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1, 1, 1)
     assert q.grad is not None and torch.isfinite(q.grad.float()).all()
+
+
+# ---------------------------------------------------------------------------
+# the selective scan and the sLSTM (the recurrent serving slice)
+# ---------------------------------------------------------------------------
+
+
+def _mamba_inputs(B, S, d, N, seed=0):
+    """The distributions of the JAX package's test (``test_kernels.py``):
+    small positive dt, unit xc, B/C at 0.5, A = -exp(N(0, 0.3^2))."""
+    rng = np.random.default_rng(seed)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, d)))) * 0.1
+    xc = rng.standard_normal((B, S, d))
+    bm = rng.standard_normal((B, S, N)) * 0.5
+    cm = rng.standard_normal((B, S, N)) * 0.5
+    a = -np.exp(rng.standard_normal((d, N)) * 0.3)
+    return [x.astype(np.float32) for x in (dt, xc, bm, cm, a)]
+
+
+def _slstm_inputs(B, S, d, H, seed=0):
+    rng = np.random.default_rng(seed)
+    gx = rng.standard_normal((B, S, 4 * d)).astype(np.float32)
+    r = (rng.standard_normal((H, d // H, 4 * d // H))
+         / np.sqrt(d)).astype(np.float32)
+    return gx, r
+
+
+@pytest.mark.parametrize("B,S,d,N,bd,ck", [
+    (2, 64, 32, 8, 16, 32),
+    (1, 96, 48, 16, 48, 24),
+    (2, 128, 64, 16, 32, 64),
+])
+def test_mamba_scan_ref_matches_pallas_oracle_and_stepped_state(B, S, d, N,
+                                                                bd, ck):
+    """The plain version's ``y`` == the Pallas kernel (interpret) and
+    ``ref.mamba_scan_ref`` at the JAX test's shapes, within its 1e-4.  Its
+    final state == the JAX oracle's state after S steps, read out through
+    the oracle itself: with C_t = e_n every step, ``y[S-1]`` is
+    ``h[:, n]``."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels import mamba_scan as jms
+    from repro.kernels import ref as jref
+
+    dt, xc, bm, cm, a = _mamba_inputs(B, S, d, N)
+
+    @jax.jit
+    def jax_side(dt, xc, bm, cm, a):
+        pallas = jms.mamba_scan(dt, xc, bm, cm, a, block_d=bd, chunk=ck,
+                                interpret=True)
+        onehot = jnp.broadcast_to(jnp.eye(N)[:, None, None, :],
+                                  (N, B, S, N))
+        h = jax.vmap(lambda c: jref.mamba_scan_ref(dt, xc, bm, c, a)[:, -1]
+                     )(onehot)                               # (N, B, d)
+        return pallas, jref.mamba_scan_ref(dt, xc, bm, cm, a), \
+            h.transpose(1, 2, 0)
+
+    pallas, want, want_h = jax_side(*map(jnp.asarray, (dt, xc, bm, cm, a)))
+    y, h = ref.mamba_scan_ref(*map(torch.from_numpy, (dt, xc, bm, cm, a)))
+    tol = dict(atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(y.numpy(), np.asarray(pallas), **tol)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want), **tol)
+    np.testing.assert_allclose(h.numpy(), np.asarray(want_h), **tol)
+
+
+@pytest.mark.parametrize("B,S,d,H,bb,ck", [
+    (2, 40, 64, 4, 2, 8),
+    (4, 64, 128, 4, 4, 64),
+    (3, 33, 96, 2, 1, 11),
+])
+def test_slstm_ref_matches_pallas_oracle_and_stepped_cell(B, S, d, H, bb, ck):
+    """The plain version's ``h`` == the Pallas kernel (interpret) and
+    ``ref.slstm_ref`` at the JAX test's shapes, within its 1e-5; its final
+    ``(h, c, n, m)`` == ``xlstm._slstm_cell`` stepped over the S steps."""
+    jax = pytest.importorskip("jax")
+    import dataclasses
+
+    import jax.numpy as jnp
+    from repro.configs.base import ModelConfig
+    from repro.kernels import ref as jref
+    from repro.kernels import slstm as jsl
+    from repro.models import xlstm as jx
+
+    gx, r = _slstm_inputs(B, S, d, H)
+    cfg = dataclasses.replace(ModelConfig(), d_model=d, num_heads=H)
+
+    @jax.jit
+    def jax_side(gx, r):
+        state, _ = jx.init_slstm_state(cfg, B)
+        final, _ = jax.lax.scan(
+            lambda st, g: (jx._slstm_cell({"r_h": r}, cfg, st, g)[1], None),
+            state, gx.swapaxes(0, 1))
+        return (jsl.slstm_scan(gx, r, block_b=bb, chunk=ck, interpret=True),
+                jref.slstm_ref(gx, r, H), final)
+
+    pallas, want, final = jax_side(jnp.asarray(gx), jnp.asarray(r))
+    h, state = ref.slstm_ref(torch.from_numpy(gx), torch.from_numpy(r))
+    tol = dict(atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(h.numpy(), np.asarray(pallas), **tol)
+    np.testing.assert_allclose(h.numpy(), np.asarray(want), **tol)
+    for got, k in zip(state, "hcnm"):
+        np.testing.assert_allclose(got.numpy(), np.asarray(final[k]),
+                                   err_msg=k, **tol)
+
+
+def test_scan_dispatch_takes_plain_version_on_cpu_and_wrappers_refuse_it():
+    """On CPU tensors ``ops`` runs the plain scans and launches nothing;
+    the kernel wrappers themselves raise on them, counting nothing."""
+    mam = [torch.from_numpy(x) for x in _mamba_inputs(1, 9, 16, 8)]
+    gx, r = (torch.from_numpy(x) for x in _slstm_inputs(2, 5, 32, 2))
+    before = (ms.mamba_scan.launches, sl.slstm_scan.launches)
+    for got, want in ((ops.mamba_scan(*mam), ref.mamba_scan_ref(*mam)),
+                      (ops.slstm_scan(gx, r), ref.slstm_ref(gx, r))):
+        torch.testing.assert_close(got, want)
+    with pytest.raises(ValueError, match="CUDA"):
+        ms.mamba_scan(*mam)
+    with pytest.raises(ValueError, match="CUDA"):
+        sl.slstm_scan(gx, r)
+    assert (ms.mamba_scan.launches, sl.slstm_scan.launches) == before
+
+
+# mamba: (B, S, d_in, N) — jamba's serve shape, a ragged S, B = 2, the
+# smoke widths; sLSTM: (B, S, d, H) — xlstm-125m, the JAX test's ragged one
+CARD_MAMBA = [(1, 500, 16384, 16), (1, 37, 16384, 16), (2, 200, 4096, 16),
+              (2, 20, 128, 8)]
+CARD_SLSTM = [(1, 500, 768, 4), (3, 33, 96, 2), (2, 20, 64, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,d,N", CARD_MAMBA)
+def test_mamba_scan_kernel_matches_plain_on_card(B, S, d, N):
+    """y and the final state within |err| <= 1e-4 + 1e-4 |want| (f32, S
+    sequential steps), and one launch counted."""
+    dev = _card()
+    args = [torch.from_numpy(x).to(dev) for x in _mamba_inputs(B, S, d, N)]
+    before = ms.mamba_scan.launches
+    got = ms.mamba_scan(*args)
+    want = ref.mamba_scan_ref(*args)
+    torch.cuda.synchronize()
+    assert ms.mamba_scan.launches == before + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,d,H", CARD_SLSTM)
+def test_slstm_kernel_matches_plain_on_card(B, S, d, H):
+    """h and the final (h, c, n, m) within 1e-4 + 1e-4 |want| (f32), and
+    one launch counted."""
+    dev = _card()
+    gx, r = (torch.from_numpy(x).to(dev) for x in _slstm_inputs(B, S, d, H))
+    before = sl.slstm_scan.launches
+    h, state = sl.slstm_scan(gx, r)
+    want_h, want_state = ref.slstm_ref(gx, r)
+    torch.cuda.synchronize()
+    assert sl.slstm_scan.launches == before + 1
+    for g, w in zip((h, *state), (want_h, *want_state)):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)

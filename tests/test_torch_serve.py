@@ -142,3 +142,40 @@ def test_scheduler_on_card_matches_cpu():
     assert results["cuda"] == results["cpu"]
     assert pa.paged_attention.launches > before[0]
     assert rn.rmsnorm.launches > before[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm-125m", "jamba-1.5-large-398b"])
+def test_recurrent_scheduler_on_card_matches_cpu(arch):
+    """The recurrent families' smoke configs (jamba without experts) served
+    on the card (the scan, paged-attention and RMSNorm kernels) give the
+    CPU path's tokens at f32, the scan kernel launched once per recurrent
+    layer of each exact-length prefill."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.configs.base import replace
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import slstm as sl
+    from repro_torch.models.lm import init_lm, layer_specs
+    from repro_torch.serve.scheduler import Request, Scheduler
+
+    cfg = replace(get_config(arch, smoke=True), moe=None, dtype="float32")
+    counter = sl.slstm_scan if arch == "xlstm-125m" else ms.mamba_scan
+    per_prefill = sum(s.kind in "Ms" for s in layer_specs(cfg))
+    cpu_model = init_lm(cfg, device="cpu")
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (6, 9, 20)]
+    results = {}
+    for device in ("cpu", "cuda"):
+        model = init_lm(cfg, device=device)
+        model.load_state_dict(cpu_model.state_dict())
+        s = Scheduler(cfg, model, num_slots=2, max_len=28, block_size=4,
+                      device=device)
+        for i, p in enumerate(prompts):
+            s.submit(Request(rid=i, prompt=p, max_new=5))
+        before = counter.launches
+        results[device] = {k: v.tolist() for k, v in s.run().items()}
+    assert results["cuda"] == results["cpu"]
+    assert counter.launches - before == len(prompts) * per_prefill

@@ -220,17 +220,21 @@ def test_optimizers_match_jax_on_a_random_tree(name, wd):
 
 def test_adafactor_state_crosses_the_bridge_name_by_name(cfgs, weights):
     """Two Adafactor updates of the model's weights with the same random
-    gradients in both packages: ``opt_state_from_jax`` maps JAX's factored
-    moments onto the port's (row and column factors swap with the
-    transposed dense weights) for every leaf both factor alike; the stacked
-    norm scales, factored as (L, d) matrices in JAX only, are left out."""
+    gradients in both packages.  The port groups its per-layer tensors
+    into the JAX package's stacked leaves (``lm.param_groups``), so the
+    update clip spans a stack and a stacked norm scale is factored as an
+    (L, d) matrix, as in JAX: ``opt_state_from_jax`` maps every leaf's
+    factored moments onto the port's group (row and column factors swap
+    with the transposed dense weights), nothing left out, and every weight
+    after the two updates agrees to 1e-5 relative."""
     _, tcfg = cfgs
     rng = np.random.default_rng(11)
     tree = _np(weights)
     grads = jax.tree.map(
         lambda a: rng.standard_normal(a.shape).astype(np.float32), tree)
     jo = jopt.make_adafactor(jbase.OptimizerConfig(name="adafactor"))
-    to = topt.make_adafactor(OptimizerConfig(name="adafactor"))
+    to = topt.make_adafactor(OptimizerConfig(name="adafactor"),
+                             functools.partial(tlm.param_groups, tcfg))
     jp, tp = weights, params_from_jax(tree, tcfg)
     tg = params_from_jax(grads, tcfg)
     js, ts = jo.init(jp), to.init(tp)
@@ -239,12 +243,13 @@ def test_adafactor_state_crosses_the_bridge_name_by_name(cfgs, weights):
         jp, js = jupdate(grads, js, jp, jnp.float32(lr))
         tp, ts = to.update(tg, ts, tp, torch.tensor(lr))
     want = opt_state_from_jax(_np(js), tcfg)
-    left_out = set(tp) - set(want["vr"])
-    assert left_out == {n for n in tp if n.startswith("blocks.")
-                        and n.endswith("scale")}
     for key in ("vr", "vc"):
-        _assert_named({n: ts[key][n] for n in want[key]}, want[key],
-                      atol=1e-7, rtol=1e-5)
+        assert set(ts[key]) == set(want[key])
+        _assert_named(ts[key], want[key], atol=1e-7, rtol=1e-5)
+    assert {k for k in ts["vr"] if k.startswith("blocks[")} == \
+        {f"blocks[0::1].{n.split('.', 2)[2]}" for n in tp
+         if n.startswith("blocks.")}
+    _assert_named(tp, params_from_jax(_np(jp), tcfg), atol=1e-7, rtol=1e-5)
     assert int(ts["step"]) == int(want["step"]) == 2
 
 
