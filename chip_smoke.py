@@ -19,9 +19,10 @@ and never prints the final ``ok`` line):
    median of 30 after warm-up, L2 flushed before each launch), the plain
    version's time, one PyTorch library call's time and the bound;
 4. the training kernels the same way: flash-attention forward and
-   backward at the train cell's heads with B = 1 (S = 4096), a ragged
-   S = 1000 (bf16 and f32) and MHA, and the RMSNorm forward and backward
-   at the train cell's three row shapes;
+   backward at the train cell's heads with B = 1 and the train step's
+   B = 4 (S = 4096), a ragged S = 1000 (bf16 and f32), MHA, and bf16 at
+   D = 64 (S = 1000) and D = 16 (S = 300), and the RMSNorm forward and
+   backward at the train cell's three row shapes;
 5. serve: qwen3-0.6b at full width in bf16 (random weights from a seed)
    through the continuous-batching paged scheduler: 16 requests, 8
    slots, prompts 128/256/512, 64 new tokens each, greedy; every logit
@@ -550,12 +551,17 @@ def phase_train_kernels(torch, timer):
     gen.manual_seed(1)
     results = {"flash_attention_fwd": [], "flash_attention_bwd": [],
                "rmsnorm": [], "rmsnorm_bwd": []}
-    # (B, S, H, Hkv, D, dtype): the train cell's heads at B = 1, a ragged
-    # S in both dtypes, MHA
+    # (B, S, H, Hkv, D, dtype): the train cell's heads at B = 1 and at the
+    # train step's B = 4, a ragged S in both dtypes, MHA, and bf16 at the
+    # other head dims the kernels serve (D = 64 and 16, S not a multiple of
+    # the 128-row tile)
     cases = [(1, 4096, 16, 8, 128, "bfloat16"),
+             (TRAIN_B, TRAIN_S, 16, 8, 128, "bfloat16"),
              (1, 1000, 16, 8, 128, "bfloat16"),
              (1, 1000, 16, 8, 128, "float32"),
-             (1, 4096, 16, 16, 128, "bfloat16")]
+             (1, 4096, 16, 16, 128, "bfloat16"),
+             (1, 1000, 16, 8, 64, "bfloat16"),
+             (2, 300, 4, 2, 16, "bfloat16")]
     for B, S, H, Hkv, D, dtype in cases:
         dt = getattr(torch, dtype)
         q, do = (torch.randn((B, S, H, D), generator=gen,
@@ -1142,7 +1148,7 @@ def main() -> int:
     # the kernels line reports each kernel at the shape its path gives it
     # most: paged attention and the RMSNorm forward at the serve decode
     # shape (bf16, one query token, head_dim 128 / d = 1024), the training
-    # kernels at the train cell's (bf16, B = 1, S = 4096; 16384 x 1024),
+    # kernels at the train cell's (bf16, B = 4, S = 4096; 16384 x 1024),
     # the scans at the recurrent serve phases' longest prompt (f32, B = 1,
     # S = 500)
     headline = {
@@ -1151,10 +1157,12 @@ def main() -> int:
         "rmsnorm": lambda c: (c["dtype"], c["shape"]) == ("bfloat16",
                                                           [8, 1024]),
         "rmsnorm_bwd": lambda c: c["shape"] == [TRAIN_B * TRAIN_S, 1024],
-        "flash_attention_fwd": lambda c: (c["dtype"], c["S"], c["Hkv"])
-        == ("bfloat16", TRAIN_S, 8),
-        "flash_attention_bwd": lambda c: (c["dtype"], c["S"], c["Hkv"])
-        == ("bfloat16", TRAIN_S, 8),
+        "flash_attention_fwd": lambda c: (c["dtype"], c["B"], c["S"],
+                                          c["Hkv"])
+        == ("bfloat16", TRAIN_B, TRAIN_S, 8),
+        "flash_attention_bwd": lambda c: (c["dtype"], c["B"], c["S"],
+                                          c["Hkv"])
+        == ("bfloat16", TRAIN_B, TRAIN_S, 8),
         "mamba_scan": lambda c: (c["B"], c["S"]) == (1, 500),
         "slstm_scan": lambda c: (c["B"], c["S"]) == (1, 500)}
     by_path = {"serve": serve_launches, "train": train_launches,

@@ -1,11 +1,11 @@
 // Flash-attention forward and backward kernels for NVIDIA Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
-// (`flash_attention`, body `_kernel`) and its model twin with the
-// hand-written backward, src/repro/models/layers.py (`flash_attention_jax`,
-// `_flash_fwd_scan`, `_flash_vjp_bwd`): causal (or full) grouped-query
-// attention over q (B, S, H, D) and k/v (B, S, Hkv, D) in the model's own
-// layout, q head h reading kv head h / (H / Hkv).
+// Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:85
+// (`flash_attention`, body `_kernel`) and the backward its model twin writes
+// by hand, src/repro/models/layers.py:328 (`_flash_vjp_bwd`, with
+// `flash_attention_jax` and `_flash_fwd_scan`): causal (or full)
+// grouped-query attention over q (B, S, H, D) and k/v (B, S, Hkv, D) in the
+// model's own layout, q head h reading kv head h / (H / Hkv).
 //
 // Semantics (those of the plain versions repro_torch.kernels.ref.
 // flash_attention_fwd_ref / flash_attention_bwd_ref):
@@ -17,44 +17,83 @@
 //     dQ = dS K, every sum in f32, each result cast once to its input's
 //     dtype at the end.
 //
-// Design.  The TPU grid (batch, head, q block, kv block) ran in order on
-// one core, carrying the accumulator in VMEM across the kv axis.  On Hopper
-// a block owns one output tile and sweeps the other axis in a loop:
-//   * forward: one block per (64-row query tile, q head, batch row),
-//     heaviest (last) query tiles first; Q stays on chip while 64-key K/V
-//     tiles of the kv head stream through shared memory; tiles strictly
-//     above the diagonal are never loaded;
-//   * dK/dV: one block per (64-key tile, kv head, batch row); it sweeps the
-//     query tiles at and below the diagonal of EVERY q head of its group,
-//     so the g heads' contributions sum in f32 registers and dK/dV are
-//     written once, with no atomics and no bf16 round trip;
-//   * dQ: one block per (query tile, q head, batch row) sweeping the key
-//     tiles up to the diagonal (a pass of its own: deterministic, no
-//     atomics); delta comes from a one-warp-per-row pre-pass;
-//   * a sequence length that is not a multiple of the tile is masked in the
-//     last tile (rows and keys past S load as zero and get zero weight).
-// Two sets of kernels share that structure:
-//   * bf16 (the training path): tensor cores through warp-level mma.sync
-//     m16n8k16 (bf16 operands, f32 sums), 4 warps a block, each warp owning
-//     16 rows of the output tile; operands come from shared-memory tiles
-//     (rows padded by 16 bytes, so ldmatrix is conflict-free) by ldmatrix,
-//     transposed where the product needs it; the softmax runs in f32 on the
-//     accumulator fragments, and P and dS are rounded to bf16 only as the
-//     operands of the next product, as FlashAttention-2 does;
-//   * f32 (the parity runs): CUDA cores, exact f32 products; 256 threads a
-//     block, each holding a 4 x 4 score micro-tile and a 4 x (D / 16) slice
-//     of its accumulator; tile rows are padded to an odd number of floats
-//     so 16 lanes reading one column hit 16 banks.
+// What bounds it on the H100: operations.  Causal attention is
+// 2 * B * H * S^2 * D flops forward (2.5x that backward) against
+// (3 + 1) * B * S * H * D elements moved, hundreds of flops per byte, so
+// the bound is the tensor cores' 989 TFLOP/s (bf16).  The TPU grid (batch,
+// head, q block, kv block) ran in order on one core, carrying the
+// accumulator in VMEM across the kv axis; here a block owns one output tile
+// and sweeps the other axis in a loop.
+//
+// bf16 (the training path): warp-specialised, TMA + wgmma, after
+// FlashAttention-3 without its FP8 parts.  A block is three warpgroups:
+// two consumers of 64 rows each and one producer, whose one thread issues
+// every copy; `setmaxnreg` gives the producer's registers to the consumers
+// (24 / 240 a thread).  What the design does about each limit of the
+// mma.sync kernels it replaced:
+//   * tensor-core rate: every product is a warpgroup `wgmma` (m64, bf16
+//     operands, f32 sums in registers); `mma.sync` reaches only part of
+//     Hopper's rate;
+//   * copies that stall the products: tiles arrive by TMA into a ring of
+//     STAGES buffers guarded by full/empty `mbarrier` pairs, so the next
+//     tile is in flight while the consumers multiply; no thread spends
+//     registers or instructions on loads;
+//   * small tiles: the forward block holds 128 query rows and sweeps
+//     128-key tiles (K/V re-read from L2 by half as many blocks); the
+//     backward block holds 128 keys and sweeps 64-row query tiles;
+//   * a separate dQ pass: the backward is one pass (5 products, not 7).
+// The tensor maps are 4-D over (B, S, Hx, D) (dims {D, Hx, S, B}), boxes of
+// 64 columns with 128-byte swizzle for D >= 64 (two boxes a row at D = 128)
+// and of 16 columns with 32-byte swizzle at D = 16; the `wgmma` shared-
+// memory descriptors name the same swizzle.  TMA's zero fill past S
+// replaces masked loads at a ragged S; scores of keys past S are masked.
+// They are encoded on the host with cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint (no -lcuda), and passed as __grid_constant__
+// parameters.
+//   * forward: one block per (128-row query tile, q head, batch row),
+//     launched longest causal sweeps first across all heads and batch rows
+//     (the short ones fill the last wave).  The producer loads the Q tile
+//     once, then the kv head's K and V tiles up to the diagonal (tiles
+//     above it are never loaded).  S = Q K^T is wgmma m64n128k16 with both
+//     operands in shared memory (K-major); the softmax runs in f32 on the
+//     accumulator fragments (in base 2, the scale folded in), only the
+//     tiles that cross the diagonal or S are masked; O += P V takes P,
+//     rounded to bf16, as a register A operand and V from shared memory
+//     through the descriptor's transpose bit.  O is stored from registers,
+//     lse as above.  The two consumer warpgroups share the tensor cores:
+//     one's softmax runs while the other's products do (overlapping a
+//     warpgroup's softmax with its own previous P V, or taking turns by
+//     named barrier as FA3's "ping-pong" does, measured slower here).
+//   * backward: a pre-pass writes lse (base 2) and delta as (B, H, S)
+//     rows; then one block per (128-key tile, kv head, batch row) loads K
+//     and V once and streams Q, dO, lse and delta tiles of every q head of
+//     its group, at and below the diagonal.  Per tile each consumer
+//     warpgroup (64 keys) computes S^T = K Q^T and dP^T = V dO^T, then
+//     P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T - delta) scale in
+//     registers, dV += P^T dO and dK += dS^T Q with P^T and dS^T as
+//     register operands (dK/dV summed over the group in registers and
+//     written once: no atomics, deterministic), and dQ = dS K from dS^T
+//     staged in shared memory, each warpgroup taking half of D.  Each
+//     warpgroup's 64 x D / 2 block of dQ goes through shared memory into
+//     an f32 (B, S, H, D) workspace by a TMA bulk reduce-add
+//     (cp.reduce.async.bulk.tensor; the wrapper zeroes the workspace, 128
+//     MB at the train cell's B = 4, freed after the call), and a cast pass
+//     writes the bf16 dq.  Blocks launch key tile 0 (the longest causal
+//     sweep) of every kv head and batch row first.  The order of the dQ
+//     additions varies, so dq's bits vary from run to run (within
+//     tolerance); dk and dv are written once and are bit-identical.
+//
+// f32 (the parity runs): CUDA cores, exact f32 products; 256 threads a
+// block, each holding a 4 x 4 score micro-tile and a 4 x (D / 16) slice of
+// its accumulator; 64-row tiles, rows padded to an odd number of floats so
+// 16 lanes reading one column hit 16 banks.  The forward: one block per
+// query tile sweeping 64-key tiles; dK/dV: one block per key tile over the
+// group's heads; dQ: a pass of its own; delta: a one-warp-per-row
+// pre-pass.  Rows and keys past S load as zero and get zero weight.
+//
 // head_dim D is a template parameter, built for the head dims of the ported
 // configs (16: qwen3 smoke, 64, 128: qwen3).
-//
-// What bounds it on the H100: operations.  Causal attention is
-// 2 * B * H * S^2 * D flops forward (~2.5x that backward) against
-// (3 + 1) * B * S * H * D elements moved, hundreds of flops per byte; the
-// bound is the tensor cores' 989 TFLOP/s (bf16).  Known gaps, left for
-// later work: wgmma (warpgroup) products and TMA / cp.async double-buffered
-// K/V tiles (a tile's loads now wait behind a barrier, and mma.sync reaches
-// only part of Hopper's tensor-core rate), larger query tiles per block.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -65,7 +104,7 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// f32: CUDA-core kernels (and the delta pre-pass both sets share)
+// f32: CUDA-core kernels and their delta pre-pass
 // ---------------------------------------------------------------------------
 
 constexpr int BM = 64;                  // query rows per tile
@@ -77,10 +116,6 @@ constexpr int RI = BM / TY;             // score rows per thread
 constexpr int CJ = BN / TX;             // score keys per thread
 constexpr int PS = BN + 1;              // row stride of a P / dS tile (f32)
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // Row stride (in floats) of a D-wide f32 tile: odd, so 16 rows read at
 // one column fall in 16 banks.
@@ -140,9 +175,10 @@ __device__ __forceinline__ void dot_tiles(float (&a)[RI][CJ], const float* A,
 }
 
 // delta[b, s, h] = sum_d out * dout, one warp per row.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
+flash_bwd_delta_kernel(const float* __restrict__ out,
+                       const float* __restrict__ dout,
                        float* __restrict__ delta, size_t rows) {
   const size_t row =
       (size_t)blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
@@ -151,7 +187,7 @@ flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
   float acc = 0.f;
 #pragma unroll
   for (int d = lane; d < D; d += 32)
-    acc += to_f32(out[row * D + d]) * to_f32(dout[row * D + d]);
+    acc += out[row * D + d] * dout[row * D + d];
 #pragma unroll
   for (int off = 16; off > 0; off /= 2)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -491,46 +527,44 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core kernels (mma.sync m16n8k16, bf16 operands, f32 sums)
+// bf16: warp-specialised TMA + wgmma kernels
 // ---------------------------------------------------------------------------
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int TC_THREADS = 128;         // 4 warps
-constexpr int TQ = 64;                  // forward / dQ: query rows per block
-constexpr int TK = 64;                  // keys per tile; dK/dV: per block
-constexpr int TQB = 32;                 // dK/dV: query rows per inner tile
+constexpr int WG = 128;                 // threads of a warpgroup
+constexpr int TC_THREADS = 3 * WG;      // consumers 0 and 1, producer 2
+constexpr int STAGES = 2;               // ring of K/V (fwd), Q/dO (bwd) tiles
+constexpr int FQ = 128;                 // forward: query rows per block
+constexpr int FK = 128;                 // forward: keys per tile
+constexpr int BK = 128;                 // backward: keys per block
+constexpr int BQ = 64;                  // backward: query rows per tile
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// A tile of `rows` x D bf16 as TMA lays it into shared memory: NCB column
+// blocks of CB columns, each `rows` rows of RB bytes, swizzled over atoms
+// of 8 rows (SBO bytes): 128-byte swizzle for D >= 64, 32-byte at D = 16.
+template <int D>
+struct Geo {
+  static constexpr int CB = D >= 64 ? 64 : D;
+  static constexpr int NCB = D / CB;
+  static constexpr int RB = CB * 2;
+  static constexpr int SBO = 8 * RB;
+  static constexpr int LAYOUT = D >= 64 ? 1 : 3;   // descriptor swizzle code
+  static_assert(D == 16 || D % 64 == 0, "head dim");
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// four 8x8 bf16 matrices; lane l gives the address of row l % 8 of
-// matrix l / 8 and receives its fragment of each
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-// d (16x8 f32) += a (16x16 bf16, row-major) * b (16x8 bf16, col-major)
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// 2^x in one MUFU instruction (flushes denormal results to 0; 2^-inf = 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
@@ -538,421 +572,778 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// The A operand of a 16-key k-step from two 8-key accumulator tiles.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
-                                         const float (&hi)[4]) {
-  a[0] = pack2(lo[0], lo[1]);
-  a[1] = pack2(lo[2], lo[3]);
-  a[2] = pack2(hi[0], hi[1]);
-  a[3] = pack2(hi[2], hi[3]);
+// The dynamic shared memory, 1024-byte aligned (the 128-byte swizzle's
+// atom); each kernel asks for 1024 bytes of slack.
+__device__ __forceinline__ uint8_t* smem_1k(uint8_t* raw) {
+  const uint32_t pad = (1024u - smem_u32(raw) % 1024u) % 1024u;
+  return raw + pad;
 }
 
-// Rows [r0, r0 + rows) of head h, batch row b of a (B, S, Hx, D) bf16
-// tensor into a tile with row stride D + 8, 16 bytes at a time; rows at or
-// past S are zero.
+// --- mbarriers, TMA, named barriers, register hand-over -------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// Wait until the barrier's phase `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One box of a 4-D tensor map ({d, head, row, batch} coordinates).
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+// `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// Rows [row0, row0 + rows) of head h, batch row b: one box per column block.
 template <int D>
-__device__ __forceinline__ void tc_load(bf16* dst, const bf16* src, int b,
-                                        int r0, int h, int S, int Hx,
-                                        int rows) {
-  constexpr int C = D / 8, DP = D + 8;
-  for (int i = threadIdx.x; i < rows * C; i += TC_THREADS) {
-    const int r = i / C, c = i % C, s = r0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (s < S)
-      val = *reinterpret_cast<const uint4*>(
-          src + (((size_t)b * S + s) * Hx + h) * D + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * DP + c * 8) = val;
+__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int rows, int row0,
+                                          int h, int b) {
+#pragma unroll
+  for (int cb = 0; cb < Geo<D>::NCB; ++cb)
+    tma_load(dst + cb * rows * Geo<D>::RB, map, bar, cb * Geo<D>::CB, h,
+             row0, b);
+}
+
+// Add a 4-D box of f32 from shared memory into device memory.
+__device__ __forceinline__ void tma_reduce_add(const void* src,
+                                               const CUtensorMap* map, int c0,
+                                               int c1, int c2, int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.tile.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait for this thread's bulk copies: until their shared-memory source has
+// been read (READ) or until they are complete.
+template <bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if (READ)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_sync(int wg) {      // one consumer WG
+  asm volatile("bar.sync %0, %1;\n" ::"r"(2 + wg), "n"(WG) : "memory");
+}
+__device__ __forceinline__ void consumers_sync() {   // both consumer WGs
+  asm volatile("bar.sync 1, %0;\n" ::"n"(2 * WG) : "memory");
+}
+// generic-proxy shared-memory writes made visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// --- wgmma ------------------------------------------------------------------
+
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets, swizzle layout (1: 128-byte, 3: 32-byte).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo, int layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)layout << 62;
+}
+// K-major operand (the product's K runs along the tile's D columns): rows
+// [row0, row0 + 64 or N) of a `rows`-row tile at `tile`, k-step kk.
+template <int D>
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int rows, int row0,
+                                           int kk) {
+  using G = Geo<D>;
+  const int col = kk * 16;
+  return desc(tile + (col / G::CB) * rows * G::RB + row0 * G::RB +
+                  (col % G::CB) * 2,
+              16, G::SBO, G::LAYOUT);
+}
+// MN-major B operand (the product's K runs along the tile's rows, its N
+// along the D columns from n0): k-step kk of a `rows`-row tile.
+template <int D>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int rows, int kk,
+                                            int n0) {
+  using G = Geo<D>;
+  return desc(tile + (n0 / G::CB) * rows * G::RB + kk * 16 * G::RB +
+                  (n0 % G::CB) * 2,
+              rows * G::RB, G::SBO, G::LAYOUT);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {   // every committed group
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Pin registers an in-flight wgmma reads or writes until its wait: the
+// compiler sees them used here, so it neither moves nor reuses them before.
+template <int R>
+__device__ __forceinline__ void keep(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int K>
+__device__ __forceinline__ void keep(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
+}
+
+// The A operands of the k-steps of a product from an f32 accumulator: k-step
+// kk (16 columns) is n8 tiles 2 kk and 2 kk + 1, in A's fragment order.
+template <int K>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[K][4],
+                                         const float (&d)[8 * K]) {
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      a[kk][j] = pack2(d[8 * kk + 2 * j], d[8 * kk + 2 * j + 1]);
+}
+
+// m64nNk16, f32 += bf16 x bf16.  wgmma_ss: A and B from shared memory
+// (TA / TB: 0 K-major, 1 MN-major); wgmma_rs: A from registers.  d holds
+// the thread's N / 2 accumulators: d[4 n + e] is row 16 warp + lane / 4 +
+// 8 (e / 2), column 8 n + 2 (lane % 4) + e % 2 of the 64 x N tile.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[4], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1, %7, %8;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[8],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
+// Forward shared memory (bytes from the 1024-aligned base): the Q tile,
+// STAGES K tiles, STAGES V tiles, then the barriers.
+template <int D>
+struct FwdSmem {
+  static constexpr int TILE = FK * D * 2;
+  static constexpr int Q = 0, K = FQ * D * 2, V = K + STAGES * TILE;
+  static constexpr int BAR = V + STAGES * TILE;
+  static constexpr size_t BYTES = BAR + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+// Scale, mask and exponentiate one 64 x FK score tile in place (base 2):
+// updates the running max m and this thread's share of the row sum l, and
+// returns in corr the factor the accumulator must be rescaled by.  Only a
+// tile that reaches past S or crosses the diagonal is masked.
+__device__ __forceinline__ void softmax_tile(float (&s)[FK / 2], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             int k0, int S, int causal,
+                                             int wg_row0, int row0, int lane,
+                                             float sl2) {
+  const bool edge = k0 + FK > S || (causal && k0 + FK - 1 > wg_row0);
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int e = 0; e < FK / 2; ++e) {
+    if (edge) {
+      const int key = k0 + 8 * (e / 4) + 2 * (lane % 4) + e % 2;
+      if (key >= S || (causal && key > row0 + 8 * ((e / 2) % 2)))
+        s[e] = -INFINITY;
+    }
+    mx[(e / 2) % 2] = fmaxf(mx[(e / 2) % 2], s[e]);
+  }
+  float m_safe[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i] * sl2);
+    m_safe[i] = m_new == -INFINITY ? 0.f : m_new;
+    corr[i] = m[i] == -INFINITY ? 0.f : fast_exp2(m[i] - m_safe[i]);
+    m[i] = m_new;
+    l[i] *= corr[i];
+  }
+#pragma unroll
+  for (int e = 0; e < FK / 2; ++e) {
+    // 0 where masked; one FFMA and one MUFU an element
+    const float p = fast_exp2(fmaf(s[e], sl2, -m_safe[(e / 2) % 2]));
+    s[e] = p;
+    l[(e / 2) % 2] += p;
   }
 }
 
-// Fragment addresses (lane l: li = l / 8 picks the matrix, lr = l % 8 the
-// row).  An A operand (16 rows x 16 cols) from row-major rows; a pair of B
-// operands (two 8-col n tiles x 16 k) from rows that hold n (k contiguous:
-// "nk"); and from rows that hold k (n contiguous: "kn", transposed load).
-template <int DP>
-__device__ __forceinline__ const bf16* frag_a(const bf16* tile, int row0,
-                                              int col0, int li, int lr) {
-  return tile + (row0 + (li % 2) * 8 + lr) * DP + col0 + (li / 2) * 8;
-}
-template <int DP>
-__device__ __forceinline__ const bf16* frag_b_nk(const bf16* tile, int n0,
-                                                 int k0, int li, int lr) {
-  return tile + (n0 + (li / 2) * 8 + lr) * DP + k0 + (li % 2) * 8;
-}
-template <int DP>
-__device__ __forceinline__ const bf16* frag_b_kn(const bf16* tile, int k0,
-                                                 int n0, int li, int lr) {
-  return tile + (k0 + (li % 2) * 8 + lr) * DP + n0 + (li / 2) * 8;
-}
-
 template <int D>
-constexpr size_t fwd_tc_smem() {
-  return sizeof(bf16) * (size_t)(TQ + 2 * TK) * (D + 8);
-}
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       bf16* __restrict__ out, float* __restrict__ lse,
+                       int B, int S, int H, int Hkv, int causal,
+                       float scale) {
+  using L = FwdSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_1k(smem_raw);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + STAGES;
 
-template <int D>
-__global__ void __launch_bounds__(TC_THREADS)
-flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ out,
-                    float* __restrict__ lse, int S, int H, int Hkv,
-                    int causal, float scale) {
-  constexpr int DP = D + 8, KS = D / 16, DT = D / 8;
-  extern __shared__ uint4 tc_smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(tc_smem);   // TQ x DP
-  bf16* Ks = Qs + TQ * DP;                        // TK x DP
-  bf16* Vs = Ks + TK * DP;                        // TK x DP
-
-  const int n_qt = (S + TQ - 1) / TQ;
-  const int q0 = (n_qt - 1 - (int)blockIdx.x) * TQ;
-  const int h = blockIdx.y, b = blockIdx.z;
+  // blocks in launch order: every (head, batch row) of the last (longest)
+  // query tile first, then the tile before it, ...: the light causal
+  // sweeps fill the last wave
+  const int n_qt = (S + FQ - 1) / FQ;
+  const int h = blockIdx.x % H, b = blockIdx.x / H % B;
+  const int q0 = (n_qt - 1 - (int)(blockIdx.x / H / B)) * FQ;
   const int hk = h / (H / Hkv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4, li = lane / 8, lr = lane % 8;
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  int n_kt = (S + FK - 1) / FK;
+  if (causal) n_kt = min(n_kt, (q0 + FQ - 1) / FK + 1);   // skip above diag
+  const int wg = threadIdx.x / WG;
 
-  tc_load<D>(Qs, q, b, q0, h, S, H, TQ);
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 2 * WG / 32);   // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
   __syncthreads();
-  uint32_t qf[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-    ldsm4(qf[kk], frag_a<DP>(Qs, warp * 16, kk * 16, li, lr));
 
-  float acc[DT][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-
-  int n_kt = (S + TK - 1) / TK;
-  if (causal) n_kt = min(n_kt, (q0 + TQ - 1) / TK + 1);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * TK;
-    __syncthreads();
-    tc_load<D>(Ks, k, b, k0, hk, S, Hkv, TK);
-    tc_load<D>(Vs, v, b, k0, hk, S, Hkv, TK);
-    __syncthreads();
-
-    float s[TK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < TK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-      for (int np = 0; np < TK / 16; ++np) {
-        uint32_t r[4];
-        ldsm4(r, frag_b_nk<DP>(Ks, np * 16, kk * 16, li, lr));
-        mma(s[2 * np], qf[kk], r[0], r[1]);
-        mma(s[2 * np + 1], qf[kk], r[2], r[3]);
+  if (wg == 2) {
+    // producer: one thread issues every copy
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 2 * WG) {
+      mbar_expect_tx(qbar, FQ * D * 2);
+      load_tile<D>(smem + L::Q, &tq, qbar, FQ, q0, h, b);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int st = kt % STAGES;
+        mbar_wait(empty + st, ((kt / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + st, 2 * L::TILE);
+        load_tile<D>(smem + L::K + st * L::TILE, &tk, full + st, FK, kt * FK,
+                     hk, b);
+        load_tile<D>(smem + L::V + st * L::TILE, &tv, full + st, FK, kt * FK,
+                     hk, b);
       }
+    }
+  } else {
+    // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 64
+    regs_inc<CONSUMER_REGS>();
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x % WG) / 32;
+    const int wg_row0 = q0 + 64 * wg;
+    const int row0 = wg_row0 + 16 * warp + lane / 4;   // and row0 + 8
+    const float sl2 = scale * LOG2E;     // scores in base 2
+    const uint32_t qs = smem_u32(smem + L::Q);
+    float o[D / 2], s[FK / 2], corr[2];
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    uint32_t pa[FK / 16][4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < FK / 2; ++i) s[i] = 0.f;
+    mbar_wait(qbar, 0);
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int st = kt % STAGES;
+      mbar_wait(full + st, (kt / STAGES) & 1);
+      // S = Q K^T: this warpgroup's 64 rows x FK keys
+      const uint32_t ks = smem_u32(smem + L::K + st * L::TILE);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<0, 0>(s, kmajor<D>(qs, FQ, 64 * wg, kk),
+                       kmajor<D>(ks, FK, 0, kk), kk > 0);
+      wg_commit();
+      wg_wait();
+      keep(s);
+      softmax_tile(s, m, l, corr, kt * FK, S, causal, wg_row0, row0, lane,
+                   sl2);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i / 2) % 2];
+      acc_to_a(pa, s);
 
-    float mx[2] = {-INFINITY, -INFINITY};
+      // O += P V, P (bf16) as the register A operand
+      const uint32_t vs = smem_u32(smem + L::V + st * L::TILE);
+      wg_fence();
 #pragma unroll
-    for (int nt = 0; nt < TK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + nt * 8 + 2 * t + (e & 1);
-        const bool ok = key < S && (!causal || key <= row[e / 2]);
-        s[nt][e] = ok ? s[nt][e] * scale : -INFINITY;
-        mx[e / 2] = fmaxf(mx[e / 2], s[nt][e]);
-      }
-    float m_safe[2], corr[2], rs[2] = {0.f, 0.f};
+      for (int kk = 0; kk < FK / 16; ++kk)
+        wgmma_rs<1>(o, pa[kk], mnmajor<D>(vs, FK, kk, 0), 1);
+      wg_commit();
+      wg_wait();
+      keep(o);
+      keep(pa);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + st);   // K/V stage free again
+    }
+
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      m_safe[i] = m_new == -INFINITY ? 0.f : m_new;
-      corr[i] = m[i] == -INFINITY ? 0.f : expf(m[i] - m_safe[i]);
-      m[i] = m_new;
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      const int row = row0 + 8 * i;
+      if (row >= S) continue;
+      const float lc = fmaxf(l[i], 1e-30f), inv = 1.f / lc;
+      bf16* dst = out + (((size_t)b * S + row) * H + h) * D + 2 * (lane % 4);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(dst + 8 * n) =
+            pack2(o[4 * n + 2 * i] * inv, o[4 * n + 2 * i + 1] * inv);
+      if (lane % 4 == 0)
+        lse[((size_t)b * S + row) * H + h] =
+            m[i] == -INFINITY ? -INFINITY : m[i] * LN2 + logf(lc);
     }
+  }
+}
+
+// lse in base 2 (0 where it is not finite) and delta = rowsum(out * dout)
+// into (B, H, Sp) f32 rows, Sp = S rounded up to BQ, so the backward's
+// producer copies a query tile's values as 256 contiguous bytes.  One warp
+// per (b, s, h) row; the Sp - S padding stays at the wrapper's zeros.
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_prep_kernel(const bf16* __restrict__ out,
+                      const bf16* __restrict__ dout,
+                      const float* __restrict__ lse, float* __restrict__ lse2,
+                      float* __restrict__ delta, int S, int H, int Sp,
+                      size_t rows) {
+  const size_t row =
+      (size_t)blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  float acc = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < TK / 8; ++nt)
+  for (int d = lane; d < D; d += 32)
+    acc += __bfloat162float(out[row * D + d]) *
+           __bfloat162float(dout[row * D + d]);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p =
-            s[nt][e] == -INFINITY ? 0.f : expf(s[nt][e] - m_safe[e / 2]);
-        s[nt][e] = p;
-        rs[e / 2] += p;
+  for (int off = 16; off > 0; off /= 2)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const int h = (int)(row % H), s = (int)(row / H % S);
+    const size_t b = row / H / S;
+    const size_t at = (b * H + h) * Sp + s;
+    const float ls = lse[row];
+    lse2[at] = finite(ls) ? ls * LOG2E : 0.f;
+    delta[at] = acc;
+  }
+}
+
+// dq = bf16(the f32 workspace), four elements a thread.
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_cast_kernel(const float4* __restrict__ acc,
+                         uint2* __restrict__ dq, size_t n4) {
+  const size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= n4) return;
+  const float4 v = acc[i];
+  dq[i] = make_uint2(pack2(v.x, v.y), pack2(v.z, v.w));
+}
+
+// Backward shared memory (bytes from the 1024-aligned base): K and V
+// tiles, STAGES Q and dO tiles, two dS^T buffers, STAGES lse and delta
+// rows, the dQ tile on its way to device memory, then the barriers.
+template <int D>
+struct BwdSmem {
+  static constexpr int KV = BK * D * 2, QT = BQ * D * 2, DS = BK * BQ * 2;
+  static constexpr int K = 0, V = KV, Q = 2 * KV, DO = Q + STAGES * QT;
+  static constexpr int DSB = DO + STAGES * QT, LSE = DSB + 2 * DS;
+  static constexpr int DELTA = LSE + STAGES * BQ * 4;
+  static constexpr int DQ = DELTA + STAGES * BQ * 4;
+  static constexpr int BAR = DQ + BQ * D * 4;
+  static constexpr size_t BYTES = BAR + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const __grid_constant__ CUtensorMap tdq,
+                       const float* __restrict__ lse2,
+                       const float* __restrict__ delta,
+                       bf16* __restrict__ dk, bf16* __restrict__ dv, int B,
+                       int S, int H, int Hkv, int Sp, int causal,
+                       float scale) {
+  using L = BwdSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_1k(smem_raw);
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* full = kvbar + 1;
+  uint64_t* empty = full + STAGES;
+
+  // blocks in launch order: every (kv head, batch row) of key tile 0 (the
+  // longest causal sweep) first, then key tile 1, ...
+  const int hk = blockIdx.x % Hkv, b = blockIdx.x / Hkv % B;
+  const int k0 = (int)(blockIdx.x / Hkv / B) * BK, g = H / Hkv;
+  const int n_qt = (S + BQ - 1) / BQ;
+  const int qt0 = causal ? k0 / BQ : 0;     // query tiles below the diagonal
+  const int per_head = n_qt - qt0, n_it = g * per_head;
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 2 * WG / 32);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 2 * WG) {
+      mbar_expect_tx(kvbar, 2 * L::KV);
+      load_tile<D>(smem + L::K, &tk, kvbar, BK, k0, hk, b);
+      load_tile<D>(smem + L::V, &tv, kvbar, BK, k0, hk, b);
+      for (int it = 0; it < n_it; ++it) {
+        const int st = it % STAGES;
+        const int h = hk * g + it / per_head;
+        const int q0 = (qt0 + it % per_head) * BQ;
+        const size_t row = ((size_t)b * H + h) * Sp + q0;
+        mbar_wait(empty + st, ((it / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + st, 2 * L::QT + 2 * BQ * 4);
+        load_tile<D>(smem + L::Q + st * L::QT, &tq, full + st, BQ, q0, h, b);
+        load_tile<D>(smem + L::DO + st * L::QT, &tdo, full + st, BQ, q0, h,
+                     b);
+        bulk_load(smem + L::LSE + st * BQ * 4, lse2 + row, BQ * 4, full + st);
+        bulk_load(smem + L::DELTA + st * BQ * 4, delta + row, BQ * 4,
+                  full + st);
       }
+    }
+  } else {
+    // consumers: warpgroup wg owns keys k0 + 64 wg .. + 64, and columns
+    // D / 2 wg .. + D / 2 of each dQ tile
+    regs_inc<CONSUMER_REGS>();
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x % WG) / 32;
+    const int kl = 64 * wg + 16 * warp + lane / 4;   // local keys kl, kl + 8
+    const float sl2 = scale * LOG2E;
+    const uint32_t ks = smem_u32(smem + L::K), vs = smem_u32(smem + L::V);
+    const bool leader = threadIdx.x % WG == 0;
+    float* dq_stage = reinterpret_cast<float*>(smem + L::DQ) + wg * BQ * D / 2;
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    mbar_wait(kvbar, 0);
+
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it % STAGES;
+      const int h = hk * g + it / per_head;
+      const int q0 = (qt0 + it % per_head) * BQ;
+      const uint32_t qs = smem_u32(smem + L::Q + st * L::QT);
+      const uint32_t dos = smem_u32(smem + L::DO + st * L::QT);
+      const float* lse_s =
+          reinterpret_cast<const float*>(smem + L::LSE + st * BQ * 4);
+      const float* delta_s =
+          reinterpret_cast<const float*>(smem + L::DELTA + st * BQ * 4);
+      uint8_t* dsb = smem + L::DSB + (it % 2) * L::DS;
+      mbar_wait(full + st, (it / STAGES) & 1);
+
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries
+      float s[BQ / 2], dp[BQ / 2];
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) s[i] = dp[i] = 0.f;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<0, 0>(s, kmajor<D>(ks, BK, 64 * wg, kk),
+                       kmajor<D>(qs, BQ, 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<0, 0>(dp, kmajor<D>(vs, BK, 64 * wg, kk),
+                       kmajor<D>(dos, BQ, 0, kk), kk > 0);
+      wg_commit();
+      wg_wait();
+      keep(s);
+      keep(dp);
+
+      // P^T and dS^T in registers; only tiles at S or the diagonal masked
+      const bool edge = q0 + BQ > S || k0 + BK > S || (causal && q0 < k0 + BK);
+#pragma unroll
+      for (int e = 0; e < BQ / 2; ++e) {
+        const int col = 8 * (e / 4) + 2 * (lane % 4) + e % 2;
+        const int key = k0 + kl + 8 * ((e / 2) % 2), query = q0 + col;
+        const bool ok =
+            !edge || (query < S && key < S && (!causal || key <= query));
+        const float p = ok ? fast_exp2(s[e] * sl2 - lse_s[col]) : 0.f;
+        s[e] = p;
+        dp[e] = p * (dp[e] - delta_s[col]) * scale;
+      }
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+      acc_to_a(pa, s);
+      acc_to_a(da, dp);
+
+      // dS^T to shared memory as 128 key rows of 64 queries (128 bytes,
+      // 128-byte swizzle): the MN-major A operand of dQ = dS K
+#pragma unroll
+      for (int e = 0; e < BQ / 2; e += 2) {
+        const int r = kl + 8 * ((e / 2) % 2);
+        const int col = 8 * (e / 4) + 2 * (lane % 4);
+        *reinterpret_cast<uint32_t*>(
+            dsb + r * 128 + (((col / 8) ^ (r % 8)) * 16) + (col % 8) * 2) =
+            pack2(dp[e], dp[e + 1]);
+      }
+      fence_async_smem();
+
+      // dV += P^T dO and dK += dS^T Q (the tiles' rows are the K of both)
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs<1>(dv_acc, pa[kk], mnmajor<D>(dos, BQ, kk, 0), 1);
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs<1>(dk_acc, da[kk], mnmajor<D>(qs, BQ, kk, 0), 1);
+      wg_commit();
+
+      // dQ (64 queries x this warpgroup's D / 2 columns) = dS K over all
+      // 128 keys, once both warpgroups' dS^T rows are in place
+      consumers_sync();
+      const uint32_t dss = smem_u32(dsb);
+      float dq[D / 4];
+#pragma unroll
+      for (int i = 0; i < D / 4; ++i) dq[i] = 0.f;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_ss<1, 1>(dq, desc(dss + kk * 16 * 128, 8192, 1024, 1),
+                       mnmajor<D>(ks, BK, kk, wg * D / 2), kk > 0);
+      wg_commit();
+      wg_wait();
+      keep(dv_acc);
+      keep(dk_acc);
+      keep(pa);
+      keep(da);
+      keep(dq);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + st);   // Q/dO stage free again
+
+      // this warpgroup's 64 x D / 2 block of dQ into its half of the
+      // staging tile, then one thread adds it into the f32 workspace with
+      // a TMA reduce (rows past S are dropped)
+      if (leader) bulk_wait<true>();   // the last tile's reduce has read it
+      wg_sync(wg);
+#pragma unroll
+      for (int e = 0; e < D / 4; e += 2) {
+        const int r = 16 * warp + lane / 4 + 8 * ((e / 2) % 2);
+        *reinterpret_cast<float2*>(
+            dq_stage + r * (D / 2) + 8 * (e / 4) + 2 * (lane % 4)) =
+            make_float2(dq[e], dq[e + 1]);
+      }
+      fence_async_smem();
+      wg_sync(wg);
+      if (leader) {
+        tma_reduce_add(dq_stage, &tdq, wg * D / 2, h, q0, b);
+        bulk_commit();
+      }
+    }
+    if (leader) bulk_wait<false>();
+
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
-      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
-      l[i] = l[i] * corr[i] + rs[i];
-    }
+      const int key = k0 + kl + 8 * i;
+      if (key >= S) continue;
+      const size_t at =
+          (((size_t)b * S + key) * Hkv + hk) * D + 2 * (lane % 4);
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[dt][e] *= corr[e / 2];
-
-#pragma unroll
-    for (int kk = 0; kk < TK / 16; ++kk) {
-      uint32_t pa[4];
-      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t r[4];
-        ldsm4t(r, frag_b_kn<DP>(Vs, kk * 16, dp * 16, li, lr));
-        mma(acc[2 * dp], pa, r[0], r[1]);
-        mma(acc[2 * dp + 1], pa, r[2], r[3]);
+      for (int n = 0; n < D / 8; ++n) {
+        *reinterpret_cast<uint32_t*>(dk + at + 8 * n) =
+            pack2(dk_acc[4 * n + 2 * i], dk_acc[4 * n + 2 * i + 1]);
+        *reinterpret_cast<uint32_t*>(dv + at + 8 * n) =
+            pack2(dv_acc[4 * n + 2 * i], dv_acc[4 * n + 2 * i + 1]);
       }
     }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (row[i] >= S) continue;
-    const float lc = fmaxf(l[i], 1e-30f), inv = 1.f / lc;
-    bf16* o = out + (((size_t)b * S + row[i]) * H + h) * D + 2 * t;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-      *reinterpret_cast<uint32_t*>(o + dt * 8) =
-          pack2(acc[dt][2 * i] * inv, acc[dt][2 * i + 1] * inv);
-    if (t == 0)
-      lse[((size_t)b * S + row[i]) * H + h] =
-          m[i] == -INFINITY ? -INFINITY : m[i] + logf(lc);
-  }
-}
-
-template <int D>
-constexpr size_t dkdv_tc_smem() {
-  return sizeof(bf16) * (size_t)(2 * TK + 2 * TQB) * (D + 8) +
-         sizeof(float) * 2 * TQB;
-}
-
-template <int D>
-__global__ void __launch_bounds__(TC_THREADS)
-flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv, int S,
-                         int H, int Hkv, int causal, float scale) {
-  constexpr int DP = D + 8, KS = D / 16, DT = D / 8, NT = TQB / 8;
-  extern __shared__ uint4 tc_smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(tc_smem);    // TK x DP
-  bf16* Vs = Ks + TK * DP;                         // TK x DP
-  bf16* Qs = Vs + TK * DP;                         // TQB x DP
-  bf16* dOs = Qs + TQB * DP;                       // TQB x DP
-  float* lse_s = reinterpret_cast<float*>(dOs + TQB * DP);  // TQB
-  float* delta_s = lse_s + TQB;                              // TQB
-
-  const int k0 = blockIdx.x * TK;
-  const int hk = blockIdx.y, b = blockIdx.z, gq = H / Hkv;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4, li = lane / 8, lr = lane % 8;
-  const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-
-  tc_load<D>(Ks, k, b, k0, hk, S, Hkv, TK);
-  tc_load<D>(Vs, v, b, k0, hk, S, Hkv, TK);
-
-  // rows: this warp's 16 keys; columns: head dims
-  float dk_acc[DT][4], dv_acc[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.f;
-
-  const int n_qt = (S + TQB - 1) / TQB;
-  const int qt0 = causal ? k0 / TQB : 0;
-  for (int j = 0; j < gq; ++j) {
-    const int h = hk * gq + j;
-    for (int qt = qt0; qt < n_qt; ++qt) {
-      const int q0 = qt * TQB;
-      __syncthreads();
-      tc_load<D>(Qs, q, b, q0, h, S, H, TQB);
-      tc_load<D>(dOs, dout, b, q0, h, S, H, TQB);
-      for (int r = threadIdx.x; r < TQB; r += TC_THREADS) {
-        const int qr = q0 + r;
-        float ls = 0.f, dl = 0.f;
-        if (qr < S) {
-          ls = lse[((size_t)b * S + qr) * H + h];
-          dl = delta[((size_t)b * S + qr) * H + h];
-        }
-        lse_s[r] = finite(ls) ? ls : 0.f;
-        delta_s[r] = dl;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T: 16 keys x TQB queries per warp
-      float s[NT][4], dp[NT][4];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t ka[4], va[4];
-        ldsm4(ka, frag_a<DP>(Ks, warp * 16, kk * 16, li, lr));
-        ldsm4(va, frag_a<DP>(Vs, warp * 16, kk * 16, li, lr));
-#pragma unroll
-        for (int np = 0; np < NT / 2; ++np) {
-          uint32_t r[4];
-          ldsm4(r, frag_b_nk<DP>(Qs, np * 16, kk * 16, li, lr));
-          mma(s[2 * np], ka, r[0], r[1]);
-          mma(s[2 * np + 1], ka, r[2], r[3]);
-          ldsm4(r, frag_b_nk<DP>(dOs, np * 16, kk * 16, li, lr));
-          mma(dp[2 * np], va, r[0], r[1]);
-          mma(dp[2 * np + 1], va, r[2], r[3]);
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qc = nt * 8 + 2 * t + (e & 1), qr = q0 + qc;
-          const int kr = key[e / 2];
-          const bool ok = qr < S && kr < S && (!causal || kr <= qr);
-          const float p = ok ? expf(s[nt][e] * scale - lse_s[qc]) : 0.f;
-          s[nt][e] = p;
-          dp[nt][e] = p * (dp[nt][e] - delta_s[qc]) * scale;
-        }
-
-      // dV += P^T dO and dK += dS^T Q over the TQB queries
-#pragma unroll
-      for (int kq = 0; kq < NT / 2; ++kq) {
-        uint32_t pa[4], da[4];
-        acc_to_a(pa, s[2 * kq], s[2 * kq + 1]);
-        acc_to_a(da, dp[2 * kq], dp[2 * kq + 1]);
-#pragma unroll
-        for (int dpp = 0; dpp < D / 16; ++dpp) {
-          uint32_t r[4];
-          ldsm4t(r, frag_b_kn<DP>(dOs, kq * 16, dpp * 16, li, lr));
-          mma(dv_acc[2 * dpp], pa, r[0], r[1]);
-          mma(dv_acc[2 * dpp + 1], pa, r[2], r[3]);
-          ldsm4t(r, frag_b_kn<DP>(Qs, kq * 16, dpp * 16, li, lr));
-          mma(dk_acc[2 * dpp], da, r[0], r[1]);
-          mma(dk_acc[2 * dpp + 1], da, r[2], r[3]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (key[i] >= S) continue;
-    const size_t base = (((size_t)b * S + key[i]) * Hkv + hk) * D + 2 * t;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      *reinterpret_cast<uint32_t*>(dk + base + dt * 8) =
-          pack2(dk_acc[dt][2 * i], dk_acc[dt][2 * i + 1]);
-      *reinterpret_cast<uint32_t*>(dv + base + dt * 8) =
-          pack2(dv_acc[dt][2 * i], dv_acc[dt][2 * i + 1]);
-    }
-  }
-}
-
-template <int D>
-constexpr size_t dq_tc_smem() {
-  return sizeof(bf16) * (size_t)(2 * TQ + 2 * TK) * (D + 8);
-}
-
-template <int D>
-__global__ void __launch_bounds__(TC_THREADS)
-flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v,
-                       const bf16* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta, bf16* __restrict__ dq,
-                       int S, int H, int Hkv, int causal, float scale) {
-  constexpr int DP = D + 8, KS = D / 16, DT = D / 8;
-  extern __shared__ uint4 tc_smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(tc_smem);    // TQ x DP
-  bf16* dOs = Qs + TQ * DP;                        // TQ x DP
-  bf16* Ks = dOs + TQ * DP;                        // TK x DP
-  bf16* Vs = Ks + TK * DP;                         // TK x DP
-
-  const int n_qt = (S + TQ - 1) / TQ;
-  const int q0 = (n_qt - 1 - (int)blockIdx.x) * TQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (H / Hkv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4, li = lane / 8, lr = lane % 8;
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-
-  tc_load<D>(Qs, q, b, q0, h, S, H, TQ);
-  tc_load<D>(dOs, dout, b, q0, h, S, H, TQ);
-  float lse_r[2], delta_r[2], dq_acc[DT][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float ls = 0.f, dl = 0.f;
-    if (row[i] < S) {
-      ls = lse[((size_t)b * S + row[i]) * H + h];
-      dl = delta[((size_t)b * S + row[i]) * H + h];
-    }
-    lse_r[i] = finite(ls) ? ls : 0.f;
-    delta_r[i] = dl;
-  }
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[dt][e] = 0.f;
-
-  int n_kt = (S + TK - 1) / TK;
-  if (causal) n_kt = min(n_kt, (q0 + TQ - 1) / TK + 1);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * TK;
-    __syncthreads();
-    tc_load<D>(Ks, k, b, k0, hk, S, Hkv, TK);
-    tc_load<D>(Vs, v, b, k0, hk, S, Hkv, TK);
-    __syncthreads();
-
-    float s[TK / 8][4], dp[TK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < TK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t qa[4], oa[4];
-      ldsm4(qa, frag_a<DP>(Qs, warp * 16, kk * 16, li, lr));
-      ldsm4(oa, frag_a<DP>(dOs, warp * 16, kk * 16, li, lr));
-#pragma unroll
-      for (int np = 0; np < TK / 16; ++np) {
-        uint32_t r[4];
-        ldsm4(r, frag_b_nk<DP>(Ks, np * 16, kk * 16, li, lr));
-        mma(s[2 * np], qa, r[0], r[1]);
-        mma(s[2 * np + 1], qa, r[2], r[3]);
-        ldsm4(r, frag_b_nk<DP>(Vs, np * 16, kk * 16, li, lr));
-        mma(dp[2 * np], oa, r[0], r[1]);
-        mma(dp[2 * np + 1], oa, r[2], r[3]);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < TK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kc = k0 + nt * 8 + 2 * t + (e & 1), i = e / 2;
-        const bool ok = row[i] < S && kc < S && (!causal || kc <= row[i]);
-        const float p = ok ? expf(s[nt][e] * scale - lse_r[i]) : 0.f;
-        dp[nt][e] = p * (dp[nt][e] - delta_r[i]) * scale;
-      }
-#pragma unroll
-    for (int kk = 0; kk < TK / 16; ++kk) {
-      uint32_t da[4];
-      acc_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-      for (int dpp = 0; dpp < D / 16; ++dpp) {
-        uint32_t r[4];
-        ldsm4t(r, frag_b_kn<DP>(Ks, kk * 16, dpp * 16, li, lr));
-        mma(dq_acc[2 * dpp], da, r[0], r[1]);
-        mma(dq_acc[2 * dpp + 1], da, r[2], r[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (row[i] >= S) continue;
-    bf16* o = dq + (((size_t)b * S + row[i]) * H + h) * D + 2 * t;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-      *reinterpret_cast<uint32_t*>(o + dt * 8) =
-          pack2(dq_acc[dt][2 * i], dq_acc[dt][2 * i + 1]);
   }
 }
 
@@ -966,20 +1357,132 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// cuTensorMapEncodeTiled, from the CUDA driver API via the runtime (so the
+// library needs no -lcuda at link time); looked up once.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+cudaError_t encoder(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr)
+      return cudaErrorSymbolNotFound;
+    cached = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// The 4-D map of a (B, S, Hx, D) tensor, dims {D, Hx, S, B}, boxes of
+// `cols` columns x 1 head x `rows` rows x 1 batch row; rows past S read as
+// zeros and are dropped on a store.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, bool f32, int D,
+                     int B, int S, int Hx, int cols, int rows,
+                     CUtensorMapSwizzle swizzle) {
+  EncodeTiled encode;
+  const cudaError_t err = encoder(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t es = f32 ? 4 : 2;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hx, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {es * D, es * Hx * D, es * S * Hx * D};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = encode(
+      map,
+      f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A bf16 operand's map: one column block a box, swizzled as Geo<D> says.
+template <int D>
+cudaError_t tile_map(CUtensorMap* map, const void* ptr, int B, int S, int Hx,
+                     int rows) {
+  return make_map(map, ptr, false, D, B, S, Hx, Geo<D>::CB, rows,
+                  D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                          : CU_TENSOR_MAP_SWIZZLE_32B);
+}
+
+template <int D>
+cudaError_t fwd_bf16(const void* q, const void* k, const void* v, void* out,
+                     void* lse, int B, int S, int H, int Hkv, int causal,
+                     float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = tile_map<D>(&tq, q, B, S, H, FQ);
+  if (err == cudaSuccess) err = tile_map<D>(&tk, k, B, S, Hkv, FK);
+  if (err == cudaSuccess) err = tile_map<D>(&tv, v, B, S, Hkv, FK);
+  constexpr size_t smem = FwdSmem<D>::BYTES;
+  if (err == cudaSuccess) err = allow_smem(flash_fwd_wgmma_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  flash_fwd_wgmma_kernel<D>
+      <<<(unsigned)((S + FQ - 1) / FQ * H * B), TC_THREADS, smem, stream>>>(
+          tq, tk, tv, static_cast<bf16*>(out), static_cast<float*>(lse), B,
+          S, H, Hkv, causal, scale);
+  return cudaGetLastError();
+}
+
+// The pre-pass, the one-pass backward, then the dq cast.  `scratch` holds
+// 2 B H Sp zeroed floats (lse in base 2, then delta), `dq_acc` B S H D.
+template <int D>
+cudaError_t bwd_bf16(const void* q, const void* k, const void* v,
+                     const void* out, const void* dout, const void* lse,
+                     void* scratch, void* dq, void* dk, void* dv,
+                     void* dq_acc, int B, int S, int H, int Hkv, int causal,
+                     float scale, cudaStream_t stream) {
+  const int Sp = (S + BQ - 1) / BQ * BQ;
+  float* lse2 = static_cast<float*>(scratch);
+  float* delta = lse2 + (size_t)B * H * Sp;
+  const size_t rows = (size_t)B * S * H;
+  flash_bwd_prep_kernel<D><<<(unsigned)((rows + THREADS / 32 - 1) /
+                                        (THREADS / 32)),
+                             THREADS, 0, stream>>>(
+      static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), lse2, delta, S, H, Sp, rows);
+  cudaError_t err = cudaGetLastError();
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  if (err == cudaSuccess) err = tile_map<D>(&tq, q, B, S, H, BQ);
+  if (err == cudaSuccess) err = tile_map<D>(&tk, k, B, S, Hkv, BK);
+  if (err == cudaSuccess) err = tile_map<D>(&tv, v, B, S, Hkv, BK);
+  if (err == cudaSuccess) err = tile_map<D>(&tdo, dout, B, S, H, BQ);
+  if (err == cudaSuccess)
+    err = make_map(&tdq, dq_acc, true, D, B, S, H, D / 2, BQ,
+                   CU_TENSOR_MAP_SWIZZLE_NONE);
+  constexpr size_t smem = BwdSmem<D>::BYTES;
+  if (err == cudaSuccess) err = allow_smem(flash_bwd_wgmma_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_wgmma_kernel<D>
+      <<<(unsigned)((S + BK - 1) / BK * Hkv * B), TC_THREADS, smem, stream>>>(
+          tq, tk, tv, tdo, tdq, lse2, delta, static_cast<bf16*>(dk),
+          static_cast<bf16*>(dv), B, S, H, Hkv, Sp, causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t n4 = rows * D / 4;
+  flash_bwd_dq_cast_kernel<<<(unsigned)((n4 + THREADS - 1) / THREADS),
+                             THREADS, 0, stream>>>(
+      static_cast<const float4*>(dq_acc), static_cast<uint2*>(dq), n4);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t fwd_d(const void* q, const void* k, const void* v, void* out,
                   void* lse, int B, int S, int H, int Hkv, int causal,
                   cudaStream_t stream) {
   const float scale = 1.0f / sqrtf((float)D);
   if constexpr (std::is_same<T, bf16>::value) {
-    constexpr size_t smem = fwd_tc_smem<D>();
-    const cudaError_t set = allow_smem(flash_fwd_tc_kernel<D>, smem);
-    if (set != cudaSuccess) return set;
-    flash_fwd_tc_kernel<D>
-        <<<dim3((S + TQ - 1) / TQ, H, B), TC_THREADS, smem, stream>>>(
-            static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-            static_cast<const bf16*>(v), static_cast<bf16*>(out),
-            static_cast<float*>(lse), S, H, Hkv, causal, scale);
+    return fwd_bf16<D>(q, k, v, out, lse, B, S, H, Hkv, causal, scale,
+                       stream);
   } else {
     constexpr size_t smem = fwd_smem<D>();
     const cudaError_t set = allow_smem(flash_fwd_kernel<D>, smem);
@@ -989,49 +1492,37 @@ cudaError_t fwd_d(const void* q, const void* k, const void* v, void* out,
             static_cast<const T*>(q), static_cast<const T*>(k),
             static_cast<const T*>(v), static_cast<T*>(out),
             static_cast<float*>(lse), S, H, Hkv, causal, scale);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
-// The delta pre-pass, then dK/dV, then dQ: tensor-core kernels for bf16,
-// CUDA-core kernels for f32.
+// bf16: the pre-pass, the one-pass backward and the dq cast; f32: the delta
+// pre-pass, then dK/dV, then dQ on CUDA cores.
 template <typename T, int D>
 cudaError_t bwd_d(const void* q, const void* k, const void* v,
                   const void* out, const void* dout, const void* lse,
-                  void* delta, void* dq, void* dk, void* dv, int B, int S,
-                  int H, int Hkv, int causal, cudaStream_t stream) {
+                  void* delta, void* dq, void* dk, void* dv, void* dq_acc,
+                  int B, int S, int H, int Hkv, int causal,
+                  cudaStream_t stream) {
   const float scale = 1.0f / sqrtf((float)D);
-  const size_t rows = (size_t)B * S * H;
-  const unsigned delta_blocks =
-      (unsigned)((rows + THREADS / 32 - 1) / (THREADS / 32));
-  flash_bwd_delta_kernel<T, D><<<delta_blocks, THREADS, 0, stream>>>(
-      static_cast<const T*>(out), static_cast<const T*>(dout),
-      static_cast<float*>(delta), rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const T* q_ = static_cast<const T*>(q);
-  const T* k_ = static_cast<const T*>(k);
-  const T* v_ = static_cast<const T*>(v);
-  const T* do_ = static_cast<const T*>(dout);
-  const float* lse_ = static_cast<const float*>(lse);
-  const float* delta_ = static_cast<const float*>(delta);
   if constexpr (std::is_same<T, bf16>::value) {
-    constexpr size_t smem_kv = dkdv_tc_smem<D>(), smem_q = dq_tc_smem<D>();
-    err = allow_smem(flash_bwd_dkdv_tc_kernel<D>, smem_kv);
-    if (err != cudaSuccess) return err;
-    err = allow_smem(flash_bwd_dq_tc_kernel<D>, smem_q);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dkdv_tc_kernel<D>
-        <<<dim3((S + TK - 1) / TK, Hkv, B), TC_THREADS, smem_kv, stream>>>(
-            q_, k_, v_, do_, lse_, delta_, static_cast<T*>(dk),
-            static_cast<T*>(dv), S, H, Hkv, causal, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    flash_bwd_dq_tc_kernel<D>
-        <<<dim3((S + TQ - 1) / TQ, H, B), TC_THREADS, smem_q, stream>>>(
-            q_, k_, v_, do_, lse_, delta_, static_cast<T*>(dq), S, H, Hkv,
-            causal, scale);
+    return bwd_bf16<D>(q, k, v, out, dout, lse, delta, dq, dk, dv, dq_acc, B,
+                       S, H, Hkv, causal, scale, stream);
   } else {
+    const size_t rows = (size_t)B * S * H;
+    const unsigned delta_blocks =
+        (unsigned)((rows + THREADS / 32 - 1) / (THREADS / 32));
+    flash_bwd_delta_kernel<D><<<delta_blocks, THREADS, 0, stream>>>(
+        static_cast<const T*>(out), static_cast<const T*>(dout),
+        static_cast<float*>(delta), rows);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const T* q_ = static_cast<const T*>(q);
+    const T* k_ = static_cast<const T*>(k);
+    const T* v_ = static_cast<const T*>(v);
+    const T* do_ = static_cast<const T*>(dout);
+    const float* lse_ = static_cast<const float*>(lse);
+    const float* delta_ = static_cast<const float*>(delta);
     constexpr size_t smem_kv = dkdv_smem<D>(), smem_q = dq_smem<D>();
     err = allow_smem(flash_bwd_dkdv_kernel<D>, smem_kv);
     if (err != cudaSuccess) return err;
@@ -1047,8 +1538,8 @@ cudaError_t bwd_d(const void* q, const void* k, const void* v,
         <<<dim3((S + BM - 1) / BM, H, B), THREADS, smem_q, stream>>>(
             q_, k_, v_, do_, lse_, delta_, static_cast<T*>(dq), S, H, Hkv,
             causal, scale);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -1070,18 +1561,18 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
 template <typename T>
 cudaError_t bwd(const void* q, const void* k, const void* v, const void* out,
                 const void* dout, const void* lse, void* delta, void* dq,
-                void* dk, void* dv, int B, int S, int H, int Hkv, int D,
-                int causal, cudaStream_t stream) {
+                void* dk, void* dv, void* dq_acc, int B, int S, int H,
+                int Hkv, int D, int causal, cudaStream_t stream) {
   switch (D) {
     case 16:
-      return bwd_d<T, 16>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, S,
-                          H, Hkv, causal, stream);
+      return bwd_d<T, 16>(q, k, v, out, dout, lse, delta, dq, dk, dv, dq_acc,
+                          B, S, H, Hkv, causal, stream);
     case 64:
-      return bwd_d<T, 64>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, S,
-                          H, Hkv, causal, stream);
+      return bwd_d<T, 64>(q, k, v, out, dout, lse, delta, dq, dk, dv, dq_acc,
+                          B, S, H, Hkv, causal, stream);
     case 128:
-      return bwd_d<T, 128>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, S,
-                           H, Hkv, causal, stream);
+      return bwd_d<T, 128>(q, k, v, out, dout, lse, delta, dq, dk, dv,
+                           dq_acc, B, S, H, Hkv, causal, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1090,10 +1581,13 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* out,
 }  // namespace
 
 // C entry points, loaded with ctypes by repro_torch.kernels.flash_attention.
-// Shapes: q/out/dout/dq (B, S, H, D); k/v/dk/dv (B, S, Hkv, D); lse and the
-// delta scratch (B, S, H) f32; all contiguous, 4-byte aligned, on the
-// current device; D in {16, 64, 128}, H a multiple of Hkv.  Each launches
-// on `stream` and returns cudaGetLastError() (0 on success).
+// Shapes: q/out/dout/dq (B, S, H, D); k/v/dk/dv (B, S, Hkv, D); lse (B, S,
+// H) f32; all contiguous, 16-byte aligned, on the current device; D in
+// {16, 64, 128}, H a multiple of Hkv.  The backward's scratch: `delta`
+// holds B S H floats for f32, and 2 B H Sp zeroed floats for bf16 (Sp = S
+// rounded up to 64); `dq_acc` is a zeroed f32 (B, S, H, D) workspace for
+// bf16 (unused, may be null, for f32).  Each launches on `stream` and
+// returns cudaGetLastError() (0 on success).
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
                                          const void* v, void* out, void* lse,
                                          int B, int S, int H, int Hkv, int D,
@@ -1111,14 +1605,15 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k,
                                          const void* v, const void* out,
                                          const void* dout, const void* lse,
                                          void* delta, void* dq, void* dk,
-                                         void* dv, int B, int S, int H,
-                                         int Hkv, int D, int causal,
-                                         int is_bf16, void* stream) {
+                                         void* dv, void* dq_acc, int B,
+                                         int S, int H, int Hkv, int D,
+                                         int causal, int is_bf16,
+                                         void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       is_bf16 ? bwd<__nv_bfloat16>(q, k, v, out, dout, lse, delta, dq, dk,
-                                   dv, B, S, H, Hkv, D, causal, s)
-              : bwd<float>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, S,
-                           H, Hkv, D, causal, s);
+                                   dv, dq_acc, B, S, H, Hkv, D, causal, s)
+              : bwd<float>(q, k, v, out, dout, lse, delta, dq, dk, dv,
+                           dq_acc, B, S, H, Hkv, D, causal, s);
   return static_cast<int>(err);
 }

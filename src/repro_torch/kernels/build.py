@@ -105,7 +105,7 @@ def load_library() -> ctypes.CDLL:
         lib.repro_paged_attention.restype = i
         lib.repro_flash_attention_fwd.argtypes = [p] * 5 + [i] * 7 + [p]
         lib.repro_flash_attention_fwd.restype = i
-        lib.repro_flash_attention_bwd.argtypes = [p] * 10 + [i] * 7 + [p]
+        lib.repro_flash_attention_bwd.argtypes = [p] * 11 + [i] * 7 + [p]
         lib.repro_flash_attention_bwd.restype = i
         lib.repro_mamba_scan.argtypes = [p] * 7 + [i] * 4 + [p]
         lib.repro_mamba_scan.restype = i

@@ -14,9 +14,11 @@ holds the kernels against, are :func:`flash_attention_fwd_ref` and
 Both wrappers only ever launch: they raise for a tensor that is not on a
 CUDA device and for any dtype, shape or layout the kernels do not take.
 The autograd wiring and the device dispatch live in
-:func:`repro_torch.kernels.ops.flash_attention`.  The kernels sweep 64-key
-tiles where the plain versions sweep ``k_chunk``-key chunks, which changes
-nothing but the f32 summation order.
+:func:`repro_torch.kernels.ops.flash_attention`.  The kernels sweep 64- or
+128-key tiles where the plain versions sweep ``k_chunk``-key chunks, which
+changes nothing but the f32 summation order.  The bf16 backward adds dq
+into an f32 workspace with atomics, so its dq bits vary from call to call
+(within tolerance); dk and dv do not.
 """
 from __future__ import annotations
 
@@ -101,7 +103,10 @@ flash_attention_fwd.launches = 0
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         dout: torch.Tensor, causal: bool = True):
-    """Launch the backward kernels (the delta pre-pass, dK/dV, then dQ).
+    """Launch the backward kernels.
+
+    bf16: a pre-pass (delta, lse rows), one pass for dq/dk/dv, a dq cast;
+    f32: the delta pre-pass, dK/dV, then dQ.
 
     The residuals of :func:`flash_attention_fwd` (q, k, v, out, lse) and the
     output cotangent ``dout`` (out's shape and dtype).  Returns (dq, dk,
@@ -118,14 +123,26 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if dq.numel() == 0:
         return dq, dk, dv
-    delta = torch.empty((B, S, H), dtype=torch.float32, device=q.device)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        # lse and delta rows padded to 64 queries, and dq's f32 workspace
+        # (128 MB at B = 4, S = 4096, H = 16, D = 128), both zeroed
+        sp = -(-S // 64) * 64
+        scratch = torch.zeros(2 * B * H * sp, dtype=torch.float32,
+                              device=q.device)
+        dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    else:
+        scratch = torch.empty((B, S, H), dtype=torch.float32,
+                              device=q.device)
+        dq_acc = None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2], D,
-            int(causal), int(q.dtype == torch.bfloat16), stream)
+            dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if dq_acc is None else dq_acc.data_ptr(), B, S, H,
+            k.shape[2], D, int(causal), int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention backward kernel launch failed: "
                            f"CUDA error {err}")

@@ -14,6 +14,7 @@ and skip without a card (run them on one with
 ``python -m pytest -m cuda tests/test_torch_kernels.py``).
 """
 import functools
+import math
 
 import numpy as np
 import pytest
@@ -343,15 +344,20 @@ def test_training_wrappers_refuse_cpu_tensors():
 
 
 # (B, S, H, Hkv, D): the train cell's heads at B = 1, a ragged S, MHA, the
-# smoke widths
+# smoke widths; S one past the bf16 kernels' 128-row tile, a ragged 1000,
+# and S = 1, below one tile
 CARD_FLASH = [(1, 1024, 16, 8, 128), (2, 200, 16, 8, 128),
-              (1, 256, 8, 8, 64), (2, 100, 4, 2, 16)]
+              (1, 256, 8, 8, 64), (2, 100, 4, 2, 16), (1, 129, 16, 8, 128),
+              (1, 1000, 16, 8, 128), (1, 1, 16, 8, 128)]
+# the train step's shape (B = 4, S = 4096), in its dtype only
+CARD_FLASH_CASES = [(*shape, dtype) for shape in CARD_FLASH
+                    for dtype in ("float32", "bfloat16")]
+CARD_FLASH_CASES += [(4, 4096, 16, 8, 128, "bfloat16")]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,H,Hkv,D", CARD_FLASH)
+@pytest.mark.parametrize("B,S,H,Hkv,D,dtype", CARD_FLASH_CASES)
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_kernels_match_plain_on_card(B, S, H, Hkv, D, causal,
                                                      dtype):
     dev = _card()
@@ -370,19 +376,66 @@ def test_flash_attention_kernels_match_plain_on_card(B, S, H, Hkv, D, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hkv,D", [(2, 1000, 16, 8, 128),
+                                         (1, 4096, 16, 8, 128)])
+def test_flash_attention_bwd_bf16_determinism_on_card(B, S, H, Hkv, D):
+    """Two bf16 backward calls on the same inputs: dk and dv bit-identical
+    (each written once from registers), dq within tolerance of each other
+    (summed into its f32 workspace with atomics, in an order that varies)."""
+    dev = _card()
+    q, k, v, do = (_torch(a, "bfloat16").to(dev)
+                   for a in _flash_inputs(B, S, H, Hkv, D, seed=5))
+    out, lse = fa.flash_attention_fwd(q, k, v, True)
+    dq1, dk1, dv1 = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
+    dq2, dk2, dv2 = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
+    torch.cuda.synchronize()
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+    tol = TOL["bfloat16"]
+    torch.testing.assert_close(dq1.float(), dq2.float(), atol=tol, rtol=tol)
+
+
+# dscale is a sum over every row, which the kernel and the plain version
+# take in different orders, both accumulating in f32 (for either dtype).
+# A sequential sum of n terms t_i of random sign rounds each partial sum
+# S_k (|S_k| ~ sqrt(k) rms(t)) by up to eps / 2 of itself, an error of
+# standard deviation about 0.2 * eps * sqrt(n) * ||t||_2; the difference
+# of two such sums has 0.29 of it.  So each column j gets
+# atol_j = sqrt(n) * eps_f32 * ||xhat[:, j] * dy[:, j]||_2, 3.5 standard
+# deviations of two sequential orders (the blocked and tree orders both
+# sides take err far less), beside the element-wise rtol, which also
+# covers the bf16 output's own rounding; dx is element-wise and keeps TOL.
+DSCALE_ATOL_EPS = float(np.finfo(np.float32).eps)
+
+
+def _dscale_atol(x, dy, eps=1e-6):
+    xf = x.float().reshape(-1, x.shape[-1])
+    dyf = dy.float().reshape(-1, x.shape[-1])
+    xhat = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    n = xf.shape[0]
+    return math.sqrt(n) * DSCALE_ATOL_EPS * (xhat * dyf).norm(dim=0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(4096, 1024), (512, 16, 128), (3, 100)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_bwd_kernel_matches_plain_on_card(shape, dtype):
     dev = _card()
-    x, dy = (torch.randn(shape, device=dev).to(TORCH_DT[dtype])
-             for _ in range(2))
-    s = torch.randn(shape[-1], device=dev).to(TORCH_DT[dtype])
-    got = rn.rmsnorm_bwd(x, s, dy, 1e-6)
-    want = ref.rmsnorm_bwd_ref(x, s, dy, 1e-6)
+    rng = np.random.default_rng(11)
+    x, dy = (_torch(rng.standard_normal(shape).astype(np.float32),
+                    dtype).to(dev) for _ in range(2))
+    s = _torch(rng.standard_normal(shape[-1]).astype(np.float32),
+               dtype).to(dev)
+    (dx, ds) = rn.rmsnorm_bwd(x, s, dy, 1e-6)
+    (want_dx, want_ds) = ref.rmsnorm_bwd_ref(x, s, dy, 1e-6)
     torch.cuda.synchronize()
-    tol = dict(atol=TOL[dtype], rtol=TOL[dtype])
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g.float(), w.float(), **tol)
+    tol = TOL[dtype]
+    torch.testing.assert_close(dx.float(), want_dx.float(), atol=tol,
+                               rtol=tol)
+    err = (ds.float() - want_ds.float()).abs()
+    bound = _dscale_atol(x, dy) + tol * want_ds.float().abs()
+    assert bool((err <= bound).all()), (
+        f"dscale: max |err| {err.max().item()}, worst err / bound "
+        f"{(err / bound).max().item()}")
 
 
 @pytest.mark.cuda
