@@ -14,10 +14,15 @@ and never prints the final ``ok`` line):
    forward and backward), nvcc and Triton in parallel;
 3. each serving kernel against its plain PyTorch version on the card at
    the serving shapes (decode rows; a free slot's idle row in a pow2-wide
-   table; the widest one-shot prefill's norm rows) within f32 2e-5,
-   bf16 2e-2, with its time (CUDA events,
-   median of 30 after warm-up, L2 flushed before each launch), the plain
-   version's time, one PyTorch library call's time and the bound;
+   table; the widest one-shot prefill's norm rows; paged attention's split
+   edges: rows ending on and one token past a split boundary, empty
+   splits, idle rows, a batch of idle rows, a one-page table, K = 1 and
+   5) within f32 2e-5, bf16 2e-2, with its time (CUDA events, median of
+   30 after warm-up, L2 flushed before each launch), the plain version's
+   time, the library call's time and the bound; paged attention's
+   library time is the faster of SDPA over K/V repeated to all heads and
+   SDPA with ``enable_gqa=True`` (named in ``library``), and each case
+   prints the split plan the wrapper chose;
 4. the training kernels the same way: flash-attention forward and
    backward at the train cell's heads with B = 1 and the train step's
    B = 4 (S = 4096), a ragged S = 1000 (bf16 and f32), MHA, and bf16 at
@@ -27,7 +32,8 @@ and never prints the final ``ok`` line):
    through the continuous-batching paged scheduler: 16 requests, 8
    slots, prompts 128/256/512, 64 new tokens each, greedy; every logit
    row must be finite and both kernels' launch counters must match the
-   decode and prefill steps taken;
+   decode and prefill steps taken; then one decode step over 8 filled
+   slots under the profiler (device time by kernel group, busy share);
 6. an f32 recompute at full width: 2 served requests re-run through the
    dense causal forward (no pages, no paged kernel) must pick the served
    token at every generated position, save top-2 ties within 1e-4;
@@ -47,10 +53,13 @@ and never prints the final ``ok`` line):
    (``|err| <= 1e-4 + 1e-4 |want|`` over up to 500 sequential steps, y /
    h and the final state): the selective scan at jamba's serve shape
    (B = 1, S = 500, d_in = 16384, N = 16), a ragged S = 37 and B = 2; the
-   sLSTM at xlstm-125m's (B = 1, S = 500, d = 768, H = 4) and at (3, 33,
-   96, 2); and the kernels the recurrent serve phases give new widths:
-   paged attention at jamba's 8 query heads per KV head, RMSNorm at
-   d = 768 and d = 8192;
+   sLSTM at xlstm-125m's (B = 1, S = 500, d = 768, H = 4), at (3, 33, 96,
+   2) and at (2, 40, 392, 2), a head of 196 channels that a cluster of 8
+   does not divide, each printing the cluster size the wrapper chose; and
+   the kernels the recurrent serve phases give new widths: paged
+   attention at jamba's 8 query heads per KV head (K = 1 and 5, f32 and
+   bf16, and the split edges as in phase 3), RMSNorm at d = 768 and
+   d = 8192;
 10. serve_xlstm: xlstm-125m FULL in bf16 (seed 0), 16 requests, 8 slots,
     16-token pages, prompts 100/300/500, 64 new tokens, greedy; every
     logit row finite, 3 sLSTM-scan launches per prefill and 13 RMSNorm
@@ -70,6 +79,7 @@ and never prints the final ``ok`` line):
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and ``triton``; exits 1
 without a card and 2 when run outside a checkout of the repo.
 """
+import gc
 import json
 import math
 import shutil
@@ -169,6 +179,15 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def release(torch) -> None:
+    """Free the last phase's device memory before the next: collect the
+    reference cycles a phase leaves (a session whose methods are wrapped
+    in closures over it), then return the cached blocks, so that no phase's
+    peak memory counts another's model."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def bound(bytes_moved: float, ops: float, dtype: str):
     """Least time the card could take: (ms, 'bytes' | 'operations')."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S
@@ -254,29 +273,58 @@ def _paged_inputs(torch, gen, B, H, Hkv, D, bs, K, dtype, lengths, W=None):
     return q, kp, vp, tables.contiguous(), lens
 
 
-def _sdpa_call(torch, q, kp, vp, tables, lengths):
-    """One SDPA call over pages gathered beforehand: the library yardstick
-    (the gather itself is not timed)."""
+def _sdpa_calls(torch, q, kp, vp, tables, lengths):
+    """SDPA over pages gathered beforehand (the gather itself is not
+    timed), the library yardsticks: ``{name: call}``.  One call over K/V
+    repeated to all H heads (g times the bytes the paged kernel reads) and,
+    where the installed torch takes it, one with ``enable_gqa=True`` over
+    the Hkv heads as they are."""
     import torch.nn.functional as F
 
     B, K, H, D = q.shape
     _, bs, Hkv, _ = kp.shape
     t = tables.long()
-    k = kp[t].reshape(B, -1, Hkv, D).transpose(1, 2)
-    v = vp[t].reshape(B, -1, Hkv, D).transpose(1, 2)
-    k = k.repeat_interleave(H // Hkv, dim=1).contiguous()
-    v = v.repeat_interleave(H // Hkv, dim=1).contiguous()
+    k = kp[t].reshape(B, -1, Hkv, D).transpose(1, 2).contiguous()
+    v = vp[t].reshape(B, -1, Hkv, D).transpose(1, 2).contiguous()
+    kr = k.repeat_interleave(H // Hkv, dim=1).contiguous()
+    vr = v.repeat_interleave(H // Hkv, dim=1).contiguous()
     qh = q.transpose(1, 2).contiguous()         # (B, H, K, D)
     pos = torch.arange(k.shape[2], device=q.device)
     reach = lengths.long()[:, None] + torch.arange(K, device=q.device)
     mask = (pos[None, None, :] < reach[..., None])[:, None]  # (B,1,K,S)
-    return lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=mask)
+    calls = {"sdpa_repeat_kv": lambda: F.scaled_dot_product_attention(
+        qh, kr, vr, attn_mask=mask)}
+    try:
+        F.scaled_dot_product_attention(qh, k, v, attn_mask=mask,
+                                       enable_gqa=True)
+    except TypeError:                           # torch before enable_gqa
+        return calls
+    calls["sdpa_enable_gqa"] = lambda: F.scaled_dot_product_attention(
+        qh, k, v, attn_mask=mask, enable_gqa=True)
+    return calls
+
+
+def _split_edge_lengths(torch, B, Hkv, W, bs, K):
+    """Row lengths at the kernel's split edges for a ``(B, W)`` table: a
+    reach ending exactly on a split boundary, one token past it, on the
+    second boundary, a short row (every later split empty), a full table,
+    and an idle last row."""
+    from repro_torch.kernels import paged_attention as pa
+
+    _, pps = pa.split_plan(B, Hkv, W, pa.sm_count(0))
+    edge = min(pps, W) * bs - (K - 1)
+    pool = [edge, edge + 1, 2 * pps * bs - (K - 1), 2, bs,
+            W * bs - (K - 1), (W - 1) * bs]
+    lengths = [min(max(1, n), W * bs - (K - 1)) for n in pool]
+    return (lengths * B)[:B - 1] + [1]
 
 
 def _paged_check(torch, timer, gen, B, H, Hkv, D, bs, K, dtype, lengths,
                  width=None):
     """The paged kernel against its plain version on one random case,
-    timed beside SDPA over pages gathered beforehand; returns the case."""
+    timed beside SDPA over pages gathered beforehand (``library_ms`` the
+    faster of :func:`_sdpa_calls`, named in ``library``); returns the
+    case with the split plan the wrapper chose."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
 
@@ -291,8 +339,13 @@ def _paged_check(torch, timer, gen, B, H, Hkv, D, bs, K, dtype, lengths,
     check(bool((err <= tol + tol * want.float().abs()).all()),
           f"paged_attention {dtype} H={H} Hkv={Hkv} D={D} K={K}: max |err| "
           f"{err.max().item()} over tolerance {tol}")
-    lib_fn = _sdpa_call(torch, *args)
-    lib_err = (lib_fn().transpose(1, 2).float() - want.float()).abs()
+    lib_ms, lib_err = {}, 0.0
+    for name, fn in _sdpa_calls(torch, *args).items():
+        lib_err = max(lib_err, (fn().transpose(1, 2).float()
+                                - want.float()).abs().max().item())
+        lib_ms[name] = timer.ms(fn)
+    library = min(lib_ms, key=lib_ms.get)
+    splits, pps = pa.split_plan(B, Hkv, tables.shape[1], pa.sm_count(0))
     esize = q.element_size()
     reach = sum(int(n) + K - 1 for n in lengths)
     moved = 2 * q.numel() * esize + 2 * reach * Hkv * D * esize \
@@ -301,12 +354,15 @@ def _paged_check(torch, timer, gen, B, H, Hkv, D, bs, K, dtype, lengths,
     b_ms, b_by = bound(moved, ops, dtype)
     case = {"kernel": "paged_attention", "dtype": dtype, "B": B, "H": H,
             "Hkv": Hkv, "D": D, "bs": bs, "K": K, "W": tables.shape[1],
+            "splits": splits, "pages_per_split": pps,
             "lengths": lengths, "max_abs_err": err.max().item(),
-            "tol": tol, "library_max_abs_err": lib_err.max().item(),
+            "tol": tol, "library_max_abs_err": lib_err,
             "kernel_ms": timer.ms(lambda: pa.paged_attention(*args)),
             "plain_ms": timer.ms(lambda: ref.paged_attention_ref(*args)),
-            "library_ms": timer.ms(lib_fn), "bound_ms": b_ms,
+            "library_ms": lib_ms[library], "library": library,
+            "library_ms_each": lib_ms, "bound_ms": b_ms,
             "bound_by": b_by, "bytes": moved}
+    case["share_of_bound"] = b_ms / case["kernel_ms"]
     emit(case)
     return case
 
@@ -357,6 +413,15 @@ def phase_kernels(torch, timer):
     cases += [(64, 1, "bfloat16", rng_lengths, None)]
     cases += [(128, 1, dt, bucket_lengths, 32)
               for dt in ("bfloat16", "float32")]
+    # the split edges: rows ending on and one past a split boundary, empty
+    # splits, an idle row, at a serve-wide table and a one-page one
+    for K in (1, 5):
+        cases += [(128, K, dt, _split_edge_lengths(torch, 8, 8, 36, 16, K),
+                   36) for dt in ("bfloat16", "float32")]
+        cases += [(128, K, "bfloat16", [16 - K + 1, 3, 9, 2, 16 - K, 5, 1,
+                                        1], 1)]
+    # every slot free: the launch's latency floor
+    cases += [(128, 1, "bfloat16", [1] * 8, 36)]
     for D, K, dtype, case_lengths, width in cases:
         results["paged_attention"].append(_paged_check(
             torch, timer, gen, 8, 16, 8, D, 16, K, dtype, case_lengths,
@@ -457,8 +522,31 @@ def phase_serve(torch):
               launches["paged_attention"] / st["decode_steps"],
           "rmsnorm_per_model_call": launches["rmsnorm"] / calls,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-          "sample": results[0][:8].tolist()})
+          "sample": results[0][:8].tolist(),
+          "profiled_decode_step": _profile_decode(
+              torch, sched, [r.prompt for r in reqs[:8]])})
     return launches
+
+
+def _profile_decode(torch, sched, prompts):
+    """After a serve run (every slot free): each slot prefilled with one of
+    ``prompts``, then one decode step over all of them under
+    torch.profiler -- the steady decode batch of the serve phase."""
+    import numpy as np
+
+    pool, session = sched.pool, sched.session
+    index = np.full((pool.num_slots,), -1, np.int32)
+    rids = [f"profiled{i}" for i in range(len(prompts))]
+    for rid, prompt in zip(rids, prompts):
+        pool.admit(rid, len(prompt) + 1)
+        session.prefill(rid, prompt)
+        index[pool.slot_of(rid)] = len(prompt)
+    tokens = np.zeros((pool.num_slots, 1), np.int32)
+    width = pool.table_width_for(max(len(p) for p in prompts) + 1)
+    out = _profile(torch, lambda: session.step(tokens, index, width=width))
+    for rid in rids:
+        pool.release(rid)
+    return out
 
 
 def phase_recompute(torch):
@@ -693,7 +781,7 @@ PROFILE_GROUPS = (("flash_attention_fwd", ("flash_fwd",)),
                   ("rmsnorm", ("rmsnorm",)),
                   ("paged_attention", ("paged_attention",)),
                   ("mamba_scan", ("mamba_scan",)),
-                  ("slstm_scan", ("slstm_scan",)),
+                  ("slstm_scan", ("slstm",)),
                   ("matmul", ("gemm", "sm90", "cutlass", "nvjet", "xmma",
                               "cublas")))
 
@@ -938,7 +1026,9 @@ def phase_recurrent_kernels(torch, timer):
         case.update(B=B, S=S, d_in=d, N=N)
         emit(case)
         results["mamba_scan"].append(case)
-    for B, S, d, H in ((1, 500, 768, 4), (3, 33, 96, 2)):
+    # xlstm-125m (a cluster of 8), the JAX test's ragged shape, and a head
+    # of 196 channels over a cluster of 8 (the last block's tail masked)
+    for B, S, d, H in ((1, 500, 768, 4), (3, 33, 96, 2), (2, 40, 392, 2)):
         dh = d // H
         gx = torch.randn((B, S, 4 * d), generator=gen, device="cuda")
         r = torch.randn((H, dh, 4 * dh), generator=gen,
@@ -949,16 +1039,26 @@ def phase_recurrent_kernels(torch, timer):
         ops = B * S * (8 * d * dh + 16 * d)
         case = _scan_case(torch, timer, "slstm_scan", sl.slstm_scan,
                           ref.slstm_ref, (gx, r), moved, ops)
-        case.update(B=B, S=S, d=d, H=H)
+        C, cb = sl.cluster_plan(dh)
+        case.update(B=B, S=S, d=d, H=H, cluster=C, channels_per_block=cb)
         emit(case)
         results["slstm_scan"].append(case)
     # jamba's decode step: 64 query heads over 8 KV heads (g = 8), one
     # attention layer, prompts up to 500 + 32 new tokens
     lengths = torch.randint(100, 533, (8,), generator=gen,
                             device="cuda").tolist()
-    for dtype in ("bfloat16", "float32"):
+    paged = [(K, dt, lengths, None) for K in (1, 5)
+             for dt in ("bfloat16", "float32")]
+    # the split edges at g = 8, K * g = 8 and 40 rows a block
+    for K in (1, 5):
+        paged += [(K, "bfloat16",
+                   _split_edge_lengths(torch, 8, 8, 36, 16, K), 36),
+                  (K, "bfloat16", [16 - K + 1, 2, 9, 1, 4, 16 - K, 7, 1],
+                   1)]
+    for K, dtype, case_lengths, width in paged:
         results["paged_attention"].append(_paged_check(
-            torch, timer, gen, 8, 64, 8, 128, 16, 1, dtype, lengths))
+            torch, timer, gen, 8, 64, 8, 128, 16, K, dtype, case_lengths,
+            width))
     # xlstm-125m (d = 768, a masked 1024 block) and jamba (d = 8192, one
     # 8192-wide row per program): decode rows and a 500-token prefill
     for d in (768, 8192):
@@ -1065,12 +1165,12 @@ def phase_serve_recurrent(torch):
         torch, "serve_xlstm", get_config("xlstm-125m"), 16, [100, 300, 500],
         64, {"slstm_scan": ("prefills", 3),
              "rmsnorm": ("model_calls", 13)})}
-    torch.cuda.empty_cache()
+    release(torch)
     out["serve_hybrid"] = _serve_phase(
         torch, "serve_hybrid", NOEXP_8L, 8, [100, 300, 500], 32,
         {"mamba_scan": ("prefills", 7), "paged_attention": ("decode_steps", 1),
          "rmsnorm": ("model_calls", 17)})
-    torch.cuda.empty_cache()
+    release(torch)
     return out
 
 
@@ -1103,7 +1203,7 @@ def phase_recompute_recurrent(torch):
                             "tie_count": len(ties),
                             "mismatches": mismatches}
         del model, sched
-        torch.cuda.empty_cache()
+        release(torch)
     emit({"phase": "recompute_recurrent", "dtype": "float32",
           "allow_tf32": False, "prompt_lens": prompt_lens,
           "max_new": max_new, **report})
@@ -1133,15 +1233,15 @@ def main() -> int:
         for name, rows in more.items():
             cases.setdefault(name, []).extend(rows)
     del timer
-    torch.cuda.empty_cache()
+    release(torch)
     serve_launches = phase_serve(torch)
-    torch.cuda.empty_cache()
+    release(torch)
     phase_recompute(torch)
-    torch.cuda.empty_cache()
+    release(torch)
     train_launches, _ = phase_train(torch)
-    torch.cuda.empty_cache()
+    release(torch)
     phase_train_parity(torch)
-    torch.cuda.empty_cache()
+    release(torch)
     recurrent_launches = phase_serve_recurrent(torch)
     phase_recompute_recurrent(torch)
 

@@ -100,8 +100,7 @@ def load_library() -> ctypes.CDLL:
             build_library()
         lib = ctypes.CDLL(str(LIBRARY))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.repro_paged_attention.argtypes = [p, p, p, p, p, p,
-                                              i, i, i, i, i, i, i, i, p]
+        lib.repro_paged_attention.argtypes = [p] * 8 + [i] * 10 + [p]
         lib.repro_paged_attention.restype = i
         lib.repro_flash_attention_fwd.argtypes = [p] * 5 + [i] * 7 + [p]
         lib.repro_flash_attention_fwd.restype = i
@@ -109,7 +108,7 @@ def load_library() -> ctypes.CDLL:
         lib.repro_flash_attention_bwd.restype = i
         lib.repro_mamba_scan.argtypes = [p] * 7 + [i] * 4 + [p]
         lib.repro_mamba_scan.restype = i
-        lib.repro_slstm_scan.argtypes = [p] * 7 + [i] * 4 + [p]
+        lib.repro_slstm_scan.argtypes = [p] * 7 + [i] * 6 + [p]
         lib.repro_slstm_scan.restype = i
         _lib = lib
     return _lib

@@ -9,6 +9,11 @@ through ``ctypes``.  Its plain PyTorch version, which the CPU path runs
 and ``chip_smoke.py`` holds the kernel against, is
 :func:`paged_attention_ref`.
 
+The kernel splits each row's page sweep across blocks (flash-decoding):
+:func:`split_plan` cuts the table into ranges so the grid fills the card,
+and the last block of each (row, kv head) merges the ranges' partial
+softmax states in the same launch.
+
 :func:`paged_attention` only ever launches the kernel: it raises for a
 tensor that is not on a CUDA device, and for any dtype, shape or layout
 the kernel does not take.  The device dispatch lives in
@@ -16,16 +21,61 @@ the kernel does not take.  The device dispatch lives in
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import paged_attention_ref
 
-__all__ = ["paged_attention", "paged_attention_ref"]
+__all__ = ["paged_attention", "paged_attention_ref", "split_plan"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # head dims the kernel is compiled for (a template parameter)
 HEAD_DIMS = (16, 64, 128)
+# accumulator rows (K * H / Hkv) one block takes: 4 warps of 16 rows in
+# bf16, 16 warps of 4 rows in f32
+MAX_ROWS = 64
+# blocks per SM the split plan aims for (at the serve shapes on an H100, 2
+# beat 1, 3 and 4), and the most splits a row takes
+WAVES = 2
+MAX_SPLITS = 64
+
+
+def split_plan(B: int, Hkv: int, W: int, sms: int) -> tuple:
+    """``(splits, pages_per_split)`` for a ``(B, W)`` table over ``Hkv``
+    kv heads on a card of ``sms`` SMs.
+
+    The grid is ``(splits, Hkv, B)``; split ``s`` sweeps table columns
+    ``[s * pps, min((s + 1) * pps, W))``: the widest ranges that still
+    give at least ``WAVES * sms`` blocks (one page each when ``W`` is too
+    narrow for that), at most :data:`MAX_SPLITS` of them, and no split
+    starts past ``W``.
+    """
+    want = -(-WAVES * sms // (B * Hkv))
+    pps = max(1, W // want, -(-W // MAX_SPLITS))
+    return -(-W // pps), pps
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """SMs of CUDA device ``index`` (the split plan's ``sms``)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# one int32 ticket per (row, kv head), zeroed once and left zero by every
+# launch; kept per (device, stream), since launches on one stream run in
+# order
+_tickets: dict = {}
+
+
+def _ticket_buffer(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _tickets[key] = buf
+    return buf
 
 
 def _check(q, k_pages, v_pages, tables, lengths) -> None:
@@ -58,6 +108,10 @@ def _check(q, k_pages, v_pages, tables, lengths) -> None:
         raise ValueError(
             f"paged_attention kernel: head_dim {D} (pool {Dk}) must be one "
             f"of {HEAD_DIMS}, heads {H} a multiple of kv heads {Hkv}")
+    if K * (H // Hkv) > MAX_ROWS:
+        raise ValueError(
+            f"paged_attention kernel: K * H / Hkv = {K * (H // Hkv)} "
+            f"accumulator rows, at most {MAX_ROWS}")
     if tables.dim() != 2 or tables.shape[0] != B or tables.shape[1] < 1 \
             or tuple(lengths.shape) != (B,):
         raise ValueError(
@@ -76,7 +130,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     tables: (B, W) int32 page ids, every entry a valid page of the pool
     (the kernel does not bounds-check them); lengths: (B,) int32 >= 1,
     tokens the first query of each row sees (query t sees
-    ``lengths[b] + t``).
+    ``lengths[b] + t``); K * H / Hkv at most :data:`MAX_ROWS`.
     Returns q's shape and dtype.  Counts each launch in
     ``paged_attention.launches``.
     """
@@ -86,15 +140,22 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     _check(q, k_pages, v_pages, tables, lengths)
     B, K, H, D = q.shape
     _, bs, Hkv, _ = k_pages.shape
+    W = tables.shape[1]
+    splits, pps = split_plan(B, Hkv, W, sm_count(q.device.index))
     lib = build.load_library()
     out = torch.empty_like(q)
+    # per (row, kv head, split, accumulator row): (m, l) and acc[D]; 4
+    # floats of slack let the kernel start acc on a 16-byte boundary
+    work = torch.empty(B * Hkv * splits * K * (H // Hkv) * (D + 2) + 4,
+                       dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        tickets = _ticket_buffer(q.device, stream, B * Hkv)
         err = lib.repro_paged_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, K, H, Hkv, D, bs, tables.shape[1],
-            int(q.dtype == torch.bfloat16), stream)
+            work.data_ptr(), tickets.data_ptr(), B, K, H, Hkv, D, bs, W,
+            splits, pps, int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")

@@ -2,19 +2,22 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/slstm.py`` (``slstm_scan``,
 body ``_kernel``).  The kernel itself is ``csrc/slstm.cu`` (its source
-note says what bounds it — at the function level bytes, in practice the
-per-step re-read of ``r_h`` from L2 — and what its design does about
-that); it is compiled by ``nvcc`` for ``sm_90a`` at first use
-(:mod:`repro_torch.kernels.build`) and called through ``ctypes``.  Its
-plain PyTorch version, which the CPU path runs and ``chip_smoke.py`` holds
-the kernel against, is :func:`slstm_ref`.
+note says what bounds it — the S sequential steps, each one cluster-wide
+exchange of ``h`` — and what its design does about that); it is compiled
+by ``nvcc`` for ``sm_90a`` at first use (:mod:`repro_torch.kernels.build`)
+and called through ``ctypes``.  Its plain PyTorch version, which the CPU
+path runs and ``chip_smoke.py`` holds the kernel against, is
+:func:`slstm_ref`.
 
-Unlike the TPU kernel, which keeps the state in VMEM scratch, both return
-the final ``(h, c, n, m)`` beside the outputs: the serving prefill writes
-it into the request's slot row.  :func:`slstm_scan` only ever launches the
-kernel: it raises for a tensor that is not on a CUDA device, and for any
-dtype, shape or layout the kernel does not take.  The device dispatch
-lives in :func:`repro_torch.kernels.ops.slstm_scan`.
+The kernel runs each (row, head) on a cluster of C blocks, each holding
+the ``r_h`` columns of its share of the head's channels in registers;
+:func:`cluster_plan` picks C.  Unlike the TPU kernel, which keeps the
+state in VMEM scratch, both return the final ``(h, c, n, m)`` beside the
+outputs: the serving prefill writes it into the request's slot row.
+:func:`slstm_scan` only ever launches the kernel: it raises for a tensor
+that is not on a CUDA device, and for any dtype, shape or layout the
+kernel does not take.  The device dispatch lives in
+:func:`repro_torch.kernels.ops.slstm_scan`.
 """
 from __future__ import annotations
 
@@ -23,23 +26,49 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import slstm_ref
 
-__all__ = ["slstm_scan", "slstm_ref"]
+__all__ = ["slstm_scan", "slstm_ref", "cluster_plan"]
 
-# most channels per head: one thread each in a block
-MAX_HEAD_DIM = 1024
+# cluster sizes the kernel launches with (16 is past the portable 8 and
+# needs the non-portable attribute, which the kernel sets)
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+# bytes of r_h one block holds in its registers: a head's dh x 4*cb f32
+# columns (74 KB at dh = 192, C = 8), at most 80 weights a thread, well
+# inside an SM's 256 KB register file
+SLICE_BYTES = 96 * 1024
+
+
+def slice_bytes(dh: int, cb: int) -> int:
+    """Bytes of one block's ``r_h`` slice: dh rows of 4 gates x cb f32."""
+    return 4 * dh * 4 * cb
+
+
+def cluster_plan(dh: int) -> tuple:
+    """``(C, cb)`` for a head of ``dh`` channels: the smallest cluster in
+    :data:`CLUSTER_SIZES` whose blocks, cb = ceil(dh / C) channels each
+    (block c owns ``[c * cb, min((c + 1) * cb, dh))``, which may be empty
+    at the tail), hold at most :data:`SLICE_BYTES` of ``r_h``.  Raises
+    past :data:`MAX_HEAD_DIM`."""
+    for C in CLUSTER_SIZES:
+        cb = -(-dh // C)
+        if slice_bytes(dh, cb) <= SLICE_BYTES:
+            return C, cb
+    raise ValueError(f"slstm_scan kernel: head dim {dh} must be at most "
+                     f"{MAX_HEAD_DIM} (a 16-block cluster's r_h slices)")
+
+
+def _max_head_dim() -> int:
+    C = CLUSTER_SIZES[-1]
+    dh = 1
+    while slice_bytes(dh + 1, -(-(dh + 1) // C)) <= SLICE_BYTES:
+        dh += 1
+    return dh
+
+
+# the widest head a 16-block cluster holds (307 channels)
+MAX_HEAD_DIM = _max_head_dim()
 
 
 def _check(gx: torch.Tensor, r_h: torch.Tensor) -> None:
-    for name, t in (("gx", gx), ("r_h", r_h)):
-        if not t.is_cuda or t.device != gx.device:
-            raise ValueError(f"slstm_scan kernel: {name} must lie on gx's "
-                             f"CUDA device {gx.device}, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"slstm_scan kernel: {name} must be float32, "
-                            f"got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"slstm_scan kernel: {name} must be "
-                             "contiguous")
     if gx.dim() != 3 or r_h.dim() != 3 or gx.shape[2] % 4:
         raise ValueError(f"slstm_scan kernel: gx must be (B, S, 4d) and "
                          f"r_h (H, dh, 4dh); got {tuple(gx.shape)}, "
@@ -52,6 +81,16 @@ def _check(gx: torch.Tensor, r_h: torch.Tensor) -> None:
     if dh > MAX_HEAD_DIM or S < 1 or B < 1:
         raise ValueError(f"slstm_scan kernel: head dim {dh} must be at "
                          f"most {MAX_HEAD_DIM}, B and S at least 1")
+    for name, t in (("gx", gx), ("r_h", r_h)):
+        if not t.is_cuda or t.device != gx.device:
+            raise ValueError(f"slstm_scan kernel: {name} must lie on gx's "
+                             f"CUDA device {gx.device}, got {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"slstm_scan kernel: {name} must be float32, "
+                            f"got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"slstm_scan kernel: {name} must be "
+                             "contiguous")
 
 
 def slstm_scan(gx: torch.Tensor, r_h: torch.Tensor):
@@ -66,6 +105,7 @@ def slstm_scan(gx: torch.Tensor, r_h: torch.Tensor):
     _check(gx, r_h)
     B, S, d4 = gx.shape
     d, H = d4 // 4, r_h.shape[0]
+    C, cb = cluster_plan(d // H)
     lib = build.load_library()
     out = torch.empty((B, S, d), dtype=torch.float32, device=gx.device)
     state = tuple(torch.empty((B, d), dtype=torch.float32, device=gx.device)
@@ -74,7 +114,7 @@ def slstm_scan(gx: torch.Tensor, r_h: torch.Tensor):
         stream = torch.cuda.current_stream(gx.device).cuda_stream
         err = lib.repro_slstm_scan(
             gx.data_ptr(), r_h.data_ptr(), out.data_ptr(),
-            *(t.data_ptr() for t in state), B, S, d, H, stream)
+            *(t.data_ptr() for t in state), B, S, d, H, C, cb, stream)
     if err != 0:
         raise RuntimeError(f"slstm_scan kernel launch failed: CUDA error "
                            f"{err}")

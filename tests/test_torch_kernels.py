@@ -181,6 +181,125 @@ def test_paged_attention_kernel_matches_plain_on_card(H, Hkv, D, bs, W, K,
                                rtol=tol)
 
 
+def _split_lengths(B, W, bs, K, pps):
+    """Lengths for the split edge cases: a row whose reach ends exactly on
+    a split boundary, one a token past it, short rows (every later split
+    empty), and the idle last row."""
+    edge = min(pps, W) * bs - (K - 1)
+    pool = [edge, edge + 1, 2, bs, W * bs - K + 1, max(1, edge - 3)]
+    lengths = [min(max(1, n), W * bs - K + 1) for n in pool]
+    lengths = (lengths * B)[:B - 1] + [1]
+    return np.asarray(lengths, dtype=np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 36])
+@pytest.mark.parametrize("K", [1, 5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_kernel_g8_split_edges_on_card(W, K, dtype):
+    """jamba's g = 8 (H = 64 over Hkv = 8, D = 128, bs = 16) at K = 1 and
+    5 (K * g = 40 rows in one block), a one-page table and a serve-wide
+    one whose rows end on, and one token past, a split boundary, with
+    empty splits and an idle row; one launch counted."""
+    dev = _card()
+    B, H, Hkv, D, bs = 8, 64, 8, 128, 16
+    _, pps = pa.split_plan(B, Hkv, W, pa.sm_count(dev.index or 0))
+    q, kp, vp, tables, _ = _paged_case(B, H, Hkv, D, bs, W, K)
+    lengths = _split_lengths(B, W, bs, K, pps)
+    P = kp.shape[0] - 1
+    for b, n in enumerate(lengths):
+        tables[b, -(-(int(n) + K - 1) // bs):] = P
+    tables[-1, :] = P
+    args = [_torch(a, dtype).to(dev) for a in (q, kp, vp)] + \
+        [_torch(tables).to(dev), _torch(lengths).to(dev)]
+    before = pa.paged_attention.launches
+    got = pa.paged_attention(*args)
+    want = ref.paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 1
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("B,Hkv,sms", [(8, 8, 132), (8, 1, 132), (1, 8, 132),
+                                       (4, 2, 8)])
+@pytest.mark.parametrize("W", [1, 2, 32, 36, 64, 1000])
+def test_split_plan_covers_every_page_once(B, Hkv, sms, W):
+    """The serve shapes' split plan (and a few others): every table
+    column falls in exactly one split, no split starts past W, at most
+    ``MAX_SPLITS`` splits, and where the table is wide enough the grid
+    holds two blocks per SM."""
+    splits, pps = pa.split_plan(B, Hkv, W, sms)
+    assert 1 <= splits <= pa.MAX_SPLITS and pps >= 1
+    starts = [s * pps for s in range(splits)]
+    assert all(p < W for p in starts)
+    covered = [p for s in starts for p in range(s, min(s + pps, W))]
+    assert sorted(covered) == list(range(W))
+    want = min(-(-2 * sms // (B * Hkv)), pa.MAX_SPLITS)
+    if W >= want:
+        assert splits >= want
+
+
+def _split_merge(q, kp, vp, tables, lengths, pps):
+    """The kernel's arithmetic written plainly: each split of ``pps``
+    table columns gives a partial (m, l, acc) per accumulator row -- empty
+    (m = -1e30, l = 0) where no token of the row falls in it -- and the
+    partials merge as ``sum acc e^(m - M) / sum l e^(m - M)``."""
+    B, K, H, D = q.shape
+    _, bs, Hkv, _ = kp.shape
+    W = tables.shape[1]
+    g = H // Hkv
+    out = torch.empty_like(q)
+    for b in range(B):
+        for t in range(K):
+            reach = int(lengths[b]) + t
+            for hq in range(H):
+                h = hq // g
+                parts = []
+                for p0 in range(0, W, pps):
+                    lo, hi = p0 * bs, min(min(p0 + pps, W) * bs, reach)
+                    if lo >= hi:
+                        parts.append((-1e30, 0.0, torch.zeros(D)))
+                        continue
+                    pos = torch.arange(lo, hi)
+                    pages = tables[b, pos // bs].long()
+                    k = kp[pages, pos % bs, h]
+                    v = vp[pages, pos % bs, h]
+                    s = k @ q[b, t, hq] / math.sqrt(D)
+                    m = s.max()
+                    e = torch.exp(s - m)
+                    parts.append((float(m), float(e.sum()), e @ v))
+                M = max(m for m, l, _ in parts if l > 0)
+                L = sum(l * math.exp(m - M) for m, l, _ in parts if l > 0)
+                A = sum(a * math.exp(m - M) for m, l, a in parts if l > 0)
+                out[b, t, hq] = A / L
+    return out
+
+
+@pytest.mark.parametrize("H,Hkv,K,W,sms", [
+    (16, 8, 1, 36, 132),     # qwen3's heads: 5 splits of 8 pages
+    (16, 2, 5, 12, 8),       # K * g = 40 rows
+    (4, 4, 1, 1, 132),       # a one-page table: one split
+])
+def test_split_merge_matches_plain_attention(H, Hkv, K, W, sms):
+    """The split-then-merge the kernel computes, over the plan's
+    partition, equals ``paged_attention_ref`` within f32 1e-6, over empty
+    splits, an idle row and rows ending on a split boundary."""
+    B, D, bs = 4, 16, 4
+    _, pps = pa.split_plan(B, Hkv, W, sms)
+    q, kp, vp, tables, _ = _paged_case(B, H, Hkv, D, bs, W, K, seed=3)
+    lengths = _split_lengths(B, W, bs, K, pps)
+    P = kp.shape[0] - 1
+    for b, n in enumerate(lengths):
+        tables[b, -(-(int(n) + K - 1) // bs):] = P
+    tables[-1, :] = P
+    args = [_torch(a) for a in (q, kp, vp, tables, lengths)]
+    torch.testing.assert_close(_split_merge(*args, pps),
+                               ref.paged_attention_ref(*args),
+                               atol=1e-6, rtol=1e-6)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8, 1024), (8, 16, 128), (3, 100)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -577,11 +696,47 @@ def test_scan_dispatch_takes_plain_version_on_cpu_and_wrappers_refuse_it():
     assert (ms.mamba_scan.launches, sl.slstm_scan.launches) == before
 
 
+@pytest.mark.parametrize("dh", [32, 48, 192, 225, 256])
+def test_slstm_cluster_plan_owns_every_channel_once(dh):
+    """The blocks of the cluster own runs of the head's channels, together
+    every channel once; a block's r_h slice fits in 227 KB; at most 16
+    blocks."""
+    C, cb = sl.cluster_plan(dh)
+    assert C in sl.CLUSTER_SIZES and C <= 16
+    owned = [ch for c in range(C) for ch in range(c * cb, min((c + 1) * cb,
+                                                               dh))]
+    assert sorted(owned) == list(range(dh))
+    assert sl.slice_bytes(dh, cb) <= min(sl.SLICE_BYTES, 227 * 1024)
+    if C > 1:       # the smallest cluster that fits
+        half = -(-dh // (C // 2))
+        assert sl.slice_bytes(dh, half) > sl.SLICE_BYTES
+
+
+def test_slstm_wrapper_refuses_head_past_max_before_device():
+    """A head one channel past ``MAX_HEAD_DIM`` (the widest a 16-block
+    cluster holds) raises from the shape check, before the device check,
+    and counts no launch; the plan takes ``MAX_HEAD_DIM`` itself."""
+    dh = sl.MAX_HEAD_DIM + 1
+    gx = torch.zeros((1, 2, 4 * dh))
+    r_h = torch.zeros((1, dh, 4 * dh))
+    before = sl.slstm_scan.launches
+    with pytest.raises(ValueError, match=f"at most {sl.MAX_HEAD_DIM}"):
+        sl.slstm_scan(gx, r_h)
+    with pytest.raises(ValueError, match="head dim"):
+        sl.cluster_plan(dh)
+    assert sl.slstm_scan.launches == before
+    assert sl.cluster_plan(sl.MAX_HEAD_DIM)[0] == 16
+
+
 # mamba: (B, S, d_in, N) — jamba's serve shape, a ragged S, B = 2, the
-# smoke widths; sLSTM: (B, S, d, H) — xlstm-125m, the JAX test's ragged one
+# smoke widths; sLSTM: (B, S, d, H) — xlstm-125m (a cluster of 8), the JAX
+# test's ragged one, the smoke widths, dh = 196 over a cluster of 8 (25
+# channels a block, the last block's tail masked) and dh = 225 over 16
+# (15 a block, the last block owning none)
 CARD_MAMBA = [(1, 500, 16384, 16), (1, 37, 16384, 16), (2, 200, 4096, 16),
               (2, 20, 128, 8)]
-CARD_SLSTM = [(1, 500, 768, 4), (3, 33, 96, 2), (2, 20, 64, 2)]
+CARD_SLSTM = [(1, 500, 768, 4), (3, 33, 96, 2), (2, 20, 64, 2),
+              (2, 40, 392, 2), (1, 20, 450, 2)]
 
 
 @pytest.mark.cuda
