@@ -27,7 +27,9 @@ and never prints the final ``ok`` line):
    backward at the train cell's heads with B = 1 and the train step's
    B = 4 (S = 4096), a ragged S = 1000 (bf16 and f32), MHA, and bf16 at
    D = 64 (S = 1000) and D = 16 (S = 300), and the RMSNorm forward and
-   backward at the train cell's three row shapes;
+   backward at the train cell's three row shapes and at 262143 x 128, a
+   row count no row tile divides (each case prints the plan the wrapper
+   chose; two backward calls must agree bit for bit);
 5. serve: qwen3-0.6b at full width in bf16 (random weights from a seed)
    through the continuous-batching paged scheduler: 16 requests, 8
    slots, prompts 128/256/512, 64 new tokens each, greedy; every logit
@@ -52,7 +54,10 @@ and never prints the final ``ok`` line):
 9. the recurrent slice's kernels against their plain versions in f32
    (``|err| <= 1e-4 + 1e-4 |want|`` over up to 500 sequential steps, y /
    h and the final state): the selective scan at jamba's serve shape
-   (B = 1, S = 500, d_in = 16384, N = 16), a ragged S = 37 and B = 2; the
+   (B = 1, S = 500, d_in = 16384, N = 16), a ragged S = 37, B = 2, and
+   (2, 100, 1000, 8), a d_in no channel block divides, each printing the
+   lane split the wrapper chose and a bound that counts the exponentials
+   at the special-function units' rate; the
    sLSTM at xlstm-125m's (B = 1, S = 500, d = 768, H = 4), at (3, 33, 96,
    2) and at (2, 40, 392, 2), a head of 196 channels that a cluster of 8
    does not divide, each printing the cluster size the wrapper chose; and
@@ -95,6 +100,9 @@ ROOT = Path(__file__).resolve().parent
 # kernel and the plain versions compute in f32 outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+# exponentials run on the special-function units, 16 results per clock per
+# SM against the 256 f32 flops (128 FMAs) per clock the f32 peak counts
+SFU_PER_S = PEAK_OPS_PER_S["float32"] / 16
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 REPLACES = {"paged_attention": "src/repro/kernels/paged_attention.py:106",
             "rmsnorm": "src/repro/kernels/rmsnorm.py:25",
@@ -188,12 +196,16 @@ def release(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def bound(bytes_moved: float, ops: float, dtype: str):
-    """Least time the card could take: (ms, 'bytes' | 'operations')."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS_PER_S[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+def bound(bytes_moved: float, ops: float, dtype: str, exps: float = 0):
+    """Least time the card could take: (ms, 'bytes' | 'operations' |
+    'exponentials'), the largest of the bytes over the memory rate, the
+    operations over the peak for ``dtype`` and the exponentials over the
+    special-function units' rate."""
+    times = {"bytes": bytes_moved / HBM_BYTES_PER_S,
+             "operations": ops / PEAK_OPS_PER_S[dtype],
+             "exponentials": exps / SFU_PER_S}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
 
 
 # ---------------------------------------------------------------------------
@@ -230,11 +242,15 @@ def phase_build(torch):
 
     def triton():
         t0 = time.perf_counter()
-        for d in (1024, 128, 8192):            # one compile per BLOCK
-            x = torch.ones((2, d), device="cuda", dtype=torch.bfloat16)
-            s = torch.ones(d, device="cuda", dtype=torch.bfloat16)
-            rn.rmsnorm(x, s)
-            rn.rmsnorm_bwd(x, s, x)
+        # one row, a row count that is and one that is not a multiple of
+        # 16 (Triton specialises on each), and a full row tile of each
+        # width: the compiles the serve phases would otherwise pay
+        for d in (1024, 128, 8192):
+            for rows in (1, 2, 16, rn.SMS * 64):
+                x = torch.ones((rows, d), device="cuda", dtype=torch.bfloat16)
+                s = torch.ones(d, device="cuda", dtype=torch.bfloat16)
+                rn.rmsnorm(x, s)
+                rn.rmsnorm_bwd(x, s, x)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -388,7 +404,9 @@ def _rms_check(torch, timer, gen, shape, dtype):
           f"over tolerance {tol}")
     moved = 2 * x.numel() * x.element_size() + s.numel() * s.element_size()
     b_ms, b_by = bound(moved, 4 * x.numel(), dtype)
+    rows = x.numel() // shape[-1]
     case = {"kernel": "rmsnorm", "dtype": dtype, "shape": list(shape),
+            "plan": rn.plan(rows, shape[-1]),
             "max_abs_err": err.max().item(), "tol": tol,
             "kernel_ms": timer.ms(lambda: rn.rmsnorm(x, s, 1e-6)),
             "plain_ms": timer.ms(lambda: ref.rmsnorm_ref(x, s, 1e-6)),
@@ -706,9 +724,11 @@ def phase_train_kernels(torch, timer):
         torch.cuda.empty_cache()
 
     # the train cell's norm rows: ln1/ln2/final (B*S, 1024), q-norm
-    # (B*S*16, 128), k-norm (B*S*8, 128)
+    # (B*S*16, 128), k-norm (B*S*8, 128); and q-norm's less one, a row
+    # count no row tile of the plan divides
     rows = TRAIN_B * TRAIN_S
-    for shape in ((rows, 1024), (rows * 16, 128), (rows * 8, 128)):
+    for shape in ((rows, 1024), (rows * 16, 128), (rows * 8, 128),
+                  (rows * 16 - 1, 128)):
         dtype = "bfloat16"
         x, dy = (torch.randn(shape, generator=gen, device="cuda").to(
             torch.bfloat16) for _ in range(2))
@@ -722,7 +742,8 @@ def phase_train_kernels(torch, timer):
         ss = s.numel() * s.element_size()
         b_ms, b_by = bound(2 * xs + ss, 4 * x.numel(), dtype)
         case = {"kernel": "rmsnorm", "dtype": dtype, "shape": list(shape),
-                "path": "train", "max_abs_err": err, "tol": tol,
+                "path": "train", "plan": rn.plan(*shape),
+                "max_abs_err": err, "tol": tol,
                 "kernel_ms": timer.ms(lambda: rn.rmsnorm(x, s, 1e-6)),
                 "plain_ms": timer.ms(lambda: ref.rmsnorm_ref(x, s, 1e-6)),
                 "library_ms": timer.ms(
@@ -737,12 +758,18 @@ def phase_train_kernels(torch, timer):
         ok_s, err_s = _within(ds, rds, tol)
         check(ok_x and ok_s, f"rmsnorm_bwd {shape}: max |err| dx {err_x}, "
               f"dscale {err_s} over {tol}")
+        # dscale sums the programs' partial rows in a fixed order: two
+        # launches on the same inputs agree bit for bit
+        again = rn.rmsnorm_bwd(x, s, dy, 1e-6)
+        check(torch.equal(again[0], dx) and torch.equal(again[1], ds),
+              f"rmsnorm_bwd {shape}: dx or dscale differ between two calls")
         xl, sl = x.detach().requires_grad_(), s.detach().requires_grad_()
         lib_y = F.rms_norm(xl, (shape[-1],), sl, 1e-6)
         moved = 3 * xs + 2 * ss
         b_ms, b_by = bound(moved, 8 * x.numel(), dtype)
         case = {"kernel": "rmsnorm_bwd", "dtype": dtype,
-                "shape": list(shape), "max_abs_err": max(err_x, err_s),
+                "shape": list(shape), "plan": rn.plan(*shape, backward=True),
+                "max_abs_err": max(err_x, err_s),
                 "tol": tol,
                 "kernel_ms": timer.ms(lambda: rn.rmsnorm_bwd(x, s, dy, 1e-6)),
                 "plain_ms": timer.ms(
@@ -974,7 +1001,7 @@ def phase_train_parity(torch):
           f"train parity: weight abs err {w_err}")
 
 
-def _scan_case(torch, timer, name, fn, plain, args, moved, ops):
+def _scan_case(torch, timer, name, fn, plain, args, moved, ops, exps=0):
     """A scan kernel against its plain version (every output, f32, within
     ``SCAN_TOL``), timed; ``library_ms`` is None: no PyTorch call computes
     either recurrence."""
@@ -989,11 +1016,12 @@ def _scan_case(torch, timer, name, fn, plain, args, moved, ops):
         check(ok, f"{name} {[tuple(a.shape) for a in args]}: max |err| "
               f"{err} over tolerance {SCAN_TOL}")
         errs.append(err)
-    b_ms, b_by = bound(moved, ops, "float32")
+    b_ms, b_by = bound(moved, ops, "float32", exps)
     return {"kernel": name, "dtype": "float32", "max_abs_err": max(errs),
             "tol": SCAN_TOL, "kernel_ms": timer.ms(lambda: fn(*args)),
             "plain_ms": timer.ms(lambda: plain(*args)), "library_ms": None,
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": moved, "ops": ops}
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": moved, "ops": ops,
+            "exps": exps}
 
 
 def phase_recurrent_kernels(torch, timer):
@@ -1010,8 +1038,10 @@ def phase_recurrent_kernels(torch, timer):
     gen.manual_seed(2)
     results = {"mamba_scan": [], "slstm_scan": [], "paged_attention": [],
                "rmsnorm": []}
+    # jamba's serve shape, a ragged S, B = 2, and a d_in no channel block
+    # of the plan divides at N = 8
     for B, S, d, N in ((1, 500, 16384, 16), (1, 37, 16384, 16),
-                       (2, 500, 16384, 16)):
+                       (2, 500, 16384, 16), (2, 100, 1000, 8)):
         rand = lambda *shape: torch.randn(shape, generator=gen,
                                           device="cuda")
         # dt around the model's softplus(dt_bias = -4.6) ~ 0.01
@@ -1020,10 +1050,14 @@ def phase_recurrent_kernels(torch, timer):
                           device="cuda").repeat(d, 1)
         args = (dt, rand(B, S, d), rand(B, S, N), rand(B, S, N), a)
         moved = 4 * (3 * B * S * d + 2 * B * S * N + d * N + B * d * N)
-        # per (step, channel, state): exp, two products, two fmas
+        # per (step, channel, state): one exponential, and two products and
+        # two fmas on the f32 pipes
         case = _scan_case(torch, timer, "mamba_scan", ms.mamba_scan,
-                          ref.mamba_scan_ref, args, moved, 5 * B * S * d * N)
-        case.update(B=B, S=S, d_in=d, N=N)
+                          ref.mamba_scan_ref, args, moved, 4 * B * S * d * N,
+                          B * S * d * N)
+        lanes, channels = ms.scan_plan(d, N)
+        case.update(B=B, S=S, d_in=d, N=N, lanes=lanes,
+                    channels_per_block=channels)
         emit(case)
         results["mamba_scan"].append(case)
     # xlstm-125m (a cluster of 8), the JAX test's ragged shape, and a head

@@ -2,11 +2,14 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/mamba_scan.py``
 (``mamba_scan``, body ``_kernel``).  The kernel itself is
-``csrc/mamba_scan.cu`` (its source note says what bounds it — bytes — and
-what its design does about that); it is compiled by ``nvcc`` for
-``sm_90a`` at first use (:mod:`repro_torch.kernels.build`) and called
-through ``ctypes``.  Its plain PyTorch version, which the CPU path runs
-and ``chip_smoke.py`` holds the kernel against, is :func:`mamba_scan_ref`.
+``csrc/mamba_scan.cu`` (its source note says what bounds it — the
+exponentials at the special-function units' rate, then bytes — and what
+its design does about that); it is compiled by ``nvcc`` for ``sm_90a`` at
+first use (:mod:`repro_torch.kernels.build`) and called through
+``ctypes``.  The kernel splits a channel's N states over L adjacent lanes
+of a warp; :func:`scan_plan` gives L and with it the block's channels.
+Its plain PyTorch version, which the CPU path runs and ``chip_smoke.py``
+holds the kernel against, is :func:`mamba_scan_ref`.
 
 Unlike the TPU kernel, which keeps the state in VMEM scratch, both return
 the state after the last step beside ``y``: the serving prefill writes it
@@ -22,10 +25,33 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import mamba_scan_ref
 
-__all__ = ["mamba_scan", "mamba_scan_ref"]
+__all__ = ["mamba_scan", "mamba_scan_ref", "scan_plan"]
 
 # state sizes the kernel is compiled for (a template parameter)
 STATE_SIZES = (8, 16)
+# threads of one block (``THREADS`` in the source), adjacent channels a
+# thread (``K``), and the lanes a channel's states are split over (the one
+# split compiled: the fastest of 2, 4 and 8 at N = 8 and 16 on an H100,
+# PERF.md)
+THREADS = 128
+CHANNELS_PER_THREAD = 2
+LANES = 4
+
+
+def scan_plan(d: int, N: int) -> tuple:
+    """``(L, CH)`` for d channels of N states.  Thread ``x`` of a block
+    runs channels ``x // L * K + q`` (q < K = :data:`CHANNELS_PER_THREAD`)
+    of the block, states ``[(x % L) * N/L, (x % L + 1) * N/L)`` of each:
+    L adjacent lanes share a channel.  A block of :data:`THREADS` threads
+    owns CH = THREADS / L * K consecutive channels (block ``i`` owns
+    ``[i * CH, (i+1) * CH)``, masked past d).  Raises for an N the kernel
+    is not compiled for."""
+    if N not in STATE_SIZES:
+        raise ValueError(f"mamba_scan kernel: N={N} must be one of "
+                         f"{STATE_SIZES}")
+    if d < 1:
+        raise ValueError(f"mamba_scan kernel: d={d} must be at least 1")
+    return LANES, THREADS // LANES * CHANNELS_PER_THREAD
 
 
 def _check(dt, xc, bm, cm, a) -> None:
@@ -68,6 +94,7 @@ def mamba_scan(dt: torch.Tensor, xc: torch.Tensor, bm: torch.Tensor,
     _check(dt, xc, bm, cm, a)
     B, S, d = dt.shape
     N = a.shape[1]
+    L, _ = scan_plan(d, N)
     lib = build.load_library()
     y = torch.empty_like(dt)
     h_last = torch.empty((B, d, N), dtype=torch.float32, device=dt.device)
@@ -75,7 +102,7 @@ def mamba_scan(dt: torch.Tensor, xc: torch.Tensor, bm: torch.Tensor,
         stream = torch.cuda.current_stream(dt.device).cuda_stream
         err = lib.repro_mamba_scan(
             dt.data_ptr(), xc.data_ptr(), bm.data_ptr(), cm.data_ptr(),
-            a.data_ptr(), y.data_ptr(), h_last.data_ptr(), B, S, d, N,
+            a.data_ptr(), y.data_ptr(), h_last.data_ptr(), B, S, d, N, L,
             stream)
     if err != 0:
         raise RuntimeError(f"mamba_scan kernel launch failed: CUDA error "

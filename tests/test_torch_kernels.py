@@ -300,8 +300,11 @@ def test_split_merge_matches_plain_attention(H, Hkv, K, W, sms):
                                atol=1e-6, rtol=1e-6)
 
 
+# decode rows, a row count no row tile of the plan divides (16383 x 128),
+# a ragged width
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 1024), (8, 16, 128), (3, 100)])
+@pytest.mark.parametrize("shape", [(8, 1024), (8, 16, 128), (3, 100),
+                                   (16383, 128)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_kernel_matches_plain_on_card(shape, dtype):
     dev = _card()
@@ -312,6 +315,43 @@ def test_rmsnorm_kernel_matches_plain_on_card(shape, dtype):
     tol = TOL[dtype]
     torch.testing.assert_close(got.float(), ref.rmsnorm_ref(x, s).float(),
                                atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("d", [100, 128, 768, 1024, 8192])
+@pytest.mark.parametrize("rows", [1, 3, 8, 131, 133, 4099, 16383, 262143])
+def test_rmsnorm_plan_covers_every_row_once(rows, d, backward):
+    """The program/tile/row map of ``rmsnorm.plan`` (program p takes tiles
+    p, p + grid, ...; tile t rows [t * BLOCK_R, (t+1) * BLOCK_R), masked
+    past ``rows``) holds every row exactly once; blocks are powers of two,
+    BLOCK_D the smallest that holds d, a tile at most
+    ``TILE_VALUES`` values unless it is one row; the backward grid at most
+    ``BWD_PROGRAMS``, the forward one program per tile."""
+    block_r, block_d, warps, grid = rn.plan(rows, d, backward=backward)
+    for v in (block_r, block_d, warps):
+        assert v >= 1 and v & (v - 1) == 0
+    assert block_d >= d > block_d // 2
+    assert block_r == 1 or block_r * block_d <= rn.TILE_VALUES
+    assert warps <= 32
+    tiles = -(-rows // block_r)
+    if backward:
+        assert 1 <= grid <= min(tiles, rn.BWD_PROGRAMS)
+    else:
+        assert grid == tiles
+    seen = np.zeros(rows, dtype=np.int64)
+    for p in range(grid):
+        for t in range(p, tiles, grid):
+            r = np.arange(t * block_r, (t + 1) * block_r)
+            np.add.at(seen, r[r < rows], 1)
+    assert (seen == 1).all()
+
+
+def test_rmsnorm_plan_refuses_empty_and_too_wide_rows():
+    with pytest.raises(ValueError, match="rows"):
+        rn.plan(0, 128)
+    with pytest.raises(ValueError, match="rows"):
+        rn.plan(8, rn.MAX_D + 1)
+    assert rn.plan(8, rn.MAX_D)[1] == rn.MAX_D
 
 
 @pytest.mark.cuda
@@ -535,7 +575,8 @@ def _dscale_atol(x, dy, eps=1e-6):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(4096, 1024), (512, 16, 128), (3, 100)])
+@pytest.mark.parametrize("shape", [(4096, 1024), (512, 16, 128), (3, 100),
+                                   (16383, 128)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_bwd_kernel_matches_plain_on_card(shape, dtype):
     dev = _card()
@@ -555,6 +596,25 @@ def test_rmsnorm_bwd_kernel_matches_plain_on_card(shape, dtype):
     assert bool((err <= bound).all()), (
         f"dscale: max |err| {err.max().item()}, worst err / bound "
         f"{(err / bound).max().item()}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16384, 1024), (262143, 128)])
+def test_rmsnorm_bwd_dscale_bit_identical_on_card(shape):
+    """Two backward launches on the same inputs give the same dscale and
+    dx, bit for bit: the partial rows are summed in a fixed order, with no
+    float atomics."""
+    dev = _card()
+    rng = np.random.default_rng(12)
+    x, dy = (_torch(rng.standard_normal(shape).astype(np.float32),
+                    "bfloat16").to(dev) for _ in range(2))
+    s = _torch(rng.standard_normal(shape[-1]).astype(np.float32),
+               "bfloat16").to(dev)
+    first = rn.rmsnorm_bwd(x, s, dy, 1e-6)
+    second = rn.rmsnorm_bwd(x, s, dy, 1e-6)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -728,13 +788,45 @@ def test_slstm_wrapper_refuses_head_past_max_before_device():
     assert sl.cluster_plan(sl.MAX_HEAD_DIM)[0] == 16
 
 
+@pytest.mark.parametrize("N", [8, 16])
+@pytest.mark.parametrize("d", [128, 1000, 4096, 16384])
+def test_mamba_scan_plan_owns_every_channel_state_once(d, N):
+    """The kernel's thread map under ``scan_plan`` (block i owns channels
+    [i * CH, (i+1) * CH); thread x the K = ``CHANNELS_PER_THREAD``
+    channels from ``x // L * K`` of its block and, of each, the states
+    [(x % L) * N/L, (x % L + 1) * N/L), masked past d) holds every
+    (channel, state) pair exactly once; CH / K * L is the block's threads
+    and CH a multiple of 4 (16-byte rows)."""
+    L, CH = ms.scan_plan(d, N)
+    K = ms.CHANNELS_PER_THREAD
+    assert L == ms.LANES and N % L == 0
+    assert CH // K * L == ms.THREADS and CH % 4 == 0
+    seen = np.zeros((d, N), dtype=np.int64)
+    nl = N // L
+    for blk in range(-(-d // CH)):
+        for x in range(ms.THREADS):
+            for q in range(K):
+                ch = blk * CH + x // L * K + q
+                if ch < d:
+                    seen[ch, (x % L) * nl:(x % L + 1) * nl] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("N", [1, 4, 12, 32])
+def test_mamba_scan_plan_refuses_other_state_sizes(N):
+    with pytest.raises(ValueError, match="N="):
+        ms.scan_plan(1024, N)
+
+
 # mamba: (B, S, d_in, N) — jamba's serve shape, a ragged S, B = 2, the
-# smoke widths; sLSTM: (B, S, d, H) — xlstm-125m (a cluster of 8), the JAX
+# smoke widths, S = 1, a d_in no channel block of the plan divides and one
+# that is not a multiple of 4 (4-byte copies); sLSTM: (B, S, d, H) — xlstm-125m (a cluster of 8), the JAX
 # test's ragged one, the smoke widths, dh = 196 over a cluster of 8 (25
 # channels a block, the last block's tail masked) and dh = 225 over 16
 # (15 a block, the last block owning none)
 CARD_MAMBA = [(1, 500, 16384, 16), (1, 37, 16384, 16), (2, 200, 4096, 16),
-              (2, 20, 128, 8)]
+              (2, 20, 128, 8), (1, 1, 4096, 16), (2, 40, 1000, 8),
+              (2, 33, 130, 16)]
 CARD_SLSTM = [(1, 500, 768, 4), (3, 33, 96, 2), (2, 20, 64, 2),
               (2, 40, 392, 2), (1, 20, 450, 2)]
 
