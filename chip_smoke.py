@@ -79,11 +79,39 @@ and never prints the final ``ok`` line):
     (prompts 100 and 300, 16 new tokens): every served token is the
     argmax of ``lm_forward`` over the served sequence, save top-2 ties
     within 1e-4;
-13. a ``kernels`` line, the ``nvidia-smi`` line, and the ``ok`` line.
+13. gan_parity: the paper's CycleGAN at full width (101,322,365
+    parameters) in f32, TF32 off, B = 32, the same seed weights and JAG
+    batches: two ``make_gan_steps`` train steps on the card against two on
+    the CPU, each from the same weights and Adam state (``g_loss`` and
+    ``d_loss`` to 1e-5 relative, each weight tensor's Adam update to 1e-3
+    of its L2 norm over its well-conditioned elements, save the few whose
+    update flips sign), and each step run in f64 on the card and on the
+    CPU as the witness over every element (the f64 updates agree to 1e-6,
+    the f32 card's stays within the step's f32 floor as the CPU shows it;
+    each tensor's ill-conditioned share is printed; ``GAN_PARITY_TOL``);
+14. ltfb: LTFB tournament training of the full-width CycleGAN through
+    ``repro_torch.launch.ltfb``'s functions: 4,096 JAG samples in 8
+    bundles of 512 at 64 x 64 in a temp dir (7 training files, 1 held
+    out), K = 4 trainers time-sharing the card, batch 32, 3 rounds x 25
+    steps, scope ``generator``, store ``preload``; every metric finite,
+    the best validation metric after round 3 below the initial
+    population's best on the same batch, the tournament's exchange bytes
+    equal to the paired candidates times the generator's bytes, and a
+    population checkpoint saved after round 3 restoring bit-equal into a
+    fresh orchestrator at the same round; prints step time, samples/s,
+    data wait and tournament time, the efficiency snapshot, peak memory,
+    one profiled GAN step (device time by group) and its bound; then both
+    CLIs as a user calls them: ``repro_torch.launch.ltfb.main`` resuming
+    from that checkpoint for a fourth round and ``repro_torch.launch.
+    train.main`` with ``--arch icf-cyclegan`` for 20 steps, each printing
+    finite values; no kernel of the port may launch (the nets are f32
+    MLPs);
+15. a ``kernels`` line, the ``nvidia-smi`` line, and the ``ok`` line.
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and ``triton``; exits 1
 without a card and 2 when run outside a checkout of the repo.
 """
+import functools
 import gc
 import json
 import math
@@ -140,6 +168,42 @@ TRAIN_PER_STEP = {"flash_attention_fwd": 56, "flash_attention_bwd": 28,
 # f32 rounding gap in g shows as a visible fraction of lr
 PARITY_TOL = {"loss_rel": 1e-5, "grad_rel": 1e-4, "update_rel": 1e-3,
               "weight_abs": 1e-3}
+# gan_parity (f32, TF32 off): card against CPU, each step from equal
+# weights and Adam state, with a third step in f64 on the CPU as the
+# witness.  The losses to 1e-5 of themselves.  Each weight tensor's Adam
+# update to 1e-3 of its L2 norm over its well-conditioned elements: Adam's
+# first steps move an element by lr * m / (sqrt(v) + eps) ~ lr * sign(g),
+# which turns with the gradient's last bits where sqrt(v) is within 10 eps
+# of zero (in a run on the card dec.1's first update read 2.8e-3 apart
+# over every element, 6.4e-5 without those); and the MAE losses' gradient
+# is a sign, so where |y_hat - y| is within f32 rounding of zero the two
+# devices' summation orders pick opposite signs and a few updates flip: at
+# most 1e-5 of a tensor's elements (one allowed) may be more than lr/2
+# apart (12 of dec.2's 50.3M weights at the second step of that run).
+# Over every element, the ill-conditioned and the flipped ones included,
+# the same step runs in f64 on the card and on the CPU: the two f64
+# updates agree to 1e-6 of their norm (the port's Adam computes in f32
+# from the f64 gradient, so they part only where an f64 gradient rounds to
+# another f32 value) and the losses to 1e-10.  And the f32 card's update
+# is no further from the f64 update than the larger of 1e-3 of its norm
+# and twice the f32 CPU's farthest tensor at that step: the two devices
+# round differently layer by layer (in a run on the card the card's
+# enc.1 read 1.7e-3 from f64 and the CPU's 9e-6 at step 1, the CPU's dec.2
+# 8.7e-4 and the card's 6e-7 at step 2), so the CPU's worst tensor sets
+# the f32 floor of the step
+CYCLEGAN_PARAMS = 101_322_365            # the FULL config's weights
+GAN_B = 32
+GAN_FLIP_SHARE = 1e-5
+GAN_PARITY_TOL = {"loss_rel": 1e-5, "update_rel": 1e-3,
+                  "flips_over_allowed": 1.0, "f64_loss_rel": 1e-10,
+                  "f64_update_rel": 1e-6, "f32_from_f64_rel": 1e-3,
+                  "f32_over_cpu_floor": 2.0}
+# the ltfb phase: the CLI's defaults at the FULL widths, cut to 4,096
+# samples (8 bundles of 512) and 3 rounds of 25 steps
+LTFB_ARGS = ["--arch", "icf-cyclegan", "--trainers", "4", "--rounds", "3",
+             "--steps-per-round", "25", "--batch", "32", "--samples",
+             "4096", "--samples-per-file", "512", "--store-mode", "preload",
+             "--scope", "generator", "--seed", "0"]
 
 
 def emit(obj) -> None:
@@ -151,6 +215,24 @@ def check(cond: bool, msg: str) -> None:
     """Raise unless ``cond``: every phase's checks go through here."""
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def exact_f32(phase):
+    """Run ``phase(torch, ...)`` with TF32 off for matmuls and cuDNN, and
+    give both flags back as they were, so no phase sets them for the
+    next."""
+    @functools.wraps(phase)
+    def run(torch, *args, **kwargs):
+        saved = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            return phase(torch, *args, **kwargs)
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = saved
+    return run
 
 
 class Timer:
@@ -567,6 +649,7 @@ def _profile_decode(torch, sched, prompts):
     return out
 
 
+@exact_f32
 def phase_recompute(torch):
     from repro_torch.configs.base import replace
     from repro_torch.configs.registry import get_config
@@ -574,8 +657,6 @@ def phase_recompute(torch):
     from repro_torch.models.lm import init_lm
     from repro_torch.serve.scheduler import Scheduler
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = replace(get_config("qwen3-0.6b"), dtype="float32")
     model = init_lm(cfg, seed=1, device="cuda")
     prompt_lens, max_new = [64, 200], 16
@@ -792,6 +873,16 @@ def _train_counters():
             "rmsnorm": rn.rmsnorm, "rmsnorm_bwd": rn.rmsnorm_bwd}
 
 
+def _all_counters():
+    """Every kernel wrapper of the port, by the kernels line's names."""
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import slstm as sl
+
+    return {**_train_counters(), "paged_attention": pa.paged_attention,
+            "mamba_scan": ms.mamba_scan, "slstm_scan": sl.slstm_scan}
+
+
 def _check_grads(torch, model, where):
     """Every parameter holds a finite gradient with a nonzero entry."""
     bad = [n for n, p in model.named_parameters()
@@ -813,10 +904,12 @@ PROFILE_GROUPS = (("flash_attention_fwd", ("flash_fwd",)),
                               "cublas")))
 
 
-def _profile(torch, fn):
+def _profile(torch, fn, ranges=()):
     """One call of ``fn`` under torch.profiler: device time by kernel
     group, the busiest kernels, and the device's busy share of the call's
-    wall time (None where the profiler saw no device time)."""
+    wall time (None where the profiler saw no device time).  ``ranges``
+    names ``record_function`` ranges whose kernels' device time is
+    reported under ``range_ms``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -827,8 +920,19 @@ def _profile(torch, fn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = {}
+    range_ms = {r: 0.0 for r in ranges}
     for e in prof.key_averages():
-        if not str(e.device_type).endswith("CUDA"):
+        on_device = str(e.device_type).endswith("CUDA")
+        if e.key in range_ms:
+            # the host-side range counts the kernels launched inside it;
+            # its device-side annotation would count them twice
+            if not on_device:
+                us = getattr(e, "device_time_total", None)
+                if us is None:
+                    us = getattr(e, "cuda_time_total", 0)
+                range_ms[e.key] += us / 1e3
+            continue
+        if not on_device:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -846,7 +950,8 @@ def _profile(torch, fn):
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
             "busy_share": busy / (wall * 1e3) if busy else None,
             "group_ms": groups, "kernels": len(kernels),
-            "top": [[name[:80], ms] for name, ms in top]}
+            "top": [[name[:80], ms] for name, ms in top],
+            **({"range_ms": range_ms} if ranges else {})}
 
 
 def phase_train(torch):
@@ -923,6 +1028,7 @@ def phase_train(torch):
     return launches, stats
 
 
+@exact_f32
 def phase_train_parity(torch):
     """Two f32 train steps through the kernels == through the plain
     versions (same card, same weights and batches)."""
@@ -933,8 +1039,6 @@ def phase_train_parity(torch):
     from repro_torch.launch import train as tl
     from repro_torch.train.steps import init_lm_state, make_lm_train_step
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = replace(get_config("qwen3-0.6b"), dtype="float32", num_layers=2)
     opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=1)
     batches = [tl.device_batch(cfg, 1, TRAIN_S, i, "cuda") for i in range(2)]
@@ -1208,6 +1312,7 @@ def phase_serve_recurrent(torch):
     return out
 
 
+@exact_f32
 def phase_recompute_recurrent(torch):
     """Both recurrent configs in f32 (TF32 off): two served requests each
     re-run through ``lm_forward`` must pick every served token."""
@@ -1218,8 +1323,6 @@ def phase_recompute_recurrent(torch):
     from repro_torch.models.lm import init_lm
     from repro_torch.serve.scheduler import Scheduler
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     prompt_lens, max_new = [100, 300], 16
     report = {}
     for base in (get_config("xlstm-125m"), NOEXP_8L):
@@ -1244,6 +1347,387 @@ def phase_recompute_recurrent(torch):
     for name, r in report.items():
         check(not r["mismatches"], f"{name}: served tokens differ from the "
               f"f32 recompute at {len(r['mismatches'])} positions")
+
+
+def _jag_batches(jag, cfg, n_batches, batch, seed=0):
+    """``n_batches`` JAG batches of ``batch`` samples as numpy (x, y)."""
+    sim = jag.jag_simulate(jag.sample_inputs(n_batches * batch, seed=seed),
+                           cfg.image_size)
+    x, y = sim["x"], jag.flatten_outputs(sim)
+    return [{"x": x[i * batch:(i + 1) * batch],
+             "y": y[i * batch:(i + 1) * batch]} for i in range(n_batches)]
+
+
+@exact_f32
+def phase_gan_parity(torch, device="cuda"):
+    """Two full-width f32 GAN steps on the card == two on the CPU (same
+    seed weights, same batches), each witnessed by the step in f64 on the
+    card and on the CPU; the second step starts on every side from the f32
+    CPU's first, so each step is compared from equal inputs."""
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.configs.icf_cyclegan import FULL
+    from repro_torch.data import jag
+    from repro_torch.models.icf_cyclegan import init_cyclegan
+    from repro_torch.train.steps import make_gan_steps
+
+    opt_cfg = OptimizerConfig(name="adam", lr=1e-3)
+    lr = opt_cfg.lr
+    batches = _jag_batches(jag, FULL, 2, GAN_B)
+    # (device, dtype) of each side; the f64 sides run the forward, the
+    # backward and the losses in f64 (the port's Adam computes in f32 for
+    # every dtype)
+    sides = {"card": (device, torch.float32), "cpu": ("cpu", torch.float32),
+             "card_f64": (device, torch.float64),
+             "f64": ("cpu", torch.float64)}
+    steps_of = {s: make_gan_steps(FULL, opt_cfg, dev)[1]
+                for s, (dev, _) in sides.items()}
+
+    def to(tree, dev, dtype):
+        if isinstance(tree, dict):
+            return {k: to(v, dev, dtype) for k, v in tree.items()}
+        if tree.is_floating_point():
+            return tree.to(dev, dtype, copy=True)
+        return tree.to(dev, copy=True)
+
+    params = init_cyclegan(FULL, seed=0, device="cpu")
+    opt_state = make_gan_steps(FULL, opt_cfg, "cpu")[0](0)[1]
+    n_params = sum(t.numel() for d in params.values() for t in d.values())
+    losses = {s: [] for s in sides}
+    secs = {s: 0.0 for s in sides}
+    steps, moved = [], True
+    for b in batches:
+        out = {}
+        for side, (dev, dt) in sides.items():
+            batch = {k: torch.from_numpy(v).to(dev, dt)
+                     for k, v in b.items()}
+            t0 = time.perf_counter()
+            new_p, new_o, m = steps_of[side](
+                to(params, dev, dt), to(opt_state, dev, torch.float32),
+                batch, {"lr": lr})
+            losses[side].append({k: float(m[k])
+                                 for k in ("g_loss", "d_loss")})
+            secs[side] += time.perf_counter() - t0
+            out[side] = (to(new_p, "cpu", torch.float64), new_o)
+        tensors, flipped, ill = [], 0, 0
+        for h, d in params.items():
+            cpu_opt = out["cpu"][1][h]
+            bc2 = 1 - opt_cfg.b2 ** int(cpu_opt["step"])
+            for n, w in d.items():
+                w = w.double()
+                u = {s: out[s][0][h][n] - w for s in sides}
+                gap = (u["card"] - u["cpu"]).abs()
+                norm = torch.linalg.vector_norm(u["cpu"]).item()
+                norm64 = torch.linalg.vector_norm(u["f64"]).item()
+                moved = moved and norm > 0
+                # Adam's denominator: between 0 (no gradient yet: no
+                # update on either side) and 10 eps an element's update
+                # turns with the gradient's last bits
+                den = torch.sqrt(cpu_opt["v"][n] / bc2)
+                cond = (den >= 10 * opt_cfg.eps) | (den == 0)
+                flip = (gap > lr / 2) & cond
+                rel = (torch.linalg.vector_norm(gap[cond & ~flip]).item()
+                       / max(norm, 1e-30))
+                flipped += int(flip.sum())
+                ill += int((~cond).sum())
+                tensors.append({
+                    "name": f"{h}.{n}", "numel": w.numel(),
+                    "ill_share": (~cond).sum().item() / w.numel(),
+                    "update_rel": rel,
+                    "update_rel_all": (torch.linalg.vector_norm(gap).item()
+                                       / max(norm, 1e-30)),
+                    "flips": int(flip.sum()),
+                    "flips_allowed": max(1.0, GAN_FLIP_SHARE * w.numel()),
+                    **{f"{side}_from_f64_rel": (torch.linalg.vector_norm(
+                        u[side] - u["f64"]).item() / max(norm64, 1e-30))
+                       for side in ("card_f64", "card", "cpu")}})
+        steps.append({"tensors": tensors, "flipped": flipped,
+                      "ill_conditioned": ill,
+                      "ill_share": ill / n_params,
+                      "cpu_floor": max(t["cpu_from_f64_rel"]
+                                       for t in tensors)})
+        params, opt_state = to(out["cpu"][0], "cpu", torch.float32), \
+            out["cpu"][1]
+    def loss_rel(side, ref):
+        return max(abs(a[k] - b[k]) / abs(b[k])
+                   for a, b in zip(losses[side], losses[ref]) for k in b)
+
+    f32_loss_rel, f64_loss_rel = loss_rel("card", "cpu"), \
+        loss_rel("card_f64", "f64")
+    emit({"phase": "gan_parity", "arch": FULL.name, "params": n_params,
+          "dtype": "float32", "allow_tf32": False, "batch": GAN_B,
+          "steps": 2, "optimizer": "adam", "lr": lr,
+          "losses_card": losses["card"], "losses_cpu": losses["cpu"],
+          "losses_f64": losses["f64"], "loss_rel_err": f32_loss_rel,
+          "f64_loss_rel_err": f64_loss_rel, "per_step": steps,
+          "seconds": secs, "tol": GAN_PARITY_TOL,
+          "flip_share": GAN_FLIP_SHARE})
+    check(n_params == FULL.param_count() == CYCLEGAN_PARAMS,
+          f"gan_parity: {n_params} parameters")
+    check(moved, "gan_parity: a weight tensor did not move")
+    check(f32_loss_rel <= GAN_PARITY_TOL["loss_rel"],
+          f"gan_parity: loss rel err {f32_loss_rel}")
+    check(f64_loss_rel <= GAN_PARITY_TOL["f64_loss_rel"],
+          f"gan_parity: f64 loss rel err {f64_loss_rel}")
+    for i, st in enumerate(steps):
+        for t in st["tensors"]:
+            where = f"gan_parity: step {i} {t['name']}"
+            check(t["update_rel"] <= GAN_PARITY_TOL["update_rel"],
+                  f"{where} update rel err {t['update_rel']}")
+            check(t["flips"] <= GAN_PARITY_TOL["flips_over_allowed"]
+                  * t["flips_allowed"], f"{where} {t['flips']} flips")
+            check(t["card_f64_from_f64_rel"]
+                  <= GAN_PARITY_TOL["f64_update_rel"],
+                  f"{where} f64 card {t['card_f64_from_f64_rel']} from the "
+                  "f64 CPU")
+            floor = max(GAN_PARITY_TOL["f32_from_f64_rel"],
+                        GAN_PARITY_TOL["f32_over_cpu_floor"]
+                        * st["cpu_floor"])
+            check(t["card_from_f64_rel"] <= floor,
+                  f"{where} f32 card {t['card_from_f64_rel']} from the f64 "
+                  f"update, over {floor}")
+
+
+def _mlp_params(dims) -> int:
+    return sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+
+
+def gan_step_bound(cfg, batch: int):
+    """(ms, bound_by, bytes, flops) of one f32 GAN step at ``batch``.
+
+    Bytes: Adam reads p, g, m and v and writes p, m and v of every weight
+    (7 x 4 bytes a parameter); the discriminator step reads the ``fwd`` and
+    ``enc`` weights, the generator step reads every generator weight in
+    its forward and again in its backward and writes its gradient once.
+    Operations: 2 per multiply-add; the discriminator step runs ``fwd`` and
+    ``enc`` forward, the generator step ``fwd``, ``enc``, ``inv`` and
+    ``dec`` twice forward and backward (weight and input gradients: twice
+    the forward's); the latent discriminator's share is left out (< 0.01%).
+    """
+    z, d_out = cfg.latent_dim, cfg.output_dim
+    n_fwd = _mlp_params((cfg.input_dim, *cfg.fwd_hidden, z))
+    n_inv = _mlp_params((z, *cfg.inv_hidden, cfg.input_dim))
+    n_enc = _mlp_params((d_out, *cfg.enc_hidden, z))
+    n_dec = _mlp_params((z, *cfg.dec_hidden, d_out))
+    n_all = cfg.param_count()
+    n_gen = n_fwd + n_inv + n_enc + n_dec
+    moved = 4 * (7 * n_all + (n_fwd + n_enc) + 3 * n_gen)
+    flops = 2 * batch * (n_fwd + n_enc) \
+        + 3 * 2 * batch * (n_fwd + n_enc + n_inv + 2 * n_dec)
+    ms, by = bound(moved, flops, "float32")
+    return ms, by, moved, flops
+
+
+def phase_ltfb(torch, device="cuda"):
+    """LTFB tournament training of the full-width CycleGAN on the card."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs.icf_cyclegan import FULL
+    from repro_torch.core import ltfb as core_ltfb
+    from repro_torch.core.tournament import TournamentOrchestrator
+    from repro_torch.launch import ltfb as lt
+    from repro_torch.train.steps import OPTIMIZER_RANGE
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ltfb_")
+    args = lt.finish_args(lt.build_parser().parse_args(
+        LTFB_ARGS + ["--device", device, "--data-dir", f"{tmp}/data",
+                     "--ckpt-dir", f"{tmp}/ckpt"]))
+    lt.check_ported(args)
+    orch = fresh = None
+    try:
+        t0 = time.perf_counter()
+        plan = lt.build_plan(args)
+        data_s = time.perf_counter() - t0
+        fns, cfg = lt.build_fns(args), lt.build_config(args)
+        t0 = time.perf_counter()
+        orch = TournamentOrchestrator(fns, plan, cfg)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        trainers = orch.population.trainers
+        p0 = trainers[0].params
+        n_params = sum(t.numel() for d in p0.values() for t in d.values())
+        check(n_params == FULL.param_count() == CYCLEGAN_PARAMS,
+              f"ltfb: {n_params} parameters")
+        val_init = [float(fns.metric(t.params, orch.val_batch))
+                    for t in trainers]
+        per_round = []
+
+        def on_round(o):
+            st = o.stats()
+            per_round.append({
+                "train_s": [d["train_seconds"] for d in st["per_trainer"]],
+                "wait_s": [d["data_wait_seconds"]
+                           for d in st["per_trainer"]],
+                "steps": [d["steps"] for d in st["per_trainer"]],
+                "tournament_s": st["tournament_seconds"],
+                "efficiency": dict(o.last_efficiency)})
+
+        orch.on_round = on_round
+        counters = _all_counters()
+        before = {n: fn.launches for n, fn in counters.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trace = orch.run(args.rounds, args.steps_per_round)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {n: fn.launches - before[n] for n, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        st = orch.stats()
+        # ms a step and samples/s, per trainer and round after the first
+        # (the first pays the card's warm-up)
+        step_ms, rates = [], []
+        for prev, rec in zip(per_round, per_round[1:]):
+            for i in range(len(trainers)):
+                dt = rec["train_s"][i] - prev["train_s"][i]
+                n = rec["steps"][i] - prev["steps"][i]
+                if n:
+                    step_ms.append(dt / n * 1e3)
+                    rates.append(n * args.batch / dt)
+        k = len(trainers)
+        gen_bytes = core_ltfb.tree_nbytes(p0["gen"])
+        disc_params = _mlp_params((FULL.latent_dim, *FULL.disc_hidden, 1))
+        pairs = sum(int((core_ltfb.random_pairing(k, r, cfg.seed)
+                         != np.arange(k)).sum())
+                    for r in range(args.rounds))
+        metrics = [v for t in trainers for v in t.last_metrics.values()] \
+            + [t.tournament_metric for t in trainers] + list(trace)
+        # one GAN step of trainer 0 under the profiler
+        t = trainers[0]
+        batch = t.loader()
+        prof = _profile(torch, lambda: fns.train_step(
+            t.params, t.opt_state, batch, t.hparams),
+            ranges=(OPTIMIZER_RANGE,))
+        opt_ms = prof["range_ms"][OPTIMIZER_RANGE]
+        mm_ms = prof["group_ms"]["matmul"]
+        prof["gan_groups_ms"] = {
+            "matmul": mm_ms, "optimizer_elementwise": opt_ms,
+            "other": prof["device_busy_ms"] - mm_ms - opt_ms}
+        b_ms, b_by, b_bytes, b_flops = gan_step_bound(FULL, args.batch)
+        # a checkpoint after round 3, restored into a fresh orchestrator
+        t0 = time.perf_counter()
+        orch.save_checkpoint()
+        save_s = time.perf_counter() - t0
+        fresh = TournamentOrchestrator(fns, plan, cfg)
+        t0 = time.perf_counter()
+        resumed = fresh.maybe_resume()
+        restore_s = time.perf_counter() - t0
+        mismatched = []
+        for i, (a, b) in enumerate(zip(trainers, fresh.population.trainers)):
+            for h in a.params:
+                for n, w in a.params[h].items():
+                    pairs_ab = (("w", w, b.params[h][n]),
+                                ("m", a.opt_state[h]["m"][n],
+                                 b.opt_state[h]["m"][n]),
+                                ("v", a.opt_state[h]["v"][n],
+                                 b.opt_state[h]["v"][n]))
+                    mismatched += [f"{i}.{h}.{n}.{what}"
+                                   for what, x, y in pairs_ab
+                                   if not torch.equal(x, y)]
+            if (a.hparams, a.steps, a.wins) != (b.hparams, b.steps, b.wins):
+                mismatched.append(f"{i}.meta")
+        fresh_round = fresh.population.round
+        clis = _ltfb_clis(torch, device, [
+            *LTFB_ARGS, "--rounds", "1", "--ckpt-every", "0", "--device",
+            device, "--data-dir", f"{tmp}/data", "--ckpt-dir", f"{tmp}/ckpt"])
+    finally:
+        for o in (orch, fresh):
+            if o is not None:
+                o.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "ltfb", "arch": FULL.name, "params": n_params,
+          "dtype": FULL.dtype,
+          "allow_tf32": tf32,
+          "trainers": k, "batch": args.batch, "rounds": args.rounds,
+          "steps_per_round": args.steps_per_round, "scope": cfg.scope,
+          "store_mode": cfg.store_mode, "samples": args.samples,
+          "files": len(plan.files), "image_size": FULL.image_size,
+          "data_gen_s": data_s, "setup_s": setup_s, "run_s": run_s,
+          "val_init": val_init, "best_val_trace": trace,
+          "step_ms_median": statistics.median(step_ms), "step_ms": step_ms,
+          "samples_per_s_per_trainer_median": statistics.median(rates),
+          "data_wait_s": st["data_wait_seconds"],
+          "prefetch_wait_s": st["prefetch_wait_seconds"],
+          "tournament_s": st["tournament_seconds"],
+          "round_wall_s": st["round_wall_seconds"], "per_round": per_round,
+          "efficiency_note": "the trainers time-share one card; speedup "
+                             "and efficiency count one card per trainer",
+          "efficiency": st["efficiency"],
+          "exchange_bytes": st["tournament_exchange_bytes"],
+          "generator_bytes": gen_bytes, "paired_candidates": pairs,
+          "wins": [d["wins"] for d in st["per_trainer"]],
+          "adoptions": [d["adoptions"] for d in st["per_trainer"]],
+          "lrs": [tr.hparams["lr"] for tr in trainers],
+          "peak_mem_gib": peak / 2**30, "profiled_step": prof,
+          "step_bound_ms": b_ms, "step_bound_by": b_by,
+          "step_bound_bytes": b_bytes, "step_flops": b_flops,
+          "ckpt_save_s": save_s, "ckpt_restore_s": restore_s,
+          "resumed_round": fresh_round, "ckpt_mismatches": mismatched[:8],
+          "kernel_launches": launches, "clis": clis})
+    check(not any(launches.values()),
+          f"ltfb: the f32 MLP path launched a kernel: {launches}")
+    check(not tf32, "ltfb: TF32 is on; the config is f32")
+    check(all(math.isfinite(v) for v in metrics + val_init),
+          f"ltfb: non-finite metric in {metrics}")
+    check(trace[-1] < min(val_init),
+          f"ltfb: best_val {trace[-1]} not below the initial best "
+          f"{min(val_init)}")
+    check(gen_bytes == 4 * (FULL.param_count() - disc_params),
+          f"ltfb: generator bytes {gen_bytes}")
+    check(st["tournament_exchange_bytes"] == pairs * gen_bytes,
+          f"ltfb: exchange bytes {st['tournament_exchange_bytes']} != "
+          f"{pairs} x {gen_bytes}")
+    check(resumed and fresh_round == args.rounds and not mismatched,
+          f"ltfb: checkpoint restore: resumed={resumed} round="
+          f"{fresh_round} mismatches={mismatched[:8]}")
+    for name, run in clis.items():
+        check(run["rc"] == 0 and not any(run["launches"].values()),
+              f"ltfb: {name} CLI: rc={run['rc']} launches={run['launches']}")
+        check(run["values"] and all(map(math.isfinite, run["values"])),
+              f"ltfb: {name} CLI printed {run['values']}")
+    check(clis["ltfb"]["resumed"],
+          "ltfb: the ltfb CLI did not resume from the phase's checkpoint")
+
+
+def _ltfb_clis(torch, device, ltfb_argv):
+    """Both CycleGAN entry points as a user calls them, on the card: the
+    ltfb CLI resuming from the phase's checkpoint for one more round, and
+    the train CLI's CycleGAN path for 20 steps.  Each returns its exit
+    code, the numbers it printed, its kernel launches and its lines."""
+    import contextlib
+    import io
+    import re
+
+    from repro_torch.launch import ltfb as lt
+    from repro_torch.launch import train as tlaunch
+
+    number = re.compile(r"\b(?:best_val|speedup|val|g|d)=([^\s,x]+)")
+    runs = {}
+    for name, main, argv, pick in (
+            ("ltfb", lt.main, ltfb_argv, "[ltfb]"),
+            ("train", tlaunch.main, ["--arch", "icf-cyclegan", "--steps",
+                                     "20", "--device", device], "")):
+        counters = _all_counters()
+        before = {n: fn.launches for n, fn in counters.items()}
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = main(argv)
+        torch.cuda.synchronize()
+        lines = [ln for ln in out.getvalue().splitlines()
+                 if ln.startswith(pick)]
+        runs[name] = {
+            "argv": argv, "rc": rc, "s": time.perf_counter() - t0,
+            "values": [float(v) for ln in lines
+                       for v in number.findall(ln)],
+            "launches": {n: fn.launches - before[n]
+                         for n, fn in counters.items()},
+            "lines": lines}
+    runs["ltfb"]["resumed"] = any("[ltfb] resumed at round 3" in ln
+                                  for ln in runs["ltfb"]["lines"])
+    return runs
 
 
 def main() -> int:
@@ -1278,6 +1762,11 @@ def main() -> int:
     release(torch)
     recurrent_launches = phase_serve_recurrent(torch)
     phase_recompute_recurrent(torch)
+    release(torch)
+    phase_gan_parity(torch)
+    release(torch)
+    phase_ltfb(torch)
+    release(torch)
 
     # the kernels line reports each kernel at the shape its path gives it
     # most: paged attention and the RMSNorm forward at the serve decode

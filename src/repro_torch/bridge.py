@@ -1,5 +1,5 @@
-"""Carry weights (and optimizer state) of the JAX package's LMs into the
-port.
+"""Carry weights (and optimizer state) of the JAX package's LMs and of its
+CycleGAN into the port, and the CycleGAN's back into JAX's layout.
 
 Input is the JAX params pytree already converted to numpy (the caller
 runs ``jax.tree.map(np.asarray, params)``; this module imports no JAX):
@@ -26,6 +26,15 @@ other weights (conv, ``A_log``, ``r_h``, biases, scales) keep JAX's layout.
 
 :func:`opt_state_from_jax` carries an optimizer state of
 ``repro.optim.optimizers`` the same way.
+
+The CycleGAN (``repro.models.icf_cyclegan``) keeps each MLP stack as
+``{"w": (W_0, ...), "b": (b_0, ...)}`` under ``gen.{fwd, inv, enc, dec}``
+and ``disc``; the port names layer i of stack ``fwd``
+``gen["fwd.{i}.weight"]`` (:mod:`repro_torch.models.icf_cyclegan`), again
+transposed.  :func:`cyclegan_params_to_jax_layout` and
+:func:`cyclegan_opt_state_to_jax_layout` go the other way, to numpy: the
+checkpoint files hold JAX's layout, so either package restores what the
+other saved.
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.icf_cyclegan import GEN_PARTS, num_layers
 from repro_torch.models.lm import LM, grouping
 
 # JAX leaves that are dense (d_in, d_out) weights: nn.Linear in the port
@@ -134,3 +144,95 @@ def opt_state_from_jax(opt_state, cfg: ModelConfig) -> Dict[str, object]:
             vr, vc = vc, vr
         out["vr"][key], out["vc"][key] = _tensor(vr), _tensor(vc)
     return out
+
+
+# ---------------------------------------------------------------------------
+# CycleGAN
+# ---------------------------------------------------------------------------
+
+# optimizer-state entries shaped like the parameters (Adam, SGD)
+_PARAM_SHAPED = ("m", "v", "mom")
+
+
+def _stack_from_jax(stack, prefix: str) -> Dict[str, torch.Tensor]:
+    out = {}
+    for i, (w, b) in enumerate(zip(stack["w"], stack["b"])):
+        out[f"{prefix}{i}.weight"] = _tensor(np.asarray(w).T)
+        out[f"{prefix}{i}.bias"] = _tensor(b)
+    return out
+
+
+def _gen_from_jax(tree) -> Dict[str, torch.Tensor]:
+    out = {}
+    for part in GEN_PARTS:
+        out.update(_stack_from_jax(tree[part], part + "."))
+    return out
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
+
+
+def _stack_to_jax(p: Dict[str, torch.Tensor], prefix: str):
+    n = num_layers(p, prefix)
+    return {"w": tuple(np.ascontiguousarray(_np(p[f"{prefix}{i}.weight"]).T)
+                       for i in range(n)),
+            "b": tuple(np.array(_np(p[f"{prefix}{i}.bias"]))
+                       for i in range(n))}
+
+
+def _gen_to_jax(gen: Dict[str, torch.Tensor]):
+    return {part: _stack_to_jax(gen, part + ".") for part in GEN_PARTS}
+
+
+_HALVES = {"gen": (_gen_from_jax, _gen_to_jax),
+           "disc": (lambda t: _stack_from_jax(t, ""),
+                    lambda p: _stack_to_jax(p, ""))}
+
+
+def cyclegan_params_from_jax(tree) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The port's ``{"gen": {...}, "disc": {...}}`` weight dicts (CPU
+    tensors) from JAX's CycleGAN params tree (numpy leaves)."""
+    return {half: conv(tree[half]) for half, (conv, _) in _HALVES.items()}
+
+
+def cyclegan_params_to_jax_layout(params) -> dict:
+    """JAX's CycleGAN params tree (numpy leaves, dense weights
+    ``(d_in, d_out)``) from the port's weight dicts."""
+    return {half: conv(params[half]) for half, (_, conv) in _HALVES.items()}
+
+
+def cyclegan_opt_state_from_jax(state) -> Dict[str, dict]:
+    """The port's ``{"gen": opt_state, "disc": opt_state}`` from JAX's:
+    Adam's ``m``/``v`` and SGD's ``mom`` cross like the weights, ``step``
+    becomes a 0-dim int32 tensor (Adafactor's factored moments are keyed
+    by JAX leaf, not by weight, and do not cross)."""
+    out = {}
+    for half, (conv, _) in _HALVES.items():
+        st = state[half]
+        _only_param_shaped(st)
+        out[half] = {k: conv(v) for k, v in st.items() if k != "step"}
+        out[half]["step"] = torch.tensor(int(np.asarray(st["step"])),
+                                         dtype=torch.int32)
+    return out
+
+
+def cyclegan_opt_state_to_jax_layout(state) -> Dict[str, dict]:
+    """JAX's CycleGAN optimizer state (numpy leaves) from the port's;
+    ``step`` becomes a 0-dim int32 array, as JAX keeps it."""
+    out = {}
+    for half, (_, conv) in _HALVES.items():
+        st = state[half]
+        _only_param_shaped(st)
+        out[half] = {k: conv(v) for k, v in st.items() if k != "step"}
+        out[half]["step"] = np.asarray(_np(st["step"]), np.int32)
+    return out
+
+
+def _only_param_shaped(st) -> None:
+    other = sorted(set(st) - set(_PARAM_SHAPED) - {"step"})
+    if other:
+        raise NotImplementedError(
+            f"optimizer state entries {other}: only Adam/SGD state "
+            "(m, v, mom) crosses between the CycleGAN layouts")

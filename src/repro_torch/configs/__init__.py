@@ -1,1 +1,1 @@
-"""Model configurations of the port (the dense LM family)."""
+"""Model configurations of the port (the LM families and the CycleGAN)."""

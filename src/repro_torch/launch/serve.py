@@ -19,6 +19,7 @@ import numpy as np
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import replace
+from repro_torch.configs.icf_cyclegan import ARCH_ID as CYCLEGAN_ID
 from repro_torch.configs.registry import ARCHS, get_config
 from repro_torch.data.tokens import token_stream
 from repro_torch.models.lm import init_lm
@@ -55,6 +56,11 @@ def build_requests(cfg, requests: int, prompt_lens: List[int],
 def run_lm(args) -> Dict[str, object]:
     """Serve the trace the flags describe; returns stats, pool and
     results (and writes them with ``--out-json``)."""
+    if args.arch == CYCLEGAN_ID:
+        raise NotImplementedError(
+            "--arch icf-cyclegan: serving the CycleGAN surrogate "
+            "(serve/surrogate.py, --workload surrogate) is not ported to "
+            "repro_torch yet; see ROADMAP.md queue A11")
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.dtype:

@@ -1,20 +1,25 @@
-"""Training launcher of the port: the LM path of ``repro.launch.train``.
+"""Training launcher of the port (``repro.launch.train``): an LM on the
+synthetic token stream, or the paper's CycleGAN on JAG samples.
 
-Trains an LM architecture on the synthetic token stream on one CUDA card
-(unless ``--device cpu`` is given), with random weights from ``--seed``:
-the same step and validation batches as the JAX launcher (step ``i`` uses
-``train_batch(seed=i)``, validation ``seed=987654``), the same warmup
-(``min(100, steps // 10 + 1)``) and the same ``step ... loss= lr=`` and
-``[train] done: val=`` lines.
+Trains on one CUDA card (unless ``--device cpu`` is given), with random
+weights from ``--seed``.  The LM path takes the same step and validation
+batches as the JAX launcher (step ``i`` uses ``train_batch(seed=i)``,
+validation ``seed=987654``), the same warmup (``min(100, steps // 10 +
+1)``) and prints the same ``step ... loss= lr=`` and ``[train] done: val=``
+lines.  ``--arch icf-cyclegan`` mirrors the JAX launcher's CycleGAN path:
+its config (64 x 64 images, or 16 x 16 under ``--smoke``, with the
+narrower autoencoder ``enc_hidden=(256, 64)``, ``dec_hidden=(64, 256)``),
+``--samples`` JAG samples plus 512 held out, batches of 128 drawn with
+numpy from ``--seed``, and its ``step ... g= d= val=`` lines.
 
   python -m repro_torch.launch.train --arch qwen3-0.6b --batch 4 --seq 4096
   python -m repro_torch.launch.train --arch qwen3-0.6b --smoke --device cpu
+  python -m repro_torch.launch.train --arch icf-cyclegan --smoke --device cpu
 
 Not ported yet: training the recurrent archs (``xlstm-125m``,
-``jamba-1.5-large-398b``; ROADMAP.md queue A7), ``--arch icf-cyclegan`` (the
-paper's CycleGAN) and the checkpoint flags (``--ckpt-dir``,
-``--ckpt-every``, ``--no-resume``; ``checkpoint/ckpt.py`` writes a JAX
-tree-path format and is ported with the LTFB slice; queue A3).
+``jamba-1.5-large-398b``; ROADMAP.md queue A7) and the checkpoint flags
+(``--ckpt-dir``, ``--ckpt-every``, ``--no-resume``; they need the reverse
+LM bridge, queue A13).
 """
 from __future__ import annotations
 
@@ -28,10 +33,14 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, OptimizerConfig
+from repro_torch.configs.icf_cyclegan import ARCH_ID as CYCLEGAN_ID
+from repro_torch.configs.icf_cyclegan import CycleGANConfig
 from repro_torch.configs.registry import ARCHS, UNPORTED, get_config
+from repro_torch.data import jag
 from repro_torch.data.tokens import train_batch
 from repro_torch.models.lm import has_recurrent
-from repro_torch.train.steps import (init_lm_state, make_lm_eval_metric,
+from repro_torch.train.steps import (init_lm_state, make_gan_steps,
+                                     make_lm_eval_metric,
                                      make_lm_train_step)
 
 VAL_SEED = 987654
@@ -51,10 +60,6 @@ class Trainer(NamedTuple):
 def build_trainer(args) -> Trainer:
     """Config, optimizer, seeded state and the step/metric functions the
     flags describe (raises without a card unless ``--device cpu``)."""
-    if args.arch == "icf-cyclegan":
-        raise NotImplementedError(
-            "--arch icf-cyclegan (the paper's CycleGAN) is not ported to "
-            "repro_torch yet; see ROADMAP.md queue A3")
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     if has_recurrent(cfg):
@@ -102,11 +107,57 @@ def train_lm(args) -> Dict[str, object]:
     return {"losses": losses, "lrs": lrs, "val": val_loss}
 
 
+CYCLEGAN_BATCH = 128
+CYCLEGAN_VAL = 512
+
+
+def cyclegan_config(smoke: bool) -> CycleGANConfig:
+    """The JAX launcher's CycleGAN config (not FULL: a narrower
+    autoencoder, 16 x 16 images under ``--smoke``)."""
+    return CycleGANConfig(image_size=16 if smoke else 64,
+                          enc_hidden=(256, 64), dec_hidden=(64, 256))
+
+
+def train_cyclegan(args) -> Dict[str, object]:
+    """The paper's model: ``--steps`` GAN steps on batches of 128 from
+    ``--samples`` JAG samples, validated on the next 512; returns the
+    per-step losses and the final validation metric."""
+    device = resolve_device(args.device)
+    ccfg = cyclegan_config(args.smoke)
+    init, train_step, metric = make_gan_steps(
+        ccfg, OptimizerConfig(name="adam", lr=args.lr), device)
+    params, opt_state, hparams = init(args.seed)
+    print(f"[train] arch={ccfg.name} params={ccfg.param_count() / 1e6:.1f}M "
+          f"device={device} dtype={ccfg.dtype} batch={CYCLEGAN_BATCH} "
+          f"image_size={ccfg.image_size}")
+    xs = jag.sample_inputs(args.samples + CYCLEGAN_VAL, seed=0)
+    sim = jag.jag_simulate(xs, ccfg.image_size)
+    x = torch.from_numpy(sim["x"]).to(device)
+    y = torch.from_numpy(jag.flatten_outputs(sim)).to(device)
+    val = {"x": x[args.samples:], "y": y[args.samples:]}
+    rng = np.random.default_rng(args.seed)
+    g_losses, d_losses = [], []
+    for i in range(args.steps):
+        idx = torch.from_numpy(
+            rng.integers(0, args.samples, CYCLEGAN_BATCH)).to(device)
+        batch = {"x": x[idx], "y": y[idx]}
+        params, opt_state, m = train_step(params, opt_state, batch, hparams)
+        g_losses.append(float(m["g_loss"]))
+        d_losses.append(float(m["d_loss"]))
+        if i % args.log_every == 0:
+            print(f"step {i:5d} g={g_losses[-1]:.4f} d={d_losses[-1]:.4f} "
+                  f"val={float(metric(params, val)):.4f}")
+    val_metric = float(metric(params, val))
+    print(f"[train] done: val={val_metric:.4f}")
+    return {"g_losses": g_losses, "d_losses": d_losses, "val": val_metric}
+
+
 def build_parser() -> argparse.ArgumentParser:
     """The port's train CLI argument parser."""
     ap = argparse.ArgumentParser(
         prog="repro_torch.launch.train",
-        description="LM training on one CUDA card (PyTorch port)")
+        description="LM or CycleGAN training on one CUDA card (PyTorch "
+                    "port)")
     ap.add_argument("--arch", default="qwen3-0.6b",
                     choices=sorted(ARCHS) + sorted(UNPORTED))
     ap.add_argument("--smoke", action="store_true",
@@ -117,6 +168,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--samples", type=int, default=8000,
+                    help="JAG training samples (icf-cyclegan)")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--optimizer", default="adam",
                     choices=("adam", "adamw", "adafactor", "sgd"))
@@ -129,8 +182,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    """CLI entry point."""
-    train_lm(build_parser().parse_args(argv))
+    """CLI entry point: train the selected arch."""
+    args = build_parser().parse_args(argv)
+    if args.arch == CYCLEGAN_ID:
+        train_cyclegan(args)
+    else:
+        train_lm(args)
     return 0
 
 

@@ -65,6 +65,10 @@ def layer_specs(cfg: ModelConfig) -> Tuple[LayerSpec, ...]:
     """Per-layer specs (``repro.models.lm.layer_specs``): xLSTM stacks
     cycle ``xlstm.pattern`` with no FFN; the others cycle
     ``block_pattern`` with a dense FFN (or MoE where ``is_moe_layer``)."""
+    if cfg.family == "cyclegan":
+        raise ValueError(
+            f"{cfg.name!r} is the CycleGAN surrogate, not an LM: it has no "
+            "layer stack (repro_torch.models.icf_cyclegan)")
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to repro_torch yet; see "

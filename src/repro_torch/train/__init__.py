@@ -1,1 +1,2 @@
-"""Train-step builders of the port (``repro.train.steps``, LM part)."""
+"""Train-step builders of the port (``repro.train.steps``: the LM and the
+CycleGAN steps) and the round figures of ``repro.train.telemetry``."""

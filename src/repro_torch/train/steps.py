@@ -1,4 +1,5 @@
-"""LM train and eval steps of the port (``repro.train.steps``, LM part).
+"""Train and eval steps of the port (``repro.train.steps``): the LM steps
+and the CycleGAN's.
 
 ``init_lm_state``        model and optimizer state from a seed
 ``make_optimizer``       the optimizer, its leaves grouped as JAX stacks
@@ -6,6 +7,10 @@
 ``make_lm_train_step``   loss + grads + global-norm clip + lr schedule +
                          optimizer update (the ``train_4k`` cells' step)
 ``make_lm_eval_metric``  held-out cross entropy (the tournament metric)
+``make_gan_steps``       the paper's CycleGAN: ``(init, train_step,
+                         metric)`` for an LTFB trainer
+``make_gan_disc_metric`` the GAN tournament metric against the local
+                         discriminator
 
 The state is ``{"model": LM, "opt_state": dict}``.  Unlike JAX's
 functional step, which returns a new state, the train step copies the new
@@ -13,6 +18,10 @@ weights into the model's parameters **in place** and replaces
 ``opt_state``'s entries; it returns the same state dict.  The raw
 (unclipped) gradients of the last step stay in each parameter's ``.grad``
 until the next step.
+
+The CycleGAN step is functional, as JAX's: its weights and Adam state are
+``{name: tensor}`` dicts and it returns new ones (see
+:mod:`repro_torch.models.icf_cyclegan`).
 """
 from __future__ import annotations
 
@@ -20,8 +29,12 @@ import functools
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+from torch.profiler import record_function
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, OptimizerConfig
+from repro_torch.configs.icf_cyclegan import CycleGANConfig
+from repro_torch.models import icf_cyclegan as cg
 from repro_torch.models import lm
 from repro_torch.optim import optimizers as opt_lib
 
@@ -91,5 +104,94 @@ def make_lm_eval_metric(cfg: ModelConfig) -> Callable:
     @torch.no_grad()
     def metric(model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         return lm.lm_loss(model, batch)[0]
+
+    return metric
+
+
+# ---------------------------------------------------------------------------
+# CycleGAN steps (the paper's model)
+# ---------------------------------------------------------------------------
+
+
+# profiler range around the GAN step's two optimizer updates: a profile
+# of the step reads the optimizer's device time under this name
+OPTIMIZER_RANGE = "gan_step.optimizer"
+
+
+def _value_and_grad(loss_fn, wrt: Dict[str, torch.Tensor], *args):
+    """(loss, metrics, grads) of ``loss_fn(wrt, *args)`` with respect to
+    ``wrt``, on leaves that share ``wrt``'s storage (no copy); everything
+    returned is detached."""
+    leaves = {n: p.detach().requires_grad_() for n, p in wrt.items()}
+    loss, metrics = loss_fn(leaves, *args)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            dict(zip(leaves, grads)))
+
+
+def make_gan_steps(ccfg: CycleGANConfig, opt_cfg: OptimizerConfig,
+                   device="cuda") -> Tuple[Callable, Callable, Callable]:
+    """``(init, train_step, metric)`` for an LTFB trainer
+    (:class:`repro_torch.core.population.TrainerFns`), on ``device`` (the
+    card unless the caller asks for ``"cpu"``).
+
+    * ``init(seed) -> (params, opt_state, hparams)``: weights from
+      :func:`~repro_torch.models.icf_cyclegan.init_cyclegan`, one Adam
+      state each for ``gen`` and ``disc``, ``{"lr": opt_cfg.lr}``;
+    * ``train_step(params, opt_state, batch, hparams) -> (params,
+      opt_state, metrics)``: a discriminator update, then a generator
+      update against the UPDATED discriminator, both at ``hparams["lr"]``
+      (no schedule, no clip); new dicts, nothing written in place;
+      metrics are 0-dim tensors (``g_loss``, ``d_loss``, ``disc_loss``,
+      ``disc_acc``, ``recon``, ``forward``, ``cycle``, ``adv_gen``,
+      ``latent``);
+    * ``metric(params, batch)``: the validation metric, without gradients
+      (it runs on the tournament's worker threads, where grad mode is the
+      thread's own).
+    """
+    dev = resolve_device(device)
+    optimizer = opt_lib.make_optimizer(opt_cfg)
+
+    def init(seed: int):
+        params = cg.init_cyclegan(ccfg, seed, dev)
+        opt_state = {"gen": optimizer.init(params["gen"]),
+                     "disc": optimizer.init(params["disc"])}
+        return params, opt_state, {"lr": opt_cfg.lr}
+
+    def train_step(params, opt_state, batch: Dict[str, torch.Tensor],
+                   hparams):
+        lr = hparams["lr"]
+        # --- discriminator ---
+        d_loss, d_metrics, d_grads = _value_and_grad(
+            cg.discriminator_loss, params["disc"], params["gen"], ccfg,
+            batch)
+        with torch.no_grad(), record_function(OPTIMIZER_RANGE):
+            new_disc, new_dopt = optimizer.update(
+                d_grads, opt_state["disc"], params["disc"], lr)
+        # --- generator ---
+        g_loss, g_metrics, g_grads = _value_and_grad(
+            cg.generator_loss, params["gen"], new_disc, ccfg, batch)
+        with torch.no_grad(), record_function(OPTIMIZER_RANGE):
+            new_gen, new_gopt = optimizer.update(
+                g_grads, opt_state["gen"], params["gen"], lr)
+        metrics = {"g_loss": g_loss, "d_loss": d_loss, **d_metrics,
+                   **g_metrics}
+        return ({"gen": new_gen, "disc": new_disc},
+                {"gen": new_gopt, "disc": new_dopt}, metrics)
+
+    @torch.no_grad()
+    def metric(params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return cg.validation_metric(params, ccfg, batch)
+
+    return init, train_step, metric
+
+
+def make_gan_disc_metric(ccfg: CycleGANConfig) -> Callable:
+    """The GAN tournament metric: score a (possibly foreign) generator
+    against the LOCAL discriminator, without gradients."""
+
+    @torch.no_grad()
+    def metric(params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return cg.discriminator_metric(params, ccfg, batch)
 
     return metric

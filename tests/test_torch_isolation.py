@@ -5,8 +5,9 @@
   ``repro_torch``);
 * a static scan of ``src/repro_torch`` and ``chip_smoke.py`` finds no
   JAX and no ``repro.`` import;
-* entry points (serving and training, the train CLI module included)
-  default to CUDA and raise without a card;
+* entry points (serving, LM and CycleGAN training, LTFB tournaments, the
+  train and ltfb CLI modules included) default to CUDA and raise without
+  a card;
 * ``chip_smoke.py`` fails, printing no result, without a card and in a
   directory that holds nothing else of the repo;
 * public symbols of the port carry docstrings (ruff's D1, re-checked).
@@ -114,6 +115,32 @@ def test_train_entry_points_default_to_cuda_and_raise_without_it(
     init_lm_state(cfg, OptimizerConfig(), device="cpu")    # asked for
 
 
+def test_ltfb_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch, tmp_path):
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.configs.icf_cyclegan import SMOKE
+    from repro_torch.core.tournament import (DataPlan, TournamentConfig,
+                                             TournamentOrchestrator)
+    from repro_torch.data import jag
+    from repro_torch.launch import ltfb
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.train.steps import make_gan_steps
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_gan_steps(SMOKE, OptimizerConfig())
+    fns = ltfb.build_fns(ltfb.finish_args(ltfb.build_parser().parse_args(
+        ["--smoke", "--device", "cpu"])))                  # asked for
+    files = jag.write_bundles(str(tmp_path), 64, 16, image_size=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TournamentOrchestrator(fns, DataPlan.jag_cyclegan(files),
+                               TournamentConfig(trainers=2))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ltfb.main(["--smoke", "--data-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tlaunch.main(["--arch", "icf-cyclegan", "--smoke", "--steps", "1"])
+
+
 def test_train_cli_module_raises_without_a_card():
     """``python -m repro_torch.launch.train`` with its default ``--device
     cuda`` exits non-zero, naming the missing card, and trains nothing."""
@@ -126,6 +153,20 @@ def test_train_cli_module_raises_without_a_card():
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr
     assert "[train] done" not in proc.stdout
+
+
+def test_ltfb_cli_module_raises_without_a_card(tmp_path):
+    """``python -m repro_torch.launch.ltfb`` with its default ``--device
+    cuda`` exits non-zero, naming the missing card, and trains nothing."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.ltfb", "--arch",
+         "icf-cyclegan", "--smoke", "--data-dir", str(tmp_path)], env=env,
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert "[ltfb] round=" not in proc.stdout
 
 
 def test_scheduler_raises_on_unported_arguments():

@@ -1,0 +1,578 @@
+"""The port's LTFB path against the JAX package on the CPU: pairings, the
+population's decisions, checkpoints crossing between the packages, the
+datastore, the orchestrator and the ltfb CLI.
+
+The SMOKE CycleGAN in f32 on both sides; JAX weights cross through
+``repro_torch.bridge``; every batch is made with numpy and fed to both
+packages.  Tolerances are stated per test.
+"""
+import json
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp
+
+from repro.checkpoint import ckpt as jckpt
+from repro.configs import base as jbase
+from repro.configs import icf_cyclegan as jcfgs
+from repro.core import ltfb as jltfb
+from repro.core.population import Population as JPopulation
+from repro.core.population import TrainerFns as JTrainerFns
+from repro.data import jag as jjag
+from repro.datastore import store as jstore
+from repro.train import steps as jsteps
+from repro.train import telemetry as jtel
+from repro_torch import bridge
+from repro_torch.checkpoint import ckpt as tckpt
+from repro_torch.configs import icf_cyclegan as tcfgs
+from repro_torch.configs.base import OptimizerConfig
+from repro_torch.core import ltfb as tltfb
+from repro_torch.core.population import Population, TrainerFns
+from repro_torch.core.tournament import (DataPlan, TournamentConfig,
+                                         TournamentOrchestrator)
+from repro_torch.data import jag as tjag
+from repro_torch.datastore import store as tstore
+from repro_torch.launch import ltfb as tlaunch
+from repro_torch.train import steps as tsteps
+from repro_torch.train import telemetry as ttel
+
+CFG = tcfgs.SMOKE
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _batch(n, seed):
+    sim = tjag.jag_simulate(tjag.sample_inputs(n, seed=seed),
+                            CFG.image_size)
+    return {"x": sim["x"], "y": tjag.flatten_outputs(sim)}
+
+
+def _tb(batch):
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in batch.items()}
+
+
+def _cpu_args(*extra):
+    return tlaunch.finish_args(tlaunch.build_parser().parse_args(
+        ["--smoke", "--device", "cpu", *extra]))
+
+
+@pytest.fixture(scope="module")
+def fns():
+    """The ltfb launcher's SMOKE trainer functions on the CPU."""
+    return tlaunch.build_fns(_cpu_args())
+
+
+@pytest.fixture(scope="module")
+def bundle_files(tmp_path_factory):
+    # 9 bundles: the orchestrator holds the last one out, leaving 8
+    root = tmp_path_factory.mktemp("torch_ltfb_jag")
+    return tjag.write_bundles(str(root), num_samples=288,
+                              samples_per_file=32, image_size=8, seed=0)
+
+
+# ---------------------------------------------------------------------------
+# pairing, scope, accounting
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 8, 16])
+def test_random_pairing_equals_jax(k):
+    """Exact equality over rounds, seeds and dead-trainer patterns."""
+    rng = np.random.default_rng(k)
+    for round_idx in (0, 1, 2, 7, 123):
+        for seed in (0, 1, 42):
+            for alive in (None, list(rng.random(k) < 0.6),
+                          [i % 3 != 1 for i in range(k)]):
+                got = tltfb.random_pairing(k, round_idx, seed, alive)
+                want = jltfb.random_pairing(k, round_idx, seed, alive)
+                np.testing.assert_array_equal(got, want)
+                assert np.array_equal(got[got], np.arange(k))
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 16])
+def test_butterfly_pairing_and_perm_equal_jax(k):
+    for round_idx in range(6):
+        got = tltfb.butterfly_pairing(k, round_idx)
+        np.testing.assert_array_equal(got, jltfb.butterfly_pairing(
+            k, round_idx))
+        assert tltfb.pairing_to_perm(got) == jltfb.pairing_to_perm(got)
+
+
+def test_scope_split_merge_and_bytes_match_jax(fns):
+    params, _, _ = fns.init(0)
+    for scope in ("full", "generator"):
+        exch, local = tltfb.split_scope(params, scope)
+        assert tltfb.merge_scope(exch, local, scope) == params
+    exch, local = tltfb.split_scope(params, "generator")
+    assert exch is params["gen"] and local == {"disc": params["disc"]}
+    jgen = bridge.cyclegan_params_to_jax_layout(params)["gen"]
+    assert tltfb.tree_nbytes(exch) == jltfb.tree_nbytes(jgen) \
+        == 4 * sum(t.numel() for t in exch.values())
+    with pytest.raises(ValueError):
+        tltfb.split_scope(params, "nope")
+
+
+def test_efficiency_snapshot_equals_jax():
+    per = [{"steps": 25, "train_seconds": 2.0, "data_wait_seconds": 0.1},
+           {"steps": 25, "train_seconds": 2.5, "data_wait_seconds": 0.0},
+           {"steps": 0, "train_seconds": 0.0}]
+    for args in ((per, 32, 0.5, 6.0), ([], 32, 0.0, 0.0)):
+        assert ttel.efficiency_snapshot(*args) == \
+            jtel.efficiency_snapshot(*args)
+
+
+# ---------------------------------------------------------------------------
+# population against JAX's
+# ---------------------------------------------------------------------------
+
+K, ROUNDS, STEPS = 4, 2, 2
+# a decision is compared where the two metrics of the pair differ by more
+# than this (relative): closer pairs may fall either way in f32
+DECIDE_REL = 1e-4
+
+
+def test_population_matches_jax():
+    """Same partners, same adoptions (where the metrics are apart), same
+    perturbed lrs, best_val to 1e-5 relative, over 2 rounds x 2 steps of
+    4 trainers fed the same numpy batches."""
+    opt = dict(name="adam", lr=1e-3)
+    jinit, jstep, jmetric = jsteps.make_gan_steps(
+        jcfgs.SMOKE, jbase.OptimizerConfig(**opt))
+    tinit, tstep, tmetric = tsteps.make_gan_steps(
+        CFG, OptimizerConfig(**opt), device="cpu")
+
+    def init(seed):                  # the JAX weights, the port's Adam
+        jp, _, h = jinit(seed)
+        tp = bridge.cyclegan_params_from_jax(_np(jp))
+        _, topt, _ = tinit(seed)
+        return tp, topt, h
+
+    batches = [[_batch(16, 100 * i + s) for s in range(ROUNDS * STEPS)]
+               for i in range(K)]
+    held = [[_batch(16, 7000 + i)] for i in range(K)]
+    val = _batch(32, 9999)
+
+    def loaders(wrap):
+        out = []
+        for bs in batches:
+            it = iter(bs)
+            out.append(lambda it=it: wrap(next(it)))
+        return out
+
+    jpop = JPopulation(JTrainerFns(jinit, jstep, jmetric), loaders(
+        lambda b: b), held, scope="generator", seed=0)
+    tpop = Population(TrainerFns(init, tstep, tmetric), loaders(_tb),
+                      [[_tb(b) for b in h] for h in held],
+                      scope="generator", seed=0)
+    compared = 0
+    for _ in range(ROUNDS):
+        jpop.train_round(STEPS)
+        tpop.train_round(STEPS)
+        jlog, tlog = jpop.tournament(), tpop.tournament()
+        assert tlog["partner"] == jlog["partner"]
+        assert tlog["exchange_bytes"] == jlog["exchange_bytes"]
+        for (i, j, jl, jo), (ti, tj, tl, to) in zip(jlog["metrics"],
+                                                    tlog["metrics"]):
+            assert (ti, tj) == (i, j)
+            np.testing.assert_allclose([tl, to], [jl, jo], rtol=1e-5)
+            if abs(jo - jl) > DECIDE_REL * abs(jl):
+                assert (to < tl) == (jo < jl), (i, j, jl, jo, tl, to)
+                compared += 1
+        for jt, tt in zip(jpop.trainers, tpop.trainers):
+            assert tt.hparams["lr"] == jt.hparams["lr"]
+            assert (tt.adoptions, tt.wins) == (jt.adoptions, jt.wins)
+    print(f"compared {compared} tournament decisions")
+    assert compared >= 1
+    assert any(t.adoptions for t in tpop.trainers)
+    assert any(t.hparams["lr"] != 1e-3 for t in tpop.trainers)
+    np.testing.assert_allclose(
+        tpop.best_metric(_tb(val)),
+        jpop.best_metric({k: jnp.asarray(v) for k, v in val.items()}),
+        rtol=1e-5)
+
+
+def test_adopted_generator_is_never_written_through(fns):
+    """Trainer 0 adopts trainer 1's generator (the same tensors, by
+    reference); a step of either leaves the other's weights as they were,
+    and the two keep their own Adam states."""
+    batch = _tb(_batch(16, 5))
+
+    def metric(params, b):
+        # trainer 1's generator wins every comparison it is in
+        return 0.0 if params["gen"] is gen1 else 1.0
+
+    pop = Population(TrainerFns(fns.init, fns.train_step, metric),
+                     [lambda: batch] * 2, [[batch]] * 2, scope="generator")
+    gen1 = pop.trainers[1].params["gen"]
+    log = pop.tournament()
+    t0, t1 = pop.trainers
+    assert log["exchanged"] == 1 and t0.adoptions == 1
+    assert t0.params["gen"] is t1.params["gen"]
+    assert t0.params["disc"] is not t1.params["disc"]
+    assert t0.opt_state is not t1.opt_state
+
+    def snap(gen):
+        return {n: t.clone() for n, t in gen.items()}
+
+    before = snap(t0.params["gen"])
+    pop.fail(0)
+    pop.train_round(1)                       # trainer 1 steps alone
+    assert t1.steps == 1 and t0.steps == 0
+    assert all(torch.equal(t0.params["gen"][n], before[n]) for n in before)
+    assert not torch.equal(t1.params["gen"]["fwd.0.weight"],
+                           before["fwd.0.weight"])
+    assert int(t0.opt_state["gen"]["step"]) == 0
+    pop.recover(0)
+    pop.fail(1)
+    before1 = snap(t1.params["gen"])
+    pop.train_round(1)                       # and now trainer 0 alone
+    assert all(torch.equal(t1.params["gen"][n], before1[n])
+               for n in before1)
+    assert int(t0.opt_state["gen"]["step"]) == 1
+    assert int(t1.opt_state["gen"]["step"]) == 1
+
+
+# ---------------------------------------------------------------------------
+# checkpoints
+# ---------------------------------------------------------------------------
+
+
+def _port_population_state(fns, k=3):
+    """A port population state after one step each (Adam moments set)."""
+    trainers = []
+    for i in range(k):
+        p, o, h = fns.init(10 + i)
+        p, o, _ = fns.train_step(p, o, _tb(_batch(16, 50 + i)), h)
+        trainers.append({"params": p, "opt_state": o,
+                         "hparams": {"lr": h["lr"] * (i + 1)},
+                         "steps": 5 * i, "alive": i != 1, "wins": i,
+                         "adoptions": 2 * i})
+    return {"round": 2, "seed": 3, "scope": "generator",
+            "trainers": trainers}
+
+
+def _saved(fns, state):
+    out = dict(state, trainers=[])
+    for tr in state["trainers"]:
+        p, o = fns.to_ckpt(tr["params"], tr["opt_state"])
+        out["trainers"].append(dict(tr, params=p, opt_state=o))
+    return out
+
+
+def _jax_like():
+    init, _, _ = jsteps.make_gan_steps(jcfgs.SMOKE, jbase.OptimizerConfig())
+    p, o, _ = init(0)
+    return {"params": p, "opt_state": o}
+
+
+def test_population_saved_by_the_port_restores_in_jax(fns, tmp_path):
+    state = _saved(fns, _port_population_state(fns))
+    tckpt.save_population(str(tmp_path), 7, state)
+    got = jckpt.restore_population(str(tmp_path), 7, _jax_like())
+    assert (got["round"], got["seed"], got["scope"]) == (2, 3, "generator")
+    for want, tr in zip(state["trainers"], got["trainers"]):
+        for key in ("hparams", "steps", "alive", "wins", "adoptions"):
+            assert tr[key] == want[key], key
+        w = {"params": want["params"], "opt_state": want["opt_state"]}
+        g = {"params": tr["params"], "opt_state": tr["opt_state"]}
+        assert jax.tree.structure(_np(g)) == jax.tree.structure(w)
+        for a, b in zip(jax.tree.leaves(g), jax.tree.leaves(w)):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_array_equal(np.asarray(a), b)
+
+
+def test_population_saved_by_jax_restores_in_the_port(fns, tmp_path):
+    jinit, jstep, _ = jsteps.make_gan_steps(jcfgs.SMOKE,
+                                            jbase.OptimizerConfig())
+    trainers = []
+    for i in range(2):
+        p, o, h = jinit(i)
+        b = _batch(16, 60 + i)
+        p, o, _ = jstep(p, o, {k: jnp.asarray(v) for k, v in b.items()}, h)
+        trainers.append({"params": p, "opt_state": o, "hparams": h,
+                         "steps": i + 1, "alive": True})
+    jckpt.save_population(str(tmp_path), 4, {"round": 1, "seed": 0,
+                                             "scope": "generator",
+                                             "trainers": trainers})
+    p0, o0, _ = fns.init(0)
+    like_p, like_o = fns.to_ckpt(p0, o0)
+    got = tckpt.restore_population(str(tmp_path), 4,
+                                   {"params": like_p, "opt_state": like_o},
+                                   num_trainers=3)      # K' = 3 != K = 2
+    assert got["round"] == 1 and len(got["trainers"]) == 3
+    for i, tr in enumerate(got["trainers"]):
+        src = trainers[i % 2]
+        p, o = fns.from_ckpt(tr["params"], tr["opt_state"])
+        want_p = bridge.cyclegan_params_from_jax(_np(src["params"]))
+        want_o = bridge.cyclegan_opt_state_from_jax(_np(src["opt_state"]))
+        for half in ("gen", "disc"):
+            assert list(p[half]) == list(p0[half])
+            for n in want_p[half]:
+                assert p[half][n].dtype == torch.float32
+                assert torch.equal(p[half][n], want_p[half][n]), n
+                for mom in ("m", "v"):
+                    assert torch.equal(o[half][mom][n],
+                                       want_o[half][mom][n]), (mom, n)
+            assert int(o[half]["step"]) == 1
+        assert tr["steps"] == src["steps"]
+    # K' = 1 < K: the first trainer only
+    one = tckpt.restore_population(str(tmp_path), 4,
+                                   {"params": like_p, "opt_state": like_o},
+                                   num_trainers=1)
+    assert len(one["trainers"]) == 1
+
+
+def _tree_pair():
+    t = {"a": torch.arange(6, dtype=torch.float32).reshape(2, 3),
+         "b": (torch.ones(4, dtype=torch.bfloat16) * 1.5,
+               {"c": torch.tensor(3, dtype=torch.int32)})}
+    j = {"a": jnp.arange(6, dtype=jnp.float32).reshape(2, 3),
+         "b": (jnp.ones((4,), jnp.bfloat16) * 1.5,
+               {"c": jnp.array(3, jnp.int32)})}
+    return t, j
+
+
+def test_checkpoint_files_match_jax_and_write_atomically(tmp_path,
+                                                         monkeypatch):
+    """The same tree saved by each package: the same keys, dtype markers
+    and bits; the write goes to ``.tmp``, is fsynced, then renamed."""
+    t, j = _tree_pair()
+    tpath, jpath = str(tmp_path / "t.ckpt"), str(tmp_path / "j.ckpt")
+    calls = []
+    real_fsync, real_replace = os.fsync, os.replace
+    monkeypatch.setattr(tckpt.os, "fsync", lambda fd: (
+        calls.append(("fsync", os.readlink(f"/proc/self/fd/{fd}"))),
+        real_fsync(fd)))
+    monkeypatch.setattr(tckpt.os, "replace", lambda a, b: (
+        calls.append(("replace", a, b)), real_replace(a, b)))
+    tckpt.save(tpath, t, {"step": 7})
+    monkeypatch.undo()
+    assert calls[0] == ("fsync", tpath + ".tmp.npz")
+    assert calls[1] == ("replace", tpath + ".tmp.npz", tpath)
+    assert not os.path.exists(tpath + ".tmp") and \
+        not os.path.exists(tpath + ".tmp.npz")
+    jckpt.save(jpath, j, {"step": 7})
+    with np.load(tpath) as zt, np.load(jpath) as zj:
+        assert sorted(zt.files) == sorted(zj.files)
+        assert json.loads(str(zt["__dtypes__"])) == \
+            json.loads(str(zj["__dtypes__"]))
+        assert "kb::i0" in zt.files and "kb::i1::kc" in zt.files
+        for k in zj.files:
+            assert zt[k].dtype == zj[k].dtype
+            np.testing.assert_array_equal(zt[k], zj[k])
+    # each package restores the other's file
+    got, meta = tckpt.restore(jpath, t)
+    assert meta == {"step": 7}
+    for n, (a, b) in enumerate(zip(jax.tree.leaves(got),
+                                   jax.tree.leaves(t))):
+        assert a.dtype == b.dtype and torch.equal(a, b), n
+    back, _ = jckpt.restore(tpath, j)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(j)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(np.asarray(a, np.float32),
+                                      np.asarray(b, np.float32))
+
+
+def test_async_checkpointer_snapshots_before_writing(tmp_path):
+    t, _ = _tree_pair()
+    path = str(tmp_path / "step_3.ckpt")
+    ac = tckpt.AsyncCheckpointer()
+    ac.save(path, t, {"step": 3})
+    t["a"].add_(100.0)                      # a later step changes it
+    ac.wait()
+    got, meta = tckpt.restore(path, t)
+    assert meta["step"] == 3
+    assert torch.equal(got["a"], torch.arange(6.0).reshape(2, 3))
+    assert tckpt.latest_step_path(str(tmp_path)) == path
+    assert tckpt.latest_step_path(str(tmp_path / "none")) is None
+    assert tckpt.latest_population_step(str(tmp_path)) is None
+
+
+# ---------------------------------------------------------------------------
+# datastore against JAX's
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["preload", "dynamic", "none"])
+def test_datastore_equals_jax(bundle_files, mode):
+    """Permutations, batches and every counter, step by step."""
+    files = bundle_files[:5]
+    kw = dict(num_ranks=2, mode=mode, seed=3)
+    ts = tstore.DataStore(files, tjag.read_bundle, **kw)
+    js = jstore.DataStore(files, jjag.read_bundle, **kw)
+    if mode == "preload":
+        ts.preload(parallel=False)
+        js.preload(parallel=False)
+    assert ts.num_samples == js.num_samples == 160
+    for epoch in range(3):
+        np.testing.assert_array_equal(ts.epoch_permutation(epoch),
+                                      js.epoch_permutation(epoch))
+        perm = js.epoch_permutation(epoch)
+        for step in range(ts.steps_per_epoch(24) + 1):     # one wrap
+            a = ts.get_batch(perm, step, 24, consumer_rank=step % 2)
+            b = js.get_batch(perm, step, 24, consumer_rank=step % 2)
+            for k in b:
+                np.testing.assert_array_equal(a[k], b[k])
+        stats = ts.stats.as_dict()
+        want = js.stats.as_dict()
+        stats.pop("preload_seconds"), want.pop("preload_seconds")
+        assert stats == want
+    assert tstore.aggregate_stats([ts]) == {
+        k: float(v) for k, v in ts.stats.as_dict().items()}
+    for k in (1, 2, 3, 5):
+        for i in range(k):
+            for strategy in ("stride", "block"):
+                assert tstore.partition_files(files, k, i, strategy) == \
+                    jstore.partition_files(files, k, i, strategy)
+
+
+def test_prefetch_loader_delivers_jax_batches(bundle_files):
+    ts = tstore.DataStore(bundle_files[:4], tjag.read_bundle, num_ranks=2,
+                          seed=1)
+    js = jstore.DataStore(bundle_files[:4], jjag.read_bundle, num_ranks=2,
+                          seed=1)
+    ts.preload()
+    js.preload()
+    tl = tstore.PrefetchLoader(ts, 40, consumer_rank=None)
+    jl = jstore.PrefetchLoader(js, 40, consumer_rank=None)
+    try:
+        for _ in range(7):                  # past an epoch (3 steps)
+            a, b = tl.next(timeout=30), jl.next(timeout=30)
+            for k in b:
+                np.testing.assert_array_equal(a[k], b[k])
+        assert tl.batches_delivered == 7
+    finally:
+        tl.close()
+        jl.close()
+    assert not tl._thread.is_alive()
+
+
+# ---------------------------------------------------------------------------
+# orchestrator
+# ---------------------------------------------------------------------------
+
+
+def _orch(fns, files, k=4, **kw):
+    cfg = TournamentConfig(trainers=k, scope="generator", batch_size=16,
+                           num_ranks=2, tournament_batches=1,
+                           tournament_batch_size=32, seed=0, device="cpu",
+                           **kw)
+    return TournamentOrchestrator(fns, DataPlan.jag_cyclegan(files), cfg)
+
+
+def test_orchestrator_rounds_fail_recover_rescale(fns, bundle_files):
+    with _orch(fns, bundle_files) as orch:
+        trace = orch.run(rounds=2, steps_per_round=2)
+        assert len(trace) == 2 and all(np.isfinite(trace))
+        st = orch.stats()
+        assert [d["steps"] for d in st["per_trainer"]] == [4] * 4
+        assert sum(d["wins"] for d in st["per_trainer"]) == 4 * 2
+        gen_bytes = tltfb.tree_nbytes(orch.population.trainers[0]
+                                      .params["gen"])
+        assert st["tournament_exchange_bytes"] == 2 * 4 * gen_bytes
+        assert st["total"]["cache_hits"] > 0
+        assert isinstance(orch.val_batch["y"], torch.Tensor)
+        assert orch.val_batch["y"].shape == (32, CFG.output_dim)
+        eff = st["efficiency"]
+        assert eff["trainers"] == 4 and eff["speedup"] > 0
+        orch.fail(1)
+        orch.run(rounds=1, steps_per_round=2)
+        st = orch.stats()
+        assert st["per_trainer"][1]["steps"] == 4    # sat the round out
+        assert st["per_trainer"][0]["steps"] == 6
+        orch.recover(1)
+        assert orch.population.trainers[1].alive
+        orch.rescale(6)
+        orch.run(rounds=1, steps_per_round=1)
+        st = orch.stats()
+        assert len(st["per_trainer"]) == 6 and st["round"] == 4
+        assert st["events"] == {"rescales": 1, "failures": 1,
+                                "recoveries": 1, "checkpoints": 0,
+                                "restores": 0}
+        assert sum(d["files"] for d in st["per_trainer"]) == 8
+        orch.rescale(2)
+        assert len(orch.population.trainers) == 2
+        assert orch.stats()["total"]["file_opens"] > 0
+
+
+def test_orchestrator_checkpoint_resumes_bit_equal(fns, bundle_files,
+                                                   tmp_path):
+    ck = str(tmp_path / "ck")
+    with _orch(fns, bundle_files, ckpt_dir=ck) as orch:
+        orch.run(rounds=2, steps_per_round=2, ckpt_every=1)
+        saved = [(t.params, t.opt_state, t.hparams, t.wins)
+                 for t in orch.population.trainers]
+    assert tckpt.latest_population_step(ck) == 2
+    with _orch(fns, bundle_files, ckpt_dir=ck) as fresh:
+        assert fresh.maybe_resume()
+        assert fresh.population.round == 2
+        assert fresh.stats()["events"]["restores"] == 1
+        for t, (p, o, h, w) in zip(fresh.population.trainers, saved):
+            assert (t.hparams, t.wins) == (h, w)
+            for half in ("gen", "disc"):
+                for n in p[half]:
+                    assert torch.equal(t.params[half][n], p[half][n])
+                    assert torch.equal(t.opt_state[half]["v"][n],
+                                       o[half]["v"][n])
+
+
+def test_orchestrator_refuses_what_is_not_ported(fns, bundle_files):
+    with pytest.raises(NotImplementedError, match="A6"):
+        _orch(fns, bundle_files, backend="mesh")
+    with pytest.raises(NotImplementedError, match="A6"):
+        _orch(fns, bundle_files, quantize_exchange=True)
+    cfg = TournamentConfig(trainers=2, device="cpu")
+    plan = DataPlan.jag_cyclegan(bundle_files)
+    with pytest.raises(NotImplementedError, match="A5"):
+        TournamentOrchestrator(fns, plan, cfg, telemetry=object())
+    with pytest.raises(NotImplementedError, match="A5"):
+        TournamentOrchestrator(fns, plan, cfg, genealogy=object())
+    with pytest.raises(NotImplementedError, match="A12"):
+        DataPlan.lm_tokens(bundle_files)
+
+
+# ---------------------------------------------------------------------------
+# CLI
+# ---------------------------------------------------------------------------
+
+
+def test_ltfb_cli_on_cpu_prints_its_lines(tmp_path, capsys):
+    argv = ["--arch", "icf-cyclegan", "--smoke", "--device", "cpu",
+            "--trainers", "4", "--rounds", "2", "--steps-per-round", "2",
+            "--samples", "576", "--data-dir", str(tmp_path / "data"),
+            "--ckpt-dir", str(tmp_path / "ck")]
+    assert tlaunch.main(argv) == 0
+    text = capsys.readouterr().out
+    rounds = [ln for ln in text.splitlines()
+              if ln.startswith("[ltfb] round=")]
+    assert len(rounds) == 2
+    for ln in rounds:
+        best = float(ln.split("best_val=")[1].split()[0])
+        assert np.isfinite(best) and "speedup=" in ln
+    assert text.count("[ltfb] trainer ") == 4
+    for tag in ("[ltfb] manifest: 9 JAG bundles", "[ltfb] datastore total:",
+                "[ltfb] tournament: rounds=2", "[ltfb] efficiency:",
+                "device=cpu", "scope=generator"):
+        assert tag in text, tag
+    # a rerun resumes from the checkpoint and reuses the manifest
+    assert tlaunch.main(argv[:7] + ["--rounds", "1"] + argv[9:]) == 0
+    text = capsys.readouterr().out
+    assert "[ltfb] resumed at round 2" in text
+    assert "[ltfb] tournament: rounds=3" in text
+
+
+@pytest.mark.parametrize("flags,queue", [
+    (["--backend", "mesh"], "A6"), (["--quantize-exchange"], "A6"),
+    (["--log-json"], "A5"), (["--trace-out", "t.json"], "A5"),
+    (["--prom-out", "m.prom"], "A5"), (["--metrics-port", "0"], "A5"),
+    (["--genealogy", "g.jsonl"], "A5"), (["--arch", "qwen3-0.6b"], "A12")])
+def test_ltfb_cli_refuses_unported_flags(flags, queue):
+    with pytest.raises(NotImplementedError, match=queue):
+        tlaunch.main(["--smoke", "--device", "cpu", *flags])
