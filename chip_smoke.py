@@ -105,20 +105,65 @@ and never prints the final ``ok`` line):
     from that checkpoint for a fourth round and ``repro_torch.launch.
     train.main`` with ``--arch icf-cyclegan`` for 20 steps, each printing
     finite values; no kernel of the port may launch (the nets are f32
-    MLPs);
-15. a ``kernels`` line, the ``nvidia-smi`` line, and the ``ok`` line.
+    MLPs); the ltfb CLI's round is saved, both population steps' winners
+    are exported for phase 17 and the trainer files deleted;
+15. ltfb_lm: LTFB over two qwen3-0.6b trainers at full width in bf16
+    through ``repro_torch.launch.ltfb``'s functions (B = 2, S = 4096,
+    Adam, 2 rounds x 3 steps, scope full; 64 rows of 4,097 tokens in 4
+    shards), a population checkpoint after each round (round 1's winner
+    exported and its trainer files deleted before round 2 saves, so the
+    disk holds at most one population of ~12 GB and two winners); every
+    loss and metric finite, the flash and RMSNorm counters equal to the
+    steps times the train phase's per-step launches plus the metric
+    forwards' (28 flash forward and 113 RMSNorm launches each), the
+    exchange bytes equal to the paired candidates times the model's bytes,
+    no step writing into weights it was given (round 2 steps from round
+    1's tensors, and trainer 0 adopts trainer 1's weights by reference and
+    steps), and the round-2 population restoring bit-equal into a fresh
+    orchestrator; prints step ms, tokens/s per trainer, tournament
+    seconds, the checkpoint's bytes and save/restore seconds, peak memory;
+16. serve_swap: qwen3-0.6b FULL in f32, TF32 off, served from phase 15's
+    winners through ``Scheduler(registry=..., watch_every=2,
+    swap_mode="drain")`` with pinned prefix pages: 8 requests over 4
+    slots, prompts 128/256 (requests 4-7 repeat 0-3's prompts), 32 new
+    tokens, greedy; round 2's winner lands in the directory before step 6;
+    one hot swap, no request across both weights, every served token the
+    argmax of ``lm_forward`` on the weights that served it (save top-2 ties
+    within 1e-4), no request admitted after the swap mapping an old page,
+    the paged-attention and RMSNorm counters matching the steps; then a
+    torn ``winner_step_3.ckpt`` is quarantined while round 2's serves on;
+    prints the swap's latency (the poll that finds the file to the first
+    token on the new weights);
+17. surrogate: the CycleGAN surrogate at full width (49,167 outputs a row)
+    in f32, TF32 off, served from phase 14's winners through
+    ``SurrogateEngine`` (max_batch 128, bucket 8): 256 queries of 8 rows,
+    the next step's winner landing mid-run; every row matches ``predict``
+    on the weights that answered it to 1e-5, some staging overlapped, no
+    kernel counter moves; prints rows/s, one profiled batch's device time
+    and its copy to the host, and the batch's bound;
+18. the CLIs as a user calls them, each printing finite values: the serve
+    CLI for ``--arch icf-cyclegan --ckpt-dir`` (phase 14's winners) and for
+    ``--arch qwen3-0.6b --ckpt-dir --requests 4`` (phase 15's population:
+    the winner exported on the way), the ltfb CLI resuming phase 15's
+    population for one more round without saving, and the train CLI with
+    ``--batch 1 --seq 1024 --steps 3 --ckpt-every 2`` and a rerun that
+    resumes at step 2;
+19. a ``kernels`` line, the ``nvidia-smi`` line, and the ``ok`` line.
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and ``triton``; exits 1
 without a card and 2 when run outside a checkout of the repo.
 """
+import dataclasses
 import functools
 import gc
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -198,6 +243,26 @@ GAN_PARITY_TOL = {"loss_rel": 1e-5, "update_rel": 1e-3,
                   "flips_over_allowed": 1.0, "f64_loss_rel": 1e-10,
                   "f64_update_rel": 1e-6, "f32_from_f64_rel": 1e-3,
                   "f32_over_cpu_floor": 2.0}
+# ltfb_lm: LTFB over qwen3-0.6b FULL in bf16, K = 2 trainers time-sharing
+# the card, B = 2, S = 4096, Adam (the CLI's default), 2 rounds x 3 steps,
+# scope full, over 64 rows of 4,097 tokens in 4 shards (3 for training, 1
+# held out).  LM_SMOKE rehearses it on the CPU
+LM_LTFB_ARGS = ["--arch", "qwen3-0.6b", "--trainers", "2", "--rounds", "2",
+                "--steps-per-round", "3", "--batch", "2", "--seq", "4096",
+                "--samples", "64", "--samples-per-file", "16", "--scope",
+                "full", "--seed", "0"]
+LM_SMOKE = ["--smoke", "--seq", "64"]
+# kernel launches of one forward without gradients (a tournament metric):
+# 28 attention layers at S = 4096, 4 norms a block and the final one
+LM_FORWARD = {"flash_attention_fwd": 28, "flash_attention_bwd": 0,
+              "rmsnorm": 113, "rmsnorm_bwd": 0}
+# serve_swap: 8 requests over 4 slots, prompts 128/256, 32 new tokens
+SWAP_PROMPTS, SWAP_MAX_NEW = [128, 256], 32
+# surrogate: 256 queries of 8 rows in batches of 128 (8 slots x 16);
+# rows against predict on their weights to 1e-5 (abs + rel, f32, TF32 off)
+SURROGATE_QUERIES, SURROGATE_BATCH, SURROGATE_TOL = (256, 8), 128, 1e-5
+# the host link of an H100 SXM: PCIe Gen5 x16, 64 GB/s a direction
+PCIE_BYTES_PER_S = 64e9
 # the ltfb phase: the CLI's defaults at the FULL widths, cut to 4,096
 # samples (8 bundles of 512) and 3 rounds of 25 steps
 LTFB_ARGS = ["--arch", "icf-cyclegan", "--trainers", "4", "--rounds", "3",
@@ -684,7 +749,8 @@ def _recompute_check(torch, model, sched, reqs, max_new):
     ties, mismatches, checked = [], [], 0
     with torch.no_grad():
         for r in reqs:
-            seq = torch.from_numpy(sched.full_sequence(r)).long().cuda()
+            seq = torch.from_numpy(sched.full_sequence(r)).long().to(
+                model.device)
             logits = lm_forward(model, seq[None, :-1])[0]
             P = r.prompt_len
             for i in range(max_new):
@@ -901,7 +967,9 @@ PROFILE_GROUPS = (("flash_attention_fwd", ("flash_fwd",)),
                   ("mamba_scan", ("mamba_scan",)),
                   ("slstm_scan", ("slstm",)),
                   ("matmul", ("gemm", "sm90", "cutlass", "nvjet", "xmma",
-                              "cublas")))
+                              "cublas")),
+                  ("memcpy_dtoh", ("memcpy dtoh",)),
+                  ("memcpy_htod", ("memcpy htod",)))
 
 
 def _profile(torch, fn, ranges=()):
@@ -1517,8 +1585,14 @@ def gan_step_bound(cfg, batch: int):
     return ms, by, moved, flops
 
 
-def phase_ltfb(torch, device="cuda"):
-    """LTFB tournament training of the full-width CycleGAN on the card."""
+def phase_ltfb(torch, device="cuda", workdir=None):
+    """LTFB tournament training of the full-width CycleGAN on the card.
+
+    With ``workdir`` the population directory stays for the surrogate
+    phase: the winners of its two steps (3, and 4 from the CLI's round)
+    are exported, step 4's set aside to land mid-run, and the trainer
+    files pruned.  Returns ``(population dir, dir of the next winner)``
+    then, else None."""
     import tempfile
 
     import numpy as np
@@ -1530,7 +1604,7 @@ def phase_ltfb(torch, device="cuda"):
     from repro_torch.train.steps import OPTIMIZER_RANGE
 
     tf32 = torch.backends.cuda.matmul.allow_tf32
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_ltfb_")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ltfb_", dir=workdir)
     args = lt.finish_args(lt.build_parser().parse_args(
         LTFB_ARGS + ["--device", device, "--data-dir", f"{tmp}/data",
                      "--ckpt-dir", f"{tmp}/ckpt"]))
@@ -1629,14 +1703,21 @@ def phase_ltfb(torch, device="cuda"):
             if (a.hparams, a.steps, a.wins) != (b.hparams, b.steps, b.wins):
                 mismatched.append(f"{i}.meta")
         fresh_round = fresh.population.round
+        # the CLI's round is saved (step 4) when the surrogate phase
+        # serves from this population
         clis = _ltfb_clis(torch, device, [
-            *LTFB_ARGS, "--rounds", "1", "--ckpt-every", "0", "--device",
-            device, "--data-dir", f"{tmp}/data", "--ckpt-dir", f"{tmp}/ckpt"])
+            *LTFB_ARGS, "--rounds", "1", "--ckpt-every",
+            "1" if workdir else "0", "--device", device, "--data-dir",
+            f"{tmp}/data", "--ckpt-dir", f"{tmp}/ckpt"])
+        served = _keep_winners(fns, trainers[0], f"{tmp}/ckpt",
+                               f"{tmp}/next") if workdir else None
     finally:
         for o in (orch, fresh):
             if o is not None:
                 o.close()
-        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(f"{tmp}/data", ignore_errors=True)
+        if workdir is None:
+            shutil.rmtree(tmp, ignore_errors=True)
     emit({"phase": "ltfb", "arch": FULL.name, "params": n_params,
           "dtype": FULL.dtype,
           "allow_tf32": tf32,
@@ -1689,45 +1770,731 @@ def phase_ltfb(torch, device="cuda"):
               f"ltfb: {name} CLI printed {run['values']}")
     check(clis["ltfb"]["resumed"],
           "ltfb: the ltfb CLI did not resume from the phase's checkpoint")
+    return served
+
+
+def _keep_winners(fns, trainer, pop_dir, next_dir):
+    """Export the winner of each population step in ``pop_dir`` (by
+    recorded wins), move the newest one's files to ``next_dir`` (they land
+    mid-run later, as a trainer's export would), and delete the trainer
+    files and manifests: the serving phases read winners only.  Returns
+    ``(pop_dir, next_dir)``."""
+    from repro_torch.serve import registry as reg
+
+    like, _ = fns.to_ckpt(trainer.params, trainer.opt_state)
+    steps = reg.population_steps(pop_dir)
+    check(len(steps) >= 2, f"need two population steps, got {steps}")
+    for step in steps:
+        reg.export_winner(pop_dir, like, step=step)
+    _move_winner(pop_dir, next_dir, steps[-1])
+    _prune_members(pop_dir, steps)
+    return pop_dir, next_dir
+
+
+def _move_winner(src, dst, step):
+    """Move ``winner_step_<step>.ckpt`` and its sidecar from ``src`` to
+    ``dst`` (sidecar first: a poll never sees a winner without it)."""
+    from repro_torch.serve import registry as reg
+
+    os.makedirs(dst, exist_ok=True)
+    path = reg.winner_path(src, step)
+    for a in (reg.checksum_path(path), path):
+        os.replace(a, os.path.join(dst, os.path.basename(a)))
+
+
+def _prune_members(pop_dir, steps):
+    """Delete the trainer files and manifests of ``steps``."""
+    for f in os.listdir(pop_dir):
+        if any(f.startswith(f"step_{s}_trainer_") or f == f"step_{s}.manifest"
+               for s in steps):
+            os.remove(os.path.join(pop_dir, f))
 
 
 def _ltfb_clis(torch, device, ltfb_argv):
     """Both CycleGAN entry points as a user calls them, on the card: the
     ltfb CLI resuming from the phase's checkpoint for one more round, and
-    the train CLI's CycleGAN path for 20 steps.  Each returns its exit
-    code, the numbers it printed, its kernel launches and its lines."""
-    import contextlib
-    import io
+    the train CLI's CycleGAN path for 20 steps (:func:`_run_cli`)."""
     import re
 
     from repro_torch.launch import ltfb as lt
     from repro_torch.launch import train as tlaunch
 
     number = re.compile(r"\b(?:best_val|speedup|val|g|d)=([^\s,x]+)")
-    runs = {}
-    for name, main, argv, pick in (
-            ("ltfb", lt.main, ltfb_argv, "[ltfb]"),
-            ("train", tlaunch.main, ["--arch", "icf-cyclegan", "--steps",
-                                     "20", "--device", device], "")):
-        counters = _all_counters()
-        before = {n: fn.launches for n, fn in counters.items()}
-        out = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            rc = main(argv)
+    runs = {"ltfb": _run_cli(torch, lt.main, ltfb_argv, "[ltfb]", number),
+            "train": _run_cli(torch, tlaunch.main,
+                              ["--arch", "icf-cyclegan", "--steps", "20",
+                               "--device", device], "", number)}
+    runs["ltfb"]["resumed"] = any("[ltfb] resumed at round 3" in ln
+                                  for ln in runs["ltfb"]["lines"])
+    return runs
+
+
+def _run_cli(torch, main, argv, pick, number):
+    """One entry point as a user calls it: its exit code, wall seconds,
+    the numbers its ``pick`` lines print (``number`` a regex with one
+    group), its kernel launches and those lines."""
+    import contextlib
+    import io
+
+    counters = _all_counters()
+    before = {n: fn.launches for n, fn in counters.items()}
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    if torch.cuda.is_available():
         torch.cuda.synchronize()
-        lines = [ln for ln in out.getvalue().splitlines()
-                 if ln.startswith(pick)]
-        runs[name] = {
-            "argv": argv, "rc": rc, "s": time.perf_counter() - t0,
+    lines = [ln for ln in out.getvalue().splitlines() if ln.startswith(pick)]
+    return {"argv": argv, "rc": rc, "s": time.perf_counter() - t0,
             "values": [float(v) for ln in lines
                        for v in number.findall(ln)],
             "launches": {n: fn.launches - before[n]
                          for n, fn in counters.items()},
             "lines": lines}
-    runs["ltfb"]["resumed"] = any("[ltfb] resumed at round 3" in ln
-                                  for ln in runs["ltfb"]["lines"])
-    return runs
+
+
+# ---------------------------------------------------------------------------
+# from the tournament to serving: LM trainers in LTFB, the winner registry
+# with hot swap, the CycleGAN surrogate
+# ---------------------------------------------------------------------------
+
+
+def _sync(torch, device) -> None:
+    if str(device).startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def _peak_gib(torch, device):
+    if not str(device).startswith("cuda"):
+        return None
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _reset_peak(torch, device) -> None:
+    if str(device).startswith("cuda"):
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _bytes_of(directory, prefix) -> int:
+    return sum(os.path.getsize(os.path.join(directory, f))
+               for f in os.listdir(directory) if f.startswith(prefix))
+
+
+def phase_ltfb_lm(torch, workdir, device="cuda", extra=()):
+    """LTFB over two full-width qwen3-0.6b trainers in bf16 through
+    ``repro_torch.launch.ltfb``'s functions, a population checkpoint after
+    each round (round 1's winner exported, then its trainer files pruned),
+    the round-2 population restored into a fresh orchestrator.  Returns
+    the kernel launches and the directories the next phases read."""
+    import numpy as np
+
+    import threading
+
+    from repro_torch import bridge
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import ltfb as core_ltfb
+    from repro_torch.core.tournament import TournamentOrchestrator
+    from repro_torch.launch import ltfb as lt
+    from repro_torch.serve import registry as reg
+
+    data, pop = f"{workdir}/lm_data", f"{workdir}/lm_pop"
+    args = lt.finish_args(lt.build_parser().parse_args(
+        [*LM_LTFB_ARGS, *extra, "--device", device, "--data-dir", data,
+         "--ckpt-dir", pop]))
+    lt.check_ported(args)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    t0 = time.perf_counter()
+    plan = lt.build_plan(args)
+    data_s = time.perf_counter() - t0
+    fns, tcfg = lt.build_fns(args), lt.build_config(args)
+    forwards, lock = [0], threading.Lock()
+    metric = fns.metric
+
+    def counted(params, batch):
+        with lock:
+            forwards[0] += 1
+        return metric(params, batch)
+
+    fns = dataclasses.replace(fns, metric=counted)
+    orch = fresh = None
+    try:
+        t0 = time.perf_counter()
+        orch = TournamentOrchestrator(fns, plan, tcfg)
+        _sync(torch, device)
+        setup_s = time.perf_counter() - t0
+        trainers = orch.population.trainers
+        p0 = trainers[0].params
+        n_params = sum(t.numel() for t in p0.values())
+        model_bytes = core_ltfb.tree_nbytes(p0)
+        like = bridge.params_to_jax_layout(p0, cfg)
+        rounds, held = [], {}
+
+        def on_round(o):
+            st = o.stats()
+            rounds.append({
+                "train_s": [d["train_seconds"] for d in st["per_trainer"]],
+                "steps": [d["steps"] for d in st["per_trainer"]],
+                "tournament_s": st["tournament_seconds"],
+                "wins": [d["wins"] for d in st["per_trainer"]],
+                "adoptions": [d["adoptions"] for d in st["per_trainer"]],
+                "metrics": [[v for v in d["train_metrics"].values()]
+                            + [d["tournament_metric"]]
+                            for d in st["per_trainer"]]})
+            if o.population.round == 1:
+                # round 2 steps from these tensors (shared where a trainer
+                # adopted): by reference, and a copy
+                for i, t in enumerate(o.population.trainers):
+                    held[i] = (t.params, {n: x.clone()
+                                          for n, x in t.params.items()})
+
+        orch.on_round = on_round
+        counters = _train_counters()
+        before = {n: fn.launches for n, fn in counters.items()}
+        forwards[0] = 0
+        _sync(torch, device)
+        _reset_peak(torch, device)
+        t0 = time.perf_counter()
+        trace = orch.run(1, args.steps_per_round, ckpt_every=1)
+        save_s = [orch.checkpoint_seconds]
+        ckpt_bytes = _bytes_of(pop, "step_1_trainer_")
+        t1 = time.perf_counter()
+        _, winner1 = reg.export_winner(pop, like, step=1)
+        export_s = time.perf_counter() - t1
+        _prune_members(pop, [1])
+        trace += orch.run(1, args.steps_per_round, ckpt_every=1)
+        _sync(torch, device)
+        run_s = time.perf_counter() - t0
+        launches = {n: fn.launches - before[n] for n, fn in counters.items()}
+        n_forwards = forwards[0]
+        steps_taken = sum(t.steps for t in trainers)
+        peak = _peak_gib(torch, device)
+        save_s.append(orch.checkpoint_seconds - save_s[0])
+        st = orch.stats()
+        written = [f"{i}.{n}" for i, (ref, copy) in held.items()
+                   for n in ref if not torch.equal(ref[n], copy[n])]
+        held.clear()
+        # and by force: trainer 0 adopts trainer 1's weights and steps on
+        # its own optimizer state (outside the counted run)
+        ta, tb = trainers
+        shared = tb.params
+        snap = {n: x.clone() for n, x in shared.items()}
+        stepped, _, _ = fns.train_step(shared, ta.opt_state, ta.loader(),
+                                       ta.hparams)
+        written += [f"forced.{n}" for n in snap
+                    if not torch.equal(shared[n], snap[n])]
+        moved = any(not torch.equal(stepped[n], snap[n]) for n in snap)
+        del snap, stepped
+        # the round-2 population into a fresh orchestrator
+        fresh = TournamentOrchestrator(fns, plan, tcfg)
+        t0 = time.perf_counter()
+        resumed = fresh.maybe_resume()
+        _sync(torch, device)
+        restore_s = time.perf_counter() - t0
+        mismatched = []
+        for i, (a, b) in enumerate(zip(trainers,
+                                       fresh.population.trainers)):
+            for n, w in a.params.items():
+                mismatched += [f"{i}.{n}.{what}" for what, x, y in (
+                    ("w", w, b.params[n]),
+                    ("m", a.opt_state["m"][n], b.opt_state["m"][n]),
+                    ("v", a.opt_state["v"][n], b.opt_state["v"][n]))
+                    if not torch.equal(x, y)]
+            if (a.hparams, a.steps, a.wins, int(a.opt_state["step"])) != \
+                    (b.hparams, b.steps, b.wins, int(b.opt_state["step"])):
+                mismatched.append(f"{i}.meta")
+        fresh_round = fresh.population.round
+        # a third round from the same state twice: resumed (its loaders
+        # start the epoch again, as the ltfb CLI's do) and without a stop
+        round3 = {"resumed": fresh.run(1, args.steps_per_round)[0],
+                  "uninterrupted": orch.run(1, args.steps_per_round)[0]}
+        fresh.close()
+        fresh = None
+        t1 = time.perf_counter()
+        _, winner2 = reg.export_winner(pop, like, step=2)
+        export_s = (export_s, time.perf_counter() - t1)
+    finally:
+        for o in (orch, fresh):
+            if o is not None:
+                o.close()
+    k = len(trainers)
+    # per trainer: ms a step and tokens/s in round 2 (round 1 warms up)
+    step_ms = [(b - a) / (sb - sa) * 1e3 for a, b, sa, sb in zip(
+        rounds[0]["train_s"], rounds[1]["train_s"], rounds[0]["steps"],
+        rounds[1]["steps"])]
+    tokens = args.batch * args.seq
+    pairs = sum(int((core_ltfb.random_pairing(k, r, tcfg.seed)
+                     != np.arange(k)).sum()) for r in range(args.rounds))
+    cuda = str(device).startswith("cuda")
+    expect = {n: (steps_taken * TRAIN_PER_STEP[n]
+                  + n_forwards * LM_FORWARD[n]) if cuda else 0
+              for n in counters}
+    metrics = [v for r in rounds for m in r["metrics"] for v in m] \
+        + list(trace)
+    emit({"phase": "ltfb_lm", "arch": cfg.name, "dtype": cfg.dtype,
+          "params": n_params, "model_bytes": model_bytes, "trainers": k,
+          "batch": args.batch, "seq": args.seq, "rounds": args.rounds,
+          "steps_per_round": args.steps_per_round, "scope": tcfg.scope,
+          "optimizer": args.optimizer, "samples": args.samples,
+          "shards": len(plan.files), "data_gen_s": data_s,
+          "setup_s": setup_s, "run_s": run_s, "best_val_trace": trace,
+          "step_ms_round2": step_ms,
+          "tokens_per_s_per_trainer": [tokens / ms * 1e3 for ms in step_ms],
+          "tournament_s": st["tournament_seconds"], "per_round": rounds,
+          "exchange_bytes": st["tournament_exchange_bytes"],
+          "paired_candidates": pairs, "metric_forwards": n_forwards,
+          "steps": steps_taken, "launches": launches, "expected": expect,
+          "ckpt_bytes": ckpt_bytes, "ckpt_save_s": save_s,
+          "ckpt_restore_s": restore_s, "winner_export_s": export_s,
+          "winners": [winner1, winner2], "peak_mem_gib": peak,
+          "round3_best_val": round3,
+          "adopted_in_round_1": any(rounds[0]["adoptions"]),
+          "forced_adoption_step_moved": moved,
+          "written_through": written[:8], "resumed_round": fresh_round,
+          "ckpt_mismatches": mismatched[:8]})
+    check(all(math.isfinite(v) for v in metrics),
+          f"ltfb_lm: non-finite loss or metric in {metrics}")
+    check(launches == expect, f"ltfb_lm: launches {launches} != {expect} "
+          f"({steps_taken} steps, {n_forwards} metric forwards)")
+    check(st["tournament_exchange_bytes"] == pairs * model_bytes,
+          f"ltfb_lm: exchange bytes {st['tournament_exchange_bytes']} != "
+          f"{pairs} x {model_bytes}")
+    check(not written and moved,
+          f"ltfb_lm: a step wrote into weights it was given: {written[:8]}")
+    check(resumed and fresh_round == args.rounds and not mismatched,
+          f"ltfb_lm: restore: resumed={resumed} round={fresh_round} "
+          f"mismatches={mismatched[:8]}")
+    check(winner1["step"] == 1 and winner2["step"] == 2,
+          f"ltfb_lm: winners {winner1} {winner2}")
+    return launches, {"pop": pop, "data": data}
+
+
+def _lm_tracer(sched, registry, land):
+    """Wrap a scheduler so a run records, per request, the swap count at
+    admission and at the finish, its shared prefix tokens and first-token
+    time, and the swap's events; ``land()`` runs before step 6 (the winner
+    lands mid-run)."""
+    rec = {"admit": {}, "finish": {}, "shared": {}, "first": {},
+           "events": {}}
+    ev = rec["events"]
+    admit, pool_admit = sched._admit, sched.pool.admit
+    finish, set_params = sched._finish, sched.set_params
+    refresh, step = registry.refresh, sched.step
+
+    def traced_admit(req):
+        rec["admit"][req.rid] = sched.stats.hot_swaps
+        admit(req)
+
+    def traced_pool_admit(rid, *a, **k):
+        slot, shared_len = pool_admit(rid, *a, **k)
+        rec["shared"][rid] = shared_len
+        return slot, shared_len
+
+    def traced_finish(act):
+        rec["finish"][act.req.rid] = sched.stats.hot_swaps
+        rec["first"][act.req.rid] = act.first_token_t
+        finish(act)
+
+    def traced_refresh():
+        t = time.perf_counter()
+        found = refresh()
+        if found:
+            ev["found"] = t
+            ev["load_s"] = time.perf_counter() - t
+        return found
+
+    def traced_set(params):
+        ev["pinned_before"] = sched.pool.as_dict()["pinned_blocks"]
+        t = time.perf_counter()
+        set_params(params)
+        ev["swapped"] = t
+        ev["set_s"] = time.perf_counter() - t
+
+    def landing_step():
+        if sched._step_count == 5 and "landed" not in ev:
+            land()
+            ev["landed"] = time.perf_counter()
+        step()
+
+    sched._admit, sched.pool.admit = traced_admit, traced_pool_admit
+    sched._finish, sched.set_params = traced_finish, traced_set
+    registry.refresh, sched.step = traced_refresh, landing_step
+    return rec
+
+
+@exact_f32
+def phase_serve_swap(torch, pop_dir, workdir, device="cuda", smoke=False):
+    """Serve qwen3-0.6b FULL in f32 from the LM tournament's winners with
+    a drain-mode hot swap from round 1's winner to round 2's, then
+    quarantine a torn winner while round 2's keeps serving."""
+    import numpy as np
+
+    from repro_torch import bridge
+    from repro_torch.configs.base import replace
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.tokens import token_stream
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serve import registry as reg
+    from repro_torch.serve.scheduler import Request, Scheduler
+    from repro_torch.train.steps import params_from_ckpt
+
+    cfg = replace(get_config("qwen3-0.6b", smoke=smoke), dtype="float32")
+    serve_dir = f"{workdir}/serve_lm"
+    _move_winner(pop_dir, serve_dir, 1)
+    model = init_lm(cfg, seed=0, device=device)
+    like = bridge.params_to_jax_layout(model, cfg)
+    registry = reg.ModelRegistry(
+        serve_dir, like, from_ckpt=lambda tree: params_from_ckpt(
+            cfg, tree, model.device, torch.float32))
+    t0 = time.perf_counter()
+    first = registry.load()
+    load_s = time.perf_counter() - t0
+    model.load_state_dict(first)
+    lens, max_new = SWAP_PROMPTS, SWAP_MAX_NEW
+    stream = token_stream(2 * sum(lens), cfg.vocab_size, seed=2)
+    prompts, off = [], 0
+    for i in range(4):
+        n = lens[i % len(lens)]
+        prompts.append(np.asarray(stream[off:off + n], np.int32))
+        off += n
+    # requests 4-7 repeat 0-3's prompts: pinned old-weight pages would
+    # serve them were the prefix cache not flushed at the swap
+    reqs = [Request(rid=i, prompt=prompts[i % 4], max_new=max_new)
+            for i in range(8)]
+    sched = Scheduler(cfg, model, num_slots=4, block_size=16,
+                      max_len=max(lens) + max_new, registry=registry,
+                      watch_every=2, swap_mode="drain", pin_prefix=True,
+                      device=device)
+    rec = _lm_tracer(sched, registry,
+                     lambda: _move_winner(pop_dir, serve_dir, 2))
+    for r in reqs:
+        sched.submit(r)
+    before = (pa.paged_attention.launches, rn.rmsnorm.launches)
+    t0 = time.perf_counter()
+    results = sched.run()
+    _sync(torch, device)
+    wall = time.perf_counter() - t0
+    launches = {"paged_attention": pa.paged_attention.launches - before[0],
+                "rmsnorm": rn.rmsnorm.launches - before[1]}
+    st = sched.stats.as_dict()
+    second = registry.params
+    ev = rec["events"]
+    old = [r for r in reqs if rec["admit"][r.rid] == 0]
+    new = [r for r in reqs if rec["admit"][r.rid] == 1]
+    latency = min(rec["first"][r.rid] for r in new) - ev["found"] \
+        if new and "found" in ev else None
+    model.load_state_dict(first)
+    chk_old = _recompute_check(torch, model, sched, old, max_new)
+    model.load_state_dict(second)
+    chk_new = _recompute_check(torch, model, sched, new, max_new)
+    # a torn winner lands; round 2's keeps serving
+    good, bad = reg.winner_path(serve_dir, 2), reg.winner_path(serve_dir, 3)
+    shutil.copy(good, bad)
+    reg.write_checksum(bad)
+    with open(bad, "r+b") as f:
+        f.truncate(os.path.getsize(bad) // 2)
+    more = [Request(rid=8 + i, prompt=prompts[i], max_new=8)
+            for i in range(2)]
+    for r in more:
+        sched.submit(r)
+    sched.run()
+    chk_more = _recompute_check(torch, model, sched, more, 8)
+    quarantined = os.path.exists(bad + ".corrupt")
+    shutil.rmtree(serve_dir, ignore_errors=True)
+    blocks, norms = len(model.blocks), 4 * len(model.blocks) + 1
+    calls = st["decode_steps"] + st["prefill_chunks"]
+    cuda = str(device).startswith("cuda")
+    expect = {"paged_attention": blocks * st["decode_steps"] if cuda else 0,
+              "rmsnorm": norms * calls if cuda else 0}
+    mismatches = chk_old[2] + chk_new[2] + chk_more[2]
+    emit({"phase": "serve_swap", "arch": cfg.name, "dtype": cfg.dtype,
+          "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "requests": len(reqs), "slots": 4, "prompt_lens": lens,
+          "max_new": max_new, "swap_mode": "drain", "watch_every": 2,
+          "winner_load_s": load_s, "wall_s": wall,
+          "tokens_per_s": st["tokens_per_s"], "completed": st["completed"],
+          "hot_swaps": st["hot_swaps"],
+          "swap_load_s": ev.get("load_s"), "swap_set_s": ev.get("set_s"),
+          "drain_s": ev["swapped"] - ev["found"] if "swapped" in ev
+          else None,
+          "swap_latency_s": latency,
+          "admitted_old": [r.rid for r in old],
+          "admitted_new": [r.rid for r in new],
+          "shared_tokens": rec["shared"],
+          "pinned_before_swap": ev.get("pinned_before"),
+          "positions": chk_old[0] + chk_new[0] + chk_more[0],
+          "ties": len(chk_old[1] + chk_new[1] + chk_more[1]),
+          "mismatches": mismatches[:8], "launches": launches,
+          "expected": expect, "decode_steps": st["decode_steps"],
+          "prefill_chunks": st["prefill_chunks"],
+          "rejected_corrupt": registry.rejected_corrupt,
+          "swap_rejected_corrupt": sched.stats.swap_rejected_corrupt,
+          "serving_step": registry.step, "quarantined": quarantined})
+    check(st["completed"] == len(reqs) and all(
+        len(results[r.rid]) == max_new for r in reqs),
+          f"serve_swap: {st['completed']} of {len(reqs)} completed")
+    check(st["hot_swaps"] == 1 and old and new,
+          f"serve_swap: hot_swaps={st['hot_swaps']}, {len(old)} requests "
+          f"before and {len(new)} after")
+    check(all(rec["admit"][r] == rec["finish"][r] for r in rec["admit"]),
+          "serve_swap: a request spans both sets of weights")
+    check(not mismatches, f"serve_swap: served tokens differ from the "
+          f"recompute on their weights at {len(mismatches)} positions")
+    check(ev.get("pinned_before", 0) > 0
+          and all(rec["shared"][r.rid] == 0 for r in new),
+          "serve_swap: a request admitted after the swap shares an "
+          f"old-weight page: {rec['shared']}")
+    check(launches == expect, f"serve_swap: launches {launches} != "
+          f"{expect}")
+    check(registry.rejected_corrupt == 1 and quarantined
+          and sched.stats.swap_rejected_corrupt == 1
+          and sched.stats.hot_swaps == 1 and registry.step == 2
+          and sched.stats.completed == len(reqs) + len(more),
+          "serve_swap: the torn winner was not quarantined while round "
+          "2's served on")
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "serve_swap: TF32 is on; the check is f32")
+    return launches
+
+
+def surrogate_bound(cfg, rows: int):
+    """(ms, bound_by, bytes, flops, host_ms) of one surrogate batch of
+    ``rows``: ``predict`` is the ``fwd`` MLP then ``dec``; the weights are
+    read once, the inputs and outputs moved once, 2 operations a
+    multiply-add; ``host_ms`` the results' copy over a PCIe Gen5 x16
+    link at its 64 GB/s."""
+    fwd = (cfg.input_dim, *cfg.fwd_hidden, cfg.latent_dim)
+    dec = (cfg.latent_dim, *cfg.dec_hidden, cfg.output_dim)
+    n_fwd, n_dec = _mlp_params(fwd), _mlp_params(dec)
+    macs = sum(a * b for dims in (fwd, dec)
+               for a, b in zip(dims[:-1], dims[1:]))
+    out = 4 * rows * cfg.output_dim
+    moved = 4 * (n_fwd + n_dec) + 4 * rows * cfg.input_dim + out
+    flops = 2 * rows * macs
+    ms, by = bound(moved, flops, "float32")
+    return ms, by, moved, flops, out / PCIE_BYTES_PER_S * 1e3
+
+
+@exact_f32
+def phase_surrogate(torch, pop_dir, next_dir, device="cuda", smoke=False):
+    """The full-width CycleGAN surrogate served from the CycleGAN
+    tournament's winners through ``SurrogateEngine``, hot-swapping from
+    one population step's winner to the next mid-run."""
+    import numpy as np
+
+    from repro_torch import bridge
+    from repro_torch.configs.icf_cyclegan import FULL, SMOKE
+    from repro_torch.data import jag
+    from repro_torch.models import icf_cyclegan as cg
+    from repro_torch.serve import registry as reg
+    from repro_torch.serve.surrogate import SurrogateEngine
+    from repro_torch.train.steps import tree_to
+
+    ccfg = SMOKE if smoke else FULL
+    like = bridge.cyclegan_params_to_jax_layout(
+        cg.init_cyclegan(ccfg, 0, device))
+    registry = reg.ModelRegistry(
+        pop_dir, like, from_ckpt=lambda tree: tree_to(
+            bridge.cyclegan_params_from_jax(tree), device))
+    first = registry.load()
+    steps = [registry.step, reg.latest_winner_step(next_dir)]
+    eng = SurrogateEngine(ccfg, first, max_batch=SURROGATE_BATCH,
+                          bucket=8, registry=registry, watch_every=4,
+                          device=device)
+    n_q, q_rows = SURROGATE_QUERIES
+    xs = jag.sample_inputs(n_q * q_rows, seed=1)
+    for i in range(n_q):
+        eng.submit(i, xs[i * q_rows:(i + 1) * q_rows])
+    ev = {}
+    step, refresh = eng.step, registry.refresh
+
+    def landing_step():
+        if eng._step_count == 6 and "landed" not in ev:
+            _move_winner(next_dir, pop_dir, steps[1])
+            ev["landed"] = True
+        step()
+
+    def traced_refresh():
+        t = time.perf_counter()
+        found = refresh()
+        if found:
+            ev["load_s"] = time.perf_counter() - t
+        return found
+
+    host_ms = {"step": [], "_stage": [], "_dispatch": [], "_collect": []}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            host_ms[name].append((time.perf_counter() - t) * 1e3)
+            return out
+        return run
+
+    for name in ("_stage", "_dispatch", "_collect"):
+        setattr(eng, name, timed(name, getattr(eng, name)))
+    eng.step, registry.refresh = timed("step", landing_step), traced_refresh
+    counters = _all_counters()
+    before = {n: fn.launches for n, fn in counters.items()}
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    results = eng.run()
+    _sync(torch, device)
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches - before[n] for n, fn in counters.items()}
+    second = registry.params
+    weights = (first, second)
+    served = [eng.served_by[i] for i in range(n_q)]
+    per_batch = SURROGATE_BATCH // q_rows
+    bad, err = [], 0.0
+    with torch.no_grad():
+        for b in range(0, n_q, per_batch):
+            gens = set(served[b:b + per_batch])
+            if len(gens) != 1:
+                bad.append(f"batch {b // per_batch} mixes weights {gens}")
+                continue
+            rows = torch.from_numpy(
+                xs[b * q_rows:(b + per_batch) * q_rows]).to(device)
+            want = cg.predict(weights[gens.pop()]["gen"], rows).cpu()
+            got = torch.from_numpy(np.concatenate(
+                [results[i] for i in range(b, b + per_batch)]))
+            ok, e = _within(got, want, SURROGATE_TOL)
+            err = max(err, e)
+            if not ok:
+                bad.append(f"batch {b // per_batch}: max err {e}")
+    batch_ms = _surrogate_batch_ms(torch, cg, second, xs, device)
+    b_ms, b_by, b_bytes, b_flops, link_ms = surrogate_bound(
+        ccfg, SURROGATE_BATCH)
+    n_rows = n_q * q_rows
+    emit({"phase": "surrogate", "arch": ccfg.name, "dtype": ccfg.dtype,
+          "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "output_dim": ccfg.output_dim, "queries": n_q,
+          "rows_per_query": q_rows, "rows": n_rows,
+          "max_batch": SURROGATE_BATCH, "bucket": 8, "watch_every": 4,
+          "winner_steps": steps, "wall_s": wall, "rows_per_s": n_rows / wall,
+          "swap_load_s": ev.get("load_s"),
+          "host_ms_median": {n: statistics.median(v)
+                             for n, v in host_ms.items()},
+          "step_ms": host_ms["step"],
+          "rows_per_s_steady": SURROGATE_BATCH * 1e3
+          / statistics.median(host_ms["step"]),
+          "hot_swaps": eng.stats.hot_swaps,
+          "served_by_counts": [served.count(0), served.count(1)],
+          "overlapped_stages": eng.overlapped_stages,
+          "max_abs_err": err, "bad": bad[:8], "kernel_launches": launches,
+          "batch_device_ms": batch_ms, "batch_bound_ms": b_ms,
+          "batch_bound_by": b_by, "batch_bytes": b_bytes,
+          "batch_flops": b_flops,
+          "batch_output_bytes": 4 * SURROGATE_BATCH * ccfg.output_dim,
+          "host_link_ms_at_64GBps": link_ms})
+    check(eng.stats.completed == n_q and eng.stats.hot_swaps == 1
+          and served == sorted(served) and set(served) == {0, 1},
+          f"surrogate: completed={eng.stats.completed} hot_swaps="
+          f"{eng.stats.hot_swaps} served_by={served}")
+    check(not bad, f"surrogate: rows disagree with predict on their "
+          f"weights: {bad[:8]}")
+    check(eng.overlapped_stages > 0, "surrogate: no staging overlapped")
+    check(not any(launches.values()),
+          f"surrogate: the f32 MLP path launched a kernel: {launches}")
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "surrogate: TF32 is on; the config is f32")
+
+
+def _surrogate_batch_ms(torch, cg, params, xs, device):
+    """Median device ms (CUDA events, 10 of 12 runs) of one batch as the
+    engine runs it on a stream of its own: the upload from pinned memory,
+    ``predict``, the results' copy into a pinned buffer, and for
+    comparison the same copy into pageable memory, a reused buffer and a
+    fresh one (its pages touched first by the copy).  None off the card."""
+    if not str(device).startswith("cuda"):
+        return None
+    stream = torch.cuda.Stream()
+    names = ("upload", "predict", "copy_pinned", "copy_pageable",
+             "copy_pageable_fresh")
+    runs = {n: [] for n in names}
+    x = torch.from_numpy(xs[:SURROGATE_BATCH]).pin_memory()
+    with torch.no_grad():
+        y_dev = cg.predict(params["gen"], x.to(device))
+        pinned = torch.empty(y_dev.shape, pin_memory=True)
+        pageable = torch.empty(y_dev.shape)
+        for rep in range(12):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+            fresh = torch.empty(y_dev.shape)
+            with torch.cuda.stream(stream):
+                ev[0].record()
+                xd = x.to(device, non_blocking=True)
+                ev[1].record()
+                y = cg.predict(params["gen"], xd)
+                ev[2].record()
+                pinned.copy_(y, non_blocking=True)
+                ev[3].record()
+                pageable.copy_(y)
+                ev[4].record()
+                fresh.copy_(y)
+                ev[5].record()
+            torch.cuda.synchronize()
+            if rep >= 2:
+                for n, a, b in zip(names, ev, ev[1:]):
+                    runs[n].append(a.elapsed_time(b))
+    return {n: statistics.median(v) for n, v in runs.items()}
+
+
+def phase_clis(torch, workdir, surrogate_dir, lm, device="cuda",
+               smoke=False):
+    """The serving, ltfb and train CLIs as a user calls them, on the
+    checkpoints of the phases before: each prints finite values."""
+    import re
+
+    from repro_torch.launch import ltfb as lt
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as tl
+
+    size = ["--smoke"] if smoke else []
+    train_dir = f"{workdir}/train_ckpt"
+    runs = {}
+    runs["serve_surrogate"] = _run_cli(
+        torch, serve.main, ["--arch", "icf-cyclegan", "--ckpt-dir",
+                            surrogate_dir, "--device", device, *size],
+        "[serve]", re.compile(r"output_mean=(\S+)"))
+    runs["serve_lm"] = _run_cli(
+        torch, serve.main, ["--arch", "qwen3-0.6b", "--ckpt-dir", lm["pop"],
+                            "--requests", "4", "--device", device, *size],
+        "[serve]", re.compile(r"([\d.]+) tok/s"))
+    runs["ltfb_lm"] = _run_cli(
+        torch, lt.main, [*LM_LTFB_ARGS, *(LM_SMOKE if smoke else ()),
+                         "--rounds", "1", "--ckpt-every", "0", "--device",
+                         device, "--data-dir", lm["data"], "--ckpt-dir",
+                         lm["pop"]],
+        "[ltfb]", re.compile(r"\b(?:best_val|speedup)=([^\s,x]+)"))
+    shutil.rmtree(lm["pop"], ignore_errors=True)
+    shutil.rmtree(lm["data"], ignore_errors=True)
+    train = ["--arch", "qwen3-0.6b", "--batch", "1", "--seq", "1024",
+             "--steps", "3", "--ckpt-every", "2", "--ckpt-dir", train_dir,
+             "--log-every", "1", "--device", device, *size]
+    number = re.compile(r"\b(?:loss|val)=([^\s,]+)")
+    runs["train_lm"] = _run_cli(torch, tl.main, train, "", number)
+    runs["train_lm_resumed"] = _run_cli(torch, tl.main, train, "", number)
+    shutil.rmtree(train_dir, ignore_errors=True)
+    flags = {"serve_surrogate": "[serve] winner: step=",
+             "serve_lm": "[serve] winner: step=2",
+             "ltfb_lm": "[ltfb] resumed at round 2",
+             "train_lm_resumed": "[train] resumed from"}
+    for name, tag in flags.items():
+        runs[name]["flag"] = any(tag in ln for ln in runs[name]["lines"])
+    emit({"phase": "clis", **{n: {k: v for k, v in r.items()
+                                  if k != "lines"} | {
+        "lines": r["lines"][-6:]} for n, r in runs.items()}})
+    cuda = str(device).startswith("cuda")
+    for name, run in runs.items():
+        check(run["rc"] == 0 and run["values"]
+              and all(map(math.isfinite, run["values"])),
+              f"clis: {name}: rc={run['rc']} values={run['values']}")
+        check(run.get("flag", True), f"clis: {name} lacks its "
+              f"'{flags.get(name)}' line: {run['lines'][-6:]}")
+        moved = any(run["launches"].values())
+        want = cuda and name != "serve_surrogate"
+        check(moved == want, f"clis: {name} launches {run['launches']}")
 
 
 def main() -> int:
@@ -1765,8 +2532,20 @@ def main() -> int:
     release(torch)
     phase_gan_parity(torch)
     release(torch)
-    phase_ltfb(torch)
-    release(torch)
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        surrogate_dirs = phase_ltfb(torch, workdir=work)
+        release(torch)
+        lm_launches, lm = phase_ltfb_lm(torch, work)
+        release(torch)
+        swap_launches = phase_serve_swap(torch, lm["pop"], work)
+        release(torch)
+        phase_surrogate(torch, *surrogate_dirs)
+        release(torch)
+        phase_clis(torch, work, surrogate_dirs[0], lm)
+        release(torch)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     # the kernels line reports each kernel at the shape its path gives it
     # most: paged attention and the RMSNorm forward at the serve decode
@@ -1789,7 +2568,8 @@ def main() -> int:
         "mamba_scan": lambda c: (c["B"], c["S"]) == (1, 500),
         "slstm_scan": lambda c: (c["B"], c["S"]) == (1, 500)}
     by_path = {"serve": serve_launches, "train": train_launches,
-               **recurrent_launches}
+               **recurrent_launches, "ltfb_lm": lm_launches,
+               "serve_swap": swap_launches}
     kernels = []
     for name, rows in cases.items():
         main_case = next(c for c in rows if headline[name](c))

@@ -25,7 +25,11 @@ JAX keeps dense weights ``(d_in, d_out)`` for ``x @ W``; the port's
 other weights (conv, ``A_log``, ``r_h``, biases, scales) keep JAX's layout.
 
 :func:`opt_state_from_jax` carries an optimizer state of
-``repro.optim.optimizers`` the same way.
+``repro.optim.optimizers`` the same way.  :func:`params_to_jax_layout` and
+:func:`opt_state_to_jax_layout` go back: the port's per-layer tensors
+stacked into JAX's periods, as CPU tensors (bf16 has no numpy dtype; the
+checkpoint stores its bits), so that an LM checkpoint either package
+writes restores in the other.
 
 The CycleGAN (``repro.models.icf_cyclegan``) keeps each MLP stack as
 ``{"w": (W_0, ...), "b": (b_0, ...)}`` under ``gen.{fwd, inv, enc, dec}``
@@ -47,6 +51,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.icf_cyclegan import GEN_PARTS, num_layers
 from repro_torch.models.lm import LM, grouping
 
+# optimizer-state entries shaped like the parameters (Adam, SGD)
+_PARAM_SHAPED = ("m", "v", "mom")
 # JAX leaves that are dense (d_in, d_out) weights: nn.Linear in the port
 _DENSE = {"wq", "wk", "wv", "wo", "in_proj", "x_proj", "dt_proj",
           "out_proj", "up", "w_if", "down", "w_x", "up_g", "up_v", "wi",
@@ -58,10 +64,17 @@ _RENAME = {"embed": "embed.weight", "mixer.bq": "mixer.wq.bias", "mixer.bk": "mi
 
 
 def _tensor(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):     # a restored checkpoint's leaf
+        return a.detach().clone(memory_format=torch.contiguous_format)
     a = np.array(a)                     # a writable, contiguous copy
     if a.dtype.name == "bfloat16":      # ml_dtypes bf16: exact via f32
         return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
     return torch.from_numpy(a)
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
 
 
 def _flat(tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
@@ -104,7 +117,8 @@ def params_from_jax(tree, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
         entries = [(name, leaf)] if j is None else \
             [(f"blocks.{j + p * R}.{name}", leaf[p]) for p in range(P)]
         for key, a in entries:
-            a = np.asarray(a)
+            if not isinstance(a, torch.Tensor):
+                a = np.asarray(a)
             sd[key] = a.T if transpose else a
     return {k: _tensor(v) for k, v in sd.items()}
 
@@ -146,13 +160,81 @@ def opt_state_from_jax(opt_state, cfg: ModelConfig) -> Dict[str, object]:
     return out
 
 
+_JAX_NAME = {port: jax for jax, port in _RENAME.items()}
+
+
+def _jax_path(name: str) -> Tuple[str, bool]:
+    """The JAX leaf path of a port name within a layer (or at the top) and
+    whether the weight is transposed on the way: :func:`_port_name`
+    inverted."""
+    if name in _JAX_NAME:
+        return _JAX_NAME[name], False
+    base = name[:-len(".weight")] if name.endswith(".weight") else None
+    if base is not None and (base.split(".")[-1] in _DENSE
+                             or base == "lm_head"):
+        return base, True
+    return name, False
+
+
+def _put(tree: dict, path: str, leaf) -> None:
+    *parents, last = path.split(".")
+    for k in parents:
+        tree = tree.setdefault(k, {})
+    tree[last] = leaf
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu")
+
+
+def params_to_jax_layout(model_or_params, cfg: ModelConfig) -> dict:
+    """JAX's params tree from the port's weights (an :class:`LM` or its
+    ``{name: tensor}`` dict): ``embed``, ``body`` (a tuple of R stacks,
+    entry p of ``body[j]`` layer ``j + p*R``), ``final_norm`` and, untied,
+    ``lm_head``; dense weights transposed to ``(d_in, d_out)``.  Leaves are
+    new contiguous CPU tensors in the weights' dtypes."""
+    params = dict(model_or_params.named_parameters()) \
+        if isinstance(model_or_params, torch.nn.Module) else model_or_params
+    _, R, P = grouping(cfg)
+    tree: dict = {}
+    body = [dict() for _ in range(R)]
+    stacks: Dict[Tuple[int, str], list] = {}
+    for name, t in params.items():
+        if name.startswith("blocks."):
+            _, i, rest = name.split(".", 2)
+            path, transpose = _jax_path(rest)
+            t = _host(t)
+            stacks.setdefault((int(i) % R, path), [None] * P)[
+                int(i) // R] = t.T if transpose else t
+        else:
+            path, transpose = _jax_path(name)
+            t = _host(t)
+            _put(tree, path, (t.T if transpose else t).clone(
+                memory_format=torch.contiguous_format))
+    for (j, path), layers in stacks.items():
+        _put(body[j], path, torch.stack(layers))
+    tree["body"] = tuple(body)
+    return tree
+
+
+def opt_state_to_jax_layout(opt_state, cfg: ModelConfig) -> dict:
+    """JAX's optimizer state from the port's: Adam/AdamW ``m``/``v`` and
+    SGD ``mom`` stacked like the weights (:func:`params_to_jax_layout`),
+    ``step`` a 0-dim int32 array.  Adafactor's factored state raises."""
+    if "vr" in opt_state:
+        raise NotImplementedError(
+            "Adafactor's factored state does not cross to the JAX "
+            "checkpoint layout yet (Adam, AdamW and SGD state do); see "
+            "ROADMAP.md queue A14")
+    out = {k: params_to_jax_layout(opt_state[k], cfg)
+           for k in _PARAM_SHAPED if k in opt_state}
+    out["step"] = np.asarray(_np(opt_state["step"]), np.int32)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # CycleGAN
 # ---------------------------------------------------------------------------
-
-# optimizer-state entries shaped like the parameters (Adam, SGD)
-_PARAM_SHAPED = ("m", "v", "mom")
-
 
 def _stack_from_jax(stack, prefix: str) -> Dict[str, torch.Tensor]:
     out = {}
@@ -167,11 +249,6 @@ def _gen_from_jax(tree) -> Dict[str, torch.Tensor]:
     for part in GEN_PARTS:
         out.update(_stack_from_jax(tree[part], part + "."))
     return out
-
-
-def _np(t) -> np.ndarray:
-    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
-        else np.asarray(t)
 
 
 def _stack_to_jax(p: Dict[str, torch.Tensor], prefix: str):

@@ -22,6 +22,7 @@ import json
 import os
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -125,12 +126,13 @@ def _rebuild(like, flat: Dict[str, np.ndarray], dtypes: Dict[str, str],
 def restore(path: str, like) -> Tuple[Any, dict]:
     """Restore into the structure of ``like`` (a tree template): a tensor
     leaf comes back as a tensor of its dtype on its device, any other leaf
-    as a numpy array of its dtype."""
+    as a numpy array of its dtype.  Only the template's leaves are read
+    (a server restores a trainer's ``params`` without its optimizer
+    state)."""
     with np.load(path, allow_pickle=False) as z:
         dtypes = json.loads(str(z["__dtypes__"]))
         meta = json.loads(str(z["__meta__"]))
-        flat = {k: z[k] for k in z.files
-                if k not in ("__dtypes__", "__meta__")}
+        flat = {k: z[k] for k, _ in _leaves(like)}
     return _rebuild(like, flat, dtypes), meta
 
 
@@ -168,6 +170,12 @@ def latest_step_path(ckpt_dir: str) -> Optional[str]:
     return os.path.join(ckpt_dir, best)
 
 
+def _each(fn, items) -> list:
+    """``[fn(i, item) ...]``, the calls on a few threads at once."""
+    with ThreadPoolExecutor(max_workers=max(1, min(len(items), 4))) as ex:
+        return list(ex.map(fn, range(len(items)), items))
+
+
 def save_population(ckpt_dir: str, step: int, pop_state: Dict[str, Any]):
     """Population checkpoint: one file per trainer + a manifest, so
     trainers can checkpoint independently (no global barrier)."""
@@ -176,12 +184,17 @@ def save_population(ckpt_dir: str, step: int, pop_state: Dict[str, Any]):
                 "round": pop_state["round"], "time": time.time(),
                 "seed": pop_state.get("seed", 0),
                 "scope": pop_state.get("scope", "full")}
-    for i, tr in enumerate(pop_state["trainers"]):
+
+    def member(i: int, tr: dict) -> None:
         save(os.path.join(ckpt_dir, f"step_{step}_trainer_{i}.ckpt"),
              {"params": tr["params"], "opt_state": tr["opt_state"]},
              {"hparams": tr["hparams"], "steps": tr["steps"],
               "alive": tr["alive"], "wins": tr.get("wins", 0),
               "adoptions": tr.get("adoptions", 0)})
+
+    # members are written side by side: a file's CRC, its writes and its
+    # fsync run outside the GIL
+    _each(member, pop_state["trainers"])
     with open(os.path.join(ckpt_dir, f"step_{step}.manifest.tmp"), "w") as f:
         json.dump(manifest, f)
     os.replace(os.path.join(ckpt_dir, f"step_{step}.manifest.tmp"),
@@ -207,18 +220,18 @@ def restore_population(ckpt_dir: str, step: int, like_trainer: dict,
         manifest = json.load(f)
     k_stored = manifest["num_trainers"]
     k = num_trainers or k_stored
-    trainers = []
-    for i in range(k):
+
+    def member(i: int, _) -> dict:
         src = i % k_stored
         tree, meta = restore(
             os.path.join(ckpt_dir, f"step_{step}_trainer_{src}.ckpt"),
             like_trainer)
-        trainers.append({"params": tree["params"],
-                         "opt_state": tree["opt_state"],
-                         "hparams": meta["hparams"],
-                         "steps": meta["steps"], "alive": meta["alive"],
-                         "wins": meta.get("wins", 0),
-                         "adoptions": meta.get("adoptions", 0)})
+        return {"params": tree["params"], "opt_state": tree["opt_state"],
+                "hparams": meta["hparams"], "steps": meta["steps"],
+                "alive": meta["alive"], "wins": meta.get("wins", 0),
+                "adoptions": meta.get("adoptions", 0)}
+
+    trainers = _each(member, [None] * k)
     return {"round": manifest["round"],
             "seed": manifest.get("seed", 0),
             "scope": manifest.get("scope", "full"),

@@ -12,8 +12,7 @@ thread pool).  Failure/recovery, elastic rescale and population
 checkpoint/restart as in the JAX package.
 
 Not ported yet: ``backend="mesh"`` and the int8 exchange (ROADMAP.md
-queue A6), ``telemetry=`` and ``genealogy=`` (A5), and
-``DataPlan.lm_tokens`` (LM trainers in a tournament, A12).
+queue A6), ``telemetry=`` and ``genealogy=`` (A5).
 """
 from __future__ import annotations
 
@@ -63,10 +62,11 @@ class DataPlan:
 
     @classmethod
     def lm_tokens(cls, files: List[str]) -> "DataPlan":
-        """Token shards -> LM batches: not ported yet."""
-        raise NotImplementedError(
-            "DataPlan.lm_tokens (LM trainers in a tournament) is not "
-            "ported to repro_torch yet; see ROADMAP.md queue A12")
+        """Token shards -> (tokens, labels) LM batches."""
+        from repro_torch.data import tokens
+
+        return cls(files=list(files), reader=tokens.read_token_shard,
+                   adapt=tokens.lm_shard_batch)
 
 
 @dataclass

@@ -1,12 +1,17 @@
-"""Synthetic LM token stream (numpy; bit-identical to ``repro.data.tokens``).
+"""Synthetic LM token stream and token shards (numpy; bit-identical to
+``repro.data.tokens``).
 
 The serving traces of both packages draw their prompts from this stream,
 and the training batches their tokens, so the same seed gives the same
-requests and batches on either side.
+requests and batches on either side.  The token shards are the LM
+analogue of the JAG bundles: ``.npz`` files of ``(seq + 1)``-token rows
+that the datastore partitions and preloads for LTFB trainers; each
+package reads the other's.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator
+import os
+from typing import Dict, Iterator, List
 
 import numpy as np
 
@@ -50,3 +55,53 @@ def train_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0
     toks = token_stream(batch * (seq + 1), cfg.vocab_size, seed) \
         .reshape(batch, seq + 1)
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+# ---------------------------------------------------------------------------
+# Token shards: on-disk files for the distributed datastore
+# ---------------------------------------------------------------------------
+
+
+def shard_path(root: str, i: int) -> str:
+    """Path of token shard ``i`` under ``root``."""
+    return os.path.join(root, f"tokens_{i:05d}.npz")
+
+
+def write_token_shards(root: str, num_samples: int, seq_len: int,
+                       vocab: int, samples_per_file: int = 256,
+                       seed: int = 0) -> List[str]:
+    """Write ``num_samples`` (seq_len+1)-token rows into shard files.
+
+    Each row holds input tokens and next-token labels in one array
+    (split by :func:`lm_shard_batch` at batch-assembly time).
+    """
+    os.makedirs(root, exist_ok=True)
+    stream = token_stream(num_samples * (seq_len + 1), vocab, seed)
+    rows = stream.reshape(num_samples, seq_len + 1)
+    paths = []
+    for fi in range(0, num_samples, samples_per_file):
+        path = shard_path(root, fi // samples_per_file)
+        np.savez(path, tokens=rows[fi:fi + samples_per_file])
+        paths.append(path)
+    return paths
+
+
+def read_token_shard(path: str) -> Dict[str, np.ndarray]:
+    """A shard's rows as ``{"tokens": (n, seq + 1) int32}``."""
+    with np.load(path) as z:
+        return {"tokens": z["tokens"]}
+
+
+def list_token_shards(root: str) -> List[str]:
+    """The shard files under ``root``, sorted (none if it does not
+    exist)."""
+    if not os.path.isdir(root):
+        return []
+    return sorted(os.path.join(root, f) for f in os.listdir(root)
+                  if f.startswith("tokens_") and f.endswith(".npz"))
+
+
+def lm_shard_batch(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """DataStore batch (stacked shard rows) -> LM train batch."""
+    rows = batch["tokens"]
+    return {"tokens": rows[:, :-1], "labels": rows[:, 1:]}

@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import List, Optional
@@ -28,6 +29,16 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _lib: Optional[ctypes.CDLL] = None
+# the tournament evaluates metrics on a thread pool: a bare ``+= 1`` on a
+# wrapper's counter could lose a launch between its read and its write
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (the kernel wrapper's launch
+    counter), under a lock: wrappers launch from several threads."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def sources() -> List[Path]:

@@ -93,7 +93,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"flash_attention forward kernel launch failed: "
                            f"CUDA error {err}")
-    flash_attention_fwd.launches += 1
+    build.count_launch(flash_attention_fwd)
     return out, lse
 
 
@@ -146,7 +146,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"flash_attention backward kernel launch failed: "
                            f"CUDA error {err}")
-    flash_attention_bwd.launches += 1
+    build.count_launch(flash_attention_bwd)
     return dq, dk, dv
 
 

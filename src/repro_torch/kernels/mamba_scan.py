@@ -107,7 +107,7 @@ def mamba_scan(dt: torch.Tensor, xc: torch.Tensor, bm: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"mamba_scan kernel launch failed: CUDA error "
                            f"{err}")
-    mamba_scan.launches += 1
+    build.count_launch(mamba_scan)
     return y, h_last
 
 

@@ -159,7 +159,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
-    paged_attention.launches += 1
+    build.count_launch(paged_attention)
     return out[:, 0] if squeeze else out
 
 

@@ -227,7 +227,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
         with torch.cuda.device(x.device):
             kernel[(grid,)](x, scale, y, rows, d, eps, BLOCK_R=block_r,
                             BLOCK_D=block_d, num_warps=warps)
-        rmsnorm.launches += 1
+        build.count_launch(rmsnorm)
     return y
 
 
@@ -263,7 +263,7 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
         total[(-(-d // block_c),)](partial, dscale, n_prog, d,
                                    BLOCK_P=block_p, BLOCK_C=block_c,
                                    num_warps=4)
-    rmsnorm_bwd.launches += 1
+    build.count_launch(rmsnorm_bwd)
     return dx, dscale
 
 

@@ -118,7 +118,7 @@ def slstm_scan(gx: torch.Tensor, r_h: torch.Tensor):
     if err != 0:
         raise RuntimeError(f"slstm_scan kernel launch failed: CUDA error "
                            f"{err}")
-    slstm_scan.launches += 1
+    build.count_launch(slstm_scan)
     return out, state
 
 

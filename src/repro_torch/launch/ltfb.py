@@ -1,41 +1,47 @@
 """LTFB population-training launcher of the port (``repro.launch.ltfb``;
 paper §III: datastore + tournament).
 
-Runs K trainers of the ICF CycleGAN, each fed from its own
-datastore partition of an on-disk JAG bundle manifest, with host
-tournaments between rounds and checkpoint/restart of the whole
+Runs K trainers, each fed from its own datastore partition of an on-disk
+manifest (JAG bundles for the ICF CycleGAN, token shards for an LM), with
+host tournaments between rounds and checkpoint/restart of the whole
 population, on one CUDA card (the trainers time-share it) unless
 ``--device cpu`` is given.  The defaults are the JAX launcher's: FULL
 widths, 16,384 samples in files of 512 (1,024 / 64 and SMOKE widths under
-``--smoke``), batch 32, 25 steps a round, scope ``generator``.
+``--smoke``), batch 32, 25 steps a round, scope ``generator`` for the
+CycleGAN and ``full`` for an LM, LM rows of ``--seq`` 64 tokens.
 
   python -m repro_torch.launch.ltfb --arch icf-cyclegan
   python -m repro_torch.launch.ltfb --arch icf-cyclegan --smoke --device cpu
+  python -m repro_torch.launch.ltfb --arch qwen3-0.6b --seq 4096 --batch 2
+  python -m repro_torch.launch.ltfb --arch qwen3-0.6b --smoke --device cpu
 
-Resumes from --ckpt-dir automatically unless --no-resume.  Not ported yet:
-LM archs in a tournament (ROADMAP.md queue A12), ``--backend mesh`` and
+Resumes from --ckpt-dir automatically unless --no-resume.  Checkpoints
+hold the JAX package's layout, so either package resumes the other's.
+Not ported yet: LM tournaments over the recurrent archs (ROADMAP.md queue
+A7), Adafactor's state in a checkpoint (A14), ``--backend mesh`` and
 ``--quantize-exchange`` (A6), ``--log-json``, ``--trace-out``,
 ``--prom-out``, ``--metrics-port`` and ``--genealogy`` (A5).
 """
 from __future__ import annotations
 
 import argparse
-import functools
 import sys
 import tempfile
 
 from repro_torch import bridge, resolve_device
 from repro_torch.configs.base import OptimizerConfig
 from repro_torch.configs.icf_cyclegan import ARCH_ID, FULL, SMOKE
-from repro_torch.configs.registry import ARCHS, UNPORTED
+from repro_torch.configs.registry import ARCHS, UNPORTED, get_config
 from repro_torch.core.population import TrainerFns
 from repro_torch.core.tournament import (
     DataPlan,
     TournamentConfig,
     TournamentOrchestrator,
 )
-from repro_torch.data import jag
-from repro_torch.train.steps import make_gan_steps
+from repro_torch.data import jag, tokens
+from repro_torch.models.lm import has_recurrent
+from repro_torch.train.steps import (make_gan_steps,
+                                     make_lm_population_fns, tree_to)
 
 # flags of the JAX launcher the port refuses, and the queue that ports them
 _UNPORTED_FLAGS = (("quantize_exchange", "--quantize-exchange", "A6"),
@@ -49,10 +55,17 @@ _UNPORTED_FLAGS = (("quantize_exchange", "--quantize-exchange", "A6"),
 def check_ported(args) -> None:
     """Raise ``NotImplementedError``, naming the ROADMAP queue, for an
     arch or a flag the port does not run yet."""
-    if args.arch != ARCH_ID:
+    if args.arch != ARCH_ID and has_recurrent(get_config(args.arch,
+                                                         args.smoke)):
         raise NotImplementedError(
-            f"--arch {args.arch}: LM trainers in a tournament are not "
-            "ported to repro_torch yet; see ROADMAP.md queue A12")
+            f"--arch {args.arch}: training the recurrent families (and so "
+            "their LM tournaments) is not ported to repro_torch yet; see "
+            "ROADMAP.md queue A7")
+    if args.optimizer == "adafactor":
+        raise NotImplementedError(
+            "--optimizer adafactor: Adafactor's factored state does not "
+            "cross to the JAX checkpoint layout a population is saved in; "
+            "see ROADMAP.md queue A14")
     if args.backend == "mesh":
         raise NotImplementedError(
             "--backend mesh is not ported to repro_torch yet; see "
@@ -66,8 +79,11 @@ def check_ported(args) -> None:
 
 
 def build_plan(args) -> DataPlan:
-    """Materialize (or reuse) the on-disk JAG bundle manifest."""
+    """Materialize (or reuse) the on-disk manifest: JAG bundles for the
+    CycleGAN, token shards for an LM."""
     root = args.data_dir or tempfile.mkdtemp(prefix="repro_torch_ltfb_")
+    if args.arch != ARCH_ID:
+        return _token_plan(args, root)
     image_size = 8 if args.smoke else 64
     files = jag.list_bundles(root)
     if files:
@@ -84,11 +100,34 @@ def build_plan(args) -> DataPlan:
     return DataPlan.jag_cyclegan(files)
 
 
+def _token_plan(args, root: str) -> DataPlan:
+    cfg = get_config(args.arch, smoke=args.smoke)
+    files = tokens.list_token_shards(root)
+    if files:
+        probe = tokens.read_token_shard(files[0])["tokens"]
+        if probe.shape[1] != args.seq + 1 or probe.max() >= cfg.vocab_size:
+            raise SystemExit(
+                f"[ltfb] --data-dir {root} holds shards of seq "
+                f"{probe.shape[1] - 1} / max token {probe.max()}, this run "
+                f"needs seq {args.seq} / vocab {cfg.vocab_size} — use a "
+                "fresh --data-dir")
+    else:
+        files = tokens.write_token_shards(
+            root, args.samples, seq_len=args.seq, vocab=cfg.vocab_size,
+            samples_per_file=args.samples_per_file, seed=args.seed)
+    print(f"[ltfb] manifest: {len(files)} token shards in {root}")
+    return DataPlan.lm_tokens(files)
+
+
 def build_fns(args) -> TrainerFns:
-    """The CycleGAN trainer functions (FULL or SMOKE) on ``--device``,
-    with the checkpoint layout of the JAX package."""
+    """The trainer functions (FULL or SMOKE) on ``--device``, with the
+    checkpoint layout of the JAX package: the CycleGAN's, or an LM's
+    (:func:`repro_torch.train.steps.make_lm_population_fns`)."""
     device = resolve_device(args.device)
     opt = OptimizerConfig(name=args.optimizer, lr=args.lr, warmup_steps=1)
+    if args.arch != ARCH_ID:
+        return TrainerFns(*make_lm_population_fns(
+            get_config(args.arch, smoke=args.smoke), opt, device=device))
     init, step, metric = make_gan_steps(SMOKE if args.smoke else FULL, opt,
                                         device)
 
@@ -97,18 +136,12 @@ def build_fns(args) -> TrainerFns:
                 bridge.cyclegan_opt_state_to_jax_layout(opt_state))
 
     def from_ckpt(params, opt_state):
-        to_dev = functools.partial(_tree_to, device=device)
-        return (to_dev(bridge.cyclegan_params_from_jax(params)),
-                to_dev(bridge.cyclegan_opt_state_from_jax(opt_state)))
+        return (tree_to(bridge.cyclegan_params_from_jax(params), device),
+                tree_to(bridge.cyclegan_opt_state_from_jax(opt_state),
+                        device))
 
     return TrainerFns(init, step, metric, to_ckpt=to_ckpt,
                       from_ckpt=from_ckpt)
-
-
-def _tree_to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
-    return tree.to(device)
 
 
 def report(orch: TournamentOrchestrator):
@@ -163,7 +196,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--backend", default="host", choices=("host", "mesh"),
                     help="mesh: not ported (ROADMAP A6)")
     ap.add_argument("--scope", default=None,
-                    help="exchange scope (default: generator)")
+                    help="exchange scope (default: generator for the "
+                         "CycleGAN, full otherwise)")
     ap.add_argument("--store-mode", default="preload",
                     choices=("preload", "dynamic", "none"))
     ap.add_argument("--num-ranks", type=int, default=2,
@@ -178,9 +212,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="reduced config + dataset (CPU-runnable)")
     ap.add_argument("--samples", type=int, default=None)
     ap.add_argument("--samples-per-file", type=int, default=None)
+    ap.add_argument("--seq", type=int, default=64,
+                    help="tokens a row (LM archs)")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--optimizer", default="adam",
-                    choices=("adam", "adamw", "sgd"))
+                    choices=("adam", "adamw", "adafactor", "sgd"),
+                    help="adafactor: not ported here (ROADMAP A14)")
     ap.add_argument("--data-dir", default=None,
                     help="bundle manifest dir (default: fresh tempdir)")
     ap.add_argument("--ckpt-dir", default=None)
@@ -216,7 +253,9 @@ def finish_args(args):
 def build_config(args) -> TournamentConfig:
     """The tournament the flags describe."""
     return TournamentConfig(
-        trainers=args.trainers, scope=args.scope or "generator",
+        trainers=args.trainers,
+        scope=args.scope or ("generator" if args.arch == ARCH_ID
+                             else "full"),
         backend=args.backend, store_mode=args.store_mode,
         num_ranks=args.num_ranks, partition=args.partition,
         batch_size=args.batch,

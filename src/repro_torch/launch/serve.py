@@ -1,12 +1,25 @@
-"""Serving launcher of the port: a synthetic LM trace through the scheduler.
+"""Serving launcher of the port (``python -m repro.launch.serve``): an LM
+trace through the scheduler, or the CycleGAN surrogate's queries.
 
-The counterpart of ``python -m repro.launch.serve`` for the lm workload:
-a mixed-length request trace (prompts from the synthetic token stream)
-through the continuous-batching paged scheduler, on the CUDA card unless
-``--device cpu`` is given.  Weights are random, drawn from ``--seed``.
+Two workloads, on the CUDA card unless ``--device cpu`` is given:
+
+* ``lm``: a mixed-length request trace (prompts from the synthetic token
+  stream) through the continuous-batching paged scheduler;
+* ``surrogate`` (the default for ``--arch icf-cyclegan``): ``--queries``
+  batches of ``--query-batch`` JAG input rows through the micro-batching
+  :class:`~repro_torch.serve.surrogate.SurrogateEngine`, in f32.
+
+Weights are random, drawn from ``--seed``, unless ``--ckpt-dir`` names an
+LTFB population directory: then the tournament's winner is exported (if
+it is not yet) and served, and with ``--watch-every N`` the server polls
+for newer winners every N steps and hot-swaps them in (``--swap-mode
+drain`` lets in-flight LM requests finish on the old weights first).
 
   python -m repro_torch.launch.serve --arch qwen3-0.6b
   python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke --device cpu
+  python -m repro_torch.launch.serve --arch icf-cyclegan --ckpt-dir POP
+  python -m repro_torch.launch.serve --arch qwen3-0.6b --ckpt-dir POP \
+      --watch-every 2 --swap-mode drain
 """
 from __future__ import annotations
 
@@ -17,13 +30,20 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from repro_torch import resolve_device
+from repro_torch import bridge, resolve_device
 from repro_torch.configs.base import replace
 from repro_torch.configs.icf_cyclegan import ARCH_ID as CYCLEGAN_ID
+from repro_torch.configs.icf_cyclegan import FULL as CYCLEGAN_FULL
+from repro_torch.configs.icf_cyclegan import SMOKE as CYCLEGAN_SMOKE
 from repro_torch.configs.registry import ARCHS, get_config
+from repro_torch.data import jag
 from repro_torch.data.tokens import token_stream
+from repro_torch.models.icf_cyclegan import init_cyclegan
 from repro_torch.models.lm import init_lm
+from repro_torch.serve.registry import ModelRegistry
 from repro_torch.serve.scheduler import Request, Scheduler
+from repro_torch.serve.surrogate import SurrogateEngine
+from repro_torch.train.steps import params_from_ckpt, tree_to
 
 
 def parse_lens(spec: str) -> List[int]:
@@ -53,19 +73,41 @@ def build_requests(cfg, requests: int, prompt_lens: List[int],
     return reqs
 
 
+def make_registry(args, like_params, from_ckpt=None
+                  ) -> Optional[ModelRegistry]:
+    """The winner registry over ``--ckpt-dir`` (None without one), with
+    ``auto_export`` on: a population step without a winner file gets one.
+    ``like_params`` is a template in the checkpoint's layout,
+    ``from_ckpt`` turns a restored tree into the served weights."""
+    if not args.ckpt_dir:
+        return None
+    return ModelRegistry(args.ckpt_dir, like_params, auto_export=True,
+                         from_ckpt=from_ckpt)
+
+
+def _print_winner(registry: ModelRegistry) -> None:
+    print(f"[serve] winner: step={registry.step} "
+          f"trainer={registry.info.get('trainer')} "
+          f"wins={registry.info.get('wins')}")
+
+
 def run_lm(args) -> Dict[str, object]:
-    """Serve the trace the flags describe; returns stats, pool and
-    results (and writes them with ``--out-json``)."""
-    if args.arch == CYCLEGAN_ID:
-        raise NotImplementedError(
-            "--arch icf-cyclegan: serving the CycleGAN surrogate "
-            "(serve/surrogate.py, --workload surrogate) is not ported to "
-            "repro_torch yet; see ROADMAP.md queue A11")
+    """Serve the trace the flags describe (from ``--ckpt-dir``'s winner
+    when given); returns stats, pool and results (and writes them with
+    ``--out-json``)."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.dtype:
         cfg = replace(cfg, dtype=args.dtype)
     model = init_lm(cfg, seed=args.seed, device=device)
+    dtype = model.embed.weight.dtype
+    registry = make_registry(
+        args, bridge.params_to_jax_layout(model, cfg) if args.ckpt_dir
+        else None, from_ckpt=lambda tree: params_from_ckpt(
+            cfg, tree, device, dtype))
+    if registry is not None:
+        model.load_state_dict(registry.load())
+        _print_winner(registry)
     max_len = args.max_len or max(parse_lens(args.prompt_lens)) \
         + args.max_new
     sched = Scheduler(
@@ -74,14 +116,17 @@ def run_lm(args) -> Dict[str, object]:
         max_seq=args.max_seq, policy=args.policy,
         prefill_chunk=args.prefill_chunk,
         prefix_sharing=not args.no_prefix_sharing,
-        max_prefills_per_step=args.prefill_per_step, device=device)
+        max_prefills_per_step=args.prefill_per_step, registry=registry,
+        watch_every=args.watch_every, swap_mode=args.swap_mode,
+        device=device)
     reqs = build_requests(cfg, args.requests, parse_lens(args.prompt_lens),
                           args.max_new, eos_id=args.eos_id,
                           temperature=args.temperature, seed=args.seed)
     print(f"[serve] arch={cfg.name} dtype={cfg.dtype} device={device} "
           f"policy={args.policy} slots={args.slots} max_len={max_len} "
           f"max_seq={sched.max_seq} block_size={args.block_size} "
-          f"prefill_chunk={args.prefill_chunk} requests={len(reqs)} "
+          f"prefill_chunk={args.prefill_chunk} "
+          f"swap_mode={args.swap_mode} requests={len(reqs)} "
           f"max_new={args.max_new}")
     for r in reqs:
         try:
@@ -98,8 +143,12 @@ def run_lm(args) -> Dict[str, object]:
     print(f"[serve] prefix-cache: hits={pd['prefix_hits']} "
           f"shared_tokens={pd['prefix_shared_tokens']} "
           f"prefill_chunks={sched.stats.prefill_chunks}")
+    if registry is not None:
+        print(f"[serve] registry: serving_step={registry.step} "
+              f"hot_swaps={sched.stats.hot_swaps}")
     out = {"stats": sched.stats.as_dict(), "pool": pd,
-           "device": str(device), "results": results}
+           "device": str(device), "results": results,
+           "registry_step": registry.step if registry else None}
     if args.out_json:
         payload = {"stats": out["stats"], "pool": pd, "device": str(device),
                    "results": {str(k): [int(t) for t in v]
@@ -110,15 +159,67 @@ def run_lm(args) -> Dict[str, object]:
     return out
 
 
+def run_surrogate(args) -> Dict[str, object]:
+    """Answer ``--queries`` batches of ``--query-batch`` JAG input rows
+    through the surrogate engine (from ``--ckpt-dir``'s winner when
+    given); returns stats, the serving step and the results."""
+    device = resolve_device(args.device)
+    ccfg = CYCLEGAN_SMOKE if args.smoke else CYCLEGAN_FULL
+    params = init_cyclegan(ccfg, args.seed, device)
+    registry = make_registry(
+        args, bridge.cyclegan_params_to_jax_layout(params)
+        if args.ckpt_dir else None,
+        from_ckpt=lambda tree: tree_to(
+            bridge.cyclegan_params_from_jax(tree), device))
+    if registry is not None:
+        params = registry.load()
+        _print_winner(registry)
+    eng = SurrogateEngine(ccfg, params, max_batch=args.slots * 16,
+                          bucket=8, registry=registry,
+                          watch_every=args.watch_every, device=device)
+    print(f"[serve] arch={ccfg.name} workload=surrogate device={device} "
+          f"queries={args.queries} query_batch={args.query_batch} "
+          f"max_batch={eng.max_batch}")
+    xs = jag.sample_inputs(args.queries * args.query_batch, args.seed)
+    for i in range(args.queries):
+        eng.submit(i, xs[i * args.query_batch:(i + 1) * args.query_batch])
+    results = eng.run()
+    eng.stats.report()
+    mean = float(np.mean([r.mean() for r in results.values()]))
+    print(f"[serve] surrogate: rows={args.queries * args.query_batch} "
+          f"overlapped_stages={eng.overlapped_stages} "
+          f"output_mean={mean:.6f}")
+    if registry is not None:
+        print(f"[serve] registry: serving_step={registry.step} "
+              f"hot_swaps={eng.stats.hot_swaps}")
+    return {"stats": eng.stats.as_dict(),
+            "registry_step": registry.step if registry else None,
+            "results": results}
+
+
 def build_parser() -> argparse.ArgumentParser:
     """The port's serve CLI argument parser."""
     ap = argparse.ArgumentParser(
         prog="repro_torch.launch.serve",
-        description="Continuous-batching LM serving on one CUDA card "
+        description="Continuous-batching LM serving and the CycleGAN "
+                    "surrogate over tournament winners, on one CUDA card "
                     "(PyTorch port)")
     ap.add_argument("--arch", default="qwen3-0.6b", choices=sorted(ARCHS))
+    ap.add_argument("--workload", default=None,
+                    choices=("lm", "surrogate"),
+                    help="default: surrogate for icf-cyclegan, else lm")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-runnable)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="LTFB population checkpoint dir to serve the "
+                         "tournament winner from")
+    ap.add_argument("--watch-every", type=int, default=0,
+                    help="poll for newer winners every N steps (0 = off)")
+    ap.add_argument("--swap-mode", default="immediate",
+                    choices=("immediate", "drain"),
+                    help="hot-swap policy: immediate applies new weights "
+                         "to in-flight requests; drain lets them finish "
+                         "on the old weights first")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where weights, KV pools and kernels run; cuda "
                          "raises when no card is visible")
@@ -149,6 +250,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="comma list; requests cycle through these")
     ap.add_argument("--eos-id", type=int, default=None)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--queries", type=int, default=16,
+                    help="surrogate queries")
+    ap.add_argument("--query-batch", type=int, default=8,
+                    help="JAG input rows a surrogate query")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out-json", default=None,
                     help="write final stats + per-request token streams "
@@ -157,8 +262,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    """CLI entry point."""
-    run_lm(build_parser().parse_args(argv))
+    """CLI entry point: parse args, pick the workload, run it."""
+    args = build_parser().parse_args(argv)
+    workload = args.workload or \
+        ("surrogate" if args.arch == CYCLEGAN_ID else "lm")
+    if workload == "surrogate":
+        run_surrogate(args)
+    else:
+        if args.arch == CYCLEGAN_ID:
+            raise SystemExit("lm workload needs an LM arch")
+        run_lm(args)
     return 0
 
 

@@ -16,22 +16,32 @@ numpy from ``--seed``, and its ``step ... g= d= val=`` lines.
   python -m repro_torch.launch.train --arch qwen3-0.6b --smoke --device cpu
   python -m repro_torch.launch.train --arch icf-cyclegan --smoke --device cpu
 
+The LM path checkpoints as the JAX launcher does: every ``--ckpt-every``
+steps (step 0 excepted) ``<ckpt-dir>/step_<i>.ckpt`` is written in the
+background (``ckpt.AsyncCheckpointer``) in JAX's state layout
+(``{"params", "opt_state"}``, weights stacked into periods by
+:func:`repro_torch.bridge.params_to_jax_layout`, metadata ``{"step": i}``),
+and a rerun resumes from the newest one at its step unless
+``--no-resume``; either package resumes the other's files.
+
 Not ported yet: training the recurrent archs (``xlstm-125m``,
-``jamba-1.5-large-398b``; ROADMAP.md queue A7) and the checkpoint flags
-(``--ckpt-dir``, ``--ckpt-every``, ``--no-resume``; they need the reverse
-LM bridge, queue A13).
+``jamba-1.5-large-398b``; ROADMAP.md queue A7) and Adafactor's state in a
+checkpoint (A14).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
+import tempfile
 import time
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import bridge, resolve_device
+from repro_torch.checkpoint import ckpt
 from repro_torch.configs.base import ModelConfig, OptimizerConfig
 from repro_torch.configs.icf_cyclegan import ARCH_ID as CYCLEGAN_ID
 from repro_torch.configs.icf_cyclegan import CycleGANConfig
@@ -41,7 +51,7 @@ from repro_torch.data.tokens import train_batch
 from repro_torch.models.lm import has_recurrent
 from repro_torch.train.steps import (init_lm_state, make_gan_steps,
                                      make_lm_eval_metric,
-                                     make_lm_train_step)
+                                     make_lm_train_step, tree_to)
 
 VAL_SEED = 987654
 
@@ -83,18 +93,59 @@ def device_batch(cfg: ModelConfig, batch: int, seq: int, seed: int,
             for k, v in train_batch(cfg, batch, seq, seed=seed).items()}
 
 
+def checkpoint_tree(tr: Trainer) -> Dict[str, dict]:
+    """The trainer's state in the JAX launcher's checkpoint layout:
+    ``{"params", "opt_state"}`` stacked into periods, on the host."""
+    return {"params": bridge.params_to_jax_layout(tr.state["model"],
+                                                  tr.cfg),
+            "opt_state": bridge.opt_state_to_jax_layout(
+                tr.state["opt_state"], tr.cfg)}
+
+
+def restore_trainer(tr: Trainer, path: str) -> int:
+    """Load a ``step_<i>.ckpt`` (either package's) into the trainer's
+    model and optimizer state; returns the step it was saved at."""
+    tree, meta = ckpt.restore(path, checkpoint_tree(tr))
+    with torch.no_grad():
+        tr.state["model"].load_state_dict(
+            bridge.params_from_jax(tree["params"], tr.cfg), strict=True)
+    opt = bridge.opt_state_from_jax(tree["opt_state"], tr.cfg)
+    tr.state["opt_state"] = tree_to(opt, tr.device)
+    return int(meta.get("step", 0))
+
+
+def _saves(args) -> bool:
+    every = args.ckpt_every
+    return bool(every) and any(i % every == 0 for i in range(1, args.steps))
+
+
 def train_lm(args) -> Dict[str, object]:
-    """Run ``--steps`` steps, printing the JAX launcher's lines; returns
-    the per-step losses and lrs and the final validation loss."""
+    """Run ``--steps`` steps (from the newest checkpoint's step when one
+    is found and ``--no-resume`` is not given), printing the JAX
+    launcher's lines and checkpointing every ``--ckpt-every`` steps;
+    returns the per-step losses and lrs, the final validation loss and
+    the step it started at."""
     tr = build_trainer(args)
+    latest: Optional[str] = None if args.no_resume \
+        else ckpt.latest_step_path(args.ckpt_dir)
+    if args.optimizer == "adafactor" and (latest or _saves(args)):
+        raise NotImplementedError(
+            "--optimizer adafactor with checkpoints: Adafactor's factored "
+            "state does not cross to the JAX checkpoint layout yet; see "
+            "ROADMAP.md queue A14 (or pass --ckpt-every 0 --no-resume)")
     n_params = sum(p.numel() for p in tr.state["model"].parameters())
     print(f"[train] arch={tr.cfg.name} params={n_params / 1e6:.1f}M "
           f"device={tr.device} dtype={tr.cfg.dtype} remat={args.remat} "
           f"batch={args.batch} seq={args.seq}")
+    start = 0
+    if latest:
+        start = restore_trainer(tr, latest)
+        print(f"[train] resumed from {latest} at step {start}")
+    saver = ckpt.AsyncCheckpointer()
     val = device_batch(tr.cfg, args.batch, args.seq, VAL_SEED, tr.device)
     losses, lrs = [], []
     t0 = time.time()
-    for i in range(args.steps):
+    for i in range(start, args.steps):
         batch = device_batch(tr.cfg, args.batch, args.seq, i, tr.device)
         _, m = tr.step(tr.state, batch)
         losses.append(float(m["loss"]))
@@ -102,9 +153,13 @@ def train_lm(args) -> Dict[str, object]:
         if i % args.log_every == 0:
             print(f"step {i:5d} loss={losses[-1]:.4f} lr={lrs[-1]:.2e} "
                   f"({(time.time() - t0):.1f}s)")
+        if args.ckpt_every and i and i % args.ckpt_every == 0:
+            saver.save(os.path.join(args.ckpt_dir, f"step_{i}.ckpt"),
+                       checkpoint_tree(tr), {"step": i})
+    saver.wait()
     val_loss = float(tr.metric(tr.state["model"], val))
     print(f"[train] done: val={val_loss:.4f}")
-    return {"losses": losses, "lrs": lrs, "val": val_loss}
+    return {"losses": losses, "lrs": lrs, "val": val_loss, "start": start}
 
 
 CYCLEGAN_BATCH = 128
@@ -177,6 +232,16 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=("none", "full", "dots", "dots_no_batch"),
                     help="per-block rematerialization (dots* not ported)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir",
+                    default=os.path.join(tempfile.gettempdir(),
+                                         "repro_ckpt"),
+                    help="step checkpoints of the LM path (default: "
+                         "repro_ckpt in the temp dir)")
+    ap.add_argument("--ckpt-every", type=int, default=100,
+                    help="checkpoint every N steps (0 = never)")
+    ap.add_argument("--no-resume", action="store_true",
+                    help="start at step 0 even when --ckpt-dir holds a "
+                         "checkpoint")
     ap.add_argument("--log-every", type=int, default=10)
     return ap
 

@@ -3,8 +3,9 @@
 The host-side accounting — :class:`BlockManager` (token-budget admission,
 lazy page materialization, refcounts, pinning) and :class:`PageShard`
 (the prefix cache: copy-on-admit sharing of fully filled prompt pages) —
-is a copy of ``repro.serve.kv_cache`` (no weight hot swap yet, so no
-prefix invalidation).  :class:`PagedLayout` is the single-shard layout:
+is a copy of ``repro.serve.kv_cache``, the weight epoch that a hot swap
+bumps (:meth:`PageShard.invalidate_prefix`) included.
+:class:`PagedLayout` is the single-shard layout:
 one ``(num_pages + 1, block_size, Hkv, D)`` pool per attention layer on the
 device (the last page is the null page), ``num_slots`` dense state rows per
 recurrent (Mamba / xLSTM) layer, and host-side numpy block tables,
@@ -113,6 +114,20 @@ class BlockManager:
         if page not in self._pinned and page in self._refs:
             self._refs[page] += 1
             self._pinned[page] = None
+
+    def unpin_all(self) -> List[int]:
+        """Drop every pin; returns the pages that hit refcount zero
+        (returned to the free list) -- the hot-swap flush path."""
+        released = []
+        for page in list(self._pinned):
+            self._refs[page] -= 1
+            if self._refs[page] == 0:
+                del self._refs[page]
+                self._free.append(page)
+                released.append(page)
+        self._pinned.clear()
+        self.frees += len(released)
+        return released
 
     def _reclaim(self, n: int) -> None:
         """Steal `n` idle pinned pages (oldest pin first) back onto the
@@ -234,6 +249,10 @@ class PageShard:
         self._page_key: Dict[int, Any] = {}
         # per-rid incremental registration cursor: (pages done, last key)
         self._reg_state: Dict[Any, Tuple[int, Any]] = {}
+        # weight epoch: bumped by invalidate_prefix() on hot swap so pages
+        # computed under old weights are never shared forward
+        self._epoch = 0
+        self._admit_epoch: Dict[Any, int] = {}
         self.prefix_hits = 0
         self.prefix_shared_tokens = 0
 
@@ -276,10 +295,11 @@ class PageShard:
     def admit(self, rid, n_tokens: int,
               shared: Tuple[List[int], int]) -> None:
         """Page-budget side of an admission: reserve ``n_tokens`` with
-        ``shared`` (prefix pages) mapped in, and resume the registration
-        cursor past the shared pages."""
+        ``shared`` (prefix pages) mapped in, stamp the weight epoch, and
+        resume the registration cursor past the shared pages."""
         shared_pages, shared_len = shared
         self.blocks.reserve(rid, n_tokens, shared=shared_pages)
+        self._admit_epoch[rid] = self._epoch
         if shared_pages:
             self.prefix_hits += 1
             self.prefix_shared_tokens += shared_len
@@ -293,8 +313,12 @@ class PageShard:
 
         Incremental: per-chunk calls during chunked prefill only hash
         the pages filled since the last call, resuming the key chain
-        instead of re-deriving it from page 0 every time.
+        instead of re-deriving it from page 0 every time.  Requests
+        admitted before the last weight swap are refused: their pages (or
+        their pages' attention context) came from the old weights.
         """
+        if self._admit_epoch.get(rid, -1) != self._epoch:
+            return
         table = self.blocks.table(rid)
         start, prev = self._reg_state.get(rid, (0, None))
         keys = self._chunk_keys(prompt, self.blocks.block_size,
@@ -333,9 +357,22 @@ class PageShard:
 
     def release(self, rid) -> None:
         """Drop the request's pages (prefix-shared ones survive as
-        cache entries until evicted)."""
+        cache entries until evicted or invalidated)."""
         self._reg_state.pop(rid, None)
+        self._admit_epoch.pop(rid, None)
         self._evict(self.blocks.free(rid))
+
+    def invalidate_prefix(self) -> None:
+        """Flush the prefix cache (hot swap): pages computed under the old
+        weights must not be mapped into post-swap admissions, and
+        still-prefilling pre-swap requests stop registering (their
+        remaining chunks attend over old-weight history).  Pins die with
+        the index.  Live tables and refcounts are untouched."""
+        self._prefix.clear()
+        self._key_pages.clear()
+        self._page_key.clear()
+        self.blocks.unpin_all()
+        self._epoch += 1
 
 
 def _prefix_key_memo(prompt: np.ndarray, block_size: int):
@@ -428,6 +465,11 @@ class PagedLayout:
     def register_prefix(self, rid, prompt: np.ndarray) -> None:
         """Publish ``rid``'s fully filled prompt pages to the prefix cache."""
         self.shard.register_prefix(rid, prompt)
+
+    def invalidate_prefix(self) -> None:
+        """Flush the prefix cache and its pins (hot swap; see
+        :meth:`PageShard.invalidate_prefix`)."""
+        self.shard.invalidate_prefix()
 
     def step_tables(self, width: int) -> torch.Tensor:
         """The first ``width`` block-table columns of every slot, uploaded

@@ -140,6 +140,8 @@ class ServeStats:
     decode_tokens: int = 0         # useful generated tokens
     decode_slot_steps: int = 0     # slots * steps actually computed
     ragged_splits: int = 0         # width-split subset decode dispatches
+    hot_swaps: int = 0             # weight swaps applied between steps
+    swap_rejected_corrupt: int = 0  # hot swaps refused: corrupt checkpoint
     steps: int = 0
     queue_depth_sum: int = 0
     queue_depth_max: int = 0
@@ -194,6 +196,8 @@ class ServeStats:
             "decode_tokens": self.decode_tokens,
             "decode_slot_steps": self.decode_slot_steps,
             "ragged_splits": self.ragged_splits,
+            "hot_swaps": self.hot_swaps,
+            "swap_rejected_corrupt": self.swap_rejected_corrupt,
             "wall_s": wall,
             "requests_per_s": self.completed / max(wall, 1e-9),
             "tokens_per_s": self.decode_tokens / max(wall, 1e-9),
@@ -213,7 +217,8 @@ class ServeStats:
         """Print the human-readable ``[serve]`` summary via ``log``."""
         d = self.as_dict()
         log(f"{prefix} requests: submitted={d['submitted']} "
-            f"completed={d['completed']} rejected={d['rejected']}")
+            f"completed={d['completed']} rejected={d['rejected']} "
+            f"hot_swaps={d['hot_swaps']}")
         log(f"{prefix} throughput: {d['requests_per_s']:.2f} req/s "
             f"{d['tokens_per_s']:.1f} tok/s "
             f"(decode_steps={d['decode_steps']} "
@@ -228,3 +233,6 @@ class ServeStats:
             f"busy={d['slot_occupancy'] * 100:.0f}% "
             f"queue_mean={d['queue_depth_mean']:.1f} "
             f"queue_max={d['queue_depth_max']}")
+        if self.swap_rejected_corrupt:
+            log(f"{prefix} robustness: "
+                f"swap_rejected_corrupt={d['swap_rejected_corrupt']}")

@@ -27,12 +27,20 @@ scheduler step:
   4. *completion* — requests hitting EOS or their token budget free their
      slot and page refs immediately.
 
+Before admission, every ``watch_every`` steps, an attached
+:class:`repro_torch.serve.registry.ModelRegistry` is polled for a newer
+tournament winner.  ``swap_mode="immediate"`` loads it between steps
+(in-flight caches stay valid: their layout depends only on the config);
+``swap_mode="drain"`` holds it, stops admitting, lets every in-flight
+request finish on the old weights, then swaps.  Either way the prefix
+cache is flushed, so no request admitted after a swap maps a page written
+before it.
+
 Sampling stays on the host exactly as in the JAX package: greedy argmax,
 or a Gumbel draw from ``default_rng([seed, ntok])`` at temperature > 0,
 so both packages emit the same tokens for the same logits.  Speculative
-decoding, registry hot swap, the journal, fault injection, the arena and
-trace spans are not ported yet: the constructor raises on their
-arguments.
+decoding, the journal, fault injection, the arena and trace spans are not
+ported yet: the constructor raises on their arguments.
 """
 from __future__ import annotations
 
@@ -52,10 +60,9 @@ from repro_torch.serve.session import DecodeSession
 
 # constructor arguments of the JAX scheduler this port does not serve yet
 # (ROADMAP queue A); passing any of them raises rather than being ignored
-UNPORTED_ARGS = ("registry", "watch_every", "swap_mode", "draft_params",
-                 "spec_tokens", "draft_cfg", "spec_fused", "spec_adapt",
-                 "max_queue", "telemetry", "trace_capacity", "journal",
-                 "faults", "arena")
+UNPORTED_ARGS = ("draft_params", "spec_tokens", "draft_cfg", "spec_fused",
+                 "spec_adapt", "max_queue", "telemetry", "trace_capacity",
+                 "journal", "faults", "arena")
 
 
 @dataclass
@@ -103,6 +110,9 @@ class Scheduler:
 
     ``model`` is a :class:`repro_torch.models.lm.LM` on ``device`` (the
     card unless ``device="cpu"``; without a card the default raises).
+    ``registry`` (polled every ``watch_every`` steps) hands over weights
+    in the port's layout (its ``from_ckpt`` hook), which ``set_params``
+    copies into ``model``.
     """
 
     _SPLIT_RATIO = 4
@@ -118,6 +128,8 @@ class Scheduler:
                  pin_prefix: bool = False,
                  max_prefills_per_step: int = 1,
                  min_prefill_bucket: int = 8,
+                 registry=None, watch_every: int = 0,
+                 swap_mode: str = "immediate",
                  device="cuda", **unported):
         self.device = resolve_device(device)
         bad = sorted(set(unported) & set(UNPORTED_ARGS))
@@ -133,12 +145,17 @@ class Scheduler:
                 "paged layout")
         if policy not in ("continuous", "static"):
             raise ValueError(f"unknown policy {policy!r}")
+        if swap_mode not in ("immediate", "drain"):
+            raise ValueError(f"unknown swap_mode {swap_mode!r}")
         lm.layer_specs(cfg)             # raises for unported families
         self.cfg = cfg
         self.policy = policy
         self.prefill_chunk = int(prefill_chunk)
         self.max_prefills_per_step = max_prefills_per_step
         self.min_prefill_bucket = min_prefill_bucket
+        self.registry = registry
+        self.watch_every = watch_every
+        self.swap_mode = swap_mode
         n_blocks = num_blocks if num_blocks is not None \
             else num_slots * blocks_for(max_len, block_size)
         self.pool = PagedLayout(cfg, num_slots, n_blocks,
@@ -168,7 +185,9 @@ class Scheduler:
         self._index = np.full((num_slots,), -1, np.int32)
         self.results: Dict[Any, np.ndarray] = {}
         self.stats = ServeStats(slots=num_slots)
+        self._pending_params = None
         self._head_share = None
+        self._step_count = 0
 
     # -- request intake ----------------------------------------------------
     def _reject(self, msg: str):
@@ -346,7 +365,53 @@ class Scheduler:
         self._next_token[slot] = 0
         self._index[slot] = -1
 
+    # -- hot swap -------------------------------------------------------------
+    def set_params(self, params) -> None:
+        """Hot-swap the weights between steps (``params`` in the port's
+        layout; the cache layout is unchanged).  The prefix cache is
+        flushed: old-weight pages must not be shared into post-swap
+        admissions."""
+        self.session.set_params(params)
+        self.pool.invalidate_prefix()
+        self._head_share = None
+        self.stats.hot_swaps += 1
+
+    @property
+    def draining(self) -> bool:
+        """True while new weights wait for in-flight requests to finish."""
+        return self._pending_params is not None
+
+    def _poll_registry(self) -> Optional[int]:
+        """Poll for a newer winner every ``watch_every`` steps; returns its
+        step when one was loaded."""
+        if self.registry is not None and self.watch_every > 0 \
+                and self._step_count % self.watch_every == 0:
+            found = self.registry.refresh()
+            # mirror the registry's corrupt-swap rejections into the stats
+            self.stats.swap_rejected_corrupt = getattr(
+                self.registry, "rejected_corrupt", 0)
+            if found:
+                return getattr(self.registry, "step", 0)
+        return None
+
+    def _apply_swap(self, winner: Optional[int]) -> None:
+        """Apply or defer a found winner per ``swap_mode``; a deferred one
+        lands once nothing is in flight."""
+        if winner is not None:
+            if self.swap_mode == "drain" and (self.active
+                                              or self.prefilling):
+                self._pending_params = self.registry.params
+            else:
+                self._pending_params = None
+                self.set_params(self.registry.params)
+        if self._pending_params is not None and not self.active \
+                and not self.prefilling:
+            self.set_params(self._pending_params)
+            self._pending_params = None
+
     def _admission_phase(self) -> None:
+        if self.draining:
+            return
         if self.policy == "static":
             if not (self.active or self.prefilling):
                 while self.queue and self._can_admit_head():
@@ -359,10 +424,12 @@ class Scheduler:
             admitted += 1
 
     def step(self) -> None:
-        """One scheduler iteration: admission, the one-shot prefills and
-        one round of chunked prefill, one batched decode round,
-        completion."""
+        """One scheduler iteration: the hot-swap check, admission, the
+        one-shot prefills and one round of chunked prefill, one batched
+        decode round, completion."""
         self.stats.start()
+        self._apply_swap(self._poll_registry())
+        self._step_count += 1
         self._admission_phase()
         self._prefill_phase()
         if self.active:

@@ -48,6 +48,14 @@ class DecodeSession:
         """Device the weights and pools live on."""
         return self.layout.device
 
+    def set_params(self, params) -> None:
+        """Hot-swap the weights between steps: ``params`` is a state dict
+        in the port's layout (``{name: tensor}``, any device and dtype),
+        copied into the model on its device in its dtype.  The cache
+        layout depends only on the config, so the pools stay."""
+        with torch.no_grad():
+            self.model.load_state_dict(params, strict=True)
+
     def prefill(self, rid, prompt: np.ndarray) -> np.ndarray:
         """The whole prompt of `rid` at its exact length (no padding: a
         recurrent layer would fold padding into its state), written into

@@ -7,6 +7,9 @@ and the CycleGAN's.
 ``make_lm_train_step``   loss + grads + global-norm clip + lr schedule +
                          optimizer update (the ``train_4k`` cells' step)
 ``make_lm_eval_metric``  held-out cross entropy (the tournament metric)
+``make_lm_population_fns`` the LM as an LTFB trainer: a functional step
+                         over ``{name: tensor}`` weights, the metric, and
+                         the checkpoint layout of the JAX package
 ``make_gan_steps``       the paper's CycleGAN: ``(init, train_step,
                          metric)`` for an LTFB trainer
 ``make_gan_disc_metric`` the GAN tournament metric against the local
@@ -19,19 +22,24 @@ weights into the model's parameters **in place** and replaces
 (unclipped) gradients of the last step stay in each parameter's ``.grad``
 until the next step.
 
-The CycleGAN step is functional, as JAX's: its weights and Adam state are
-``{name: tensor}`` dicts and it returns new ones (see
+The population's LM step and the CycleGAN step are functional, as JAX's:
+their weights and optimizer state are ``{name: tensor}`` dicts and they
+return new ones, writing into none they were given (the tournament hands
+an adopted model over by reference; see
 :mod:`repro_torch.models.icf_cyclegan`).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Any, Callable, Dict, Tuple
+import threading
+from typing import Any, Callable, Dict, Iterator, Tuple
 
 import torch
+from torch import nn
 from torch.profiler import record_function
 
-from repro_torch import resolve_device
+from repro_torch import bridge, resolve_device
 from repro_torch.configs.base import ModelConfig, OptimizerConfig
 from repro_torch.configs.icf_cyclegan import CycleGANConfig
 from repro_torch.models import icf_cyclegan as cg
@@ -106,6 +114,148 @@ def make_lm_eval_metric(cfg: ModelConfig) -> Callable:
         return lm.lm_loss(model, batch)[0]
 
     return metric
+
+
+class _Skeleton:
+    """An LM module with no weights of its own, bound to a trainer's
+    ``{name: tensor}`` weights for the length of one call.
+
+    Binding sets each parameter slot to an ``nn.Parameter`` that shares the
+    given tensor's storage (no copy); unbinding empties the slots again, so
+    an idle skeleton holds no weights.  ``torch.func.functional_call``
+    would not do here: its substitution ends when the forward returns,
+    and ``remat="full"`` recomputes each block during the backward, which
+    must see the same weights.  One skeleton serves every call in turn
+    (the tournament's metrics run on a pool of threads): on one card the
+    forwards run one after another anyway, and each holds a tournament
+    batch's ``(B, S, V)`` logits.
+    """
+
+    def __init__(self, cfg: ModelConfig, device: torch.device):
+        with torch.device(device):
+            model = lm.LM(cfg)
+        self._slots = []
+        for name, _ in model.named_parameters():
+            owner, _, leaf = name.rpartition(".")
+            self._slots.append((model.get_submodule(owner), leaf, name))
+        self._empty()
+        self.model = model
+        self._lock = threading.Lock()
+
+    def ordered(self, tensors: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        """``tensors`` in the model's parameter order (the global-norm
+        clip sums the gradients in this order)."""
+        return {name: tensors[name] for _, _, name in self._slots}
+
+    def _empty(self) -> None:
+        for module, leaf, _ in self._slots:
+            module._parameters[leaf] = None
+
+    @contextlib.contextmanager
+    def bound(self, params: Dict[str, torch.Tensor], grad: bool = False
+              ) -> Iterator[Tuple[lm.LM, Dict[str, nn.Parameter]]]:
+        """``(model, leaves)``: the skeleton holding ``params`` (``leaves``
+        the bound parameters by name, requiring grad when ``grad``); the
+        call waits while another holds the skeleton."""
+        with self._lock:
+            try:
+                leaves = {}
+                for module, leaf, name in self._slots:
+                    p = nn.Parameter(params[name].detach(),
+                                     requires_grad=grad)
+                    module._parameters[leaf] = leaves[name] = p
+                self.model.train(grad)
+                yield self.model, leaves
+            finally:
+                self._empty()
+
+
+def make_lm_population_fns(cfg: ModelConfig, opt_cfg: OptimizerConfig,
+                           remat: str = "full", device="cuda"
+                           ) -> Tuple[Callable, ...]:
+    """``(init, train_step, metric, to_ckpt, from_ckpt)`` for an LM
+    trainer in an LTFB tournament
+    (:class:`repro_torch.core.population.TrainerFns`;
+    ``repro.train.steps.make_lm_population_fns``), on ``device`` (the card
+    unless the caller asks for ``"cpu"``).
+
+    * ``init(seed) -> (params, opt_state, hparams)``: weights from
+      :func:`~repro_torch.models.lm.init_lm` as a ``{name: tensor}`` dict,
+      the optimizer's zero state, ``{"lr": opt_cfg.lr}``;
+    * ``train_step(params, opt_state, batch, hparams) -> (params,
+      opt_state, metrics)``: the step of :func:`make_lm_train_step` (loss,
+      gradients, global-norm clip, the lr schedule at the optimizer's step
+      count, the update), returning new tensors and writing into none of
+      the given ones; as in JAX the lr follows the schedule, and
+      ``hparams["lr"]`` is PBT bookkeeping only;
+    * ``metric(params, batch)``: held-out cross entropy, without gradients
+      (it runs on the tournament's worker threads, where grad mode is the
+      thread's own);
+    * ``to_ckpt`` / ``from_ckpt``: weights and optimizer state to JAX's
+      stacked layout (:func:`repro_torch.bridge.params_to_jax_layout`) and
+      back onto ``device``, so that either package restores the other's
+      population checkpoints.  Adafactor's state raises there (ROADMAP.md
+      queue A14).
+    """
+    dev = resolve_device(device)
+    optimizer = make_optimizer(cfg, opt_cfg)
+    skeleton = _Skeleton(cfg, dev)
+
+    def init(seed: int):
+        model = lm.init_lm(cfg, seed=seed, device=dev)
+        params = {n: p.detach() for n, p in model.named_parameters()}
+        return params, optimizer.init(params), {"lr": opt_cfg.lr}
+
+    def train_step(params, opt_state, batch: Dict[str, torch.Tensor],
+                   hparams):
+        with skeleton.bound(params, grad=True) as (model, leaves):
+            loss, metrics = lm.lm_loss(model, batch, remat=remat)
+            grads = dict(zip(leaves, torch.autograd.grad(
+                loss, list(leaves.values()))))
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if opt_cfg.grad_clip_norm:
+            grads, gnorm = opt_lib.clip_by_global_norm(
+                grads, opt_cfg.grad_clip_norm)
+            metrics["grad_norm"] = gnorm
+        lr = opt_lib.lr_schedule(opt_cfg, opt_state["step"])
+        with torch.no_grad():
+            new_params, new_opt = optimizer.update(grads, opt_state, params,
+                                                   lr)
+        return new_params, new_opt, {**metrics, "loss": loss.detach(),
+                                     "lr": lr}
+
+    @torch.no_grad()
+    def metric(params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        with skeleton.bound(params) as (model, _):
+            return lm.lm_loss(model, batch)[0]
+
+    def to_ckpt(params, opt_state):
+        return (bridge.params_to_jax_layout(params, cfg),
+                bridge.opt_state_to_jax_layout(opt_state, cfg))
+
+    def from_ckpt(params, opt_state):
+        opt = tree_to(bridge.opt_state_from_jax(opt_state, cfg), dev)
+        opt = {k: skeleton.ordered(v) if isinstance(v, dict) else v
+               for k, v in opt.items()}
+        return skeleton.ordered(params_from_ckpt(cfg, params, dev)), opt
+
+    return init, train_step, metric, to_ckpt, from_ckpt
+
+
+def params_from_ckpt(cfg: ModelConfig, tree, device,
+                     dtype: torch.dtype = None) -> Dict[str, torch.Tensor]:
+    """An LM's ``{name: tensor}`` weights on ``device`` (cast to ``dtype``
+    when given) from a checkpoint's params tree in JAX's layout."""
+    return {n: t.to(device=device, dtype=dtype or t.dtype)
+            for n, t in bridge.params_from_jax(tree, cfg).items()}
+
+
+def tree_to(tree, device):
+    """A nested dict of tensors with every tensor moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
 
 
 # ---------------------------------------------------------------------------

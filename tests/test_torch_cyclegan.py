@@ -82,7 +82,7 @@ def test_config_matches_jax_and_counts_parameters():
     assert sum(p.numel() for p in model.parameters()) == 108_221
 
 
-def test_registry_resolves_the_cyclegan_and_lm_paths_refuse_it():
+def test_registry_resolves_the_cyclegan_and_lm_paths_refuse_it(capsys):
     from repro_torch.launch import serve as tserve
     from repro_torch.models import lm as tlm
 
@@ -90,8 +90,14 @@ def test_registry_resolves_the_cyclegan_and_lm_paths_refuse_it():
     assert get_config("icf-cyclegan", smoke=True) is tcfgs.SMOKE
     with pytest.raises(ValueError, match="not an LM"):
         tlm.layer_specs(tcfgs.FULL)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tserve.main(["--arch", "icf-cyclegan", "--device", "cpu"])
+    # the serve CLI serves it as the surrogate workload, not as an LM
+    assert tserve.main(["--arch", "icf-cyclegan", "--smoke", "--device",
+                        "cpu", "--queries", "3", "--query-batch", "5"]) == 0
+    out = capsys.readouterr().out
+    assert "workload=surrogate" in out and "completed=3" in out
+    with pytest.raises(SystemExit, match="needs an LM arch"):
+        tserve.main(["--arch", "icf-cyclegan", "--workload", "lm",
+                     "--device", "cpu"])
 
 
 # ---------------------------------------------------------------------------

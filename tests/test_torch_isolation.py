@@ -5,9 +5,9 @@
   ``repro_torch``);
 * a static scan of ``src/repro_torch`` and ``chip_smoke.py`` finds no
   JAX and no ``repro.`` import;
-* entry points (serving, LM and CycleGAN training, LTFB tournaments, the
-  train and ltfb CLI modules included) default to CUDA and raise without
-  a card;
+* entry points (serving, the surrogate engine, LM and CycleGAN training,
+  LTFB tournaments of either, the train and ltfb CLI modules included)
+  default to CUDA and raise without a card;
 * ``chip_smoke.py`` fails, printing no result, without a card and in a
   directory that holds nothing else of the repo;
 * public symbols of the port carry docstrings (ruff's D1, re-checked).
@@ -139,6 +139,33 @@ def test_ltfb_entry_points_default_to_cuda_and_raise_without_it(
         ltfb.main(["--smoke", "--data-dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tlaunch.main(["--arch", "icf-cyclegan", "--smoke", "--steps", "1"])
+
+
+def test_serving_and_lm_tournament_entry_points_default_to_cuda(
+        monkeypatch, tmp_path):
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.configs.icf_cyclegan import SMOKE
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import ltfb, serve
+    from repro_torch.models.icf_cyclegan import init_cyclegan
+    from repro_torch.serve.surrogate import SurrogateEngine
+    from repro_torch.train.steps import make_lm_population_fns
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("qwen3-0.6b", smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_lm_population_fns(cfg, OptimizerConfig())
+    make_lm_population_fns(cfg, OptimizerConfig(), device="cpu")
+    params = init_cyclegan(SMOKE, 0, "cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SurrogateEngine(SMOKE, params)
+    SurrogateEngine(SMOKE, params, device="cpu")          # asked for
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", "icf-cyclegan", "--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ltfb.main(["--arch", "qwen3-0.6b", "--smoke", "--data-dir",
+                   str(tmp_path)])
+    assert not list(tmp_path.iterdir())        # nothing written first
 
 
 def test_train_cli_module_raises_without_a_card():

@@ -637,6 +637,79 @@ def test_training_ops_count_one_launch_per_pass_on_card():
     assert q.grad is not None and torch.isfinite(q.grad.float()).all()
 
 
+def test_count_launch_loses_no_launch_across_threads():
+    """Wrappers count launches from the tournament's worker threads: 16
+    threads x 2,000 counts under a short switch interval lose none."""
+    import sys
+    import threading
+
+    from repro_torch.kernels import build
+
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [
+            build.count_launch(wrapper) for _ in range(2000)])
+            for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert wrapper.launches == 16 * 2000
+
+
+@pytest.mark.cuda
+def test_population_lm_step_equals_in_place_step_on_card():
+    """The LM tournament's functional step (weights bound to a weight-less
+    module, new tensors returned) and the train CLI's in-place step give
+    the same weights, moments and losses bit for bit on the card, in f32
+    (the f32 flash backward sums dQ without atomics), through the same
+    kernels: each step launches the flash and RMSNorm kernels alike."""
+    import dataclasses
+
+    from repro_torch.configs import qwen3_06b
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.data.tokens import train_batch
+    from repro_torch.train import steps
+
+    dev = _card()
+    cfg = dataclasses.replace(qwen3_06b.SMOKE, dtype="float32",
+                              attn_impl="chunked", attn_chunk=8)
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=1)
+    init, step, _, _, _ = steps.make_lm_population_fns(cfg, opt, device=dev)
+    params, opt_state, h = init(0)
+    state = steps.init_lm_state(cfg, opt, seed=0, device=dev)
+    in_place = steps.make_lm_train_step(cfg, opt)
+    counts = lambda: (fa.flash_attention_fwd.launches,
+                      fa.flash_attention_bwd.launches, rn.rmsnorm.launches,
+                      rn.rmsnorm_bwd.launches)
+    for i in range(3):
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).long().to(dev)
+                 for k, v in train_batch(cfg, 2, 24, seed=i).items()}
+        before = {n: t.clone() for n, t in params.items()}
+        c0 = counts()
+        params_new, opt_state, m = step(params, opt_state, batch, h)
+        c1 = counts()
+        state, m2 = in_place(state, batch)
+        c2 = counts()
+        assert all(torch.equal(params[n], before[n]) for n in params)
+        params = params_new
+        assert torch.equal(m["loss"], m2["loss"])
+        per_step = tuple(b - a for a, b in zip(c0, c1))
+        assert per_step == tuple(b - a for a, b in zip(c1, c2))
+        assert all(per_step)
+    for n, t in state["model"].named_parameters():
+        assert torch.equal(params[n], t), n
+        assert torch.equal(opt_state["m"][n], state["opt_state"]["m"][n])
+
+
 # ---------------------------------------------------------------------------
 # the selective scan and the sLSTM (the recurrent serving slice)
 # ---------------------------------------------------------------------------

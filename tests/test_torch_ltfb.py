@@ -1,13 +1,16 @@
 """The port's LTFB path against the JAX package on the CPU: pairings, the
 population's decisions, checkpoints crossing between the packages, the
-datastore, the orchestrator and the ltfb CLI.
+datastore, the orchestrator and the ltfb CLI, for the CycleGAN and for LM
+trainers over token shards.
 
-The SMOKE CycleGAN in f32 on both sides; JAX weights cross through
-``repro_torch.bridge``; every batch is made with numpy and fed to both
-packages.  Tolerances are stated per test.
+The SMOKE CycleGAN and the SMOKE qwen3 in f32 on both sides; JAX weights
+cross through ``repro_torch.bridge``; every batch is made with numpy and
+fed to both packages.  Tolerances are stated per test.
 """
+import dataclasses
 import json
 import os
+import time
 
 import numpy as np
 import pytest
@@ -19,22 +22,27 @@ import jax.numpy as jnp
 from repro.checkpoint import ckpt as jckpt
 from repro.configs import base as jbase
 from repro.configs import icf_cyclegan as jcfgs
+from repro.configs import qwen3_06b as jqwen3
 from repro.core import ltfb as jltfb
+from repro.core import tournament as jtour
 from repro.core.population import Population as JPopulation
 from repro.core.population import TrainerFns as JTrainerFns
 from repro.data import jag as jjag
+from repro.data import tokens as jtokens
 from repro.datastore import store as jstore
 from repro.train import steps as jsteps
 from repro.train import telemetry as jtel
 from repro_torch import bridge
 from repro_torch.checkpoint import ckpt as tckpt
 from repro_torch.configs import icf_cyclegan as tcfgs
+from repro_torch.configs import qwen3_06b as tqwen3
 from repro_torch.configs.base import OptimizerConfig
 from repro_torch.core import ltfb as tltfb
 from repro_torch.core.population import Population, TrainerFns
 from repro_torch.core.tournament import (DataPlan, TournamentConfig,
                                          TournamentOrchestrator)
 from repro_torch.data import jag as tjag
+from repro_torch.data import tokens as ttokens
 from repro_torch.datastore import store as tstore
 from repro_torch.launch import ltfb as tlaunch
 from repro_torch.train import steps as tsteps
@@ -534,8 +542,6 @@ def test_orchestrator_refuses_what_is_not_ported(fns, bundle_files):
         TournamentOrchestrator(fns, plan, cfg, telemetry=object())
     with pytest.raises(NotImplementedError, match="A5"):
         TournamentOrchestrator(fns, plan, cfg, genealogy=object())
-    with pytest.raises(NotImplementedError, match="A12"):
-        DataPlan.lm_tokens(bundle_files)
 
 
 # ---------------------------------------------------------------------------
@@ -572,7 +578,330 @@ def test_ltfb_cli_on_cpu_prints_its_lines(tmp_path, capsys):
     (["--backend", "mesh"], "A6"), (["--quantize-exchange"], "A6"),
     (["--log-json"], "A5"), (["--trace-out", "t.json"], "A5"),
     (["--prom-out", "m.prom"], "A5"), (["--metrics-port", "0"], "A5"),
-    (["--genealogy", "g.jsonl"], "A5"), (["--arch", "qwen3-0.6b"], "A12")])
+    (["--genealogy", "g.jsonl"], "A5"), (["--arch", "xlstm-125m"], "A7"),
+    (["--arch", "qwen3-0.6b", "--optimizer", "adafactor"], "Adafactor")])
 def test_ltfb_cli_refuses_unported_flags(flags, queue):
     with pytest.raises(NotImplementedError, match=queue):
         tlaunch.main(["--smoke", "--device", "cpu", *flags])
+
+
+# ---------------------------------------------------------------------------
+# LM trainers in a tournament (token shards)
+# ---------------------------------------------------------------------------
+
+LM_K, LM_ROUNDS, LM_STEPS, LM_SEQ, LM_B = 2, 2, 2, 16, 4
+
+
+@pytest.fixture(scope="module")
+def lm_cfgs():
+    return (dataclasses.replace(jqwen3.SMOKE, dtype="float32"),
+            dataclasses.replace(tqwen3.SMOKE, dtype="float32"))
+
+
+@pytest.fixture(scope="module")
+def shard_files(tmp_path_factory, lm_cfgs):
+    # 6 shards of 16 rows: the orchestrator holds the last one out
+    root = tmp_path_factory.mktemp("torch_ltfb_tokens")
+    return ttokens.write_token_shards(str(root), 96, seq_len=LM_SEQ,
+                                      vocab=lm_cfgs[1].vocab_size,
+                                      samples_per_file=16, seed=0)
+
+
+@pytest.fixture(scope="module")
+def lm_fns(lm_cfgs):
+    """(JAX's LM trainer functions, the port's with JAX's initial weights
+    crossed through the bridge)."""
+    jcfg, tcfg = lm_cfgs
+    opt = dict(name="adam", lr=1e-3, warmup_steps=1)
+    jfns = JTrainerFns(*jsteps.make_lm_population_fns(
+        jcfg, jbase.OptimizerConfig(**opt)))
+    tfns = TrainerFns(*tsteps.make_lm_population_fns(
+        tcfg, OptimizerConfig(**opt), device="cpu"))
+
+    def init(seed):
+        jp, jo, h = jfns.init(seed)
+        return (*tfns.from_ckpt(_np(jp), _np(jo)), h)
+
+    return jfns, dataclasses.replace(tfns, init=init)
+
+
+def _lm_tcfg(**kw):
+    return dict(trainers=LM_K, scope="full", batch_size=LM_B, num_ranks=2,
+                tournament_batches=2, tournament_batch_size=LM_B, seed=0,
+                **kw)
+
+
+@pytest.fixture(scope="module")
+def lm_runs(lm_fns, shard_files, tmp_path_factory):
+    """Both packages' orchestrators after LM_ROUNDS rounds of LM_STEPS
+    steps each, their tournament logs, and a population checkpoint of
+    each."""
+    jfns, tfns = lm_fns
+    root = tmp_path_factory.mktemp("torch_ltfb_lm_ckpt")
+    jorch = jtour.TournamentOrchestrator(
+        jfns, jtour.DataPlan.lm_tokens(shard_files),
+        jtour.TournamentConfig(**_lm_tcfg(ckpt_dir=str(root / "jax"))))
+    torch_orch = TournamentOrchestrator(
+        tfns, DataPlan.lm_tokens(shard_files),
+        TournamentConfig(**_lm_tcfg(ckpt_dir=str(root / "port"),
+                                    device="cpu")))
+    logs = []
+    try:
+        for _ in range(LM_ROUNDS):
+            jorch.train_round(LM_STEPS)
+            torch_orch.train_round(LM_STEPS)
+            logs.append((jorch.tournament(), torch_orch.tournament()))
+        jorch.save_checkpoint()
+        torch_orch.save_checkpoint()
+        yield jorch, torch_orch, logs
+    finally:
+        jorch.close()
+        torch_orch.close()
+
+
+def test_token_shards_are_byte_identical_to_jax(tmp_path, monkeypatch,
+                                                lm_cfgs):
+    """The same shard files byte for byte (the zip entries' timestamps
+    pinned to one second, as ``np.savez`` stamps the wall clock), read
+    back and batched alike by either package."""
+    monkeypatch.setattr(time, "time", lambda: 1_700_000_000.0)
+    vocab = lm_cfgs[1].vocab_size
+    kw = dict(num_samples=50, seq_len=12, vocab=vocab, samples_per_file=16,
+              seed=3)
+    jf = jtokens.write_token_shards(str(tmp_path / "jax"), **kw)
+    tf = ttokens.write_token_shards(str(tmp_path / "port"), **kw)
+    assert [os.path.basename(f) for f in tf] == \
+        [os.path.basename(f) for f in jf] == \
+        [f"tokens_{i:05d}.npz" for i in range(4)]
+    assert ttokens.list_token_shards(str(tmp_path / "port")) == tf
+    assert ttokens.list_token_shards(str(tmp_path / "none")) == []
+    for a, b in zip(jf, tf):
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            assert fa.read() == fb.read()
+        got, want = ttokens.read_token_shard(a), jtokens.read_token_shard(b)
+        np.testing.assert_array_equal(got["tokens"], want["tokens"])
+        assert got["tokens"].dtype == np.int32
+        tb, jb = ttokens.lm_shard_batch(got), jtokens.lm_shard_batch(want)
+        for k in ("tokens", "labels"):
+            np.testing.assert_array_equal(tb[k], jb[k])
+        tplan = DataPlan.lm_tokens([a])
+        jplan = jtour.DataPlan.lm_tokens([a])
+        for k, v in jplan.adapt(jplan.reader(a)).items():
+            np.testing.assert_array_equal(tplan.adapt(tplan.reader(a))[k], v)
+
+
+def test_lm_tournament_matches_jax(lm_runs):
+    """Same pairings, exchange bytes, metrics (1e-5 relative), decisions,
+    wins and adoptions, over 2 rounds x 2 steps of 2 trainers fed the
+    same shards."""
+    jorch, torch_orch, logs = lm_runs
+    for jlog, tlog in logs:
+        assert tlog["partner"] == jlog["partner"] == [1, 0]
+        assert tlog["exchange_bytes"] == jlog["exchange_bytes"] > 0
+        assert (tlog["exchanged"], tlog["kept_local"]) == \
+            (jlog["exchanged"], jlog["kept_local"])
+        for (i, j, jl, jo), (ti, tj, tl, to) in zip(jlog["metrics"],
+                                                    tlog["metrics"]):
+            assert (ti, tj) == (i, j)
+            np.testing.assert_allclose([tl, to], [jl, jo], rtol=1e-5)
+            assert (to < tl) == (jo < jl)
+    for jt, tt in zip(jorch.population.trainers,
+                      torch_orch.population.trainers):
+        assert (tt.steps, tt.wins, tt.adoptions) == \
+            (jt.steps, jt.wins, jt.adoptions)
+        assert tt.hparams == jt.hparams
+        np.testing.assert_allclose(tt.last_metrics["loss"],
+                                   jt.last_metrics["loss"], rtol=1e-5)
+    np.testing.assert_allclose(
+        torch_orch.population.best_metric(torch_orch.val_batch),
+        jorch.population.best_metric(jorch.val_batch), rtol=1e-5)
+
+
+def test_lm_population_checkpoints_cross_both_ways(lm_runs, lm_fns):
+    """Each package restores the other's population checkpoint bit for
+    bit: the port's into JAX's templates, JAX's into a fresh port
+    orchestrator's trainers."""
+    jfns, tfns = lm_fns
+    jorch, torch_orch, _ = lm_runs
+    jp, jo, _ = jfns.init(0)
+    got = jckpt.restore_population(torch_orch.cfg.ckpt_dir, LM_ROUNDS,
+                                   {"params": jp, "opt_state": jo})
+    for t, tr in zip(torch_orch.population.trainers, got["trainers"]):
+        want_p, want_o = tfns.to_ckpt(t.params, t.opt_state)
+        g = {"params": tr["params"], "opt_state": tr["opt_state"]}
+        w = {"params": want_p, "opt_state": want_o}
+        assert jax.tree.structure(_np(g)) == jax.tree.structure(
+            jax.tree.map(lambda x: 0, w))
+        for a, b in zip(jax.tree.leaves(g), jax.tree.leaves(w)):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        assert (tr["steps"], tr["wins"]) == (t.steps, t.wins)
+    fresh = TournamentOrchestrator(
+        tfns, DataPlan.lm_tokens(torch_orch.plan.files),
+        TournamentConfig(**_lm_tcfg(ckpt_dir=jorch.cfg.ckpt_dir,
+                                    device="cpu")))
+    try:
+        assert fresh.maybe_resume()
+        assert fresh.population.round == LM_ROUNDS
+        for jt, tt in zip(jorch.population.trainers,
+                          fresh.population.trainers):
+            p, o = tfns.from_ckpt(_np(jt.params), _np(jt.opt_state))
+            assert list(tt.params) == list(p)
+            for n in p:
+                assert torch.equal(tt.params[n], p[n]), n
+                for mom in ("m", "v"):
+                    assert torch.equal(tt.opt_state[mom][n], o[mom][n])
+            assert int(tt.opt_state["step"]) == int(jt.opt_state["step"])
+            assert (tt.steps, tt.wins, tt.hparams) == \
+                (jt.steps, jt.wins, jt.hparams)
+    finally:
+        fresh.close()
+
+
+def _lm_population(fns, batches, **kw):
+    holder = []
+    loaders = [lambda i=i: batches[i][holder[0].trainers[i].steps]
+               for i in range(LM_K)]
+    pop = Population(fns, loaders, [[b[-1]] for b in batches], **kw)
+    holder.append(pop)
+    return pop
+
+
+def _lm_batches(cfg, n, seed):
+    stream = ttokens.token_stream(n * LM_B * (LM_SEQ + 1), cfg.vocab_size,
+                                  seed).reshape(n, LM_B, LM_SEQ + 1)
+    return [_tb(ttokens.lm_shard_batch({"tokens": s})) for s in stream]
+
+
+def test_lm_adopted_weights_are_never_written_through(lm_cfgs):
+    """Trainer 0 adopts trainer 1's whole model (the same tensors, by
+    reference); a step of either leaves the other's weights as they were,
+    and the two keep their own Adam states."""
+    tcfg = lm_cfgs[1]
+    fns = TrainerFns(*tsteps.make_lm_population_fns(
+        tcfg, OptimizerConfig(name="adam", lr=1e-2, warmup_steps=1),
+        device="cpu"))
+    batches = [_lm_batches(tcfg, 4, 50 + i) for i in range(LM_K)]
+
+    def metric(params, b):
+        # trainer 1's weights win every comparison they are in
+        return 0.0 if params is p1 else 1.0
+
+    pop = _lm_population(TrainerFns(fns.init, fns.train_step, metric),
+                         batches, scope="full")
+    p1 = pop.trainers[1].params
+    log = pop.tournament()
+    t0, t1 = pop.trainers
+    assert log["exchanged"] == 1 and t0.adoptions == 1
+    assert t0.params is t1.params and t0.opt_state is not t1.opt_state
+    snap = {n: t.clone() for n, t in p1.items()}
+    pop.train_round(2)                       # both step from p1
+    assert all(torch.equal(p1[n], snap[n]) for n in snap)
+    assert t0.params is not t1.params
+    assert not torch.equal(t0.params["embed.weight"], snap["embed.weight"])
+    assert not torch.equal(t0.params["embed.weight"],
+                           t1.params["embed.weight"])
+    assert int(t0.opt_state["step"]) == int(t1.opt_state["step"]) == 2
+
+
+def test_lm_resumed_population_equals_an_uninterrupted_one(lm_cfgs,
+                                                           tmp_path):
+    """Round 1, a population checkpoint, a fresh population restored from
+    it, round 2: bit for bit the weights and Adam state of 2 rounds run
+    without a stop (the same batches by step count)."""
+    tcfg = lm_cfgs[1]
+    fns = TrainerFns(*tsteps.make_lm_population_fns(
+        tcfg, OptimizerConfig(name="adam", lr=1e-3, warmup_steps=1),
+        device="cpu"))
+    batches = [_lm_batches(tcfg, 2 * LM_STEPS + 1, 70 + i)
+               for i in range(LM_K)]
+    whole = _lm_population(fns, batches)
+    for _ in range(2):
+        whole.train_round(LM_STEPS)
+        whole.tournament()
+    first = _lm_population(fns, batches)
+    first.train_round(LM_STEPS)
+    first.tournament()
+    state = first.state_dict()
+    for tr in state["trainers"]:
+        tr["params"], tr["opt_state"] = fns.to_ckpt(tr["params"],
+                                                    tr["opt_state"])
+    tckpt.save_population(str(tmp_path), 1, state)
+    like_p, like_o = fns.to_ckpt(*fns.init(0)[:2])
+    restored = tckpt.restore_population(
+        str(tmp_path), 1, {"params": like_p, "opt_state": like_o})
+    for tr in restored["trainers"]:
+        tr["params"], tr["opt_state"] = fns.from_ckpt(tr["params"],
+                                                      tr["opt_state"])
+    resumed = _lm_population(fns, batches)
+    resumed.load_state_dict(restored)
+    resumed.train_round(LM_STEPS)
+    resumed.tournament()
+    for a, b in zip(whole.trainers, resumed.trainers):
+        assert (a.steps, a.wins, a.adoptions) == (b.steps, b.wins,
+                                                  b.adoptions)
+        for n in a.params:
+            assert torch.equal(a.params[n], b.params[n]), n
+            assert torch.equal(a.opt_state["m"][n], b.opt_state["m"][n])
+            assert torch.equal(a.opt_state["v"][n], b.opt_state["v"][n])
+
+
+def test_lm_metric_from_many_threads_sees_each_calls_own_weights(
+        lm_cfgs):
+    """The tournament evaluates metrics on a pool; the one weight-less
+    module binds each call's weights in turn: 24 calls over 3 weight sets
+    from 8 threads, under a short switch interval, equal the serial
+    results bit for bit."""
+    import sys
+    from concurrent.futures import ThreadPoolExecutor
+
+    tcfg = lm_cfgs[1]
+    fns = TrainerFns(*tsteps.make_lm_population_fns(
+        tcfg, OptimizerConfig(), device="cpu"))
+    params = [fns.init(s)[0] for s in range(3)]
+    batch = _lm_batches(tcfg, 1, 5)[0]
+    want = [float(fns.metric(p, batch)) for p in params]
+    assert len(set(want)) == 3
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(max_workers=8) as ex:
+            got = list(ex.map(lambda i: float(fns.metric(params[i % 3],
+                                                         batch)),
+                              range(24), timeout=120))
+    finally:
+        sys.setswitchinterval(old)
+    assert got == [want[i % 3] for i in range(24)]
+
+
+def test_adafactor_lm_state_refuses_the_checkpoint_layout(lm_cfgs):
+    fns = TrainerFns(*tsteps.make_lm_population_fns(
+        lm_cfgs[1], OptimizerConfig(name="adafactor"), device="cpu"))
+    p, o, _ = fns.init(0)
+    with pytest.raises(NotImplementedError, match="Adafactor.*A14"):
+        fns.to_ckpt(p, o)
+
+
+def test_ltfb_cli_lm_on_cpu_prints_its_lines(tmp_path, capsys):
+    argv = ["--arch", "qwen3-0.6b", "--smoke", "--device", "cpu",
+            "--trainers", "2", "--rounds", "2", "--steps-per-round", "2",
+            "--batch", "4", "--seq", "16", "--samples", "96",
+            "--samples-per-file", "32", "--data-dir",
+            str(tmp_path / "data"), "--ckpt-dir", str(tmp_path / "ck")]
+    assert tlaunch.main(argv) == 0
+    text = capsys.readouterr().out
+    rounds = [ln for ln in text.splitlines()
+              if ln.startswith("[ltfb] round=")]
+    assert len(rounds) == 2
+    for ln in rounds:
+        assert np.isfinite(float(ln.split("best_val=")[1].split()[0]))
+    for tag in ("[ltfb] manifest: 3 token shards", "scope=full",
+                "device=cpu", "[ltfb] tournament: rounds=2",
+                "[ltfb] datastore total:"):
+        assert tag in text, tag
+    assert text.count("[ltfb] trainer ") == 2
+    assert tckpt.latest_population_step(str(tmp_path / "ck")) == 2
+    # a rerun resumes, and a shard directory of another length refuses
+    assert tlaunch.main(argv[:7] + ["--rounds", "1"] + argv[9:]) == 0
+    assert "[ltfb] resumed at round 2" in capsys.readouterr().out
+    with pytest.raises(SystemExit, match="seq 16"):
+        tlaunch.main(argv[:13] + ["--seq", "8"] + argv[15:])

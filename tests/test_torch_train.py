@@ -9,6 +9,7 @@ stated per test; the JAX sides run under ``jax.jit``.
 """
 import dataclasses
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 
+from repro.checkpoint import ckpt as jckpt
 from repro.configs import base as jbase
 from repro.configs import qwen3_06b as jax_qwen3
 from repro.data import tokens as jtokens
@@ -24,7 +26,9 @@ from repro.models import lm as jlm
 from repro.optim import optimizers as jopt
 from repro.train import steps as jsteps
 from repro_torch.bridge import (load_jax_params, opt_state_from_jax,
-                                params_from_jax)
+                                opt_state_to_jax_layout, params_from_jax,
+                                params_to_jax_layout)
+from repro_torch.checkpoint import ckpt as tckpt
 from repro_torch.configs import qwen3_06b
 from repro_torch.configs.base import OptimizerConfig
 from repro_torch.data import tokens as ttokens
@@ -288,10 +292,12 @@ def test_remat_dots_policies_name_the_roadmap(cfgs):
                        remat="dots")
 
 
-def test_train_cli_on_cpu_prints_its_lines_and_a_finite_val(capsys):
+def test_train_cli_on_cpu_prints_its_lines_and_a_finite_val(capsys,
+                                                            tmp_path):
     out = tlaunch.train_lm(tlaunch.build_parser().parse_args(
         ["--arch", "qwen3-0.6b", "--smoke", "--device", "cpu", "--steps",
-         "3", "--batch", "2", "--seq", "16", "--log-every", "1"]))
+         "3", "--batch", "2", "--seq", "16", "--log-every", "1",
+         "--ckpt-dir", str(tmp_path)]))
     text = capsys.readouterr().out
     lines = [ln for ln in text.splitlines() if ln.startswith("step ")]
     assert len(lines) == 3 and "loss=" in lines[0] and "lr=" in lines[0]
@@ -305,3 +311,189 @@ def test_train_cli_on_cpu_prints_its_lines_and_a_finite_val(capsys):
     assert "step     0 g=" in text
     val = float(text.split("[train] done: val=")[1].split()[0])
     assert np.isfinite(val)
+
+
+# ---------------------------------------------------------------------------
+# the reverse bridge and the train CLI's checkpoints
+# ---------------------------------------------------------------------------
+
+
+def _bits(x):
+    """A leaf's raw bits as a numpy array (bf16 as uint16)."""
+    if torch.is_tensor(x):
+        x = x.detach()
+        return x.view(torch.int16).numpy().view(np.uint16) \
+            if x.dtype == torch.bfloat16 else x.numpy()
+    x = np.asarray(x)
+    return x.view(np.uint16) if x.dtype.name == "bfloat16" else x
+
+
+def _assert_same_tree(got, want):
+    """Equal structure (JAX's tree, tuples included), dtype and bits."""
+    assert jax.tree.structure(jax.tree.map(lambda x: 0, got)) == \
+        jax.tree.structure(jax.tree.map(lambda x: 0, want))
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        assert a.shape == b.shape
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+        assert _bits(a).dtype == _bits(b).dtype
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_reverse_bridge_round_trips_params_bit_exact(dtype):
+    """JAX -> port -> JAX and port -> JAX -> port are the identity, bit
+    for bit, and the tree of a bridged model is the JAX tree it came
+    from."""
+    jcfg = dataclasses.replace(jax_qwen3.SMOKE, dtype=dtype)
+    tcfg = dataclasses.replace(qwen3_06b.SMOKE, dtype=dtype)
+    jp = _np(_jax_init(jcfg, jax.random.PRNGKey(3)))
+    _assert_same_tree(params_to_jax_layout(params_from_jax(jp, tcfg), tcfg),
+                      jp)
+    model = load_jax_params(tlm.init_lm(tcfg, device="cpu"), jp)
+    _assert_same_tree(params_to_jax_layout(model, tcfg), jp)
+    own = dict(tlm.init_lm(tcfg, seed=5, device="cpu").named_parameters())
+    back = params_from_jax(params_to_jax_layout(own, tcfg), tcfg)
+    assert set(back) == set(own)
+    for n, t in own.items():
+        assert back[n].dtype == t.dtype and torch.equal(back[n], t), n
+
+
+@pytest.mark.parametrize("name,wd", [("adam", 0.0), ("adamw", 0.01),
+                                     ("sgd", 0.0)])
+def test_reverse_bridge_round_trips_optimizer_state(cfgs, weights, name,
+                                                    wd):
+    """A JAX optimizer state after two updates crosses to the port and
+    back bit for bit (moments and the int32 step), and the port's own
+    state crosses to JAX's layout and back."""
+    jcfg, tcfg = cfgs
+    ocfg = dict(name=name, weight_decay=wd, lr=1e-3)
+    jo = jopt.make_optimizer(jbase.OptimizerConfig(**ocfg))
+    state = jo.init(weights)
+    params = weights
+    for seed in (1, 2):
+        grads = jax.tree.map(
+            lambda p, s=seed: jnp.asarray(np.random.default_rng(s).normal(
+                size=p.shape), p.dtype), params)
+        params, state = jo.update(grads, state, params, 1e-3)
+    want = _np(state)
+    ported = opt_state_from_jax(want, tcfg)
+    _assert_same_tree(opt_state_to_jax_layout(ported, tcfg), want)
+    assert want["step"].dtype == np.int32 and int(want["step"]) == 2
+    back = opt_state_from_jax(opt_state_to_jax_layout(ported, tcfg), tcfg)
+    for key, tree in ported.items():
+        if key == "step":
+            assert int(back["step"]) == 2
+            continue
+        for n, t in tree.items():
+            assert torch.equal(back[key][n], t), (key, n)
+
+
+def _cli_args(tmp_path, *extra):
+    return tlaunch.build_parser().parse_args(
+        ["--arch", "qwen3-0.6b", "--smoke", "--device", "cpu", "--batch",
+         "2", "--seq", "16", "--log-every", "1", "--ckpt-dir",
+         str(tmp_path), *extra])
+
+
+def test_port_checkpoint_restores_bit_equal_in_jax(tmp_path):
+    """A ``step_<n>.ckpt`` the train CLI writes (SMOKE, bf16 weights, f32
+    Adam moments) restores in JAX's ``ckpt.restore`` into JAX's state
+    template, every leaf bit for bit, at its step."""
+    tlaunch.train_lm(_cli_args(tmp_path, "--steps", "3", "--ckpt-every",
+                               "2"))
+    path = str(tmp_path / "step_2.ckpt")
+    assert tckpt.latest_step_path(str(tmp_path)) == path
+    tr = tlaunch.build_trainer(_cli_args(tmp_path))
+    assert tlaunch.restore_trainer(tr, path) == 2
+    jstate, _ = jsteps.init_lm_state(jax_qwen3.SMOKE,
+                                     jbase.OptimizerConfig(),
+                                     jax.random.PRNGKey(0))
+    got, meta = jckpt.restore(path, jstate)
+    assert meta == {"step": 2}
+    _assert_same_tree(_np(got), tlaunch.checkpoint_tree(tr))
+    assert int(got["opt_state"]["step"]) == 3
+
+
+def test_jax_checkpoint_resumes_in_the_port(tmp_path, capsys):
+    """A ``step_<n>.ckpt`` JAX's train launcher would write (its state
+    tree with nonzero moments, ``{"step": 5}``) restores bit-equal into
+    the port's trainer, and the CLI resumes there; ``--no-resume`` starts
+    at 0."""
+    opt = jbase.OptimizerConfig()
+    jstate, _ = jsteps.init_lm_state(jax_qwen3.SMOKE, opt,
+                                     jax.random.PRNGKey(9))
+    p = jstate["params"]
+    jstate["opt_state"] = {
+        "m": jax.tree.map(lambda x: (x * 0.5).astype(jnp.float32), p),
+        "v": jax.tree.map(lambda x: (x * x).astype(jnp.float32), p),
+        "step": jnp.asarray(5, jnp.int32)}
+    path = str(tmp_path / "step_5.ckpt")
+    jckpt.save(path, jstate, {"step": 5})
+    tr = tlaunch.build_trainer(_cli_args(tmp_path))
+    assert tlaunch.restore_trainer(tr, path) == 5
+    want = params_from_jax(_np(p), qwen3_06b.SMOKE)
+    for n, t in tr.state["model"].named_parameters():
+        assert t.dtype == torch.bfloat16 and torch.equal(t, want[n]), n
+    want_o = opt_state_from_jax(_np(jstate["opt_state"]), qwen3_06b.SMOKE)
+    for key in ("m", "v"):
+        for n, t in want_o[key].items():
+            assert torch.equal(tr.state["opt_state"][key][n], t), (key, n)
+    assert int(tr.state["opt_state"]["step"]) == 5
+    out = tlaunch.train_lm(_cli_args(tmp_path, "--steps", "7",
+                                     "--ckpt-every", "0"))
+    text = capsys.readouterr().out
+    assert f"[train] resumed from {path} at step 5" in text
+    assert out["start"] == 5 and len(out["losses"]) == 2
+    assert all(map(np.isfinite, out["losses"]))
+    out = tlaunch.train_lm(_cli_args(tmp_path, "--steps", "2",
+                                     "--ckpt-every", "0", "--no-resume"))
+    assert out["start"] == 0 and len(out["losses"]) == 2
+    assert "resumed" not in capsys.readouterr().out
+
+
+def test_train_cli_rerun_resumes_at_the_saved_step(tmp_path, capsys):
+    first = tlaunch.main(["--arch", "qwen3-0.6b", "--smoke", "--device",
+                          "cpu", "--steps", "5", "--batch", "2", "--seq",
+                          "16", "--ckpt-every", "2", "--ckpt-dir",
+                          str(tmp_path)])
+    assert first == 0
+    assert sorted(os.listdir(tmp_path)) == ["step_2.ckpt", "step_4.ckpt"]
+    capsys.readouterr()
+    out = tlaunch.train_lm(_cli_args(tmp_path, "--steps", "5"))
+    assert out["start"] == 4 and len(out["losses"]) == 1
+    assert "at step 4" in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="Adafactor.*A14"):
+        tlaunch.train_lm(_cli_args(tmp_path, "--steps", "5",
+                                   "--optimizer", "adafactor"))
+
+
+def test_population_step_equals_the_in_place_step(cfgs, weights):
+    """``make_lm_population_fns``' functional step gives the in-place
+    train step's weights, moments and metrics bit for bit over three
+    steps, and leaves every tensor it was given as it was."""
+    _, tcfg = cfgs
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=2)
+    init, step, metric, to_ckpt, from_ckpt = \
+        tsteps.make_lm_population_fns(tcfg, opt, device="cpu")
+    params, opt_state = from_ckpt(_np(weights), _np(
+        jopt.make_optimizer(jbase.OptimizerConfig()).init(weights)))
+    state = {"model": _port_model(tcfg, weights)}
+    state["opt_state"] = tsteps.make_optimizer(tcfg, opt).init(
+        dict(state["model"].named_parameters()))
+    in_place = tsteps.make_lm_train_step(tcfg, opt)
+    for i in range(3):
+        _, tb = _batch(tcfg, seed=i)
+        before = {n: t.clone() for n, t in params.items()}
+        new_params, new_opt, m = step(params, opt_state, tb, {"lr": 1e-3})
+        for n, t in params.items():
+            assert torch.equal(t, before[n]), n
+        state, m2 = in_place(state, tb)
+        for k in ("loss", "lr", "grad_norm"):
+            assert torch.equal(m[k], m2[k]), k
+        params, opt_state = new_params, new_opt
+    model_params = dict(state["model"].named_parameters())
+    for n, t in params.items():
+        assert torch.equal(t, model_params[n]), n
+        assert torch.equal(opt_state["v"][n], state["opt_state"]["v"][n])
+    _, vb = _batch(tcfg, seed=99)
+    assert torch.equal(metric(params, vb),
+                       tsteps.make_lm_eval_metric(tcfg)(state["model"], vb))
