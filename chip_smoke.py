@@ -148,7 +148,46 @@ and never prints the final ``ok`` line):
     population for one more round without saving, and the train CLI with
     ``--batch 1 --seq 1024 --steps 3 --ckpt-every 2`` and a rerun that
     resumes at step 2;
-19. a ``kernels`` line, the ``nvidia-smi`` line, and the ``ok`` line.
+19. arch_kernels (in the kernel phases, after phase 9): each kernel at
+    the shapes the seven archs of the ninth slice give it, against its
+    plain version and timed as in phase 3: paged attention in bf16 at
+    K = 1 over 8 rows of 100-544 tokens for 24 heads of 64 over 24 KV
+    heads (musicgen), 32 over 32 (codeqwen), 16 over 2 (qwen2.5), 32
+    over 8 (granite, phi) and 16 over 16 (deepseek), all D = 128 but
+    musicgen's; flash forward and backward in bf16 at B = 2, S = 4096
+    for 28 heads over 4 (qwen2-vl) and 16 over 16 (deepseek); the
+    RMSNorm forward at 8 rows and the forward and backward at 8192 rows
+    of d = 1536, 2048, 3584 and 4096;
+20. serve_archs: qwen2.5-3b, codeqwen1.5-7b, granite-8b and
+    musicgen-medium at FULL in bf16 (seed 0), one at a time: 8 requests
+    over 4 slots, prompts 128/256, 32 new tokens, greedy; every logit
+    row finite, one paged-attention launch per layer and decode step and
+    the RMSNorm launches of every model call exact; prints decode
+    tokens/s, TTFT, peak memory;
+21. serve_moe: deepseek-moe-16b FULL (16.38 B parameters, 2.83 B active)
+    and phi3.5-moe ``CUT_16L`` (16 of 32 layers, 21.07 B) in bf16: 8
+    requests over 8 slots, prompts 128/256/512, 32 new tokens, MoE
+    dropless; the same checks, and one decode step over every slot
+    profiled by part (attention, routing, the expert products, other);
+22. recompute_archs: the six new token archs at full width cut to 2
+    layers, in f32, TF32 off: two served requests each (prompts 64 and
+    200, 16 new tokens) re-run through ``lm_forward`` (MoE dropless, as
+    the served paths run it) pick every served token, save top-2 ties
+    within 1e-4;
+23. train_moe: deepseek-moe-16b at full width cut to 4 layers (1 dense +
+    3 MoE, 2.27 B parameters) in bf16, B = 2, S = 4096, Adam lr 1e-3,
+    remat full, 6 steps: losses and aux losses finite (aux positive), a
+    nonzero finite gradient on every weight, the flash and RMSNorm
+    launches of each step exact; prints step time, tokens/s, the mfu
+    over active parameters, peak memory and the share of (token, choice)
+    pairs dropped;
+24. train_vlm: qwen2-vl-7b at full width cut to 8 layers (2.95 B) the
+    same way, on ``train_batch``'s embeddings and M-RoPE positions (flash
+    at 7 query heads a KV head; the token embedding, which the
+    embeddings replace, takes no gradient); then a 2-layer forward at
+    S = 256 in f32 (TF32 off) on the card against the CPU within 1e-3;
+25. a ``kernels`` line (``launches_by_path`` with one entry per new
+    path and arch), the ``nvidia-smi`` line, and the ``ok`` line.
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and ``triton``; exits 1
 without a card and 2 when run outside a checkout of the repo.
@@ -693,10 +732,11 @@ def phase_serve(torch):
     return launches
 
 
-def _profile_decode(torch, sched, prompts):
+def _profile_decode(torch, sched, prompts, ranges=()):
     """After a serve run (every slot free): each slot prefilled with one of
     ``prompts``, then one decode step over all of them under
-    torch.profiler -- the steady decode batch of the serve phase."""
+    torch.profiler -- the steady decode batch of the serve phase
+    (``ranges``: profiler ranges whose device time is reported)."""
     import numpy as np
 
     pool, session = sched.pool, sched.session
@@ -708,7 +748,8 @@ def _profile_decode(torch, sched, prompts):
         index[pool.slot_of(rid)] = len(prompt)
     tokens = np.zeros((pool.num_slots, 1), np.int32)
     width = pool.table_width_for(max(len(p) for p in prompts) + 1)
-    out = _profile(torch, lambda: session.step(tokens, index, width=width))
+    out = _profile(torch, lambda: session.step(tokens, index, width=width),
+                   ranges)
     for rid in rids:
         pool.release(rid)
     return out
@@ -740,10 +781,11 @@ def phase_recompute(torch):
           f"recompute at {len(mismatches)} positions")
 
 
-def _recompute_check(torch, model, sched, reqs, max_new):
-    """Re-run each served request through ``lm_forward`` (no cache): every
-    generated token must be the argmax of its position's logits, save
-    top-2 ties within 1e-4.  Returns (positions, ties, mismatches)."""
+def _recompute_check(torch, model, sched, reqs, max_new, dropless=False):
+    """Re-run each served request through ``lm_forward`` (no cache; MoE
+    layers ``dropless`` as the served paths run them): every generated
+    token must be the argmax of its position's logits, save top-2 ties
+    within 1e-4.  Returns (positions, ties, mismatches)."""
     from repro_torch.models.lm import lm_forward
 
     ties, mismatches, checked = [], [], 0
@@ -751,7 +793,8 @@ def _recompute_check(torch, model, sched, reqs, max_new):
         for r in reqs:
             seq = torch.from_numpy(sched.full_sequence(r)).long().to(
                 model.device)
-            logits = lm_forward(model, seq[None, :-1])[0]
+            logits = lm_forward(model, seq[None, :-1],
+                                dropless=dropless)[0]
             P = r.prompt_len
             for i in range(max_new):
                 row = logits[P - 1 + i]
@@ -794,12 +837,6 @@ def _sdpa_train(torch, q, k, v, causal):
 def phase_train_kernels(torch, timer):
     """Flash attention and the RMSNorm forward/backward at the train
     phase's shapes, each against its plain version (same inputs)."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
-    from repro_torch.kernels import rmsnorm as rn
-
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     results = {"flash_attention_fwd": [], "flash_attention_bwd": [],
@@ -816,59 +853,9 @@ def phase_train_kernels(torch, timer):
              (1, 1000, 16, 8, 64, "bfloat16"),
              (2, 300, 4, 2, 16, "bfloat16")]
     for B, S, H, Hkv, D, dtype in cases:
-        dt = getattr(torch, dtype)
-        q, do = (torch.randn((B, S, H, D), generator=gen,
-                             device="cuda").to(dt) for _ in range(2))
-        k, v = (torch.randn((B, S, Hkv, D), generator=gen,
-                            device="cuda").to(dt) for _ in range(2))
-        tol = TOL[dtype]
-        out, lse = fa.flash_attention_fwd(q, k, v, True)
-        want_out, want_lse = ref.flash_attention_fwd_ref(q, k, v, True)
-        grads = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
-        want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, True)
-        torch.cuda.synchronize()
-        errs = {}
-        for name, got, w in (("out", out, want_out), ("lse", lse, want_lse),
-                             ("dq", grads[0], want[0]),
-                             ("dk", grads[1], want[1]),
-                             ("dv", grads[2], want[2])):
-            ok, errs[name] = _within(got, w, tol)
-            check(ok, f"flash attention {dtype} B={B} S={S} H={H} "
-                  f"Hkv={Hkv}: {name} max |err| {errs[name]} over {tol}")
-        del want_out, want_lse, want
-        es = q.element_size()
-        pairs = B * H * S * (S + 1) // 2          # causal (query, key) pairs
-        qo = B * S * H * D * es
-        kv = 2 * B * S * Hkv * D * es
-        lse_b = B * S * H * 4
-        lib_fwd, lib_out, leaves = _sdpa_train(torch, q, k, v, True)
-        shape = {"dtype": dtype, "B": B, "S": S, "H": H, "Hkv": Hkv, "D": D,
-                 "causal": True, "tol": tol}
-        b_ms, b_by = bound(2 * qo + kv + lse_b, 4 * D * pairs, dtype)
-        case = {"kernel": "flash_attention_fwd", **shape,
-                "max_abs_err": max(errs["out"], errs["lse"]),
-                "kernel_ms": timer.ms(
-                    lambda: fa.flash_attention_fwd(q, k, v, True)),
-                "plain_ms": timer.ms(
-                    lambda: ref.flash_attention_fwd_ref(q, k, v, True)),
-                "library_ms": timer.ms(lib_fwd), "bound_ms": b_ms,
-                "bound_by": b_by, "flops": 4 * D * pairs}
-        emit(case)
-        results["flash_attention_fwd"].append(case)
-        b_ms, b_by = bound(3 * qo + 2 * kv + lse_b, 10 * D * pairs, dtype)
-        case = {"kernel": "flash_attention_bwd", **shape,
-                "max_abs_err": max(errs["dq"], errs["dk"], errs["dv"]),
-                "kernel_ms": timer.ms(lambda: fa.flash_attention_bwd(
-                    q, k, v, out, lse, do, True)),
-                "plain_ms": timer.ms(lambda: ref.flash_attention_bwd_ref(
-                    q, k, v, out, lse, do, True)),
-                "library_ms": timer.ms(lambda: torch.autograd.grad(
-                    lib_out, leaves, do.transpose(1, 2), retain_graph=True)),
-                "bound_ms": b_ms, "bound_by": b_by, "flops": 10 * D * pairs}
-        emit(case)
-        results["flash_attention_bwd"].append(case)
-        del lib_out, leaves, grads
-        torch.cuda.empty_cache()
+        fwd, bwd = _flash_cases(torch, timer, gen, B, S, H, Hkv, D, dtype)
+        results["flash_attention_fwd"].append(fwd)
+        results["flash_attention_bwd"].append(bwd)
 
     # the train cell's norm rows: ln1/ln2/final (B*S, 1024), q-norm
     # (B*S*16, 128), k-norm (B*S*8, 128); and q-norm's less one, a row
@@ -876,58 +863,132 @@ def phase_train_kernels(torch, timer):
     rows = TRAIN_B * TRAIN_S
     for shape in ((rows, 1024), (rows * 16, 128), (rows * 8, 128),
                   (rows * 16 - 1, 128)):
-        dtype = "bfloat16"
-        x, dy = (torch.randn(shape, generator=gen, device="cuda").to(
-            torch.bfloat16) for _ in range(2))
-        s = torch.randn(shape[-1], generator=gen, device="cuda").to(
-            torch.bfloat16)
-        tol = TOL[dtype]
-        ok, err = _within(rn.rmsnorm(x, s, 1e-6), ref.rmsnorm_ref(x, s, 1e-6),
-                          tol)
-        check(ok, f"rmsnorm {shape}: max |err| {err} over {tol}")
-        xs = x.numel() * x.element_size()
-        ss = s.numel() * s.element_size()
-        b_ms, b_by = bound(2 * xs + ss, 4 * x.numel(), dtype)
-        case = {"kernel": "rmsnorm", "dtype": dtype, "shape": list(shape),
-                "path": "train", "plan": rn.plan(*shape),
-                "max_abs_err": err, "tol": tol,
-                "kernel_ms": timer.ms(lambda: rn.rmsnorm(x, s, 1e-6)),
-                "plain_ms": timer.ms(lambda: ref.rmsnorm_ref(x, s, 1e-6)),
-                "library_ms": timer.ms(
-                    lambda: F.rms_norm(x, (shape[-1],), s, 1e-6)),
-                "bound_ms": b_ms, "bound_by": b_by, "bytes": 2 * xs + ss}
-        emit(case)
-        results["rmsnorm"].append(case)
-
-        dx, ds = rn.rmsnorm_bwd(x, s, dy, 1e-6)
-        rdx, rds = ref.rmsnorm_bwd_ref(x, s, dy, 1e-6)
-        ok_x, err_x = _within(dx, rdx, tol)
-        ok_s, err_s = _within(ds, rds, tol)
-        check(ok_x and ok_s, f"rmsnorm_bwd {shape}: max |err| dx {err_x}, "
-              f"dscale {err_s} over {tol}")
-        # dscale sums the programs' partial rows in a fixed order: two
-        # launches on the same inputs agree bit for bit
-        again = rn.rmsnorm_bwd(x, s, dy, 1e-6)
-        check(torch.equal(again[0], dx) and torch.equal(again[1], ds),
-              f"rmsnorm_bwd {shape}: dx or dscale differ between two calls")
-        xl, sl = x.detach().requires_grad_(), s.detach().requires_grad_()
-        lib_y = F.rms_norm(xl, (shape[-1],), sl, 1e-6)
-        moved = 3 * xs + 2 * ss
-        b_ms, b_by = bound(moved, 8 * x.numel(), dtype)
-        case = {"kernel": "rmsnorm_bwd", "dtype": dtype,
-                "shape": list(shape), "plan": rn.plan(*shape, backward=True),
-                "max_abs_err": max(err_x, err_s),
-                "tol": tol,
-                "kernel_ms": timer.ms(lambda: rn.rmsnorm_bwd(x, s, dy, 1e-6)),
-                "plain_ms": timer.ms(
-                    lambda: ref.rmsnorm_bwd_ref(x, s, dy, 1e-6)),
-                "library_ms": timer.ms(lambda: torch.autograd.grad(
-                    lib_y, (xl, sl), dy, retain_graph=True)),
-                "bound_ms": b_ms, "bound_by": b_by, "bytes": moved}
-        emit(case)
-        results["rmsnorm_bwd"].append(case)
-        del lib_y, xl, sl
+        fwd, bwd = _rms_train_cases(torch, timer, gen, shape)
+        results["rmsnorm"].append(fwd)
+        results["rmsnorm_bwd"].append(bwd)
     return results
+
+
+def _flash_cases(torch, timer, gen, B, S, H, Hkv, D, dtype):
+    """Flash attention forward and backward against their plain versions
+    on one random causal case, each timed beside SDPA; returns (forward
+    case, backward case)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    dt = getattr(torch, dtype)
+    q, do = (torch.randn((B, S, H, D), generator=gen,
+                         device="cuda").to(dt) for _ in range(2))
+    k, v = (torch.randn((B, S, Hkv, D), generator=gen,
+                        device="cuda").to(dt) for _ in range(2))
+    tol = TOL[dtype]
+    out, lse = fa.flash_attention_fwd(q, k, v, True)
+    want_out, want_lse = ref.flash_attention_fwd_ref(q, k, v, True)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, True)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, w in (("out", out, want_out), ("lse", lse, want_lse),
+                         ("dq", grads[0], want[0]),
+                         ("dk", grads[1], want[1]),
+                         ("dv", grads[2], want[2])):
+        ok, errs[name] = _within(got, w, tol)
+        check(ok, f"flash attention {dtype} B={B} S={S} H={H} "
+              f"Hkv={Hkv}: {name} max |err| {errs[name]} over {tol}")
+    del want_out, want_lse, want
+    es = q.element_size()
+    pairs = B * H * S * (S + 1) // 2          # causal (query, key) pairs
+    qo = B * S * H * D * es
+    kv = 2 * B * S * Hkv * D * es
+    lse_b = B * S * H * 4
+    lib_fwd, lib_out, leaves = _sdpa_train(torch, q, k, v, True)
+    shape = {"dtype": dtype, "B": B, "S": S, "H": H, "Hkv": Hkv, "D": D,
+             "causal": True, "tol": tol}
+    b_ms, b_by = bound(2 * qo + kv + lse_b, 4 * D * pairs, dtype)
+    fwd = {"kernel": "flash_attention_fwd", **shape,
+           "max_abs_err": max(errs["out"], errs["lse"]),
+           "kernel_ms": timer.ms(
+               lambda: fa.flash_attention_fwd(q, k, v, True)),
+           "plain_ms": timer.ms(
+               lambda: ref.flash_attention_fwd_ref(q, k, v, True)),
+           "library_ms": timer.ms(lib_fwd), "bound_ms": b_ms,
+           "bound_by": b_by, "flops": 4 * D * pairs}
+    emit(fwd)
+    b_ms, b_by = bound(3 * qo + 2 * kv + lse_b, 10 * D * pairs, dtype)
+    bwd = {"kernel": "flash_attention_bwd", **shape,
+           "max_abs_err": max(errs["dq"], errs["dk"], errs["dv"]),
+           "kernel_ms": timer.ms(lambda: fa.flash_attention_bwd(
+               q, k, v, out, lse, do, True)),
+           "plain_ms": timer.ms(lambda: ref.flash_attention_bwd_ref(
+               q, k, v, out, lse, do, True)),
+           "library_ms": timer.ms(lambda: torch.autograd.grad(
+               lib_out, leaves, do.transpose(1, 2), retain_graph=True)),
+           "bound_ms": b_ms, "bound_by": b_by, "flops": 10 * D * pairs}
+    emit(bwd)
+    del lib_out, leaves, grads
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def _rms_train_cases(torch, timer, gen, shape, path="train"):
+    """The RMSNorm forward and backward kernels against their plain
+    versions on one random bf16 case (two backward calls must agree bit
+    for bit), each timed beside ``F.rms_norm``; returns (forward case,
+    backward case)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+
+    dtype = "bfloat16"
+    x, dy = (torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    s = torch.randn(shape[-1], generator=gen, device="cuda").to(
+        torch.bfloat16)
+    tol = TOL[dtype]
+    ok, err = _within(rn.rmsnorm(x, s, 1e-6), ref.rmsnorm_ref(x, s, 1e-6),
+                      tol)
+    check(ok, f"rmsnorm {shape}: max |err| {err} over {tol}")
+    xs = x.numel() * x.element_size()
+    ss = s.numel() * s.element_size()
+    b_ms, b_by = bound(2 * xs + ss, 4 * x.numel(), dtype)
+    fwd = {"kernel": "rmsnorm", "dtype": dtype, "shape": list(shape),
+           "path": path, "plan": rn.plan(*shape),
+           "max_abs_err": err, "tol": tol,
+           "kernel_ms": timer.ms(lambda: rn.rmsnorm(x, s, 1e-6)),
+           "plain_ms": timer.ms(lambda: ref.rmsnorm_ref(x, s, 1e-6)),
+           "library_ms": timer.ms(
+               lambda: F.rms_norm(x, (shape[-1],), s, 1e-6)),
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": 2 * xs + ss}
+    emit(fwd)
+    dx, ds = rn.rmsnorm_bwd(x, s, dy, 1e-6)
+    rdx, rds = ref.rmsnorm_bwd_ref(x, s, dy, 1e-6)
+    ok_x, err_x = _within(dx, rdx, tol)
+    ok_s, err_s = _within(ds, rds, tol)
+    check(ok_x and ok_s, f"rmsnorm_bwd {shape}: max |err| dx {err_x}, "
+          f"dscale {err_s} over {tol}")
+    # dscale sums the programs' partial rows in a fixed order: two
+    # launches on the same inputs agree bit for bit
+    again = rn.rmsnorm_bwd(x, s, dy, 1e-6)
+    check(torch.equal(again[0], dx) and torch.equal(again[1], ds),
+          f"rmsnorm_bwd {shape}: dx or dscale differ between two calls")
+    xl, sl = x.detach().requires_grad_(), s.detach().requires_grad_()
+    lib_y = F.rms_norm(xl, (shape[-1],), sl, 1e-6)
+    moved = 3 * xs + 2 * ss
+    b_ms, b_by = bound(moved, 8 * x.numel(), dtype)
+    bwd = {"kernel": "rmsnorm_bwd", "dtype": dtype,
+           "shape": list(shape), "path": path,
+           "plan": rn.plan(*shape, backward=True),
+           "max_abs_err": max(err_x, err_s),
+           "tol": tol,
+           "kernel_ms": timer.ms(lambda: rn.rmsnorm_bwd(x, s, dy, 1e-6)),
+           "plain_ms": timer.ms(
+               lambda: ref.rmsnorm_bwd_ref(x, s, dy, 1e-6)),
+           "library_ms": timer.ms(lambda: torch.autograd.grad(
+               lib_y, (xl, sl), dy, retain_graph=True)),
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": moved}
+    emit(bwd)
+    return fwd, bwd
 
 
 def _train_counters():
@@ -977,8 +1038,11 @@ def _profile(torch, fn, ranges=()):
     group, the busiest kernels, and the device's busy share of the call's
     wall time (None where the profiler saw no device time).  ``ranges``
     names ``record_function`` ranges whose kernels' device time is
-    reported under ``range_ms``."""
+    reported under ``range_ms``; the model's own ranges (attention, the
+    MoE's routing and expert products) are never counted as kernels."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import layers, lm
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -989,12 +1053,14 @@ def _profile(torch, fn, ranges=()):
         wall = time.perf_counter() - t0
     kernels = {}
     range_ms = {r: 0.0 for r in ranges}
+    named = set(ranges) | {lm.ATTENTION_RANGE, layers.MOE_ROUTE_RANGE,
+                           layers.MOE_EXPERTS_RANGE}
     for e in prof.key_averages():
         on_device = str(e.device_type).endswith("CUDA")
-        if e.key in range_ms:
+        if e.key in named:
             # the host-side range counts the kernels launched inside it;
             # its device-side annotation would count them twice
-            if not on_device:
+            if not on_device and e.key in range_ms:
                 us = getattr(e, "device_time_total", None)
                 if us is None:
                     us = getattr(e, "cuda_time_total", 0)
@@ -2497,11 +2563,414 @@ def phase_clis(torch, workdir, surrogate_dir, lm, device="cuda",
         check(moved == want, f"clis: {name} launches {run['launches']}")
 
 
+# ---------------------------------------------------------------------------
+# the seven archs of the ninth slice: dense, audio, MoE, the VLM backbone
+# ---------------------------------------------------------------------------
+
+# serve_archs: the new dense and audio archs at FULL in bf16; 8 requests
+# over 4 slots, prompts 128/256, 32 new tokens
+SERVE_ARCHS = ("qwen2.5-3b", "codeqwen1.5-7b", "granite-8b",
+               "musicgen-medium")
+SERVE_ARCHS_TRAFFIC = dict(n_req=8, prompt_lens=[128, 256], max_new=32,
+                           slots=4)
+# serve_moe: deepseek-moe-16b FULL and phi3.5-moe CUT_16L in bf16; 8
+# requests over 8 slots, prompts 128/256/512, 32 new tokens
+SERVE_MOE_TRAFFIC = dict(n_req=8, prompt_lens=[128, 256, 512], max_new=32,
+                         slots=8)
+# recompute_archs: every new token arch at full width cut to 2 layers, f32
+RECOMPUTE_ARCHS = SERVE_ARCHS + ("deepseek-moe-16b", "phi3.5-moe-42b-a6.6b")
+# train_moe / train_vlm: full widths, depth cut (1 dense + 3 MoE layers of
+# deepseek, 8 of qwen2-vl's 28), bf16, B = 2, S = 4096, Adam, 6 steps
+CUT_TRAIN = {"train_moe": ("deepseek-moe-16b", 4),
+             "train_vlm": ("qwen2-vl-7b", 8)}
+CUT_B, CUT_S, CUT_STEPS = 2, 4096, 6
+# train_vlm's parity check: a 2-layer full-width forward at S = 256 in
+# f32 (TF32 off) on the card against the CPU
+VLM_PARITY_S, VLM_PARITY_TOL = 256, 1e-3
+
+
+def phase_arch_kernels(torch, timer):
+    """The kernels at the shapes the new archs give them, each against its
+    plain version: paged attention in bf16 at K = 1 over every new served
+    head layout (musicgen's 24 heads of 64 with one query head a KV head,
+    codeqwen's 32 MHA heads, qwen2.5's 8 query heads a KV head, granite's
+    and phi's 4, deepseek's 16 MHA heads); flash forward and backward at
+    B = 2, S = 4096 for qwen2-vl (7 query heads a KV head) and deepseek
+    (MHA); the RMSNorm forward and backward at the widths d = 1536, 2048,
+    3584 and 4096 (the first and third masked into 2048- and 4096-wide
+    blocks), decode rows and a train step's rows."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    results = {"paged_attention": [], "flash_attention_fwd": [],
+               "flash_attention_bwd": [], "rmsnorm": [], "rmsnorm_bwd": []}
+    lengths = torch.randint(100, 545, (8,), generator=gen,
+                            device="cuda").tolist()
+    for H, Hkv, D in ((24, 24, 64), (32, 32, 128), (16, 2, 128),
+                      (32, 8, 128), (16, 16, 128)):
+        results["paged_attention"].append(_paged_check(
+            torch, timer, gen, 8, H, Hkv, D, 16, 1, "bfloat16", lengths))
+    for H, Hkv in ((28, 4), (16, 16)):
+        fwd, bwd = _flash_cases(torch, timer, gen, CUT_B, CUT_S, H, Hkv,
+                                128, "bfloat16")
+        results["flash_attention_fwd"].append(fwd)
+        results["flash_attention_bwd"].append(bwd)
+    for d in (1536, 2048, 3584, 4096):
+        results["rmsnorm"].append(_rms_check(torch, timer, gen, (8, d),
+                                             "bfloat16"))
+        fwd, bwd = _rms_train_cases(torch, timer, gen, (CUT_B * CUT_S, d),
+                                    path="train_archs")
+        results["rmsnorm"].append(fwd)
+        results["rmsnorm_bwd"].append(bwd)
+    return results
+
+
+def _release(torch, device) -> None:
+    """:func:`release` on the card; a garbage collection on the CPU."""
+    if str(device).startswith("cuda"):
+        release(torch)
+    else:
+        gc.collect()
+
+
+def _norms_per_forward(cfg) -> int:
+    """RMSNorm launches of one forward: ln1, ln2 with an FFN, q- and
+    k-norm with qk-norm, and the final norm."""
+    from repro_torch.models.lm import layer_specs
+
+    n = 1
+    for spec in layer_specs(cfg):
+        n += 1 + (spec.ffn != "none") + 2 * (spec.kind == "a"
+                                             and cfg.qk_norm)
+    return n
+
+
+def _launch_check(torch, device, got: dict, want: dict, what: str) -> None:
+    """On the card every counter equals its expected launches (none of
+    them 0); on the CPU rehearsal, where the plain versions run, every
+    counter stays 0."""
+    if not str(device).startswith("cuda"):
+        want = {n: 0 for n in want}
+    else:
+        check(all(want.values()), f"{what}: a kernel of the path is "
+              f"expected no launch: {want}")
+    check(got == want, f"{what}: launches {got} != {want}")
+
+
+def _serve_lm(torch, phase, cfg, n_req, prompt_lens, max_new, slots,
+              ranges=None, device="cuda"):
+    """Serve a trace of an attention-only stack through the paged
+    scheduler on ``device`` (random weights from seed 0): every logit row
+    finite, one paged-attention launch per attention layer and decode
+    step and the RMSNorm launches of every model call, the counters set
+    to 0 just before the run and read just after; with ``ranges`` one
+    decode step over every slot is profiled, its device time split by
+    those ranges.  Returns the launches."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.launch.serve import build_requests
+    from repro_torch.models.lm import init_lm, layer_specs
+    from repro_torch.serve.scheduler import Scheduler
+
+    t0 = time.perf_counter()
+    model = init_lm(cfg, seed=0, device=device)
+    _sync(torch, device)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    sched = Scheduler(cfg, model, num_slots=slots, block_size=16,
+                      max_len=max(prompt_lens) + max_new, device=device)
+    rows = [0]
+    _check_finite(torch, sched.session, rows)
+    reqs = build_requests(cfg, n_req, prompt_lens, max_new, seed=0)
+    for r in reqs:
+        sched.submit(r)
+    _sync(torch, device)
+    _reset_peak(torch, device)
+    pa.paged_attention.launches = 0
+    rn.rmsnorm.launches = 0
+    results = sched.run()
+    launches = {"paged_attention": pa.paged_attention.launches,
+                "rmsnorm": rn.rmsnorm.launches}
+    st = sched.stats.as_dict()
+    peak = _peak_gib(torch, device)
+    check(st["completed"] == n_req and len(results) == n_req,
+          f"{phase} {cfg.name}: {st['completed']} of {n_req} requests "
+          "completed")
+    check(all(len(results[r.rid]) == max_new for r in reqs),
+          f"{phase} {cfg.name}: a request ended short of max_new")
+    attn = sum(s.kind == "a" for s in layer_specs(cfg))
+    calls = st["decode_steps"] + st["prefill_chunks"]
+    norms = _norms_per_forward(cfg)
+    # one paged launch per attention layer and decode step, the norms of
+    # every model call (a padded one-shot prefill counts as one chunk)
+    _launch_check(torch, device, launches,
+                  {"paged_attention": attn * st["decode_steps"],
+                   "rmsnorm": norms * calls}, f"{phase} {cfg.name}")
+    out = {"phase": phase, "arch": cfg.name, "dtype": cfg.dtype,
+           "layers": cfg.num_layers, "params": n_params,
+           "active_params": cfg.param_count(active_only=True),
+           "weight_gb": sum(p.numel() * p.element_size()
+                            for p in model.parameters()) / 1e9,
+           "init_s": init_s, "requests": n_req, "slots": slots,
+           "block_size": 16, "prompt_lens": prompt_lens,
+           "max_new": max_new, "completed": st["completed"],
+           "tokens_per_s": st["tokens_per_s"], "wall_s": st["wall_s"],
+           "ttft_p50_s": st["ttft_p50_s"], "ttft_p99_s": st["ttft_p99_s"],
+           "tpot_mean_s": st["tpot_mean_s"],
+           "decode_steps": st["decode_steps"],
+           "prefill_chunks": st["prefill_chunks"],
+           "logit_rows_checked": rows[0], "launches": launches,
+           "paged_attention_per_decode_step": attn,
+           "rmsnorm_per_model_call": norms, "peak_mem_gib": peak,
+           "sample": results[0][:8].tolist()}
+    if ranges is not None:
+        prof = _profile_decode(torch, sched, [r.prompt for r in
+                                              reqs[:slots]], ranges)
+        named = dict(zip(("attention", "moe_routing", "moe_products"),
+                         (prof["range_ms"][r] for r in ranges)))
+        named["other"] = prof["device_busy_ms"] - sum(named.values())
+        prof["by_part_ms"] = named
+        out["profiled_decode_step"] = prof
+    emit(out)
+    del model, sched
+    _release(torch, device)
+    return launches
+
+
+def phase_serve_archs(torch, device="cuda", smoke=False):
+    """serve_archs: qwen2.5-3b, codeqwen1.5-7b, granite-8b and
+    musicgen-medium at FULL in bf16 through the scheduler (``smoke``: the
+    SMOKE configs, for a CPU rehearsal)."""
+    from repro_torch.configs.registry import get_config
+
+    return {f"serve_archs.{a}": _serve_lm(
+        torch, "serve_archs", get_config(a, smoke=smoke), device=device,
+        **SERVE_ARCHS_TRAFFIC) for a in SERVE_ARCHS}
+
+
+def phase_serve_moe(torch, device="cuda", smoke=False):
+    """serve_moe: deepseek-moe-16b FULL and phi3.5-moe ``CUT_16L`` in bf16
+    through the scheduler (MoE dropless), one decode step profiled by part:
+    attention, routing, the expert products, the rest."""
+    from repro_torch.configs import phi35_moe
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import layers, lm
+
+    # the model's profiler ranges, in the order _serve_lm names them
+    ranges = (lm.ATTENTION_RANGE, layers.MOE_ROUTE_RANGE,
+              layers.MOE_EXPERTS_RANGE)
+    out = {}
+    for cfg in (get_config("deepseek-moe-16b", smoke=smoke),
+                phi35_moe.SMOKE if smoke else phi35_moe.CUT_16L):
+        out[f"serve_moe.{cfg.name}"] = _serve_lm(
+            torch, "serve_moe", cfg, ranges=ranges, device=device,
+            **SERVE_MOE_TRAFFIC)
+    return out
+
+
+@exact_f32
+def phase_recompute_archs(torch, device="cuda", smoke=False):
+    """Every new token arch at full width cut to 2 layers, in f32 (TF32
+    off): two served requests each re-run through ``lm_forward`` (MoE
+    dropless, as prefill and decode run it) must pick every served token,
+    save top-2 ties within 1e-4."""
+    from repro_torch.configs.base import replace
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import build_requests
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serve.scheduler import Scheduler
+
+    prompt_lens, max_new = [64, 200], 16
+    report = {}
+    for arch in RECOMPUTE_ARCHS:
+        cfg = replace(get_config(arch, smoke=smoke), dtype="float32",
+                      num_layers=2)
+        model = init_lm(cfg, seed=1, device=device)
+        sched = Scheduler(cfg, model, num_slots=2, block_size=16,
+                          max_len=max(prompt_lens) + max_new, device=device)
+        reqs = build_requests(cfg, 2, prompt_lens, max_new, seed=1)
+        for r in reqs:
+            sched.submit(r)
+        sched.run()
+        checked, ties, mismatches = _recompute_check(
+            torch, model, sched, reqs, max_new, dropless=cfg.moe is not None)
+        report[arch] = {"positions": checked, "ties": ties,
+                        "tie_count": len(ties), "mismatches": mismatches}
+        del model, sched
+        _release(torch, device)
+    emit({"phase": "recompute_archs", "dtype": "float32",
+          "allow_tf32": False, "layers": 2, "prompt_lens": prompt_lens,
+          "max_new": max_new, "moe_yardstick": "lm_forward dropless",
+          **report})
+    for name, r in report.items():
+        check(not r["mismatches"], f"recompute_archs {name}: served tokens "
+              f"differ from the f32 recompute at {len(r['mismatches'])} "
+              "positions")
+
+
+def _train_cut(torch, phase, arch, layers, device="cuda", smoke=False):
+    """Train ``arch`` at its published widths cut to ``layers`` layers in
+    bf16 (seed 0), B = 2, S = 4096, Adam lr 1e-3 with the CLI's warmup,
+    clip 1.0, remat full, 6 steps on ``launch.train``'s batches: losses and
+    the MoE aux losses finite (and positive with MoE), a finite nonzero
+    gradient on every weight the loss reads, the flash and RMSNorm
+    launches of every step exact; prints step time, tokens/s, peak memory,
+    the mfu over active parameters and, with MoE, the share of (token,
+    choice) pairs dropped (``smoke``: the SMOKE widths, for a CPU
+    rehearsal).  Returns the launches."""
+    from repro_torch.configs.base import OptimizerConfig, replace
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train as tl
+    from repro_torch.models.lm import layer_specs
+    from repro_torch.train.steps import init_lm_state, make_lm_train_step
+
+    cfg = replace(get_config(arch, smoke=smoke), num_layers=layers)
+    opt_cfg = OptimizerConfig(name="adam", lr=1e-3,
+                              warmup_steps=min(100, CUT_STEPS // 10 + 1))
+    t0 = time.perf_counter()
+    state = init_lm_state(cfg, opt_cfg, seed=0, device=device)
+    step_fn = make_lm_train_step(cfg, opt_cfg, remat="full")
+    _sync(torch, device)
+    init_s = time.perf_counter() - t0
+    model = state["model"]
+    n_params = sum(p.numel() for p in model.parameters())
+    active = cfg.param_count(active_only=True)
+    batches = [tl.device_batch(cfg, CUT_B, CUT_S, i, device)
+               for i in range(CUT_STEPS)]
+    specs = layer_specs(cfg)
+    attn = sum(s.kind == "a" for s in specs)
+    norms = _norms_per_forward(cfg)
+    # remat full: every block's forward runs twice, the final norm once
+    expect = {"flash_attention_fwd": 2 * attn, "flash_attention_bwd": attn,
+              "rmsnorm": 2 * norms - 1, "rmsnorm_bwd": norms}
+    moe_blocks = [b.ffn for b in model.blocks if b.ffn_kind == "moe"]
+    counters = _train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    _sync(torch, device)
+    _reset_peak(torch, device)
+    losses, step_s, per_step, aux, drops = [], [], [], [], []
+    for i, batch in enumerate(batches):
+        before = {n: fn.launches for n, fn in counters.items()}
+        t0 = time.perf_counter()
+        _, m = step_fn(state, batch)
+        _sync(torch, device)
+        step_s.append(time.perf_counter() - t0)
+        per_step.append({n: fn.launches - before[n]
+                         for n, fn in counters.items()})
+        losses.append(float(m["loss"]))
+        aux.append({k: float(m[k]) for k in ("ce", "moe_load_balance",
+                                              "moe_z", "grad_norm")})
+        if moe_blocks:
+            drops.append(sum(int(b.routed[0]) for b in moe_blocks)
+                         / sum(b.routed[1] for b in moe_blocks))
+        if i in (0, CUT_STEPS - 1):
+            # a vlm's token embedding is not read: the embeddings replace it
+            unread = ("embed.weight",) if "embeds" in batch else ()
+            bad = [n for n, p in model.named_parameters() if n not in unread
+                   and (p.grad is None or not bool(torch.isfinite(
+                       p.grad).all()) or not bool((p.grad != 0).any()))]
+            check(not bad, f"{phase} step {i}: {len(bad)} parameters "
+                  f"without a nonzero finite gradient, e.g. {bad[:5]}")
+    launches = {n: fn.launches for n, fn in counters.items()}
+    peak = _peak_gib(torch, device)
+    check(all(map(math.isfinite, losses)) and all(
+        math.isfinite(v) for a in aux for v in a.values()),
+        f"{phase}: non-finite loss or metric: {losses} {aux}")
+    if moe_blocks:
+        check(all(a["moe_load_balance"] > 0 and a["moe_z"] > 0
+                  for a in aux), f"{phase}: aux losses not positive: {aux}")
+    for i, got in enumerate(per_step):
+        _launch_check(torch, device, got, expect, f"{phase} step {i}")
+    step = statistics.median(step_s[-4:])
+    tokens = CUT_B * CUT_S
+    attn_flops = 2 * CUT_B * cfg.num_heads * CUT_S ** 2 \
+        * cfg.resolved_head_dim
+    model_flops = 6 * active * tokens + 3 * attn_flops * attn
+    stats = {"phase": phase, "arch": cfg.name, "dtype": cfg.dtype,
+             "layers": layers,
+             "cut_from_layers": get_config(arch, smoke=smoke).num_layers,
+             "params": n_params, "active_params": active,
+             "batch": CUT_B, "seq": CUT_S, "steps": CUT_STEPS,
+             "optimizer": "adam", "lr": opt_cfg.lr, "remat": "full",
+             "init_s": init_s, "losses": losses, "metrics": aux,
+             "step_s": step_s, "step_ms": step * 1e3,
+             "tokens_per_s": tokens / step, "peak_mem_gib": peak,
+             "mfu_active": model_flops / step / PEAK_OPS_PER_S["bfloat16"],
+             "mfu_counts": "6 * active params * tokens + causal attention "
+                           "x3, over 989 TFLOP/s bf16",
+             "model_flops_per_step": model_flops,
+             "dropped_pair_share": drops or None,
+             "launches": launches, "launches_per_step": per_step[-1],
+             "expected_per_step": expect}
+    emit(stats)
+    del state, model, batches, step_fn
+    _release(torch, device)
+    return launches
+
+
+def phase_train_moe(torch, device="cuda", smoke=False):
+    """train_moe: deepseek-moe-16b at full width, 1 dense + 3 MoE layers
+    (capacity dispatch, aux losses in the loss)."""
+    return _train_cut(torch, "train_moe", *CUT_TRAIN["train_moe"],
+                      device=device, smoke=smoke)
+
+
+@exact_f32
+def _vlm_parity(torch, device="cuda", smoke=False):
+    """qwen2-vl-7b at full width, 2 layers, f32 (TF32 off): the logits of
+    one forward over ``train_batch``'s embeddings and M-RoPE positions at
+    S = 256 on the card against the same weights on the CPU."""
+    from repro_torch.configs.base import replace
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train as tl
+    from repro_torch.models.lm import LM, init_lm, lm_forward
+
+    cfg = replace(get_config("qwen2-vl-7b", smoke=smoke), dtype="float32",
+                  num_layers=2)
+    model = init_lm(cfg, seed=0, device=device)
+    with torch.device("cpu"):
+        cpu_model = LM(cfg)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    batch = tl.device_batch(cfg, 1, VLM_PARITY_S, 0, device)
+    with torch.no_grad():
+        got = lm_forward(model, None, embeds=batch["embeds"],
+                         positions=batch["positions"]).cpu()
+        want = lm_forward(cpu_model.eval(), None,
+                          embeds=batch["embeds"].cpu(),
+                          positions=batch["positions"].cpu())
+    ok, err = _within(got, want, VLM_PARITY_TOL)
+    out = {"layers": 2, "seq": VLM_PARITY_S, "dtype": "float32",
+           "max_abs_err": err, "tol": VLM_PARITY_TOL,
+           "finite": bool(torch.isfinite(got).all())}
+    check(ok and out["finite"], f"train_vlm: card logits differ from the "
+          f"CPU's by {err} (tolerance {VLM_PARITY_TOL})")
+    del model, cpu_model
+    return out
+
+
+def phase_train_vlm(torch, device="cuda", smoke=False):
+    """train_vlm: qwen2-vl-7b at full width, 8 of 28 layers, on the stub
+    frontend's embeddings and M-RoPE positions (flash at 7 query heads a
+    KV head), then the card-against-CPU forward check."""
+    launches = _train_cut(torch, "train_vlm", *CUT_TRAIN["train_vlm"],
+                          device=device, smoke=smoke)
+    emit({"phase": "train_vlm_parity", **_vlm_parity(torch, device, smoke)})
+    _release(torch, device)
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repo (src/repro_torch "
               "not found next to this script)", file=sys.stderr)
         return 2
+    # grow the caching allocator's segments instead of cutting new ones:
+    # with fixed segments train_vlm's (B, S, V) f32 logits gradient (4.6
+    # GiB) found no free block among ~30 GiB cached in other sizes and ran
+    # out of memory with 47 GiB allocated on an H100 80GB
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -2514,7 +2983,8 @@ def main() -> int:
     timer = Timer(torch)
     cases = phase_kernels(torch, timer)
     for more in (phase_train_kernels(torch, timer),
-                 phase_recurrent_kernels(torch, timer)):
+                 phase_recurrent_kernels(torch, timer),
+                 phase_arch_kernels(torch, timer)):
         for name, rows in more.items():
             cases.setdefault(name, []).extend(rows)
     del timer
@@ -2546,6 +3016,12 @@ def main() -> int:
         release(torch)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    arch_launches = phase_serve_archs(torch)
+    arch_launches.update(phase_serve_moe(torch))
+    phase_recompute_archs(torch)
+    release(torch)
+    arch_launches["train_moe"] = phase_train_moe(torch)
+    arch_launches["train_vlm"] = phase_train_vlm(torch)
 
     # the kernels line reports each kernel at the shape its path gives it
     # most: paged attention and the RMSNorm forward at the serve decode
@@ -2569,7 +3045,7 @@ def main() -> int:
         "slstm_scan": lambda c: (c["B"], c["S"]) == (1, 500)}
     by_path = {"serve": serve_launches, "train": train_launches,
                **recurrent_launches, "ltfb_lm": lm_launches,
-               "serve_swap": swap_launches}
+               "serve_swap": swap_launches, **arch_launches}
     kernels = []
     for name, rows in cases.items():
         main_case = next(c for c in rows if headline[name](c))

@@ -5,11 +5,11 @@ Input is the JAX params pytree already converted to numpy (the caller
 runs ``jax.tree.map(np.asarray, params)``; this module imports no JAX):
 
 * ``embed`` (V, d);
+* ``prefix`` (MoE configs with ``first_k_dense`` = k0 > 0 only): one stack
+  of the k0 dense layers before the body, entry i layer i;
 * ``body``: a tuple of R stacks, one per position j of the layer period
   (``repro.models.lm._grouping``); each leaf of ``body[j]`` has a leading
-  axis over the P periods, and entry p is layer ``j + p*R`` (JAX's
-  ``prefix`` stack of dense layers before the body comes only with MoE,
-  which the port does not build);
+  axis over the P periods, and entry p is layer ``k0 + j + p*R``;
 * ``final_norm.scale``; ``lm_head`` (d, V) only when embeddings are not
   tied.
 
@@ -18,11 +18,15 @@ mixer's — attention ``wq, wk, wv, wo`` (plus ``bq, bk, bv`` with qkv bias
 and ``q_norm, k_norm`` with qk-norm); Mamba ``in_proj, conv_w, conv_b,
 x_proj, dt_proj, dt_bias, A_log, D, out_proj``; mLSTM ``up, wq, wk, wv,
 w_if, b_if, down``; sLSTM ``w_x, r_h, bias, up_g, up_v, down`` — and the
-SwiGLU ``ffn.{wi, wg, wo}``.
+SwiGLU ``ffn.{wi, wg, wo}`` or, in a MoE layer, ``ffn.router`` (d, E),
+the expert stacks ``ffn.{wi, wg}`` (E, d, d_e) and ``ffn.wo`` (E, d_e, d)
+and the shared SwiGLU ``ffn.shared.{wi, wg, wo}``.
 
 JAX keeps dense weights ``(d_in, d_out)`` for ``x @ W``; the port's
 ``nn.Linear`` keeps ``(d_out, d_in)``, so those are transposed here.  The
-other weights (conv, ``A_log``, ``r_h``, biases, scales) keep JAX's layout.
+other weights (conv, ``A_log``, ``r_h``, biases, scales, and the MoE
+router and expert stacks, which the port keeps as JAX does) keep JAX's
+layout.
 
 :func:`opt_state_from_jax` carries an optimizer state of
 ``repro.optim.optimizers`` the same way.  :func:`params_to_jax_layout` and
@@ -49,7 +53,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.icf_cyclegan import GEN_PARTS, num_layers
-from repro_torch.models.lm import LM, grouping
+from repro_torch.models.lm import LM, group_key, grouping, layer_specs
 
 # optimizer-state entries shaped like the parameters (Adam, SGD)
 _PARAM_SHAPED = ("m", "v", "mom")
@@ -86,36 +90,49 @@ def _flat(tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
             yield prefix + k, v
 
 
-def _port_name(path: str) -> Tuple[str, bool]:
-    """The port's name for a JAX leaf path within a layer (or at the top)
-    and whether the weight is transposed on the way."""
+# the expert stacks of a MoE layer: raw parameters in JAX's layout
+_EXPERTS = ("ffn.wi", "ffn.wg", "ffn.wo")
+
+
+def _port_name(path: str, moe: bool = False) -> Tuple[str, bool]:
+    """The port's name for a JAX leaf path within a layer (or at the top;
+    ``moe``: the layer's FFN is a MoE) and whether the weight is
+    transposed on the way."""
     if path in _RENAME:
         return _RENAME[path], False
+    if moe and path in _EXPERTS:
+        return path, False
     if path.split(".")[-1] in _DENSE or path == "lm_head":
         return path + ".weight", True
     return path, False
 
 
-def _leaves(tree, R: int) -> Iterator[Tuple[Optional[int], str, bool,
-                                            object]]:
-    """(period position j or None outside the blocks, port name, whether
-    transposed, JAX leaf) of every leaf of a params-shaped tree; a block
-    leaf is the whole ``body[j]`` stack."""
-    top = {k: v for k, v in tree.items() if k != "body"}
+def _leaves(tree, cfg: ModelConfig) -> Iterator[
+        Tuple[Optional[Tuple[int, ...]], str, bool, object]]:
+    """(the layers a stacked leaf holds, in stack order, or None outside
+    the blocks; port name; whether transposed; JAX leaf) of every leaf of
+    a params-shaped tree; a block leaf is the whole ``prefix`` or
+    ``body[j]`` stack."""
+    k0, R, P = grouping(cfg)
+    specs = layer_specs(cfg)
+    top = {k: v for k, v in tree.items() if k not in ("prefix", "body")}
     for path, leaf in _flat(top):
         yield (None, *_port_name(path), leaf)
-    for j in range(R):
-        for path, leaf in _flat(tree["body"][j]):
-            yield (j, *_port_name(path), leaf)
+    stacks = [(tuple(range(k0)), tree["prefix"])] if k0 else []
+    stacks += [(tuple(k0 + j + p * R for p in range(P)), tree["body"][j])
+               for j in range(R)]
+    for layers, stack in stacks:
+        moe = specs[layers[0]].ffn == "moe"
+        for path, leaf in _flat(stack):
+            yield (layers, *_port_name(path, moe), leaf)
 
 
 def params_from_jax(tree, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """State dict for :class:`repro_torch.models.lm.LM` from the JAX tree."""
-    _, R, P = grouping(cfg)
     sd = {}
-    for j, name, transpose, leaf in _leaves(tree, R):
-        entries = [(name, leaf)] if j is None else \
-            [(f"blocks.{j + p * R}.{name}", leaf[p]) for p in range(P)]
+    for layers, name, transpose, leaf in _leaves(tree, cfg):
+        entries = [(name, leaf)] if layers is None else \
+            [(f"blocks.{i}.{name}", leaf[p]) for p, i in enumerate(layers)]
         for key, a in entries:
             if not isinstance(a, torch.Tensor):
                 a = np.asarray(a)
@@ -137,9 +154,10 @@ def opt_state_from_jax(opt_state, cfg: ModelConfig) -> Dict[str, object]:
     Adam's ``m``/``v`` and SGD's ``mom`` are params-shaped and cross like
     the weights.  Adafactor's ``vr``/``vc`` are keyed by leaf, as the
     port's are by group (:func:`repro_torch.models.lm.param_groups`): a
-    stacked leaf of ``body[j]`` crosses whole under
-    ``"blocks[j::R].<name>"``.  For a transposed dense weight JAX's
-    row factor is the port's column factor and the other way round.
+    stacked leaf of ``prefix`` or ``body[j]`` crosses whole under its
+    group key (:func:`repro_torch.models.lm.group_key`).  For a transposed
+    dense weight JAX's row factor is the port's column factor and the
+    other way round.
     ``step`` becomes a 0-dim int32 tensor.
     """
     out: Dict[str, object] = {"step": torch.tensor(int(opt_state["step"]),
@@ -149,11 +167,10 @@ def opt_state_from_jax(opt_state, cfg: ModelConfig) -> Dict[str, object]:
             out[key] = params_from_jax(opt_state[key], cfg)
     if "vr" not in opt_state:
         return out
-    _, R, _ = grouping(cfg)
     out["vr"], out["vc"] = {}, {}
-    for (j, name, transpose, vr), (_, _, _, vc) in zip(
-            _leaves(opt_state["vr"], R), _leaves(opt_state["vc"], R)):
-        key = name if j is None else f"blocks[{j}::{R}].{name}"
+    for (layers, name, transpose, vr), (_, _, _, vc) in zip(
+            _leaves(opt_state["vr"], cfg), _leaves(opt_state["vc"], cfg)):
+        key = name if layers is None else group_key(cfg, layers[0], name)
         if transpose:
             vr, vc = vc, vr
         out["vr"][key], out["vc"][key] = _tensor(vr), _tensor(vc)
@@ -189,30 +206,37 @@ def _host(t: torch.Tensor) -> torch.Tensor:
 
 def params_to_jax_layout(model_or_params, cfg: ModelConfig) -> dict:
     """JAX's params tree from the port's weights (an :class:`LM` or its
-    ``{name: tensor}`` dict): ``embed``, ``body`` (a tuple of R stacks,
-    entry p of ``body[j]`` layer ``j + p*R``), ``final_norm`` and, untied,
-    ``lm_head``; dense weights transposed to ``(d_in, d_out)``.  Leaves are
-    new contiguous CPU tensors in the weights' dtypes."""
+    ``{name: tensor}`` dict): ``embed``, with k0 = ``first_k_dense`` > 0
+    ``prefix`` (entry i layer i), ``body`` (a tuple of R stacks, entry p
+    of ``body[j]`` layer ``k0 + j + p*R``), ``final_norm`` and, untied,
+    ``lm_head``; dense weights transposed to ``(d_in, d_out)``.  Leaves
+    are new contiguous CPU tensors in the weights' dtypes."""
     params = dict(model_or_params.named_parameters()) \
         if isinstance(model_or_params, torch.nn.Module) else model_or_params
-    _, R, P = grouping(cfg)
+    k0, R, P = grouping(cfg)
     tree: dict = {}
     body = [dict() for _ in range(R)]
+    prefix: dict = {}
     stacks: Dict[Tuple[int, str], list] = {}
     for name, t in params.items():
         if name.startswith("blocks."):
             _, i, rest = name.split(".", 2)
+            i = int(i)
             path, transpose = _jax_path(rest)
             t = _host(t)
-            stacks.setdefault((int(i) % R, path), [None] * P)[
-                int(i) // R] = t.T if transpose else t
+            j, p, n = (-1, i, k0) if i < k0 else \
+                ((i - k0) % R, (i - k0) // R, P)
+            stacks.setdefault((j, path), [None] * n)[p] = \
+                t.T if transpose else t
         else:
             path, transpose = _jax_path(name)
             t = _host(t)
             _put(tree, path, (t.T if transpose else t).clone(
                 memory_format=torch.contiguous_format))
     for (j, path), layers in stacks.items():
-        _put(body[j], path, torch.stack(layers))
+        _put(prefix if j < 0 else body[j], path, torch.stack(layers))
+    if k0:
+        tree["prefix"] = prefix
     tree["body"] = tuple(body)
     return tree
 

@@ -1,22 +1,24 @@
 """The model config of the port: the fields the LM families read.
 
 A copy of the LM part of ``repro.configs.base.ModelConfig`` (same field
-names, defaults and derived properties; no modality frontend) with its
-sub-configs ``MoEConfig``, ``MambaConfig`` and ``XLSTMConfig`` as data, so
-configs compare field by field across the two packages, and a whole copy
-of its ``OptimizerConfig``.
+names, defaults, derived properties and parameter accounting) with its
+sub-configs ``MoEConfig``, ``MambaConfig``, ``XLSTMConfig`` and the
+modality stub ``FrontendConfig`` as data, so configs compare field by
+field across the two packages, and a whole copy of its
+``OptimizerConfig``.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+import math
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
 class MoEConfig:
-    """Mixture-of-experts FFN configuration (data only: the port has no
-    MoE FFN yet, and a layer that needs one raises)."""
+    """Mixture-of-experts FFN configuration
+    (:func:`repro_torch.models.layers.moe_block`)."""
 
     num_experts: int = 8
     top_k: int = 2
@@ -28,7 +30,9 @@ class MoEConfig:
     moe_period: int = 1              # MoE every `period` layers (jamba: 2)
     router_aux_weight: float = 0.01  # load-balancing aux loss weight
     router_z_weight: float = 1e-4    # router z-loss weight
-    dispatch: str = "einsum"         # einsum | scatter
+    # einsum (GShard one-hot products) | scatter (indexed); the port
+    # computes both through one index-based dispatch
+    dispatch: str = "einsum"
 
 
 @dataclass(frozen=True)
@@ -54,9 +58,21 @@ class XLSTMConfig:
 
 
 @dataclass(frozen=True)
+class FrontendConfig:
+    """Modality frontend stub of the vlm and audio archs: the backbone
+    takes precomputed patch embeddings (vlm) or folded codebook token ids
+    (audio); no frontend weights are built."""
+
+    kind: str = "none"               # 'none' | 'vision' | 'audio'
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24)  # qwen2-vl M-RoPE
+    num_codebooks: int = 4           # musicgen EnCodec streams (folded)
+
+
+@dataclass(frozen=True)
 class ModelConfig:
-    """Decoder-LM configuration: dense (attention + SwiGLU), hybrid
-    (Mamba/attention interleave) and ssm (xLSTM) families."""
+    """Decoder-LM configuration: dense and moe (attention + SwiGLU or
+    MoE), hybrid (Mamba/attention interleave), ssm (xLSTM), and the vlm
+    and audio backbones behind their stub frontends."""
 
     name: str = "model"
     family: str = "dense"
@@ -72,7 +88,8 @@ class ModelConfig:
     qk_norm: bool = False            # qwen3
     qkv_bias: bool = False           # qwen1.5/2.5
     rope_theta: float = 10_000.0
-    # 'auto': flash attention (online softmax over KV chunks; the card's
+    use_mrope: bool = False          # qwen2-vl
+    # 'auto'': flash attention (online softmax over KV chunks; the card's
     # flash kernels) from S = 4096 up, dense below
     attn_impl: str = "auto"          # auto | dense | chunked
     attn_chunk: int = 1024           # KV chunk of the plain flash version
@@ -84,6 +101,7 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     mamba: Optional[MambaConfig] = None
     xlstm: Optional[XLSTMConfig] = None
+    frontend: FrontendConfig = field(default_factory=FrontendConfig)
 
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
@@ -117,6 +135,77 @@ class ModelConfig:
             return False
         return (i % self.moe.moe_period) == (self.moe.moe_period - 1) \
             if self.moe.moe_period > 1 else True
+
+    # --- parameter accounting (MODEL_FLOPS = 6 * N * tokens) --------------
+    def _attn_params(self) -> int:
+        p = self.d_model * (self.q_dim + 2 * self.kv_dim)      # wq wk wv
+        p += self.q_dim * self.d_model                          # wo
+        if self.qkv_bias:
+            p += self.q_dim + 2 * self.kv_dim
+        if self.qk_norm:
+            p += 2 * self.resolved_head_dim
+        return p
+
+    def _dense_ffn_params(self, d_ff: int) -> int:
+        return 3 * self.d_model * d_ff                  # SwiGLU wi, wg, wo
+
+    def _moe_ffn_params(self, active_only: bool) -> int:
+        m = self.moe
+        per_expert = 3 * self.d_model * (m.d_expert or self.d_ff)
+        router = self.d_model * m.num_experts
+        shared = m.num_shared_experts * per_expert
+        routed = (m.top_k if active_only else m.num_experts) * per_expert
+        return router + shared + routed
+
+    def _mamba_params(self) -> int:
+        mc = self.mamba or MambaConfig()
+        d_in = mc.expand * self.d_model
+        dt_rank = mc.dt_rank or math.ceil(self.d_model / 16)
+        p = self.d_model * 2 * d_in                 # in_proj (x and z)
+        p += d_in * mc.d_conv                       # depthwise conv
+        p += d_in * (dt_rank + 2 * mc.d_state)      # x -> (dt, B, C)
+        p += dt_rank * d_in + d_in                  # dt proj + bias
+        p += d_in * mc.d_state + d_in               # A_log, D
+        p += d_in * self.d_model                    # out_proj
+        return p
+
+    def _xlstm_params(self) -> int:
+        xc = self.xlstm or XLSTMConfig()
+        d = self.d_model
+        dm = int(xc.proj_factor_mlstm * d)
+        m = 2 * d * dm + 3 * dm * dm // 4 + 3 * dm + dm * d
+        s = 4 * (d * d + d * d // 4) + int(xc.proj_factor_slstm * d) * d * 2
+        n_m = sum(1 for i in range(self.num_layers)
+                  if xc.pattern[i % len(xc.pattern)] == "m")
+        return n_m * m + (self.num_layers - n_m) * s
+
+    def param_count(self, active_only: bool = False) -> int:
+        """Total parameters, or with ``active_only`` those one token runs
+        through (top-k of the routed experts), by the JAX package's
+        formula (``repro.configs.base.ModelConfig.param_count``; an
+        estimate for the xLSTM and Mamba mixers)."""
+        n = self.vocab_size * self.d_model                      # embed
+        if not self.tie_embeddings:
+            n += self.vocab_size * self.d_model                 # lm head
+        n += self.d_model                                       # final norm
+        if self.family == "ssm" and self.xlstm is not None:
+            return n + self._xlstm_params()
+        for i, kind in enumerate(self.layer_kinds()):
+            n += 2 * self.d_model                               # 2 norms
+            if kind == "a":
+                n += self._attn_params()
+            elif kind == "M":
+                n += self._mamba_params()
+            if kind == "a" or self.family == "hybrid":
+                if self.is_moe_layer(i):
+                    n += self._moe_ffn_params(active_only)
+                else:
+                    d_ff = self.d_ff
+                    if self.moe is not None and i < self.moe.first_k_dense:
+                        d_ff = self.moe.dense_d_ff or self.d_ff
+                    if d_ff:
+                        n += self._dense_ffn_params(d_ff)
+        return n
 
 
 @dataclass(frozen=True)

@@ -45,13 +45,22 @@ def lm_batches(num_batches: int, batch: int, seq: int, vocab: int,
 
 def train_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0
                 ) -> Dict[str, np.ndarray]:
-    """One LM train batch: ``tokens`` and next-token ``labels``, each
-    ``(batch, seq)`` int32 (the token-model branch of the JAX package's
-    ``train_batch``; the port has no VLM frontend)."""
+    """One LM train batch, bit-identical to the JAX package's
+    ``train_batch``: ``tokens`` and next-token ``labels``, each ``(batch,
+    seq)`` int32, cut from the token stream; for a vlm the stub
+    frontend's inputs instead: ``embeds`` ``(batch, seq, d_model)`` f32
+    drawn N(0, 0.02^2), M-RoPE ``positions`` ``(3, batch, seq)`` int32 (t,
+    t // 8, t % 8) and random int32 ``labels``, all from
+    ``default_rng(seed)``."""
     if cfg.family == "vlm":
-        raise NotImplementedError(
-            "the VLM stub frontend is not ported to repro_torch yet; see "
-            "ROADMAP.md queue A")
+        rng = np.random.default_rng(seed)
+        embeds = rng.normal(0, 0.02, (batch, seq, cfg.d_model)) \
+            .astype(np.float32)
+        t = np.tile(np.arange(seq, dtype=np.int32), (batch, 1))
+        labels = rng.integers(0, cfg.vocab_size, (batch, seq)) \
+            .astype(np.int32)
+        return {"embeds": embeds, "positions": np.stack([t, t // 8, t % 8]),
+                "labels": labels}
     toks = token_stream(batch * (seq + 1), cfg.vocab_size, seed) \
         .reshape(batch, seq + 1)
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -17,10 +17,13 @@ CycleGAN and ``full`` for an LM, LM rows of ``--seq`` 64 tokens.
 
 Resumes from --ckpt-dir automatically unless --no-resume.  Checkpoints
 hold the JAX package's layout, so either package resumes the other's.
-Not ported yet: LM tournaments over the recurrent archs (ROADMAP.md queue
-A7), Adafactor's state in a checkpoint (A14), ``--backend mesh`` and
-``--quantize-exchange`` (A6), ``--log-json``, ``--trace-out``,
-``--prom-out``, ``--metrics-port`` and ``--genealogy`` (A5).
+LM tournaments run over every token arch but the recurrent ones (MoE
+and audio included).  Not ported yet: LM tournaments over the recurrent
+archs (ROADMAP.md queue A7) and over qwen2-vl-7b, whose token shards hold
+no embeddings (A15; the JAX launcher fails on them too), Adafactor's state
+in a checkpoint (A14), ``--backend mesh`` and ``--quantize-exchange``
+(A6), ``--log-json``, ``--trace-out``, ``--prom-out``, ``--metrics-port``
+and ``--genealogy`` (A5).
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ import tempfile
 from repro_torch import bridge, resolve_device
 from repro_torch.configs.base import OptimizerConfig
 from repro_torch.configs.icf_cyclegan import ARCH_ID, FULL, SMOKE
-from repro_torch.configs.registry import ARCHS, UNPORTED, get_config
+from repro_torch.configs.registry import ARCHS, get_config
 from repro_torch.core.population import TrainerFns
 from repro_torch.core.tournament import (
     DataPlan,
@@ -55,12 +58,19 @@ _UNPORTED_FLAGS = (("quantize_exchange", "--quantize-exchange", "A6"),
 def check_ported(args) -> None:
     """Raise ``NotImplementedError``, naming the ROADMAP queue, for an
     arch or a flag the port does not run yet."""
-    if args.arch != ARCH_ID and has_recurrent(get_config(args.arch,
-                                                         args.smoke)):
+    cfg = None if args.arch == ARCH_ID else get_config(args.arch,
+                                                       args.smoke)
+    if cfg is not None and has_recurrent(cfg):
         raise NotImplementedError(
             f"--arch {args.arch}: training the recurrent families (and so "
             "their LM tournaments) is not ported to repro_torch yet; see "
             "ROADMAP.md queue A7")
+    if cfg is not None and cfg.family == "vlm":
+        raise NotImplementedError(
+            f"--arch {args.arch}: an LM tournament reads token shards, and "
+            "a vlm backbone takes patch embeddings and (3, B, S) M-RoPE "
+            "positions the shards do not hold (the JAX launcher fails on "
+            "them in apply_mrope); see ROADMAP.md queue A15")
     if args.optimizer == "adafactor":
         raise NotImplementedError(
             "--optimizer adafactor: Adafactor's factored state does not "
@@ -185,7 +195,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="LTFB tournament training over the distributed "
                     "datastore (PyTorch port)")
     ap.add_argument("--arch", default=ARCH_ID,
-                    choices=sorted(ARCHS) + sorted(UNPORTED))
+                    choices=sorted(ARCHS))
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where weights, optimizer state and batches live; "
                          "cuda raises when no card is visible")

@@ -15,6 +15,16 @@ numpy from ``--seed``, and its ``step ... g= d= val=`` lines.
   python -m repro_torch.launch.train --arch qwen3-0.6b --batch 4 --seq 4096
   python -m repro_torch.launch.train --arch qwen3-0.6b --smoke --device cpu
   python -m repro_torch.launch.train --arch icf-cyclegan --smoke --device cpu
+  python -m repro_torch.launch.train --arch deepseek-moe-16b --smoke \
+      --device cpu
+  python -m repro_torch.launch.train --arch qwen2-vl-7b --smoke --device cpu
+
+Every LM arch but the recurrent ones trains: the MoE archs with capacity
+dispatch and their aux losses in the loss, qwen2-vl-7b on the stub
+frontend's ``embeds`` and M-RoPE ``positions``, musicgen-medium on folded
+codebook token ids.  The ``[train]`` line counts the parameters and the
+active ones (those a token runs through: its top-k experts), on which an
+mfu is reckoned (6 * active * tokens).
 
 The LM path checkpoints as the JAX launcher does: every ``--ckpt-every``
 steps (step 0 excepted) ``<ckpt-dir>/step_<i>.ckpt`` is written in the
@@ -45,7 +55,7 @@ from repro_torch.checkpoint import ckpt
 from repro_torch.configs.base import ModelConfig, OptimizerConfig
 from repro_torch.configs.icf_cyclegan import ARCH_ID as CYCLEGAN_ID
 from repro_torch.configs.icf_cyclegan import CycleGANConfig
-from repro_torch.configs.registry import ARCHS, UNPORTED, get_config
+from repro_torch.configs.registry import ARCHS, get_config
 from repro_torch.data import jag
 from repro_torch.data.tokens import train_batch
 from repro_torch.models.lm import has_recurrent
@@ -87,10 +97,14 @@ def build_trainer(args) -> Trainer:
 
 def device_batch(cfg: ModelConfig, batch: int, seq: int, seed: int,
                  device) -> Dict[str, torch.Tensor]:
-    """``train_batch`` (numpy, bit-identical to JAX's) as int64 tensors on
-    ``device``."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).long().to(device)
-            for k, v in train_batch(cfg, batch, seq, seed=seed).items()}
+    """``train_batch`` (numpy, bit-identical to JAX's) as tensors on
+    ``device``: integer arrays as int64, the others (a vlm's ``embeds``)
+    in their own dtype."""
+    out = {}
+    for k, v in train_batch(cfg, batch, seq, seed=seed).items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        out[k] = (t.long() if not t.is_floating_point() else t).to(device)
+    return out
 
 
 def checkpoint_tree(tr: Trainer) -> Dict[str, dict]:
@@ -135,6 +149,7 @@ def train_lm(args) -> Dict[str, object]:
             "ROADMAP.md queue A14 (or pass --ckpt-every 0 --no-resume)")
     n_params = sum(p.numel() for p in tr.state["model"].parameters())
     print(f"[train] arch={tr.cfg.name} params={n_params / 1e6:.1f}M "
+          f"active={tr.cfg.param_count(active_only=True) / 1e6:.1f}M "
           f"device={tr.device} dtype={tr.cfg.dtype} remat={args.remat} "
           f"batch={args.batch} seq={args.seq}")
     start = 0
@@ -214,7 +229,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="LM or CycleGAN training on one CUDA card (PyTorch "
                     "port)")
     ap.add_argument("--arch", default="qwen3-0.6b",
-                    choices=sorted(ARCHS) + sorted(UNPORTED))
+                    choices=sorted(ARCHS))
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-runnable)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),

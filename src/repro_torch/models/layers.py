@@ -1,14 +1,17 @@
 """Transformer building blocks of the port.
 
 The counterparts of ``repro.models.layers``: RMSNorm (every call goes
-through :func:`repro_torch.kernels.ops.rmsnorm`), RoPE, the GQA attention
+through :func:`repro_torch.kernels.ops.rmsnorm`), RoPE and qwen2-vl's
+M-RoPE (as cos/sin tables, so attention keeps one rotation), the GQA attention
 projections with qk-norm, paged decode/verify attention (through
 :func:`repro_torch.kernels.ops.paged_attention`), chunked-prefill
 attention over the gathered pages (plain PyTorch, as in JAX), the
 exact-length one-shot prefill of a whole prompt into its pages, causal
 attention for the full forward (dense below S = 4096, flash attention
 through :func:`repro_torch.kernels.ops.flash_attention` from there, as
-``repro.models.layers.causal_attention`` dispatches), and the SwiGLU MLP.
+``repro.models.layers.causal_attention`` dispatches), the SwiGLU MLP and
+the capacity-based top-k mixture of experts (plain PyTorch products and
+indexing, as the JAX package computes it outside any Pallas kernel).
 
 Layouts follow the JAX package at every public function: activations
 ``(B, S, d)``, heads ``(B, S, H, D)``, KV pools ``(P+1, bs, Hkv, D)``
@@ -23,11 +26,12 @@ write the new K/V into the pools **in place** with indexed assignment.
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -103,6 +107,29 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float
     computed once per call and shared by every layer."""
     freqs = rope_freqs(head_dim, theta, positions.device)
     angles = positions[..., None].float() * freqs
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
+def mrope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                  sections: Sequence[int]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """qwen2-vl's multimodal RoPE as cos/sin tables ``(B, S, 1, D/2)``
+    (``repro.models.layers.apply_mrope``): int positions ``(3, B, S)``
+    hold the temporal, height and width components, and ``sections``
+    gives the first ``sections[0]`` of the D/2 rotary frequencies to the
+    first component, the next ``sections[1]`` to the second, the rest to
+    the third."""
+    if positions.dim() != 3 or positions.shape[0] != 3:
+        raise ValueError(f"M-RoPE takes (3, B, S) positions, got "
+                         f"{tuple(positions.shape)}")
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} must cover "
+                         f"the {head_dim // 2} rotary frequencies")
+    freqs = rope_freqs(head_dim, theta, positions.device)
+    sec = torch.repeat_interleave(
+        torch.arange(3, device=positions.device),
+        torch.tensor(list(sections), device=positions.device))
+    angles = positions.float()[sec].permute(1, 2, 0) * freqs  # (B, S, D/2)
     return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
 
 
@@ -352,3 +379,160 @@ class MLP(nn.Module):
 def mlp_block(mlp: MLP, x: torch.Tensor) -> torch.Tensor:
     """``silu(x Wg) * (x Wi)`` then ``Wo``."""
     return mlp.wo(F.silu(mlp.wg(x)) * mlp.wi(x))
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts (shared + routed, fine-grained, capacity-based)
+# ---------------------------------------------------------------------------
+
+# tokens of one dispatch group: the largest divisor of a call's B * S up to
+# this (``repro.models.layers.MOE_GROUP_TOKENS``' default)
+MOE_GROUP_TOKENS = 1024
+# profiler ranges around a MoE call's routing and its expert products: a
+# profile of a step reads their device time under these names
+MOE_ROUTE_RANGE = "moe.route"
+MOE_EXPERTS_RANGE = "moe.experts"
+
+
+class MoE(nn.Module):
+    """Mixture-of-experts FFN weights (``repro.models.layers.init_moe``),
+    kept in the JAX package's layout: ``router`` (d, E) in f32 whatever the
+    model's dtype, the expert stacks ``wi`` and ``wg`` (E, d, d_e) and
+    ``wo`` (E, d_e, d), and with ``num_shared_experts`` a SwiGLU ``shared``
+    of width ``d_e * num_shared_experts`` that every token runs through.
+
+    ``moe_block`` leaves the last call's dropped (token, choice) pairs
+    (a 0-dim device tensor) and their total in ``routed``."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype):
+        super().__init__()
+        m = cfg.moe
+        d, E = cfg.d_model, m.num_experts
+        d_e = m.d_expert or cfg.d_ff
+        self.cfg = cfg
+        self.router = nn.Parameter(torch.empty((d, E), dtype=torch.float32))
+        self.wi = nn.Parameter(torch.empty((E, d, d_e), dtype=dtype))
+        self.wg = nn.Parameter(torch.empty((E, d, d_e), dtype=dtype))
+        self.wo = nn.Parameter(torch.empty((E, d_e, d), dtype=dtype))
+        if m.num_shared_experts:
+            self.shared = MLP(d, d_e * m.num_shared_experts, dtype)
+        self.routed = None
+
+    @torch.no_grad()
+    def init_weights(self, gen: torch.Generator) -> None:
+        """Random weights from ``gen``: each N(0, 1/d_in), drawn in f32
+        and cast (the router stays f32)."""
+        for p in (self.router, self.wi, self.wg, self.wo):
+            d_in = p.shape[-2]
+            w = torch.randn(p.shape, generator=gen, device=gen.device,
+                            dtype=torch.float32)
+            p.copy_((w / math.sqrt(d_in)).to(p.dtype))
+        if hasattr(self, "shared"):
+            for lin in (self.shared.wi, self.shared.wg, self.shared.wo):
+                lin.weight.copy_(dense_init(gen, lin.in_features,
+                                            lin.out_features,
+                                            lin.weight.dtype))
+
+
+def moe_group_size(T: int) -> int:
+    """Tokens of a dispatch group: the largest divisor of ``T`` that is at
+    most :data:`MOE_GROUP_TOKENS`."""
+    Tg = min(T, MOE_GROUP_TOKENS)
+    while T % Tg:
+        Tg -= 1
+    return Tg
+
+
+class Routing(NamedTuple):
+    """A MoE call's routing over G groups of Tg tokens: ``logits`` and
+    ``probs`` (G, Tg, E) f32; the top-k ``gate`` (renormalised, zero where
+    dropped) and expert ``idx`` (G, Tg, k); each (token, choice)'s
+    position ``pos`` in its expert's buffer, counted over the group in
+    token-major order, ``keep = pos < capacity``; and ``density`` (E,),
+    the share of tokens that chose each expert."""
+
+    logits: torch.Tensor
+    probs: torch.Tensor
+    gate: torch.Tensor
+    idx: torch.Tensor
+    pos: torch.Tensor
+    keep: torch.Tensor
+    density: torch.Tensor
+    capacity: int
+
+
+def route(moe: MoE, cfg: ModelConfig, xt: torch.Tensor,
+          dropless: bool = False) -> Routing:
+    """Top-k routing of ``xt`` (G, Tg, d), as ``moe_block`` in JAX: the
+    logits are x times the router cast to x's dtype, accumulated and kept
+    in f32 (``F.linear`` in bf16 would round them to bf16 and flip
+    choices); softmax, top-k, renormalise; capacity ``max(1, int(cf * Tg
+    * k / E))``, or Tg when ``dropless``, and the pairs past it
+    dropped."""
+    m = cfg.moe
+    G, Tg, _ = xt.shape
+    E, k = m.num_experts, m.top_k
+    logits = torch.matmul(xt.float(), moe.router.to(xt.dtype).float())
+    probs = torch.softmax(logits, dim=-1)
+    gate, idx = torch.topk(probs, k, dim=-1)
+    gate = gate / gate.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+    capacity = Tg if dropless else max(1, int(m.capacity_factor * Tg * k
+                                              / E))
+    onehot = F.one_hot(idx, E)                              # (G, Tg, k, E)
+    flat = onehot.reshape(G, Tg * k, E)
+    pos = ((flat.cumsum(1) - flat).reshape(G, Tg, k, E) * onehot).sum(-1)
+    keep = pos < capacity
+    density = onehot.amax(2).float().mean((0, 1))
+    return Routing(logits, probs, gate * keep, idx, pos, keep, density,
+                   capacity)
+
+
+def moe_block(moe: MoE, cfg: ModelConfig, x: torch.Tensor,
+              dropless: bool = False
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Capacity-based top-k MoE over ``x`` (B, S, d), the function of
+    ``repro.models.layers.moe_block``: returns (out (B, S, d), aux) with
+    the Switch load-balance loss ``moe_load_balance`` and the router
+    z-loss ``moe_z`` (f32 scalars).
+
+    Both ``dispatch`` values compute one function, and one index-based
+    dispatch serves both: each kept (token, choice) pair gets a row of the
+    (E, G * C, d) expert buffers, every other row reads a zero row; the
+    expert products run over the expert axis as three batched products
+    (``gecd,edf->gecf`` in JAX); each token sums its kept choices' outputs
+    weighted by their gates, then adds the shared experts'.  With
+    ``dropless`` (the cached paths) the capacity is the group's size and
+    no pair is dropped, so a token's output depends on it alone."""
+    m = cfg.moe
+    if m.dispatch not in ("einsum", "scatter"):
+        raise ValueError(f"unknown MoE dispatch {m.dispatch!r}")
+    B, S, d = x.shape
+    T = B * S
+    Tg = moe_group_size(T)
+    G = T // Tg
+    E, k = m.num_experts, m.top_k
+    xt = x.reshape(G, Tg, d)
+    with record_function(MOE_ROUTE_RANGE):
+        r = route(moe, cfg, xt, dropless)
+    C, dev = r.capacity, x.device
+    cdt = torch_dtype(cfg)
+    # row of each kept pair in the flat (E, G, C) buffers; the dropped
+    # ones all land on one spare row past the end
+    groups = torch.arange(G, device=dev)[:, None, None]
+    row = torch.where(r.keep, (r.idx * G + groups) * C + r.pos, E * G * C)
+    src = torch.full((E * G * C + 1,), T, dtype=torch.long, device=dev)
+    src[row.reshape(-1)] = torch.arange(T, device=dev).repeat_interleave(k)
+    x_pad = torch.cat([x.reshape(T, d).to(cdt),
+                       x.new_zeros((1, d), dtype=cdt)])
+    xe = x_pad[src[:-1]].reshape(E, G * C, d)
+    with record_function(MOE_EXPERTS_RANGE):
+        h = F.silu(torch.bmm(xe, moe.wg)) * torch.bmm(xe, moe.wi)
+        ye = torch.bmm(h, moe.wo).reshape(E * G * C, d)
+    picked = torch.cat([ye, ye.new_zeros((1, d))])[row]     # (G, Tg, k, d)
+    out = torch.matmul(r.gate.to(cdt)[..., None, :], picked)[..., 0, :]
+    if hasattr(moe, "shared"):
+        out = out + mlp_block(moe.shared, xt)
+    moe.routed = ((~r.keep).sum().detach(), G * Tg * k)
+    aux = {"moe_load_balance": (r.density * r.probs.mean((0, 1))).sum() * E,
+           "moe_z": torch.logsumexp(r.logits, dim=-1).square().mean()}
+    return out.reshape(B, S, d), aux

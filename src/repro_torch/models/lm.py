@@ -1,16 +1,22 @@
 """Decoder LM of the port: embeds -> a ModuleList of blocks -> logits.
 
-The counterpart of ``repro.models.lm`` for the dense (attention + SwiGLU),
-hybrid (jamba: Mamba/attention interleave with dense FFNs) and ssm (xLSTM)
-families.  The JAX package stacks each period's layer weights and drives
-them with ``lax.scan``; here the layers are an ``nn.ModuleList`` walked in
-a Python loop (:func:`param_groups` recovers JAX's stacking where an
-optimizer needs it).  Five entry points:
+The counterpart of ``repro.models.lm`` for every LM family: dense and moe
+(attention + SwiGLU or mixture of experts), hybrid (jamba: Mamba/attention
+interleave, dense or MoE FFNs), ssm (xLSTM), and the vlm and audio
+backbones behind their stub frontends (a vlm batch carries ``embeds`` and
+(3, B, S) M-RoPE ``positions``; audio reads folded codebook token ids).
+The JAX package stacks each period's layer weights (after a separate stack
+of ``first_k_dense`` prefix layers) and drives them with ``lax.scan``;
+here the layers are an ``nn.ModuleList`` walked in a Python loop
+(:func:`param_groups` recovers JAX's stacking where an optimizer needs
+it).  Five entry points:
 
   ``lm_forward``        full causal forward, no cache (training, and the
                         serve recompute yardstick), optionally
-                        rematerialized per block
-  ``lm_loss``           next-token cross entropy over ``lm_forward``
+                        rematerialized per block; MoE layers run with
+                        capacity, or dropless on request
+  ``lm_loss``           next-token cross entropy over ``lm_forward`` plus
+                        the MoE aux losses
   ``lm_prefill``        one chunked-prefill slice of one request, scattered
                         into the paged pools (``_prefill_chunk`` in JAX;
                         attention-only stacks)
@@ -23,8 +29,10 @@ optimizer needs it).  Five entry points:
                         ``valid``); recurrent stacks take K = 1 and step
                         every slot row's state
 
-The cached entry points write the pools and state rows **in place**; the
-JAX package returns a new cache pytree each call and donates the old one.
+The cached entry points run MoE layers dropless, as JAX's prefill and
+decode do, and broadcast text positions to the three M-RoPE components.
+They write the pools and state rows **in place**; the JAX package returns
+a new cache pytree each call and donates the old one.
 The recurrent mixers' scans have no backward kernel, so a stack with a
 recurrent layer runs without gradients only (training them is ROADMAP
 queue A7).
@@ -37,6 +45,7 @@ from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
@@ -55,9 +64,9 @@ class LayerSpec(NamedTuple):
     d_ff: int
 
 
-# the families the port serves: attention + SwiGLU, the jamba-style
-# Mamba/attention hybrid, and xLSTM stacks
-FAMILIES = ("dense", "hybrid", "ssm")
+# the LM families: attention + SwiGLU or MoE, the jamba-style
+# Mamba/attention hybrid, xLSTM stacks, and the stub-frontend backbones
+FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
 RECURRENT = ("M", "m", "s")
 
 
@@ -70,9 +79,8 @@ def layer_specs(cfg: ModelConfig) -> Tuple[LayerSpec, ...]:
             f"{cfg.name!r} is the CycleGAN surrogate, not an LM: it has no "
             "layer stack (repro_torch.models.icf_cyclegan)")
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch yet; see "
-            "ROADMAP.md queue A")
+        raise ValueError(f"unknown family {cfg.family!r}; one of "
+                         f"{FAMILIES}")
     if cfg.family == "ssm" and cfg.xlstm is not None:
         pat = cfg.xlstm.pattern
         return tuple(LayerSpec(pat[i % len(pat)], "none", 0)
@@ -115,28 +123,38 @@ def grouping(cfg: ModelConfig) -> Tuple[int, int, int]:
     return k0, R, body // R
 
 
+def group_key(cfg: ModelConfig, layer: int, rest: str) -> str:
+    """The key of the JAX leaf that holds weight ``rest`` of ``layer``:
+    ``"blocks[0:k0].<rest>"`` for a layer of the prefix stack (the
+    ``first_k_dense`` layers, JAX's ``prefix``), else
+    ``"blocks[k0+j::R].<rest>"`` for body position j (JAX's ``body[j]``,
+    layers ``k0 + j + p*R``)."""
+    k0, R, _ = grouping(cfg)
+    if layer < k0:
+        return f"blocks[0:{k0}].{rest}"
+    return f"blocks[{k0 + (layer - k0) % R}::{R}].{rest}"
+
+
 def param_groups(cfg: ModelConfig, names: Iterable[str]
                  ) -> Dict[str, List[str]]:
     """The JAX package's parameter leaves over the port's per-layer names
     (given in a model's parameter order, i.e. layer order): ``{key: member
-    names}``, members in stack order.
+    names}`` (keys from :func:`group_key`), members in stack order.
 
-    JAX stacks each weight of the layers ``j + p*R`` (p = 0 .. P-1) into
-    one leaf ``body[j]``; the group key is ``"blocks[j::R].<name>"``.  A
-    weight outside the blocks is a group of its own under its own name.
-    Leaf-wise optimizers (Adafactor) read these to clip and factor as JAX
-    does.  (JAX's separate stack of k0 dense prefix layers comes only with
-    MoE, which the port does not build yet.)
+    JAX stacks the ``first_k_dense`` prefix layers into one leaf each
+    (``prefix``) and each weight of the layers ``k0 + j + p*R`` (p = 0 ..
+    P-1) into one leaf ``body[j]``.  A weight outside the blocks is a
+    group of its own under its own name.  Leaf-wise optimizers (Adafactor)
+    read these to clip and factor as JAX does, an expert stack (P, E, d,
+    d_e) as one leaf.
     """
-    _, R, _ = grouping(cfg)
     groups: Dict[str, List[str]] = {}
     for name in names:
         if not name.startswith("blocks."):
             groups[name] = [name]
             continue
         _, i, rest = name.split(".", 2)
-        groups.setdefault(f"blocks[{int(i) % R}::{R}].{rest}",
-                          []).append(name)
+        groups.setdefault(group_key(cfg, int(i), rest), []).append(name)
     return groups
 
 
@@ -144,22 +162,20 @@ _MIXERS = {"a": L.Attention, "M": S.Mamba, "m": X.MLSTM, "s": X.SLSTM}
 
 
 class Block(nn.Module):
-    """Pre-norm block: ``ln1``, the mixer of ``spec.kind`` and, with a
-    dense FFN, ``ln2`` and the SwiGLU ``ffn``."""
+    """Pre-norm block: ``ln1``, the mixer of ``spec.kind`` and, with an
+    FFN, ``ln2`` and the SwiGLU or MoE ``ffn`` (``spec.ffn``)."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec,
                  dtype: torch.dtype):
         super().__init__()
-        if spec.ffn == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: MoE FFN layers are not ported to repro_torch "
-                "yet; see ROADMAP.md queue A8 (MoE FFN)")
         self.kind = spec.kind
+        self.ffn_kind = spec.ffn
         self.ln1 = L.RMSNorm(cfg.d_model, cfg.norm_eps, dtype)
         self.mixer = _MIXERS[spec.kind](cfg, dtype)
-        if spec.ffn == "dense":
+        if spec.ffn != "none":
             self.ln2 = L.RMSNorm(cfg.d_model, cfg.norm_eps, dtype)
-            self.ffn = L.MLP(cfg.d_model, spec.d_ff, dtype)
+            self.ffn = L.MoE(cfg, dtype) if spec.ffn == "moe" \
+                else L.MLP(cfg.d_model, spec.d_ff, dtype)
 
 
 class LM(nn.Module):
@@ -189,10 +205,11 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
 
     As in ``repro.models.lm.init_lm``: dense weights N(0, 1/d_in), the
     embedding N(0, 0.02^2), norm scales one and biases zero; the Mamba and
-    xLSTM mixers draw their own (``init_weights``: ``A_log``, ``dt_bias``,
-    ``D``, the conv, the gate biases, ``r_h``).  The numbers differ from
-    JAX's (another generator), so parity tests load the JAX weights
-    through :mod:`repro_torch.bridge`.  A MoE layer raises.
+    xLSTM mixers and the MoE FFNs draw their own (``init_weights``:
+    ``A_log``, ``dt_bias``, ``D``, the conv, the gate biases, ``r_h``; the
+    f32 router and the expert stacks).  The numbers differ from JAX's
+    (another generator), so parity tests load the JAX weights through
+    :mod:`repro_torch.bridge`.
     """
     dev = resolve_device(device)
     # built on the device itself, not on "meta": a module's default init
@@ -205,9 +222,11 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
     with torch.no_grad():
         own = []
         for i, block in enumerate(model.blocks):
-            if hasattr(block.mixer, "init_weights"):
-                block.mixer.init_weights(gen)
-                own.append(f"blocks.{i}.mixer.")
+            for part in ("mixer", "ffn"):
+                module = getattr(block, part, None)
+                if hasattr(module, "init_weights"):
+                    module.init_weights(gen)
+                    own.append(f"blocks.{i}.{part}.")
         for name, p in model.named_parameters():
             if name.startswith(tuple(own)):
                 continue
@@ -250,32 +269,28 @@ def init_cache(cfg: ModelConfig, pages: Tuple[int, int], num_slots: int = 0,
 
 _FULL_SEQUENCE = {"M": S.mamba_core, "m": X.mlstm_block, "s": X.slstm_block}
 _DECODE = {"M": S.mamba_decode, "m": X.mlstm_decode, "s": X.slstm_decode}
+# profiler range around an attention mixer (projections, RoPE, the cache
+# writes and the attention kernel): a profile reads its device time here
+ATTENTION_RANGE = "attention"
 
 
 def _apply_block(block: Block, x: torch.Tensor, cos: torch.Tensor,
                  sin: torch.Tensor, mode: str, cache: Optional[L.Cache] = None,
                  write: Optional[L.PagedWrite] = None,
-                 slot: Optional[int] = None) -> torch.Tensor:
+                 slot: Optional[int] = None, dropless: bool = False
+                 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """One block in mode ``train`` (no cache), ``prefill`` (one request's
     whole prompt at exact length: attention K/V into its pages, recurrent
     state into its slot row ``slot``), ``chunk`` (chunked prefill,
     attention only) or ``decode`` (one token per row over every slot);
-    returns the new residual.  Caches are written in place."""
+    returns the new residual and, for a MoE FFN, its aux losses (else
+    None).  A MoE FFN runs with capacity in mode ``train`` unless
+    ``dropless``, and dropless in the cached modes, as JAX's
+    ``_apply_block`` does.  Caches are written in place."""
     h = block.ln1(x)
     if block.kind == "a":
-        if mode == "train":
-            mix = L.attention_block(block.mixer, h, cos, sin)
-        elif mode == "prefill":
-            mix = L.attention_prefill_paged(block.mixer, h, cache, cos, sin,
-                                            write)
-        elif mode == "chunk":
-            mix = L.attention_chunk_paged(block.mixer, h, cache, cos, sin,
-                                          write)
-        elif mode == "decode":
-            mix = L.attention_decode_paged(block.mixer, h, cache, cos, sin,
-                                           write)
-        else:
-            raise ValueError(f"unknown mode {mode!r}")
+        with record_function(ATTENTION_RANGE):
+            mix = _attention(block.mixer, h, cos, sin, mode, cache, write)
     elif mode in ("train", "prefill"):
         mix, state = _FULL_SEQUENCE[block.kind](block.mixer, h)
         if mode == "prefill":
@@ -289,9 +304,28 @@ def _apply_block(block: Block, x: torch.Tensor, cos: torch.Tensor,
         raise ValueError(f"mode {mode!r} takes attention blocks only (got "
                          f"mixer kind {block.kind!r})")
     x = x + mix
-    if hasattr(block, "ffn"):
+    aux = None
+    if block.ffn_kind == "moe":
+        f, aux = L.moe_block(block.ffn, block.ffn.cfg, block.ln2(x),
+                             dropless=dropless or mode != "train")
+        x = x + f
+    elif block.ffn_kind == "dense":
         x = x + L.mlp_block(block.ffn, block.ln2(x))
-    return x
+    return x, aux
+
+
+def _attention(attn: L.Attention, h: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor, mode: str, cache: Optional[L.Cache],
+               write: Optional[L.PagedWrite]) -> torch.Tensor:
+    if mode == "train":
+        return L.attention_block(attn, h, cos, sin)
+    if mode == "prefill":
+        return L.attention_prefill_paged(attn, h, cache, cos, sin, write)
+    if mode == "chunk":
+        return L.attention_chunk_paged(attn, h, cache, cos, sin, write)
+    if mode == "decode":
+        return L.attention_decode_paged(attn, h, cache, cos, sin, write)
+    raise ValueError(f"unknown mode {mode!r}")
 
 
 def _logits(model: LM, x: torch.Tensor) -> torch.Tensor:
@@ -302,18 +336,52 @@ def _logits(model: LM, x: torch.Tensor) -> torch.Tensor:
 
 
 def _rope(model: LM, positions: torch.Tensor):
+    """cos/sin tables for ``positions``: (3, B, S) through M-RoPE, or
+    (B, S) (the first component of a (3, B, S) one, as JAX reads it)
+    through plain RoPE."""
     cfg = model.cfg
-    return L.rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    hd = cfg.resolved_head_dim
+    if cfg.use_mrope:
+        return L.mrope_cos_sin(positions, hd, cfg.rope_theta,
+                               cfg.frontend.mrope_sections)
+    if positions.dim() == 3:
+        positions = positions[0]
+    return L.rope_cos_sin(positions, hd, cfg.rope_theta)
+
+
+def _text_rope(model: LM, positions: torch.Tensor):
+    """Tables for text positions (B, S) of the cached entry points: with
+    M-RoPE all three components advance together (JAX's ``lm_decode`` and
+    ``_prefill_chunk`` broadcast them)."""
+    if model.cfg.use_mrope:
+        positions = positions[None].expand(3, *positions.shape)
+    return _rope(model, positions)
+
+
+def _zero_aux(device) -> Dict[str, torch.Tensor]:
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in ("moe_load_balance", "moe_z")}
 
 
 REMAT = ("none", "full", "dots", "dots_no_batch")
 
 
-def lm_forward(model: LM, tokens: torch.Tensor,
-               remat: str = "none") -> torch.Tensor:
+def lm_forward(model: LM, tokens: Optional[torch.Tensor],
+               remat: str = "none", *, embeds: Optional[torch.Tensor] = None,
+               positions: Optional[torch.Tensor] = None,
+               dropless: bool = False, with_aux: bool = False):
     """Full causal forward without a cache: tokens (B, S) -> logits
     (B, S, V).  Attention follows the config's ``attn_impl`` (dense below
     S = 4096, flash from there); no pages, no paged kernel.
+
+    ``embeds`` (B, S, d) replaces the token embedding (the vlm stub
+    frontend's patch embeddings, cast to the model's dtype; ``tokens`` is
+    then unused) and ``positions`` the default ``arange(S)``: (B, S), or
+    (3, B, S) for M-RoPE, which a ``use_mrope`` config requires (JAX's
+    ``apply_mrope`` fails on (B, S) ones too).  MoE layers run with
+    capacity, as JAX's ``lm_forward`` does, or with ``dropless`` as its
+    cached paths do (the serve recompute yardstick).  ``with_aux``
+    returns (logits, aux), aux the MoE losses summed over layers.
 
     ``remat="full"`` recomputes each block in the backward pass
     (``torch.utils.checkpoint``, non-reentrant), the granularity of JAX's
@@ -332,36 +400,57 @@ def lm_forward(model: LM, tokens: torch.Tensor,
             f"{model.cfg.name}: training the recurrent families is not "
             "ported yet (the scan kernels have no backward); see ROADMAP.md "
             "queue A7")
-    x = model.embed(tokens)
-    B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    cfg = model.cfg
+    x = model.embed(tokens) if embeds is None \
+        else embeds.to(L.torch_dtype(cfg))
+    B, S = x.shape[:2]
+    if positions is None:
+        if cfg.use_mrope:
+            raise ValueError(f"{cfg.name}: M-RoPE needs explicit (3, B, S) "
+                             "positions")
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
     cos, sin = _rope(model, positions)
     recompute = remat == "full" and torch.is_grad_enabled()
+    aux = _zero_aux(x.device)
     for block in model.blocks:
         if recompute:
-            x = checkpoint(_apply_block, block, x, cos, sin, "train",
-                           use_reentrant=False)
+            x, a = checkpoint(_apply_block, block, x, cos, sin, "train",
+                              dropless=dropless, use_reentrant=False)
         else:
-            x = _apply_block(block, x, cos, sin, "train")
-    return _logits(model, x)
+            x, a = _apply_block(block, x, cos, sin, "train",
+                                dropless=dropless)
+        if a is not None:
+            aux = {k: aux[k] + a[k] for k in aux}
+    logits = _logits(model, x)
+    return (logits, aux) if with_aux else logits
 
 
 def lm_loss(model: LM, batch: Dict[str, torch.Tensor],
             remat: str = "none") -> Tuple[torch.Tensor,
                                           Dict[str, torch.Tensor]]:
-    """Next-token cross entropy (``repro.models.lm.lm_loss``, dense
-    family): logits in f32, ``logsumexp`` minus the gold logit, averaged
-    over the positions whose label is ``>= 0``.  ``batch`` holds
-    ``tokens`` and ``labels``, (B, S) integer tensors on the model's
-    device.  Returns (loss, {"ce": loss})."""
-    logits = lm_forward(model, batch["tokens"], remat)
+    """Next-token cross entropy plus the MoE aux losses
+    (``repro.models.lm.lm_loss``): logits in f32, ``logsumexp`` minus the
+    gold logit, averaged over the positions whose label is ``>= 0``; with
+    MoE ``router_aux_weight * moe_load_balance + router_z_weight *
+    moe_z`` added.  ``batch`` holds ``labels`` (B, S) and ``tokens`` (B,
+    S), or, for a vlm, ``embeds`` (B, S, d) and ``positions`` (3, B, S),
+    tensors on the model's device.  Returns (loss, {"ce", "moe_load_balance",
+    "moe_z"}), the aux losses zero without MoE layers."""
+    logits, aux = lm_forward(model, batch.get("tokens"), remat,
+                             embeds=batch.get("embeds"),
+                             positions=batch.get("positions"), with_aux=True)
     labels = batch["labels"].long()
     lg = logits.float()
     logz = torch.logsumexp(lg, dim=-1)
     gold = lg.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).float()
     ce = ((logz - gold) * mask).sum() / mask.sum().clamp(min=1.0)
-    return ce, {"ce": ce}
+    loss = ce
+    moe = model.cfg.moe
+    if moe is not None:
+        loss = loss + moe.router_aux_weight * aux["moe_load_balance"] \
+            + moe.router_z_weight * aux["moe_z"]
+    return loss, {"ce": ce, **aux}
 
 
 def _pool_geometry(cache: List[L.Cache]) -> Optional[Tuple[int, int]]:
@@ -391,10 +480,10 @@ def lm_prefill(model: LM, tokens: torch.Tensor, cache: List[L.Cache],
     null_page, bs = _pool_geometry(cache)
     write = L.chunk_write(hist_len, prompt_len, C, tables, bs, null_page)
     positions = hist_len + torch.arange(C, device=tokens.device)[None]
-    cos, sin = _rope(model, positions)
+    cos, sin = _text_rope(model, positions)
     x = model.embed(tokens)
     for block, layer_cache in zip(model.blocks, cache):
-        x = _apply_block(block, x, cos, sin, "chunk", layer_cache, write)
+        x, _ = _apply_block(block, x, cos, sin, "chunk", layer_cache, write)
     return _logits(model, x[:, last_pos:last_pos + 1])
 
 
@@ -419,11 +508,11 @@ def lm_prefill_exact(model: LM, tokens: torch.Tensor, cache: List[L.Cache],
     write = None if geometry is None else \
         L.chunk_write(0, P, P, tables, geometry[1], geometry[0])
     positions = torch.arange(P, device=tokens.device)[None]
-    cos, sin = _rope(model, positions)
+    cos, sin = _text_rope(model, positions)
     x = model.embed(tokens)
     for block, layer_cache in zip(model.blocks, cache):
-        x = _apply_block(block, x, cos, sin, "prefill", layer_cache, write,
-                         slot)
+        x, _ = _apply_block(block, x, cos, sin, "prefill", layer_cache,
+                            write, slot)
     return _logits(model, x[:, -1:])
 
 
@@ -454,8 +543,8 @@ def lm_decode(model: LM, tokens: torch.Tensor, cache: List[L.Cache],
         L.decode_write(index, tables, geometry[1], geometry[0], K, valid)
     positions = index.clamp(min=0)[:, None] \
         + torch.arange(K, device=tokens.device)[None]
-    cos, sin = _rope(model, positions)
+    cos, sin = _text_rope(model, positions)
     x = model.embed(tokens)
     for block, layer_cache in zip(model.blocks, cache):
-        x = _apply_block(block, x, cos, sin, "decode", layer_cache, write)
+        x, _ = _apply_block(block, x, cos, sin, "decode", layer_cache, write)
     return _logits(model, x)

@@ -54,14 +54,23 @@ def global_norm(tensors: Tensors) -> torch.Tensor:
                           for x in tensors.values()))
 
 
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The global-norm clip's factor ``min(1, max_norm / max(norm,
+    1e-9))``."""
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
+def scale_grads(grads: Tensors, scale: torch.Tensor) -> Tensors:
+    """Every gradient times ``scale`` in f32, cast back to its dtype."""
+    return {n: (g.float() * scale).to(g.dtype) for n, g in grads.items()}
+
+
 def clip_by_global_norm(grads: Tensors, max_norm: float
                         ) -> Tuple[Tensors, torch.Tensor]:
     """Scale every gradient by ``min(1, max_norm / max(norm, 1e-9))`` in
     f32, cast back to its dtype; returns (clipped, norm)."""
     norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return {n: (g.float() * scale).to(g.dtype) for n, g in grads.items()}, \
-        norm
+    return scale_grads(grads, clip_scale(norm, max_norm)), norm
 
 
 def lr_schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Continuous-batching LM serving scheduler of the port (paged KV cache).
 
 The counterpart of ``repro.serve.scheduler.Scheduler`` for the paged
-layout and the dense, hybrid (jamba) and ssm (xLSTM) families.  Per
-scheduler step:
+layout and every token-input family: dense, moe, audio, hybrid (jamba)
+and ssm (xLSTM); a vlm is refused, as in JAX (its prompts would be
+embeddings).  Per scheduler step:
 
   1. *admission* — pop queued requests while a slot AND a full
      token-budget page reservation (prompt + max new tokens) are
@@ -147,7 +148,11 @@ class Scheduler:
             raise ValueError(f"unknown policy {policy!r}")
         if swap_mode not in ("immediate", "drain"):
             raise ValueError(f"unknown swap_mode {swap_mode!r}")
-        lm.layer_specs(cfg)             # raises for unported families
+        if cfg.family == "vlm":
+            raise ValueError(
+                "serving scheduler supports token-input families only "
+                "(vlm prompts need precomputed embeddings)")
+        lm.layer_specs(cfg)             # raises for a non-LM config
         self.cfg = cfg
         self.policy = policy
         self.prefill_chunk = int(prefill_chunk)

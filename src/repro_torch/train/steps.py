@@ -70,12 +70,22 @@ def make_optimizer(cfg: ModelConfig,
 def make_lm_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
                        remat: str = "full") -> Callable:
     """``step(state, batch) -> (state, metrics)``: one optimizer step on
-    ``batch`` (``tokens``/``labels`` tensors on the model's device).
+    ``batch`` (``tokens``/``labels``, or a vlm's ``embeds``/``positions``/
+    ``labels``, tensors on the model's device).
 
     The lr is ``lr_schedule`` at the optimizer's step count BEFORE the
     update, so step 0 runs at lr 0 and leaves the weights unchanged, as in
     JAX.  Metrics are 0-dim tensors on the device: ``loss``, ``ce``,
-    ``lr`` and, with clipping, ``grad_norm``.
+    ``moe_load_balance``, ``moe_z`` (zero without MoE), ``lr`` and, with
+    clipping, ``grad_norm``.
+
+    The clip and the update run one parameter group
+    (:func:`repro_torch.models.lm.param_groups`) at a time, each group's
+    new moments replacing its old ones before the next group's are made:
+    the numbers are those of one update over every weight (Adam and SGD
+    work element by element, Adafactor leaf by leaf), but the step holds
+    one group's new state at a time instead of a second copy of the
+    whole optimizer state, as JAX's step reuses its donated buffers.
     """
     optimizer = make_optimizer(cfg, opt_cfg)
 
@@ -87,22 +97,44 @@ def make_lm_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
             p.grad = None
         loss, metrics = lm.lm_loss(model, batch, remat=remat)
         loss.backward()
-        grads = {n: p.grad for n, p in params.items()}
+        # a weight the loss does not read (a vlm's token embedding, which
+        # the patch embeddings replace) gets the zero gradient JAX gives it
+        grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
+                 for n, p in params.items()}
         metrics = {k: v.detach() for k, v in metrics.items()}
+        scale = None
         if opt_cfg.grad_clip_norm:
-            grads, gnorm = opt_lib.clip_by_global_norm(
-                grads, opt_cfg.grad_clip_norm)
+            gnorm = opt_lib.global_norm(grads)
+            scale = opt_lib.clip_scale(gnorm, opt_cfg.grad_clip_norm)
             metrics["grad_norm"] = gnorm
-        lr = opt_lib.lr_schedule(opt_cfg, state["opt_state"]["step"])
+        opt_state = state["opt_state"]
+        lr = opt_lib.lr_schedule(opt_cfg, opt_state["step"])
+        step = None
         with torch.no_grad():
-            new_params, state["opt_state"] = optimizer.update(
-                grads, state["opt_state"],
-                {n: p.detach() for n, p in params.items()}, lr)
-            for n, p in params.items():
-                p.copy_(new_params[n])
+            for key, members in lm.param_groups(cfg, params).items():
+                g = {n: grads[n] for n in members}
+                if scale is not None:
+                    g = opt_lib.scale_grads(g, scale)
+                new_params, new_opt = optimizer.update(
+                    g, _substate(opt_state, members + [key]),
+                    {n: params[n].detach() for n in members}, lr)
+                for n in members:
+                    params[n].copy_(new_params[n])
+                for k, v in new_opt.items():
+                    if isinstance(v, dict):
+                        opt_state[k].update(v)
+                step = new_opt["step"]
+            opt_state["step"] = step
         return state, {**metrics, "loss": loss.detach(), "lr": lr}
 
     return train_step
+
+
+def _substate(opt_state: dict, keys) -> dict:
+    """An optimizer state cut to the entries of ``keys`` (weight names and
+    group keys) in each of its dicts; ``step`` as it is."""
+    return {k: {n: v[n] for n in keys if n in v} if isinstance(v, dict)
+            else v for k, v in opt_state.items()}
 
 
 def make_lm_eval_metric(cfg: ModelConfig) -> Callable:
@@ -211,8 +243,9 @@ def make_lm_population_fns(cfg: ModelConfig, opt_cfg: OptimizerConfig,
                    hparams):
         with skeleton.bound(params, grad=True) as (model, leaves):
             loss, metrics = lm.lm_loss(model, batch, remat=remat)
-            grads = dict(zip(leaves, torch.autograd.grad(
-                loss, list(leaves.values()))))
+            grads = {n: torch.zeros_like(leaves[n]) if g is None else g
+                     for n, g in zip(leaves, torch.autograd.grad(
+                         loss, list(leaves.values()), allow_unused=True))}
         metrics = {k: v.detach() for k, v in metrics.items()}
         if opt_cfg.grad_clip_norm:
             grads, gnorm = opt_lib.clip_by_global_norm(

@@ -105,19 +105,26 @@ def test_configs_equal_jax_field_by_field(smoke):
     mine = get_config("qwen3-0.6b", smoke=smoke)
     ref = jax_qwen3.SMOKE if smoke else jax_qwen3.FULL
     for f in dataclasses.fields(mine):
-        assert getattr(mine, f.name) == getattr(ref, f.name), f.name
+        a, b = getattr(mine, f.name), getattr(ref, f.name)
+        if dataclasses.is_dataclass(b):         # a sub-config (frontend)
+            assert dataclasses.asdict(a) == dataclasses.asdict(b), f.name
+        else:
+            assert a == b, f.name
     for prop in ("resolved_head_dim", "q_dim", "kv_dim"):
         assert getattr(mine, prop) == getattr(ref, prop), prop
 
 
 def test_unported_arch_names_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("deepseek-moe-16b")
-    # jamba resolves since the recurrent slice (served without experts);
-    # a model with its MoE layers still raises, naming the roadmap
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.init_lm(get_config("jamba-1.5-large-398b", smoke=True),
-                    device="cpu")
+    """No arch is left unported: every arch of the JAX registry resolves
+    (FULL and SMOKE, to a config of that name), and an unknown one raises
+    ``KeyError``."""
+    from repro.configs.registry import ARCHS as JAX_ARCHS
+
+    for arch in JAX_ARCHS:
+        for smoke in (False, True):
+            assert get_config(arch, smoke=smoke).name.startswith(arch)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
 
 
 def test_lm_forward_matches_jax(both):

@@ -108,11 +108,15 @@ def test_configs_equal_jax_field_by_field(family, smoke):
 
 
 def test_moe_layers_raise_naming_the_roadmap():
-    """The published jamba config keeps its experts: building it raises at
-    the first MoE layer, naming ROADMAP A8; the served cut has none."""
-    with pytest.raises(NotImplementedError, match="A8"):
-        tlm.init_lm(get_config("jamba-1.5-large-398b", smoke=True),
-                    device="cpu")
+    """The published jamba config keeps its experts: SMOKE builds with its
+    MoE layers, whose layer specs equal JAX's; the served cut has none."""
+    smoke = get_config("jamba-1.5-large-398b", smoke=True)
+    model = tlm.init_lm(smoke, device="cpu")
+    assert tlm.layer_specs(smoke) == tuple(
+        tuple(s) for s in jlm.layer_specs(jax_jamba.SMOKE))
+    assert [b.ffn_kind for b in model.blocks] == [
+        s.ffn for s in jlm.layer_specs(jax_jamba.SMOKE)] == \
+        ["dense", "moe", "dense", "moe"]
     served = jamba_15_large.NOEXP_8L
     assert served.moe is None and served.layer_kinds() == tuple("MMMMaMMM")
     assert all(s.ffn == "dense" and s.d_ff == 24576
