@@ -186,7 +186,34 @@ and never prints the final ``ok`` line):
     at 7 query heads a KV head; the token embedding, which the
     embeddings replace, takes no gradient); then a 2-layer forward at
     S = 256 in f32 (TF32 off) on the card against the CPU within 1e-3;
-25. a ``kernels`` line (``launches_by_path`` with one entry per new
+25. serve_spec (run right after phase 15, while its population is on
+    disk): population speculative decoding.  The paged kernel at the
+    verify shapes against its plain version, timed as in phase 3 (bf16
+    H = 16 over 2 KV heads, D = 128, K = 5 and 8 -- qwen2.5-3b's 40 and 64
+    rows; H = 16 over 8 at K = 5 in bf16 and f32 -- qwen3-0.6b's; lengths
+    114-499 and the split edges of a 36-page table).  spec_arch:
+    qwen2.5-3b FULL in bf16 (random weights, seed 0), 16 requests over 8
+    slots, prompts 128/256/512, 64 new tokens, greedy, 4 draft tokens a
+    round: target-only, a self drafter and a qwen3-0.6b FULL drafter
+    (``draft_cfg``), each speculative stream equal to the target-only one
+    save where it first parts at a target-only top-2 gap below 0.25 (bf16;
+    such partings are counted); one plain decode round and one speculative
+    round profiled, the round's device time split by the ranges ``draft``,
+    ``verify`` and ``rollback``.  spec_pop: phase 15's latest winner in
+    f32 (TF32 off) verifies, its earliest winner drafts (``load_draft``):
+    8 requests over 4 slots, prompts 128/256, 32 new tokens, fused,
+    sequential, fused at temperature 0.8 (a seed a request) and
+    ``spec_adapt``, each identical to target-only decoding save top-2
+    ties within 1e-4; then the serve CLI with ``--draft-ckpt --spec-tokens
+    3 --spec-adapt``.  spec_recurrent: xlstm-125m FULL in f32 with a self
+    and a fresh-seed drafter (exact save ties; the fresh one must replay)
+    and jamba ``NOEXP_8L`` in bf16 with a self drafter (the bf16 rule),
+    its snapshot timed.  Every run's launches are exact: per verify,
+    replay or plain step one paged launch per attention layer of the
+    session, per fused round Kv per drafter attention layer, the RMSNorm
+    launches of every forward, a scan per recurrent layer and prefill;
+    a fused run drafts once a round, a sequential one more than K times;
+26. a ``kernels`` line (``launches_by_path`` with one entry per new
     path and arch), the ``nvidia-smi`` line, and the ``ok`` line.
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and ``triton``; exits 1
@@ -2960,6 +2987,487 @@ def phase_train_vlm(torch, device="cuda", smoke=False):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# population speculative decoding: drafter sessions, the fused draft, the
+# K-token verify, rollback over recurrent state, load_draft
+# ---------------------------------------------------------------------------
+
+# the verify shapes of the paged kernel: (H, Hkv, K, dtype) at D = 128 for
+# qwen2.5-3b (g = 8; K = 8 fills the kernel's 64 rows) and qwen3-0.6b
+SPEC_VERIFY = ((16, 2, 5, "bfloat16"), (16, 2, 8, "bfloat16"),
+               (16, 8, 5, "bfloat16"), (16, 8, 5, "float32"))
+# spec_arch: qwen2.5-3b FULL in bf16, 16 requests over 8 slots, prompts
+# 128/256/512, 64 new tokens, greedy, 4 draft tokens a round
+SPEC_ARCH_TRAFFIC = dict(n_req=16, prompt_lens=[128, 256, 512], max_new=64,
+                         slots=8)
+# spec_pop: qwen3-0.6b FULL in f32 (TF32 off) from the LM tournament's
+# winners, 8 requests over 4 slots, prompts 128/256, 32 new tokens
+SPEC_POP_TRAFFIC = dict(n_req=8, prompt_lens=[128, 256], max_new=32, slots=4)
+# spec_recurrent: xlstm-125m FULL in f32, 4 requests over 4 slots, prompts
+# 100/300; jamba NOEXP_8L in bf16, 8 requests over 8 slots, prompts
+# 100/300/500; 32 new tokens
+SPEC_XLSTM_TRAFFIC = dict(n_req=4, prompt_lens=[100, 300], max_new=32,
+                          slots=4)
+SPEC_HYBRID_TRAFFIC = dict(n_req=8, prompt_lens=[100, 300, 500], max_new=32,
+                           slots=8)
+SPEC_K = 4
+# token identity: in f32 (TF32 off) a speculative stream may part from the
+# target-only one only where the target-only sampling objective (the
+# logits, or logits / T + the Gumbel draw) has a top-2 tie within 1e-4, as
+# phase_recompute allows.  In bf16 the verify's logits are not the decode's
+# bit for bit (its matmuls take B (K+1) rows, the paged kernel another
+# split plan), so a parting is allowed where the target-only top-2 gap is
+# below 0.25: bf16 keeps 8 bits, so a logit near 8-16 moves by 0.0625 an
+# ulp, and 36 layers of bf16 rounding move it by a few.  After the first
+# parting the two streams are no longer comparable
+SPEC_TIE = {"float32": 1e-4, "bfloat16": 0.25}
+# the profiled round: the steady batch, every slot busy
+SPEC_PROFILE_ROUND = 10
+
+
+def _count_calls(sched) -> dict:
+    """Wrap a scheduler's sessions so that every model call is counted by
+    session and kind: the target's prefills, prefill chunks and steps
+    (verify, replay or plain decode), the drafter's prefills, steps
+    (sequential draft or replay) and fused rounds with their steps."""
+    calls = dict.fromkeys(("t_prefill", "t_chunk", "t_step", "d_prefill",
+                           "d_step", "d_block", "d_block_steps"), 0)
+
+    def wrap(obj, name, key):
+        fn = getattr(obj, name)
+
+        def run(*a, **kw):
+            calls[key] += 1
+            if name == "draft_block":
+                calls["d_block_steps"] += a[2] if len(a) > 2 \
+                    else kw["steps"]
+            return fn(*a, **kw)
+        setattr(obj, name, run)
+
+    wrap(sched.session, "prefill", "t_prefill")
+    wrap(sched.session, "prefill_chunk", "t_chunk")
+    wrap(sched.session, "step", "t_step")
+    if sched.draft is not None:
+        wrap(sched.draft, "prefill", "d_prefill")
+        wrap(sched.draft, "step", "d_step")
+        wrap(sched.draft, "draft_block", "d_block")
+    return calls
+
+
+def _record_gaps(sched, gaps: dict) -> None:
+    """Record, for every token the scheduler samples, the top-2 gap of its
+    sampling objective (the logits at temperature 0, else logits / T plus
+    the request's Gumbel draw) under ``(rid, ntok)``."""
+    import numpy as np
+
+    sample = sched._sample
+
+    def recorded(row, req, ntok):
+        tok = sample(row, req, ntok)
+        obj = np.asarray(row, np.float64)
+        if req.temperature > 0:
+            obj = obj / req.temperature + np.random.default_rng(
+                [req.seed, ntok]).gumbel(size=obj.shape[-1])
+        top2 = np.partition(obj, -2)[-2:]
+        gaps[(req.rid, ntok)] = float(top2[1] - top2[0])
+        return tok
+    sched._sample = recorded
+
+
+def _profile_round(torch, sched, n: int, out: dict) -> None:
+    """Run the scheduler's ``n``-th decode round (speculative or plain)
+    under the profiler, its device time split by ``SPEC_RANGES``."""
+    from repro_torch.serve.scheduler import SPEC_RANGES
+
+    name = "_spec_round" if sched.spec_tokens > 0 else "_decode_round"
+    fn, seen = getattr(sched, name), [0]
+
+    def run():
+        seen[0] += 1
+        if seen[0] != n:
+            return fn()
+        out.update(_profile(torch, fn, SPEC_RANGES), round=n,
+                   rows=len(sched.active))
+    setattr(sched, name, run)
+
+
+def _partings(base: dict, spec: dict, gaps: dict, tol: float) -> list:
+    """Per request, the first position where ``spec``'s tokens part from
+    ``base``'s (the target-only run), with the target-only top-2 gap
+    there and whether it is a tie within ``tol``."""
+    out = []
+    for rid, want in base.items():
+        got = spec[rid]
+        i = next((j for j, (a, b) in enumerate(zip(want, got)) if a != b),
+                 None)
+        if i is None and len(want) == len(got):
+            continue
+        i = min(len(want), len(got)) if i is None else i
+        gap = gaps.get((rid, i))
+        out.append({"rid": rid, "pos": i, "gap": gap,
+                    "tie": gap is not None and gap < tol})
+    return out
+
+
+def _spec_run(torch, what, cfg, model, traffic, device, draft=None, k=0,
+              draft_cfg=None, fused=True, adapt=False, temperature=0.0,
+              gaps=None, profile=False):
+    """Serve one trace through ``Scheduler`` (a drafter when ``draft``):
+    every target logit row finite, every kernel counter (set to 0 just
+    before the run, read just after) equal to the launches of the model
+    calls the run made -- per verify, replay or plain step one paged
+    launch per attention layer of that session, per fused round ``Kv``
+    per drafter attention layer, the RMSNorm launches of every forward,
+    a scan per recurrent layer and prefill -- and those calls to the
+    spec counters.  Returns the run's record (tokens under ``tokens``)."""
+    from repro_torch.launch.serve import build_requests
+    from repro_torch.models.lm import layer_specs
+    from repro_torch.serve.scheduler import Scheduler
+
+    n_req, lens, max_new, slots = (traffic[k_] for k_ in (
+        "n_req", "prompt_lens", "max_new", "slots"))
+    sched = Scheduler(cfg, model, num_slots=slots, block_size=16,
+                      max_len=max(lens) + max_new, draft_params=draft,
+                      spec_tokens=k, draft_cfg=draft_cfg, spec_fused=fused,
+                      spec_adapt=adapt, device=device)
+    calls = _count_calls(sched)
+    rows = [0]
+    _check_finite(torch, sched.session, rows)
+    if gaps is not None:
+        _record_gaps(sched, gaps)
+    prof = {}
+    if profile:
+        _profile_round(torch, sched, SPEC_PROFILE_ROUND, prof)
+    for r in build_requests(cfg, n_req, lens, max_new,
+                            temperature=temperature, seed=0):
+        sched.submit(r)
+    counters = _all_counters()
+    _sync(torch, device)
+    _reset_peak(torch, device)
+    for fn in counters.values():
+        fn.launches = 0
+    results = sched.run()
+    _sync(torch, device)
+    got = {n: fn.launches for n, fn in counters.items()}
+    st = sched.stats.as_dict()
+    check(st["completed"] == n_req and all(
+        len(v) == max_new for v in results.values()),
+        f"{what}: {st['completed']} of {n_req} requests completed in full")
+    dcfg = draft_cfg or cfg
+
+    def per(c, kinds):
+        return sum(s.kind in kinds for s in layer_specs(c))
+
+    c = calls
+    d_fwd = c["d_step"] + c["d_block_steps"]
+    want = {"paged_attention": per(cfg, "a") * c["t_step"]
+            + per(dcfg, "a") * d_fwd * (draft is not None),
+            "rmsnorm": _norms_per_forward(cfg) * (
+                c["t_prefill"] + c["t_chunk"] + c["t_step"])
+            + _norms_per_forward(dcfg) * (c["d_prefill"] + d_fwd)
+            * (draft is not None),
+            "mamba_scan": per(cfg, "M") * c["t_prefill"]
+            + per(dcfg, "M") * c["d_prefill"] * (draft is not None),
+            "slstm_scan": per(cfg, "s") * c["t_prefill"]
+            + per(dcfg, "s") * c["d_prefill"] * (draft is not None)}
+    on_path = {n for n, kinds in (("paged_attention", "a"),
+                                  ("rmsnorm", "aMms"), ("mamba_scan", "M"),
+                                  ("slstm_scan", "s"))
+               if per(cfg, kinds) or (draft is not None and per(dcfg, kinds))}
+    _launch_check(torch, device, {n: got[n] for n in on_path},
+                  {n: want[n] for n in on_path}, what)
+    check(not any(got[n] for n in got if n not in on_path)
+          or not str(device).startswith("cuda"),
+          f"{what}: a kernel off the path launched: {got}")
+    if k > 0:
+        check(c["t_step"] + c["d_step"] == st["spec_rounds"]
+              + st["spec_replays"] + (0 if fused else st["spec_draft_steps"]),
+              f"{what}: model steps {c} against the spec counters {st}")
+        if fused:
+            check(c["d_block"] == st["spec_rounds"] == st["spec_draft_steps"],
+                  f"{what}: fused rounds {c['d_block']}, spec_rounds "
+                  f"{st['spec_rounds']}, draft steps {st['spec_draft_steps']}")
+        else:
+            check(st["spec_draft_steps"] > k * st["spec_rounds"],
+                  f"{what}: sequential draft steps {st['spec_draft_steps']} "
+                  f"<= {k} x {st['spec_rounds']} rounds")
+        check(c["d_prefill"] == n_req, f"{what}: drafter prefills {c}")
+    else:
+        check(c["t_step"] == st["decode_steps"], f"{what}: steps {c}")
+    rec = {"run": what, "spec_tokens": k, "fused": fused, "adapt": adapt,
+           "temperature": temperature, "completed": st["completed"],
+           "tokens_per_s": st["tokens_per_s"], "wall_s": st["wall_s"],
+           "ttft_p50_s": st["ttft_p50_s"], "ttft_p99_s": st["ttft_p99_s"],
+           "tpot_mean_s": st["tpot_mean_s"],
+           "decode_steps": st["decode_steps"],
+           **{n: st[n] for n in ("spec_rounds", "spec_draft_steps",
+                                 "spec_draft_proposed", "spec_draft_accepted",
+                                 "spec_accept_rate", "spec_replays",
+                                 "spec_k_mean")},
+           "model_calls": dict(c), "launches": {n: got[n] for n in on_path},
+           "logit_rows_checked": rows[0], "peak_mem_gib":
+           _peak_gib(torch, device)}
+    if adapt:
+        rec["spec_k_by_rid"] = {str(r): v
+                                for r, v in sched.spec_k_by_rid.items()}
+    if profile:
+        rec["profiled_round"] = prof
+    rec["tokens"] = {rid: v.tolist() for rid, v in results.items()}
+    rec["sched"] = sched
+    return rec
+
+
+def _spec_compare(what, base, run, gaps, dtype) -> dict:
+    """Hold a speculative run to the target-only one: token-identical save
+    top-2 ties within ``SPEC_TIE[dtype]`` where a request's streams first
+    part; fills the run's record and returns it."""
+    parts = _partings(base["tokens"], run["tokens"], gaps, SPEC_TIE[dtype])
+    run["partings"] = parts
+    run["parting_count"] = len(parts)
+    run["identical_requests"] = len(base["tokens"]) - len(parts)
+    check(all(p["tie"] for p in parts),
+          f"{what} {run['run']}: tokens part from target-only decoding away "
+          f"from a top-2 tie (tolerance {SPEC_TIE[dtype]}): "
+          f"{[p for p in parts if not p['tie']][:4]}")
+    return run
+
+
+def _emit_runs(phase, cfg, runs, **extra) -> dict:
+    """One JSON line for a phase part: its runs without the schedulers and
+    token streams (a sample of request 0 kept); returns the launches
+    summed over the runs."""
+    total = {}
+    out = []
+    for r in runs:
+        for n, v in r["launches"].items():
+            total[n] = total.get(n, 0) + v
+        out.append({k: v for k, v in r.items()
+                    if k not in ("sched", "tokens")}
+                   | {"sample": r["tokens"][0][:8]})
+    emit({"phase": phase, "arch": cfg.name, "dtype": cfg.dtype,
+          "layers": cfg.num_layers, **extra, "runs": out})
+    return total
+
+
+def _add(total: dict, more: dict) -> None:
+    for n, v in more.items():
+        total[n] = total.get(n, 0) + v
+
+
+def _spec_kernel_checks(torch):
+    """The paged kernel at the verify shapes against its plain version, as
+    phase 3 times it: lengths 114-499 and the split edges of a 36-page
+    table, qwen2.5-3b's g = 8 at K = 5 and 8 (40 and 64 rows) and
+    qwen3-0.6b's g = 2 at K = 5 in bf16 and f32."""
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20)
+    lengths = torch.randint(114, 500, (8,), generator=gen,
+                            device="cuda").tolist()
+    cases = []
+    for H, Hkv, K, dtype in SPEC_VERIFY:
+        cases.append(_paged_check(torch, timer, gen, 8, H, Hkv, 128, 16, K,
+                                  dtype, lengths))
+        cases.append(_paged_check(
+            torch, timer, gen, 8, H, Hkv, 128, 16, K, dtype,
+            _split_edge_lengths(torch, 8, Hkv, 36, 16, K), 36))
+    del timer
+    release(torch)
+    return cases
+
+
+def _spec_arch(torch, device, smoke):
+    """spec_arch: qwen2.5-3b FULL in bf16 target-only, with a self
+    drafter and with a qwen3-0.6b FULL drafter (``draft_cfg``); one plain
+    decode round and one speculative round profiled."""
+    from repro_torch.configs.base import replace
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.lm import init_lm
+
+    cfg = get_config("qwen2.5-3b", smoke=smoke)
+    dcfg = get_config("qwen3-0.6b", smoke=smoke)
+    if smoke:
+        dcfg = replace(dcfg, vocab_size=cfg.vocab_size)
+    t0 = time.perf_counter()
+    model = init_lm(cfg, seed=0, device=device)
+    _sync(torch, device)
+    init_s = time.perf_counter() - t0
+    gaps = {}
+    tr = SPEC_ARCH_TRAFFIC
+    base = _spec_run(torch, "target_only", cfg, model, tr, device,
+                     gaps=gaps, profile=True)
+    runs = [base]
+    runs.append(_spec_compare("spec_arch", base, _spec_run(
+        torch, "self_drafter", cfg, model, tr, device, draft=model,
+        k=SPEC_K, profile=True), gaps, cfg.dtype))
+    drafter = init_lm(dcfg, seed=1, device=device)
+    runs.append(_spec_compare("spec_arch", base, _spec_run(
+        torch, "qwen3_drafter", cfg, model, tr, device, draft=drafter,
+        draft_cfg=dcfg, k=SPEC_K), gaps, cfg.dtype))
+    total = _emit_runs("serve_spec.spec_arch", cfg, runs,
+                       draft_arch=dcfg.name, init_s=init_s,
+                       weight_gb=sum(p.numel() * p.element_size()
+                                     for p in model.parameters()) / 1e9,
+                       tie_tolerance=SPEC_TIE[cfg.dtype], **tr)
+    del model, drafter, runs, base
+    _release(torch, device)
+    return total
+
+
+@exact_f32
+def _spec_pop(torch, pop, device, smoke):
+    """spec_pop: the LM tournament's latest winner serves in f32 (TF32
+    off), its earliest winner drafts (``load_draft``): fused, sequential,
+    at temperature 0.8 and with ``spec_adapt``, each against target-only
+    decoding; then the serve CLI with ``--draft-ckpt``."""
+    import re
+
+    from repro_torch import bridge
+    from repro_torch.configs.base import replace
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serve import registry as reg
+    from repro_torch.train.steps import params_from_ckpt
+
+    cfg = replace(get_config("qwen3-0.6b", smoke=smoke), dtype="float32")
+    model = init_lm(cfg, seed=0, device=device)
+    like = bridge.params_to_jax_layout(model, cfg)
+
+    def from_ckpt(tree):
+        return params_from_ckpt(cfg, tree, model.device, torch.float32)
+
+    registry = reg.ModelRegistry(pop, like, from_ckpt=from_ckpt)
+    model.load_state_dict(registry.load())
+    # round 1's winner: the earliest (its trainer files were pruned, so
+    # the directory's earliest population step is round 2's)
+    first = min(int(m.group(1)) for f in os.listdir(pop)
+                if (m := re.match(r"^winner_step_(\d+)\.ckpt$", f)))
+    drafter = init_lm(cfg, seed=1, device=device)
+    t0 = time.perf_counter()
+    dparams, dinfo = reg.load_draft(pop, like, step=first,
+                                    expect_vocab=cfg.vocab_size,
+                                    from_ckpt=from_ckpt)
+    load_s = time.perf_counter() - t0
+    drafter.load_state_dict(dparams)
+    del dparams
+    tr = SPEC_POP_TRAFFIC
+    # the greedy and the T = 0.8 target-only runs record their gaps apart
+    # (the rids repeat)
+    gaps, gaps_t = {}, {}
+    base = _spec_run(torch, "target_only", cfg, model, tr, device, gaps=gaps)
+    base_t = _spec_run(torch, "target_only_t0.8", cfg, model, tr, device,
+                       temperature=0.8, gaps=gaps_t)
+    runs = [base, base_t]
+    for what, kw, ref, g in (
+            ("fused", {}, base, gaps),
+            ("sequential", {"fused": False}, base, gaps),
+            ("fused_t0.8", {"temperature": 0.8}, base_t, gaps_t),
+            ("adapt", {"adapt": True}, base, gaps)):
+        runs.append(_spec_compare("spec_pop", ref, _spec_run(
+            torch, what, cfg, model, tr, device, draft=drafter, k=SPEC_K,
+            **kw), g, cfg.dtype))
+    total = _emit_runs("serve_spec.spec_pop", cfg, runs,
+                       served_step=registry.step,
+                       draft_step=dinfo.get("step"), draft_load_s=load_s,
+                       tie_tolerance=SPEC_TIE[cfg.dtype], **tr)
+    del runs, base, base_t, model, drafter
+    _release(torch, device)
+    size = ["--smoke"] if smoke else []
+    cli = _run_cli(torch, serve.main, [
+        "--arch", "qwen3-0.6b", "--ckpt-dir", pop, "--draft-ckpt", pop,
+        "--spec-tokens", "3", "--spec-adapt", "--requests", "4", "--device",
+        device, *size], "[serve]", re.compile(r"([\d.]+) tok/s"))
+    return total, cli
+
+
+def _spec_recurrent(torch, device, smoke):
+    """spec_recurrent: xlstm-125m FULL in f32 (TF32 off) with a self and a
+    fresh-seed drafter, exact save ties; jamba NOEXP_8L in bf16 with a
+    self drafter under the bf16 parting rule, its snapshot timed."""
+    from repro_torch.configs.base import replace
+    from repro_torch.configs.jamba_15_large import NOEXP_8L
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.lm import init_lm
+
+    total = {}
+
+    @exact_f32
+    def xlstm(torch):
+        cfg = replace(get_config("xlstm-125m", smoke=smoke), dtype="float32")
+        model = init_lm(cfg, seed=0, device=device)
+        fresh = init_lm(cfg, seed=7, device=device)
+        tr, gaps = SPEC_XLSTM_TRAFFIC, {}
+        base = _spec_run(torch, "target_only", cfg, model, tr, device,
+                         gaps=gaps)
+        runs = [base] + [_spec_compare("spec_recurrent.xlstm", base,
+                                       _spec_run(torch, what, cfg, model,
+                                                 tr, device, draft=d,
+                                                 k=SPEC_K), gaps, cfg.dtype)
+                         for what, d in (("self_drafter", model),
+                                         ("fresh_drafter", fresh))]
+        check(runs[2]["spec_replays"] > 0,
+              "spec_recurrent.xlstm: a fresh-seed drafter made no replay")
+        return _emit_runs("serve_spec.spec_recurrent", cfg, runs,
+                          tie_tolerance=SPEC_TIE[cfg.dtype], **tr)
+
+    _add(total, xlstm(torch))
+    _release(torch, device)
+    cfg = replace(get_config("jamba-1.5-large-398b", smoke=True), moe=None) \
+        if smoke else NOEXP_8L
+    model = init_lm(cfg, seed=0, device=device)
+    tr, gaps = SPEC_HYBRID_TRAFFIC, {}
+    base = _spec_run(torch, "target_only", cfg, model, tr, device, gaps=gaps)
+    run = _spec_compare("spec_recurrent.jamba", base, _spec_run(
+        torch, "self_drafter", cfg, model, tr, device, draft=model, k=SPEC_K,
+        profile=True), gaps, cfg.dtype)
+    sess = run["sched"].session
+    snap_bytes = sum(t.numel() * t.element_size() for t in sess.snapshot())
+    if str(device).startswith("cuda"):
+        timer = Timer(torch)
+        snap_ms = timer.ms(sess.snapshot)
+        del timer
+    else:
+        snap_ms = None
+    b_ms, b_by = bound(2 * snap_bytes, 0, "bfloat16")
+    _add(total, _emit_runs("serve_spec.spec_recurrent", cfg, [base, run],
+                           tie_tolerance=SPEC_TIE[cfg.dtype],
+                           snapshot_bytes=snap_bytes, snapshot_ms=snap_ms,
+                           snapshot_bound_ms=b_ms, snapshot_bound_by=b_by,
+                           **tr))
+    del model, base, run, sess
+    _release(torch, device)
+    return total
+
+
+def phase_serve_spec(torch, pop, device="cuda", smoke=False):
+    """serve_spec: population speculative decoding.  The paged kernel at
+    the verify shapes (on the card), spec_arch, spec_pop over the LM
+    tournament's population ``pop`` and spec_recurrent.  Returns (the
+    launches of every exactly counted run, the kernel cases)."""
+    cases = _spec_kernel_checks(torch) if str(device).startswith("cuda") \
+        else []
+    total = _spec_arch(torch, device, smoke)
+    pop_total, cli = _spec_pop(torch, pop, device, smoke)
+    _release(torch, device)
+    _add(total, pop_total)
+    cuda = str(device).startswith("cuda")
+    emit({"phase": "serve_spec.cli", **{k: v for k, v in cli.items()
+                                        if k != "lines"},
+          "lines": cli["lines"][-8:]})
+    check(cli["rc"] == 0 and cli["values"]
+          and all(map(math.isfinite, cli["values"]))
+          and any(ln.startswith("[serve] speculative:")
+                  for ln in cli["lines"])
+          and any(ln.startswith("[serve] drafter:") for ln in cli["lines"]),
+          f"serve_spec: the serve CLI with a drafter: rc={cli['rc']} "
+          f"{cli['lines'][-8:]}")
+    check(any(cli["launches"].values()) == cuda,
+          f"serve_spec: the CLI's launches {cli['launches']}")
+    _add(total, _spec_recurrent(torch, device, smoke))
+    return total, cases
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repo (src/repro_torch "
@@ -3008,6 +3516,9 @@ def main() -> int:
         release(torch)
         lm_launches, lm = phase_ltfb_lm(torch, work)
         release(torch)
+        spec_launches, spec_cases = phase_serve_spec(torch, lm["pop"])
+        cases["paged_attention"].extend(spec_cases)
+        release(torch)
         swap_launches = phase_serve_swap(torch, lm["pop"], work)
         release(torch)
         phase_surrogate(torch, *surrogate_dirs)
@@ -3045,7 +3556,8 @@ def main() -> int:
         "slstm_scan": lambda c: (c["B"], c["S"]) == (1, 500)}
     by_path = {"serve": serve_launches, "train": train_launches,
                **recurrent_launches, "ltfb_lm": lm_launches,
-               "serve_swap": swap_launches, **arch_launches}
+               "serve_swap": swap_launches, "serve_spec": spec_launches,
+               **arch_launches}
     kernels = []
     for name, rows in cases.items():
         main_case = next(c for c in rows if headline[name](c))

@@ -14,12 +14,19 @@ LTFB population directory: then the tournament's winner is exported (if
 it is not yet) and served, and with ``--watch-every N`` the server polls
 for newer winners every N steps and hot-swaps them in (``--swap-mode
 drain`` lets in-flight LM requests finish on the old weights first).
+``--draft-ckpt`` adds population speculative decoding: a checkpoint file
+or a population directory (its earliest step's winner by default) drafts
+``--spec-tokens`` tokens a round (4 when a drafter is given without it)
+that the served model verifies, with the same output as serving alone;
+``--draft-arch`` names a drafter of another arch with the same vocab.
 
   python -m repro_torch.launch.serve --arch qwen3-0.6b
   python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke --device cpu
   python -m repro_torch.launch.serve --arch icf-cyclegan --ckpt-dir POP
   python -m repro_torch.launch.serve --arch qwen3-0.6b --ckpt-dir POP \
       --watch-every 2 --swap-mode drain
+  python -m repro_torch.launch.serve --arch qwen3-0.6b --ckpt-dir POP \
+      --draft-ckpt POP --spec-tokens 3 --spec-adapt
 """
 from __future__ import annotations
 
@@ -40,7 +47,8 @@ from repro_torch.data import jag
 from repro_torch.data.tokens import token_stream
 from repro_torch.models.icf_cyclegan import init_cyclegan
 from repro_torch.models.lm import init_lm
-from repro_torch.serve.registry import ModelRegistry
+from repro_torch.serve.registry import (ModelRegistry, check_draft_compat,
+                                        load_draft)
 from repro_torch.serve.scheduler import Request, Scheduler
 from repro_torch.serve.surrogate import SurrogateEngine
 from repro_torch.train.steps import params_from_ckpt, tree_to
@@ -91,6 +99,35 @@ def _print_winner(registry: ModelRegistry) -> None:
           f"wins={registry.info.get('wins')}")
 
 
+def load_drafter(args, cfg, device):
+    """The drafter ``--draft-ckpt`` names, as an LM on ``device`` (None
+    without the flag), and its config when ``--draft-arch`` differs from
+    ``--arch`` (else None); prints the ``[serve] drafter:`` line."""
+    if not args.draft_ckpt:
+        return None, None
+    draft_cfg = None
+    dcfg = cfg
+    if args.draft_arch and args.draft_arch != args.arch:
+        # another arch: the vocab check comes before any restore
+        draft_cfg = get_config(args.draft_arch, smoke=args.smoke)
+        if args.dtype:
+            draft_cfg = replace(draft_cfg, dtype=args.dtype)
+        check_draft_compat(cfg, draft_cfg)
+        dcfg = draft_cfg
+    dmodel = init_lm(dcfg, seed=args.seed, device=device)
+    dtype = dmodel.embed.weight.dtype
+    params, info = load_draft(
+        args.draft_ckpt, bridge.params_to_jax_layout(dmodel, dcfg),
+        step=args.draft_step, expect_vocab=cfg.vocab_size,
+        from_ckpt=lambda tree: params_from_ckpt(dcfg, tree, device, dtype))
+    dmodel.load_state_dict(params)
+    print(f"[serve] drafter: {args.draft_ckpt} arch={dcfg.name} "
+          f"step={info.get('step')} trainer={info.get('trainer')} "
+          f"spec_tokens={args.spec_tokens} fused={not args.no_spec_fused} "
+          f"adapt={args.spec_adapt}")
+    return dmodel, draft_cfg
+
+
 def run_lm(args) -> Dict[str, object]:
     """Serve the trace the flags describe (from ``--ckpt-dir``'s winner
     when given); returns stats, pool and results (and writes them with
@@ -108,6 +145,7 @@ def run_lm(args) -> Dict[str, object]:
     if registry is not None:
         model.load_state_dict(registry.load())
         _print_winner(registry)
+    draft_model, draft_cfg = load_drafter(args, cfg, device)
     max_len = args.max_len or max(parse_lens(args.prompt_lens)) \
         + args.max_new
     sched = Scheduler(
@@ -118,7 +156,9 @@ def run_lm(args) -> Dict[str, object]:
         prefix_sharing=not args.no_prefix_sharing,
         max_prefills_per_step=args.prefill_per_step, registry=registry,
         watch_every=args.watch_every, swap_mode=args.swap_mode,
-        device=device)
+        draft_params=draft_model, spec_tokens=args.spec_tokens,
+        draft_cfg=draft_cfg, spec_fused=not args.no_spec_fused,
+        spec_adapt=args.spec_adapt, device=device)
     reqs = build_requests(cfg, args.requests, parse_lens(args.prompt_lens),
                           args.max_new, eos_id=args.eos_id,
                           temperature=args.temperature, seed=args.seed)
@@ -127,7 +167,7 @@ def run_lm(args) -> Dict[str, object]:
           f"max_seq={sched.max_seq} block_size={args.block_size} "
           f"prefill_chunk={args.prefill_chunk} "
           f"swap_mode={args.swap_mode} requests={len(reqs)} "
-          f"max_new={args.max_new}")
+          f"max_new={args.max_new} spec_tokens={sched.spec_tokens}")
     for r in reqs:
         try:
             sched.submit(r)
@@ -143,6 +183,11 @@ def run_lm(args) -> Dict[str, object]:
     print(f"[serve] prefix-cache: hits={pd['prefix_hits']} "
           f"shared_tokens={pd['prefix_shared_tokens']} "
           f"prefill_chunks={sched.stats.prefill_chunks}")
+    if args.spec_adapt and sched.spec_k_by_rid:
+        ks = sched.spec_k_by_rid
+        print(f"[serve] spec-adapt per-row K (final): "
+              f"{ {r: ks[r] for r in sorted(ks, key=str)} } "
+              f"k_mean={sched.stats.as_dict()['spec_k_mean']:.2f}")
     if registry is not None:
         print(f"[serve] registry: serving_step={registry.step} "
               f"hot_swaps={sched.stats.hot_swaps}")
@@ -220,6 +265,29 @@ def build_parser() -> argparse.ArgumentParser:
                     help="hot-swap policy: immediate applies new weights "
                          "to in-flight requests; drain lets them finish "
                          "on the old weights first")
+    ap.add_argument("--draft-ckpt", default=None,
+                    help="drafter for speculative decoding: a .ckpt file, "
+                         "or a population dir (its earliest step's "
+                         "winner by default)")
+    ap.add_argument("--draft-step", type=int, default=None,
+                    help="population step to draft from (with a dir "
+                         "--draft-ckpt; default: the earliest)")
+    ap.add_argument("--draft-arch", default=None, choices=sorted(ARCHS),
+                    help="the drafter's arch when it differs from --arch "
+                         "(its vocab must equal the target's)")
+    ap.add_argument("--spec-tokens", type=int, default=0,
+                    help="draft tokens proposed a speculative round (0 = "
+                         "off; 4 when --draft-ckpt is given); the output "
+                         "equals serving without a drafter")
+    ap.add_argument("--no-spec-fused", action="store_true",
+                    help="draft with K+1 single steps a round instead of "
+                         "one fused call")
+    ap.add_argument("--spec-adapt", action="store_true",
+                    help="adapt each row's speculative depth within "
+                         "[1, --spec-tokens] from its accept history")
+    ap.add_argument("--arena", default=None,
+                    help="the online LTFB arena of the JAX package: not "
+                         "ported (ROADMAP.md queue A5)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where weights, KV pools and kernels run; cuda "
                          "raises when no card is visible")
@@ -264,6 +332,12 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     """CLI entry point: parse args, pick the workload, run it."""
     args = build_parser().parse_args(argv)
+    if args.arena is not None:
+        raise NotImplementedError(
+            "--arena (the online LTFB arena, where challengers draft) is "
+            "not ported to repro_torch yet; see ROADMAP.md queue A5")
+    if args.draft_ckpt and args.spec_tokens <= 0:
+        args.spec_tokens = 4            # a drafter implies speculation
     workload = args.workload or \
         ("surrogate" if args.arch == CYCLEGAN_ID else "lm")
     if workload == "surrogate":

@@ -26,7 +26,7 @@ write the new K/V into the pools **in place** with indexed assignment.
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -253,6 +253,35 @@ def decode_write(index: torch.Tensor, tables: torch.Tensor, block_size: int,
     page = torch.where(active, page, torch.full_like(page, null_page))
     return PagedWrite(page.reshape(-1), (wpos % block_size).reshape(-1),
                       tables, lengths=(widx + 1).to(torch.int32))
+
+
+def decode_scan(step_fn: Callable, x: torch.Tensor, state: Cache,
+                valid: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Cache]:
+    """Drive a single-token recurrent decode step over K tokens
+    (``repro.models.layers.decode_scan``).
+
+    ``step_fn(x_t (B, 1, d), state) -> (out (B, 1, d), new state)`` is a
+    recurrent mixer's decode step; x is (B, K, d).  With ``valid`` ((B,)
+    ints) row b keeps its state after its first ``valid[b]`` tokens: a
+    ``torch.where`` on the row mask, so the steps past it still compute
+    (garbage) outputs but leave the carried state as it was -- the
+    masking a speculative verify and a rollback replay rely on.  Returns
+    (out (B, K, d), new state); ``state`` itself is not written.
+    """
+    B, K, _ = x.shape
+    if K == 1 and valid is None:
+        return step_fn(x, state)
+    outs = []
+    for t in range(K):
+        out, new = step_fn(x[:, t:t + 1], state)
+        if valid is not None:
+            keep = t < valid
+            new = {k: torch.where(keep.view((B,) + (1,) * (v.dim() - 1)),
+                                  v, state[k]) for k, v in new.items()}
+        state = new
+        outs.append(out)
+    return torch.cat(outs, dim=1), state
 
 
 def chunk_write(hist_len: int, prompt_len: int, C: int, tables: torch.Tensor,

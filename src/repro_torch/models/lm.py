@@ -26,8 +26,10 @@ it).  Five entry points:
                         ``insert_prefill``; any stack)
   ``lm_decode``         K >= 1 tokens per row over the paged pools (block
                         tables, per-row index with -1 for idle rows,
-                        ``valid``); recurrent stacks take K = 1 and step
-                        every slot row's state
+                        ``valid``); recurrent layers step every slot row's
+                        state token by token, freezing a row past its
+                        ``valid`` tokens (the speculative verify and the
+                        rollback replay)
 
 The cached entry points run MoE layers dropless, as JAX's prefill and
 decode do, and broadcast text positions to the three M-RoPE components.
@@ -269,6 +271,8 @@ def init_cache(cfg: ModelConfig, pages: Tuple[int, int], num_slots: int = 0,
 
 _FULL_SEQUENCE = {"M": S.mamba_core, "m": X.mlstm_block, "s": X.slstm_block}
 _DECODE = {"M": S.mamba_decode, "m": X.mlstm_decode, "s": X.slstm_decode}
+_DECODE_MULTI = {"M": S.mamba_decode_multi, "m": X.mlstm_decode_multi,
+                 "s": X.slstm_decode_multi}
 # profiler range around an attention mixer (projections, RoPE, the cache
 # writes and the attention kernel): a profile reads its device time here
 ATTENTION_RANGE = "attention"
@@ -277,16 +281,20 @@ ATTENTION_RANGE = "attention"
 def _apply_block(block: Block, x: torch.Tensor, cos: torch.Tensor,
                  sin: torch.Tensor, mode: str, cache: Optional[L.Cache] = None,
                  write: Optional[L.PagedWrite] = None,
-                 slot: Optional[int] = None, dropless: bool = False
+                 slot: Optional[int] = None, dropless: bool = False,
+                 valid: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """One block in mode ``train`` (no cache), ``prefill`` (one request's
     whole prompt at exact length: attention K/V into its pages, recurrent
     state into its slot row ``slot``), ``chunk`` (chunked prefill,
-    attention only) or ``decode`` (one token per row over every slot);
-    returns the new residual and, for a MoE FFN, its aux losses (else
-    None).  A MoE FFN runs with capacity in mode ``train`` unless
-    ``dropless``, and dropless in the cached modes, as JAX's
-    ``_apply_block`` does.  Caches are written in place."""
+    attention only) or ``decode`` (K >= 1 tokens per row over every slot;
+    with K > 1 or ``valid`` a recurrent mixer steps token by token and
+    freezes row b after its first ``valid[b]`` tokens, as JAX's
+    ``_apply_block`` routes to the ``_multi`` decodes); returns the new
+    residual and, for a MoE FFN, its aux losses (else None).  A MoE FFN
+    runs with capacity in mode ``train`` unless ``dropless``, and
+    dropless in the cached modes, as JAX's ``_apply_block`` does.  Caches
+    are written in place."""
     h = block.ln1(x)
     if block.kind == "a":
         with record_function(ATTENTION_RANGE):
@@ -297,7 +305,11 @@ def _apply_block(block: Block, x: torch.Tensor, cos: torch.Tensor,
             for k, v in state.items():
                 cache[k][slot] = v[0]
     elif mode == "decode":
-        mix, state = _DECODE[block.kind](block.mixer, h, cache)
+        if h.shape[1] > 1 or valid is not None:
+            mix, state = _DECODE_MULTI[block.kind](block.mixer, h, cache,
+                                                   valid)
+        else:
+            mix, state = _DECODE[block.kind](block.mixer, h, cache)
         for k, v in state.items():
             cache[k].copy_(v)
     else:
@@ -527,17 +539,13 @@ def lm_decode(model: LM, tokens: torch.Tensor, cache: List[L.Cache],
     block tables; valid: optional (B,) count of real tokens per row
     (tokens past it write to the null page).  Token t of row b lands at
     ``index[b] + t`` and attends over positions ``<= index[b] + t``.
-    A stack with recurrent layers takes K = 1 and no ``valid`` (the
-    K-token verify on recurrent rows is ROADMAP queue A7), with one row
-    per slot: every row's state steps, an idle row's too (it is garbage
-    until an admission overwrites it, as in JAX).  Returns logits
-    (B, K, V).
+    A stack with recurrent layers takes one row per slot: every row's
+    state steps through the K tokens in order and, with ``valid``, stops
+    after row b's first ``valid[b]`` (an idle row without ``valid`` steps
+    too: it is garbage until an admission overwrites it, as in JAX).
+    Returns logits (B, K, V).
     """
-    B, K = tokens.shape
-    if has_recurrent(model.cfg) and (K != 1 or valid is not None):
-        raise NotImplementedError(
-            f"{model.cfg.name}: K-token verify over recurrent state is not "
-            "ported yet; see ROADMAP.md queue A7")
+    K = tokens.shape[1]
     geometry = _pool_geometry(cache)
     write = None if geometry is None else \
         L.decode_write(index, tables, geometry[1], geometry[0], K, valid)
@@ -546,5 +554,6 @@ def lm_decode(model: LM, tokens: torch.Tensor, cache: List[L.Cache],
     cos, sin = _text_rope(model, positions)
     x = model.embed(tokens)
     for block, layer_cache in zip(model.blocks, cache):
-        x, _ = _apply_block(block, x, cos, sin, "decode", layer_cache, write)
+        x, _ = _apply_block(block, x, cos, sin, "decode", layer_cache, write,
+                            valid=valid)
     return _logits(model, x)

@@ -5,7 +5,9 @@ The counterpart of ``repro.models.ssm``.  The full-sequence path
 in f32 and hands the scan to :func:`repro_torch.kernels.ops.mamba_scan`
 (the CUDA kernel on the card, its plain version on the CPU), which also
 returns the state after the last step; :func:`mamba_decode` is the
-single-token update in plain PyTorch, as in JAX.
+single-token update in plain PyTorch, as in JAX, and
+:func:`mamba_decode_multi` steps it over the K tokens of a speculative
+verify or a rollback replay.
 
 One difference from ``repro.models.ssm._mamba_core`` is deliberate: JAX
 pads the sequence to a multiple of its 128-step chunk, and on a pad step
@@ -19,7 +21,7 @@ token by token) computes.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,7 +29,7 @@ from torch import nn
 
 from repro_torch.configs.base import MambaConfig, ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import decode_scan, dense_init
 
 State = Dict[str, torch.Tensor]
 
@@ -153,3 +155,14 @@ def mamba_decode(m: Mamba, x: torch.Tensor,
     y = (y * F.silu(z.float())).to(x.dtype)
     return m.out_proj(y)[:, None], \
         {"ssm": h, "conv": window[:, 1:].to(state["conv"].dtype)}
+
+
+def mamba_decode_multi(m: Mamba, x: torch.Tensor, state: State,
+                       valid: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, State]:
+    """K tokens per row (``repro.models.ssm.mamba_decode_multi``): x (B,
+    K, d) -> (out (B, K, d), new state), K :func:`mamba_decode` steps in
+    order; row b's ``ssm`` and ``conv`` freeze after its first
+    ``valid[b]`` tokens (:func:`repro_torch.models.layers.decode_scan`)."""
+    return decode_scan(lambda xt, st: mamba_decode(m, xt, st), x, state,
+                       valid)

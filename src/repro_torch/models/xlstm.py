@@ -6,12 +6,14 @@ a recurrent ``(C, n, m)`` carry across them) in plain PyTorch, since the
 JAX package has no kernel for it.  The sLSTM's sequential recurrence goes
 through :func:`repro_torch.kernels.ops.slstm_scan` (the CUDA kernel on the
 card, its plain version on the CPU), which also returns the final state;
-the single-token decode steps of both blocks are plain PyTorch, as in JAX.
+the single-token decode steps of both blocks are plain PyTorch, as in JAX,
+and their ``_multi`` forms step them over the K tokens of a speculative
+verify or a rollback replay, freezing each row past its real tokens.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -19,7 +21,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig, XLSTMConfig
 from repro_torch.kernels import ops, ref
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import decode_scan, dense_init
 
 State = Dict[str, torch.Tensor]
 
@@ -188,6 +190,16 @@ def mlstm_decode(m: MLSTM, x: torch.Tensor,
     return m.down(h), {"C": C1, "n": n1, "m": m1}
 
 
+def mlstm_decode_multi(m: MLSTM, x: torch.Tensor, state: State,
+                       valid: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, State]:
+    """K tokens per row (``mlstm_decode_multi``): K :func:`mlstm_decode`
+    steps, row b's ``C``, ``n``, ``m`` frozen after its first ``valid[b]``
+    tokens (:func:`repro_torch.models.layers.decode_scan`)."""
+    return decode_scan(lambda xt, st: mlstm_decode(m, xt, st), x, state,
+                       valid)
+
+
 # ---------------------------------------------------------------------------
 # sLSTM
 # ---------------------------------------------------------------------------
@@ -256,3 +268,13 @@ def slstm_decode(m: SLSTM, x: torch.Tensor,
     old = tuple(state[k] for k in "hcnm")
     new = ref.slstm_step(gx + ref.slstm_recurrent(old[0], m.r_h), old)
     return _slstm_ffn(m, new[0][:, None].to(x.dtype)), dict(zip("hcnm", new))
+
+
+def slstm_decode_multi(m: SLSTM, x: torch.Tensor, state: State,
+                       valid: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, State]:
+    """K tokens per row (``slstm_decode_multi``): K :func:`slstm_decode`
+    steps, row b's ``h``, ``c``, ``n``, ``m`` frozen after its first
+    ``valid[b]`` tokens (:func:`repro_torch.models.layers.decode_scan`)."""
+    return decode_scan(lambda xt, st: slstm_decode(m, xt, st), x, state,
+                       valid)

@@ -10,7 +10,9 @@ one ``(num_pages + 1, block_size, Hkv, D)`` pool per attention layer on the
 device (the last page is the null page), ``num_slots`` dense state rows per
 recurrent (Mamba / xLSTM) layer, and host-side numpy block tables,
 uploaded to the device for each step.  Decode and prefill write the pools
-and rows in place.
+and rows in place.  :meth:`PagedLayout.snapshot` and
+:meth:`PagedLayout.restore` copy the recurrent rows out and masked back
+in per slot, the rollback of speculative decoding.
 """
 from __future__ import annotations
 
@@ -411,6 +413,9 @@ class PagedLayout:
     null page.  The one-shot prefill writes a request's pages and its slot
     row in place (:func:`~repro_torch.models.lm.lm_prefill_exact`), where
     the JAX layout scatters a dense prefill cache (``insert_prefill``).
+    ``snapshot`` / ``restore`` roll the recurrent rows back per slot
+    (attention K/V needs no rollback: a stale tail position is causally
+    masked until it is overwritten).
     """
 
     def __init__(self, cfg: ModelConfig, num_slots: int, num_pages: int,
@@ -427,6 +432,11 @@ class PagedLayout:
         self.cache = lm.init_cache(cfg, pages=(num_pages, block_size),
                                    num_slots=num_slots, device=self.device)
         self.has_recurrent = lm.has_recurrent(cfg)
+        # the (layer, state name) of every per-slot recurrent leaf, in the
+        # order snapshot() copies them
+        self._rec_leaves = [(i, k) for i, s in enumerate(lm.layer_specs(cfg))
+                            if s.kind in lm.RECURRENT
+                            for k in sorted(self.cache[i])]
         self.num_slots = num_slots
         self._free_slots = list(range(num_slots))
         self._slot_of: Dict[Any, int] = {}
@@ -489,14 +499,15 @@ class PagedLayout:
 
     def admit(self, rid, n_tokens: int,
               prompt: Optional[np.ndarray] = None,
-              shared: Optional[Tuple[List[int], int]] = None
-              ) -> Tuple[int, int]:
+              shared: Optional[Tuple[List[int], int]] = None,
+              slot: Optional[int] = None) -> Tuple[int, int]:
         """Claim a slot + a token-budget reservation for `rid`.
 
         With `prompt` given, maps any prefix-cached pages into the new
         table (copy-on-admit sharing); pass ``shared`` to reuse a
         :meth:`find_shared_prefix` result the admission check already
-        computed.  Returns (slot, shared_len).
+        computed.  ``slot`` claims that free slot (a drafter's pool
+        mirrors the target's rows).  Returns (slot, shared_len).
         """
         if not self._free_slots:
             raise RuntimeError("no free cache slots")
@@ -508,7 +519,10 @@ class PagedLayout:
             shared = ([], 0) if prompt is None else \
                 self.find_shared_prefix(prompt)
         shared_pages, shared_len = shared
-        slot = self._free_slots[-1]
+        if slot is None:
+            slot = self._free_slots[-1]
+        elif slot not in self._free_slots:
+            raise RuntimeError(f"cache slot {slot} is not free")
         self.shard.admit(rid, n_tokens, (shared_pages, shared_len))
         self._free_slots.remove(slot)
         self._slot_of[rid] = slot
@@ -533,6 +547,23 @@ class PagedLayout:
         self.tables[slot, :] = self.null_page
         self.shard.release(rid)
         return slot
+
+    def snapshot(self) -> Tuple[torch.Tensor, ...]:
+        """Copies (``clone``, never views: a decode step writes the rows in
+        place) of every recurrent layer's per-slot state; empty for an
+        attention-only stack, whose rollback is free."""
+        return tuple(self.cache[i][k].clone() for i, k in self._rec_leaves)
+
+    def restore(self, snap: Tuple[torch.Tensor, ...], rows) -> None:
+        """Roll the slots with ``rows[b]`` true back to ``snap`` (a
+        :meth:`snapshot`); the other rows keep their state."""
+        if not snap:
+            return
+        mask = torch.from_numpy(np.asarray(rows, bool)).to(self.device)
+        for (i, k), saved in zip(self._rec_leaves, snap):
+            leaf = self.cache[i][k]
+            sel = mask.view((-1,) + (1,) * (leaf.dim() - 1))
+            leaf.copy_(torch.where(sel, saved, leaf))
 
     def table_width_for(self, max_tokens: int) -> int:
         """Block-table columns needed to cover `max_tokens`."""

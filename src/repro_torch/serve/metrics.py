@@ -2,8 +2,9 @@
 
 ``percentile``, ``Histogram`` and ``BoundedSeries`` are copies of
 ``repro.serve.metrics``; :class:`ServeStats` keeps the counters the
-port's scheduler updates (speculative decoding, faults, the gateway and
-the arena are not ported yet) under the same names.
+port's scheduler updates, population speculative decoding's ``spec_*``
+included, under the same names (faults, the gateway and the arena are
+not ported yet).
 """
 from __future__ import annotations
 
@@ -139,6 +140,14 @@ class ServeStats:
     decode_steps: int = 0
     decode_tokens: int = 0         # useful generated tokens
     decode_slot_steps: int = 0     # slots * steps actually computed
+    # speculative decoding (population drafter)
+    spec_rounds: int = 0           # target verify steps
+    spec_draft_steps: int = 0      # drafter decode dispatches
+    spec_draft_proposed: int = 0   # draft tokens offered for verify
+    spec_draft_accepted: int = 0   # draft tokens the target kept
+    spec_replays: int = 0          # rollback replay steps
+    spec_k_sum: int = 0            # proposals offered, summed per row-round
+    spec_k_rows: int = 0           # row-rounds that offered proposals
     ragged_splits: int = 0         # width-split subset decode dispatches
     hot_swaps: int = 0             # weight swaps applied between steps
     swap_rejected_corrupt: int = 0  # hot swaps refused: corrupt checkpoint
@@ -195,6 +204,14 @@ class ServeStats:
             "decode_steps": self.decode_steps,
             "decode_tokens": self.decode_tokens,
             "decode_slot_steps": self.decode_slot_steps,
+            "spec_rounds": self.spec_rounds,
+            "spec_draft_steps": self.spec_draft_steps,
+            "spec_draft_proposed": self.spec_draft_proposed,
+            "spec_draft_accepted": self.spec_draft_accepted,
+            "spec_replays": self.spec_replays,
+            "spec_accept_rate": self.spec_draft_accepted
+            / max(self.spec_draft_proposed, 1),
+            "spec_k_mean": self.spec_k_sum / max(self.spec_k_rows, 1),
             "ragged_splits": self.ragged_splits,
             "hot_swaps": self.hot_swaps,
             "swap_rejected_corrupt": self.swap_rejected_corrupt,
@@ -236,3 +253,11 @@ class ServeStats:
         if self.swap_rejected_corrupt:
             log(f"{prefix} robustness: "
                 f"swap_rejected_corrupt={d['swap_rejected_corrupt']}")
+        if self.spec_rounds:
+            log(f"{prefix} speculative: rounds={d['spec_rounds']} "
+                f"accept_rate={d['spec_accept_rate'] * 100:.0f}% "
+                f"accepted={d['spec_draft_accepted']}"
+                f"/{d['spec_draft_proposed']} "
+                f"draft_steps={d['spec_draft_steps']} "
+                f"replays={d['spec_replays']} "
+                f"k_mean={d['spec_k_mean']:.2f}")

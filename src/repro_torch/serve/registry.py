@@ -28,9 +28,11 @@ layout on its device: ``registry.params`` and the ``metric_fn`` of
 :func:`select_winner` see the port's layout, as a trainer's
 ``TrainerFns.from_ckpt`` gives it.
 
-Not ported yet: ``check_draft_compat``, ``load_draft`` (speculative
-decoding, ROADMAP.md queue A4), ``archive_member`` and the JSON lifecycle
-events (A5).
+The population is also a free source of draft models for speculative
+decoding: :func:`load_draft` loads an earlier (or smaller) checkpoint as
+the drafter, and :func:`check_draft_compat` refuses a drafter whose vocab
+differs from the target's.  Not ported yet: ``archive_member`` and the
+JSON lifecycle events (ROADMAP.md queue A5).
 """
 from __future__ import annotations
 
@@ -121,6 +123,84 @@ def population_steps(ckpt_dir: str) -> List[int]:
     return sorted(int(f[len("step_"):-len(".manifest")])
                   for f in os.listdir(ckpt_dir)
                   if f.startswith("step_") and f.endswith(".manifest"))
+
+
+def check_draft_compat(target_cfg, draft_cfg,
+                       member: Optional[str] = None) -> None:
+    """Refuse a drafter whose vocab differs from the target's.
+
+    Another arch may draft -- the drafter only proposes tokens -- but the
+    two must share a token space: draft samples index the target's
+    embedding, so an unequal vocab is a tokenizer mismatch.  Raises
+    ``ValueError`` naming the member (``member``) or the draft arch and
+    both vocab sizes, with the JAX package's words."""
+    if draft_cfg.vocab_size != target_cfg.vocab_size:
+        who = f"draft member {member!r} (arch {draft_cfg.name!r})" \
+            if member else f"draft arch {draft_cfg.name!r}"
+        raise ValueError(
+            f"{who} has vocab_size "
+            f"{draft_cfg.vocab_size} but the target {target_cfg.name!r} "
+            f"has {target_cfg.vocab_size}: the two models are tokenizer-"
+            "incompatible — draft proposals would index the wrong "
+            "embedding rows. Pick a drafter trained on the same "
+            "tokenizer (any LTFB population checkpoint of the target "
+            "arch qualifies).")
+
+
+def _embed_vocab(params: Params) -> Optional[int]:
+    embed = params.get("embed") if isinstance(params, dict) else None
+    return None if embed is None else int(embed.shape[0])
+
+
+def load_draft(path: str, like_params: Params,
+               step: Optional[int] = None,
+               expect_vocab: Optional[int] = None,
+               from_ckpt: Optional[Callable] = None
+               ) -> Tuple[Params, dict]:
+    """Load a drafter for population speculative decoding.
+
+    ``path`` is a self-contained ``.ckpt`` file or a population
+    checkpoint directory; there the earliest step's winner drafts by
+    default (``step`` picks another), exported first if it is not yet.
+    ``like_params`` is the draft arch's template in the checkpoint's
+    layout (JAX's); ``expect_vocab`` is the target's vocab size, checked
+    against the restored embedding so a tokenizer-incompatible drafter
+    fails here, not mid-serve.  ``from_ckpt`` turns the restored tree
+    into the port's layout.  Returns (params, info).
+    """
+    if os.path.isfile(path):
+        params, meta = _restore_draft(path, like_params)
+    else:
+        steps = population_steps(path)
+        if not steps:
+            raise FileNotFoundError(f"no population checkpoint in {path!r}")
+        s = step if step is not None else steps[0]
+        if not os.path.exists(winner_path(path, s)):
+            export_winner(path, like_params, step=s)
+        params, meta = _restore_draft(winner_path(path, s), like_params)
+    if expect_vocab is not None:
+        got = _embed_vocab(params)
+        if got is not None and got != expect_vocab:
+            kind = "member dir" if os.path.isdir(path) else "checkpoint"
+            raise ValueError(
+                f"draft {kind} {path!r} has vocab_size {got} but "
+                f"the serving target expects vocab_size {expect_vocab}: "
+                "the drafter is tokenizer-incompatible with the target.")
+    if from_ckpt is not None:
+        params = from_ckpt(params)
+    return params, meta
+
+
+def _restore_draft(path: str, like_params: Params) -> Tuple[Params, dict]:
+    try:
+        verify_checkpoint(path)
+        tree, meta = ckpt.restore(path, {"params": like_params})
+    except Exception as e:
+        raise ValueError(
+            f"draft checkpoint {path!r} does not match the draft arch's "
+            f"parameter tree (wrong --draft-arch for this checkpoint?): "
+            f"{type(e).__name__}: {e}") from e
+    return tree["params"], meta
 
 
 def load_population_params(ckpt_dir: str, step: int, like_params: Params

@@ -24,7 +24,15 @@ embeddings).  Per scheduler step:
      gather pays each row's full table width) a round whose one long row
      is >= 4x wider than every other row splits into (narrow, wide)
      groups; on the card the paged-attention kernel skips each row's
-     unused pages by itself, so the round stays one dispatch.
+     unused pages by itself, so the round stays one dispatch.  With a
+     drafter (``draft_params`` + ``spec_tokens`` K) each round is
+     **population speculative decoding** instead: the drafter (an
+     earlier or smaller LTFB checkpoint, in its own pool at the same
+     slots) proposes up to K tokens a row, the target verifies them all
+     in one (K+1)-token ``session.step``, each row keeps its longest
+     matching prefix plus one target token, and a row that kept fewer
+     tokens than it fed rolls its recurrent state back
+     (``session.restore`` + a ``valid``-masked replay).
   4. *completion* — requests hitting EOS or their token budget free their
      slot and page refs immediately.
 
@@ -39,31 +47,40 @@ before it.
 
 Sampling stays on the host exactly as in the JAX package: greedy argmax,
 or a Gumbel draw from ``default_rng([seed, ntok])`` at temperature > 0,
-so both packages emit the same tokens for the same logits.  Speculative
-decoding, the journal, fault injection, the arena and trace spans are not
-ported yet: the constructor raises on their arguments.
+so both packages emit the same tokens for the same logits -- and a
+speculative run emits the target-only tokens at any temperature, since
+every emitted token is sampled from the target's logits.  The journal,
+fault injection, the arena and trace spans are not ported yet: the
+constructor raises on their arguments.
 """
 from __future__ import annotations
 
+import copy
 import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+from torch.profiler import record_function
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.paged_attention import MAX_ROWS
 from repro_torch.models import lm
 from repro_torch.serve.kv_cache import PagedLayout, blocks_for
 from repro_torch.serve.metrics import ServeStats
+from repro_torch.serve.registry import check_draft_compat
 from repro_torch.serve.session import DecodeSession
 
 # constructor arguments of the JAX scheduler this port does not serve yet
 # (ROADMAP queue A); passing any of them raises rather than being ignored
-UNPORTED_ARGS = ("draft_params", "spec_tokens", "draft_cfg", "spec_fused",
-                 "spec_adapt", "max_queue", "telemetry", "trace_capacity",
-                 "journal", "faults", "arena")
+UNPORTED_ARGS = ("max_queue", "telemetry", "trace_capacity", "journal",
+                 "faults", "arena")
+# profiler ranges of a speculative round: a profile splits its device time
+# between the drafter, the target's verify and the rollback (snapshots,
+# restores and replays)
+SPEC_RANGES = ("draft", "verify", "rollback")
 
 
 @dataclass
@@ -114,6 +131,16 @@ class Scheduler:
     ``registry`` (polled every ``watch_every`` steps) hands over weights
     in the port's layout (its ``from_ckpt`` hook), which ``set_params``
     copies into ``model``.
+
+    ``draft_params`` (the drafter: an :class:`~repro_torch.models.lm.LM`
+    on ``device``, the target's own model for a self drafter) with
+    ``spec_tokens`` K > 0 turns every decode round
+    into a speculative one; ``draft_cfg`` is the drafter's config when it
+    is another arch (its vocab must equal the target's), ``spec_fused``
+    drafts a round in one fused call (else K+1 single steps) and
+    ``spec_adapt`` adapts each row's depth within [1, K].  On the card
+    the verify's K+1 query tokens times the target's query heads per KV
+    head must fit the paged kernel's ``MAX_ROWS``.
     """
 
     _SPLIT_RATIO = 4
@@ -131,6 +158,9 @@ class Scheduler:
                  min_prefill_bucket: int = 8,
                  registry=None, watch_every: int = 0,
                  swap_mode: str = "immediate",
+                 draft_params=None, spec_tokens: int = 0,
+                 draft_cfg: Optional[ModelConfig] = None,
+                 spec_fused: bool = True, spec_adapt: bool = False,
                  device="cuda", **unported):
         self.device = resolve_device(device)
         bad = sorted(set(unported) & set(UNPORTED_ARGS))
@@ -153,6 +183,21 @@ class Scheduler:
                 "serving scheduler supports token-input families only "
                 "(vlm prompts need precomputed embeddings)")
         lm.layer_specs(cfg)             # raises for a non-LM config
+        if spec_tokens > 0 and draft_params is None:
+            raise ValueError("spec_tokens > 0 needs draft_params "
+                             "(the population drafter)")
+        self.spec_tokens = int(spec_tokens) if draft_params is not None \
+            else 0
+        self.spec_fused = bool(spec_fused)
+        self.spec_adapt = bool(spec_adapt)
+        # the drafter may be another (smaller) arch: its token ids index
+        # the target's embedding, so the vocabs must agree
+        self.draft_cfg = draft_cfg if draft_cfg is not None else cfg
+        if draft_params is not None and self.draft_cfg is not cfg:
+            check_draft_compat(cfg, self.draft_cfg)
+        if self.device.type == "cuda" and self.spec_tokens > 0:
+            for c in (cfg, self.draft_cfg):
+                self._check_verify_rows(c)
         self.cfg = cfg
         self.policy = policy
         self.prefill_chunk = int(prefill_chunk)
@@ -169,6 +214,18 @@ class Scheduler:
                                 pin_prefix=pin_prefix, device=self.device)
         self.max_seq = self.pool.max_seq
         self.session = DecodeSession(cfg, model, self.pool)
+        # the drafter: a second session over its own pool of the same
+        # geometry, admitted at the same slots (the batches stay aligned)
+        self.draft: Optional[DecodeSession] = None
+        if draft_params is not None:
+            if not isinstance(draft_params, lm.LM):
+                raise TypeError("draft_params must be the drafter's LM "
+                                f"(got {type(draft_params).__name__})")
+            self.draft = DecodeSession(
+                self.draft_cfg, draft_params,
+                PagedLayout(self.draft_cfg, num_slots, n_blocks,
+                            block_size=block_size,
+                            max_seq=max_seq or max_len, device=self.device))
         # right-padding and chunking prompts is only sound for
         # attention-only stacks: recurrent layers prefill one-shot at the
         # exact prompt length, with no prefix sharing (as in JAX)
@@ -183,16 +240,39 @@ class Scheduler:
         self.prefilling: Dict[Any, _Active] = {}
         # one-shot prefills admitted this step, run after admission
         self._pending_onepass: List[_Active] = []
+        self._pending_draft: List[Request] = []
         self._by_slot: Dict[int, _Active] = {}
         self._next_token = np.zeros((num_slots,), np.int32)
         # -1 marks a row that holds no request (KV writes go to the null
         # page)
         self._index = np.full((num_slots,), -1, np.int32)
+        # per-row speculative depth (spec_adapt): proposals offered next
+        # round to the request in each slot, within [1, spec_tokens]
+        self._spec_k = np.full((num_slots,), max(self.spec_tokens, 1),
+                               np.int32)
+        self.spec_k_by_rid: Dict[Any, int] = {}
         self.results: Dict[Any, np.ndarray] = {}
         self.stats = ServeStats(slots=num_slots)
         self._pending_params = None
         self._head_share = None
         self._step_count = 0
+
+    def _check_verify_rows(self, cfg: ModelConfig) -> None:
+        """On the card a verify (and a replay, on either model) runs the
+        paged kernel with K+1 query tokens a row: (K+1) times the query
+        heads per KV head must fit its ``MAX_ROWS`` accumulator rows.
+        Raise with both numbers rather than serve some other way."""
+        if not any(s.kind == "a" for s in lm.layer_specs(cfg)):
+            return
+        g = cfg.num_heads // cfg.num_kv_heads
+        rows = (self.spec_tokens + 1) * g
+        if rows > MAX_ROWS:
+            raise ValueError(
+                f"spec_tokens={self.spec_tokens}: a verify of "
+                f"{self.spec_tokens + 1} tokens at {g} query heads per KV "
+                f"head of {cfg.name} needs {rows} accumulator rows of the "
+                f"paged-attention kernel, which takes at most {MAX_ROWS}; "
+                f"use spec_tokens <= {MAX_ROWS // g - 1}")
 
     # -- request intake ----------------------------------------------------
     def _reject(self, msg: str):
@@ -240,6 +320,9 @@ class Scheduler:
         total = req.prompt_len + req.max_new
         if not self.pool.free_slots:        # skip prefix hashing when full
             return False
+        if self.draft is not None and \
+                not self.draft.layout.can_admit(total):
+            return False
         self._head_share = None
         shared = ()
         if self.prefix_sharing:
@@ -260,12 +343,23 @@ class Scheduler:
         slot, shared_len = self.pool.admit(
             req.rid, total, shared=shared,
             prompt=req.prompt if self.prefix_sharing else None)
+        self._admit_draft(req, slot, total)
         act = _Active(req=req, slot=slot, pf_pos=shared_len,
                       submit_t=getattr(req, "_submit_t", time.perf_counter()))
+        self._spec_k[slot] = max(self.spec_tokens, 1)
         if self._can_pad:
             self.prefilling[req.rid] = act
         else:
             self._pending_onepass.append(act)
+
+    def _admit_draft(self, req: Request, slot: int, total: int) -> None:
+        """Mirror an admission into the drafter's pool at the same slot
+        (the two decode batches stay row-aligned); its exact-length
+        prompt prefill runs in :meth:`_prefill_phase`."""
+        if self.draft is None:
+            return
+        self.draft.layout.admit(req.rid, total, slot=slot)
+        self._pending_draft.append(req)
 
     def _prefill_onepass(self, act: _Active) -> None:
         """Exact-length one-shot prefill into the request's pages and slot
@@ -278,8 +372,11 @@ class Scheduler:
         self._start_decoding(act, last)
 
     def _prefill_phase(self) -> None:
-        """The prefills admission deferred: every one-shot prefill, then
-        one round of chunked-prefill slices."""
+        """The prefills admission deferred: the drafter's prompts, every
+        one-shot prefill, then one round of chunked-prefill slices."""
+        for req in self._pending_draft:
+            self.draft.prefill(req.rid, req.prompt)
+        self._pending_draft.clear()
         for act in self._pending_onepass:
             self._prefill_onepass(act)
         self._pending_onepass.clear()
@@ -358,6 +455,8 @@ class Scheduler:
     def _finish(self, act: _Active) -> None:
         rid = act.req.rid
         self.results[rid] = np.asarray(act.tokens, np.int32)
+        if self.spec_adapt:
+            self.spec_k_by_rid[rid] = int(self._spec_k[act.slot])
         self.stats.completed += 1
         now = time.perf_counter()
         self.stats.latency.append(now - act.submit_t)
@@ -365,6 +464,8 @@ class Scheduler:
             self.stats.tpot.append(
                 (now - act.first_token_t) / (act.ntok - 1))
         slot = self.pool.release(rid)
+        if self.draft is not None:
+            self.draft.layout.release(rid)
         del self.active[rid]
         del self._by_slot[slot]
         self._next_token[slot] = 0
@@ -372,10 +473,16 @@ class Scheduler:
 
     # -- hot swap -------------------------------------------------------------
     def set_params(self, params) -> None:
-        """Hot-swap the weights between steps (``params`` in the port's
-        layout; the cache layout is unchanged).  The prefix cache is
+        """Hot-swap the target's weights between steps (``params`` in the
+        port's layout; the cache layout is unchanged).  The prefix cache is
         flushed: old-weight pages must not be shared into post-swap
-        admissions."""
+        admissions.  The drafter keeps its weights -- its tokens are only
+        proposals, verified against the new target -- so a self drafter
+        that shares the target's model gets a copy of the old weights
+        first."""
+        if self.draft is not None and \
+                self.draft.model is self.session.model:
+            self.draft.model = copy.deepcopy(self.session.model)
         self.session.set_params(params)
         self.pool.invalidate_prefix()
         self._head_share = None
@@ -438,19 +545,28 @@ class Scheduler:
         self._admission_phase()
         self._prefill_phase()
         if self.active:
-            self._decode_round()
+            if self.spec_tokens > 0:
+                self._spec_round()
+            else:
+                self._decode_round()
         self.stats.sample_step(len(self.queue),
                                len(self.active) + len(self.prefilling))
 
     # -- decode --------------------------------------------------------------
-    def _ensure_decode_pages(self) -> None:
-        """Materialize the page each row's next write lands on (page
-        boundaries are the only times new pages appear)."""
-        bs = self.pool.block_size
+    def _ensure_decode_pages(self, pool: PagedLayout,
+                             last_token_pos: Dict[int, int]) -> None:
+        """Materialize every page a row's writes of this round land on in
+        ``pool``: ``last_token_pos[slot]`` is the row's last write
+        position (a speculative round writes from its index up to K+1
+        positions, across as many page boundaries as they hold; ensure is
+        idempotent, and page boundaries are the only times new pages
+        appear)."""
+        bs = pool.block_size
         for act in self.active.values():
-            pos = int(self._index[act.slot])
-            if pos // bs != (pos - 1) // bs:
-                self.pool.ensure(act.req.rid, pos + 1)
+            first = int(self._index[act.slot])
+            last = last_token_pos[act.slot]
+            if first // bs != (first - 1) // bs or last // bs != first // bs:
+                pool.ensure(act.req.rid, last + 1)
 
     def _width_split(self) -> List[tuple]:
         """Partition active rows by pow2 table width: when one long
@@ -470,7 +586,8 @@ class Scheduler:
         return [(narrow_w, narrow), (wide_w, wide)]
 
     def _decode_round(self) -> None:
-        self._ensure_decode_pages()
+        self._ensure_decode_pages(self.pool, {
+            a.slot: int(self._index[a.slot]) for a in self.active.values()})
         groups = self._width_split()
         self.stats.decode_steps += 1
         if len(groups) == 1:
@@ -504,6 +621,174 @@ class Scheduler:
                 if act is not None:
                     self._accept_token(
                         act, self._sample(rows[i, 0], act.req, act.ntok))
+
+    # -- speculative decode --------------------------------------------------
+    def _spec_round(self) -> None:
+        """One population-speculative round (``Scheduler._spec_round`` of
+        the JAX package).
+
+        The drafter proposes up to ``spec_tokens`` tokens a row
+        (``spec_adapt`` sets each row's depth from its accept history);
+        the target verifies the row's pending token and every proposal in
+        one (K+1)-token ``session.step``; the row keeps its longest prefix
+        of proposals the target's own samples match, plus one target token
+        (the correction or the bonus), so every emitted token is a target
+        sample and the stream equals target-only decoding.
+
+        The fused draft (``spec_fused``) is one call,
+        :meth:`DecodeSession.draft_block`, that feeds each step's greedy
+        argmax into the next on the device; the host then resamples the
+        proposals from its logits with the request's own sampling.  At
+        temperature > 0 a resample may part from the greedy feed: the
+        drafter then holds wrong tokens in its history, which the repair
+        below replays away.  The sequential draft takes K+1 single steps
+        fed with the host's samples.
+
+        Rollback: a row that kept fewer tokens than it fed restores the
+        target's recurrent state and replays its kept prefix (attention
+        K/V needs none: the stale tail is causally masked until it is
+        overwritten); the drafter repairs a row whose fed block parted
+        from the host's, or whose recurrent state ran past the kept
+        prefix, the same way.
+        """
+        B = self.pool.num_slots
+        acts = list(self.active.values())
+        t_rec = self.pool.has_recurrent
+        d_rec = self.draft.layout.has_recurrent
+        base = self._index.copy()
+        # per-row cap: writes at base .. base + cap - 1 stay inside the
+        # prompt + max_new reservation (a cap-truncated row finishes this
+        # round anyway)
+        cap = np.zeros((B,), np.int32)
+        for act in acts:
+            k_row = int(self._spec_k[act.slot]) if self.spec_adapt \
+                else self.spec_tokens
+            cap[act.slot] = min(k_row + 1, act.req.max_new - act.ntok + 1)
+        Kv = int(cap.max())
+        targets = {a.slot: int(base[a.slot]) + int(cap[a.slot]) - 1
+                   for a in acts}
+        self._ensure_decode_pages(self.pool, targets)
+        self._ensure_decode_pages(self.draft.layout, targets)
+        W = self._table_bucket(int((base + cap).max()))
+        block = np.zeros((B, Kv), np.int32)
+        block[:, 0] = self._next_token
+        ntok0 = {act.slot: act.ntok for act in acts}
+
+        with record_function("rollback"):
+            d_snap = self.draft.snapshot() if d_rec else ()
+        with record_function("draft"):
+            if self.spec_fused:
+                dlogits, fed_dev = self.draft.draft_block(
+                    self._next_token[:, None], base, Kv, valid=cap, width=W)
+                drows = dlogits.float().cpu().numpy()        # (B, Kv, V)
+                dev = fed_dev.cpu().numpy()                  # (B, Kv)
+                self.stats.spec_draft_steps += 1
+                for act in acts:
+                    s = act.slot
+                    for t in range(int(cap[s]) - 1):
+                        block[s, t + 1] = self._sample(drows[s, t], act.req,
+                                                       ntok0[s] + t)
+            else:
+                # Kv single steps; the last feeds the final proposal, so
+                # drafter and target caches stay aligned when every
+                # proposal is accepted
+                for t in range(Kv):
+                    valid_t = (cap > t).astype(np.int32)
+                    idx_t = np.where(self._index >= 0, base + t,
+                                     -1).astype(np.int32)
+                    logits = self.draft.step(block[:, t:t + 1], idx_t,
+                                             valid=valid_t, width=W)
+                    self.stats.spec_draft_steps += 1
+                    if t + 1 >= Kv:
+                        break
+                    rows = logits.float().cpu().numpy()
+                    for act in acts:
+                        s = act.slot
+                        if t + 1 < cap[s]:
+                            block[s, t + 1] = self._sample(
+                                rows[s, 0], act.req, ntok0[s] + t)
+                dev = block         # the drafter was fed the host's block
+
+        # the target verifies the whole block in one K-token step
+        with record_function("rollback"):
+            t_snap = self.session.snapshot() if t_rec else ()
+        with record_function("verify"):
+            vlogits = self.session.step(block, base, valid=cap, width=W)
+            rows = vlogits.float().cpu().numpy()             # (B, Kv, V)
+        self.stats.decode_steps += 1
+        self.stats.spec_rounds += 1
+        self.stats.decode_slot_steps += B
+
+        # acceptance: the longest matching prefix + one target token
+        fed_valid = np.zeros((B,), np.int32)
+        for act in acts:
+            s = act.slot
+            c = int(cap[s])
+            n0 = ntok0[s]
+            appended = 0
+            for t in range(c):
+                g = self._sample(rows[s, t], act.req, n0 + t)
+                self._accept_token(act, g)                   # may finish
+                appended += 1
+                if act.req.rid not in self.active:
+                    break
+                if t + 1 >= c or g != int(block[s, t + 1]):
+                    break
+            fed_valid[s] = appended
+            offered = max(0, c - 1)
+            accepted = max(0, appended - 1)
+            self.stats.spec_draft_proposed += offered
+            self.stats.spec_draft_accepted += accepted
+            if offered:
+                self.stats.spec_k_sum += offered
+                self.stats.spec_k_rows += 1
+                if self.spec_adapt:
+                    self._adapt_depth(act, offered, accepted)
+
+        # rollback
+        rb_t = np.zeros((B,), bool)
+        rep_t = np.zeros((B,), np.int32)
+        rb_d = np.zeros((B,), bool)
+        rep_d = np.zeros((B,), np.int32)
+        for act in acts:
+            s = act.slot
+            if act.req.rid not in self.active:
+                continue
+            fed = int(fed_valid[s])
+            if fed < cap[s]:
+                # the target kept fewer tokens than it fed: its recurrent
+                # state (if any) rolls back to the kept prefix
+                rb_t[s] = True
+                rep_t[s] = fed
+            diverged = dev[s, 1:fed].tolist() != block[s, 1:fed].tolist()
+            if diverged or (d_rec and fed < cap[s]):
+                rb_d[s] = True
+                rep_d[s] = fed
+        with record_function("rollback"):
+            if t_rec and rb_t.any():
+                self.session.restore(t_snap, rb_t)
+                self.session.step(block, base, valid=rep_t, width=W)
+                self.stats.spec_replays += 1
+            if rb_d.any():
+                if d_rec:
+                    self.draft.restore(d_snap, rb_d)
+                self.draft.step(block, base, valid=rep_d, width=W)
+                self.stats.spec_replays += 1
+
+    def _adapt_depth(self, act: _Active, offered: int,
+                     accepted: int) -> None:
+        """Per-row speculative depth (``spec_adapt``): one more after a
+        fully accepted block, half after a complete rejection, else what
+        the row just proved it can absorb -- within [1, spec_tokens]."""
+        k = int(self._spec_k[act.slot])
+        if accepted >= offered:
+            k = min(self.spec_tokens, k + 1)
+        elif accepted == 0:
+            k = max(1, k // 2)
+        else:
+            k = max(1, min(k, accepted + 1))
+        self._spec_k[act.slot] = k
+        self.spec_k_by_rid[act.req.rid] = k
 
     def _table_bucket(self, max_tokens: int) -> int:
         """Gather width (block-table columns) for this step, pow2-bucketed

@@ -8,6 +8,10 @@ layout:
   ``prefill_chunk(rid, ...)``     one chunked-prefill slice into rid's pages
                                   (attention-only stacks)
   ``step(tokens, index, ...)``    K >= 1 tokens per row over the pools
+  ``draft_block(tok0, ...)``      the fused drafter round: ``steps``
+                                  single-token decodes in one call, each
+                                  fed the last one's greedy argmax
+  ``snapshot() / restore(...)``   recurrent-state rollback
 
 Host arrays (numpy) go in; the session uploads them to the layout's
 device, runs :func:`repro_torch.models.lm.lm_prefill_exact` /
@@ -18,7 +22,7 @@ pytree to a jitted step and rebinds the returned one.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -120,3 +124,53 @@ class DecodeSession:
         return lm.lm_decode(self.model, _upload(tokens, np.int64, dev),
                             self.layout.cache,
                             _upload(index, np.int64, dev), t, valid=v)
+
+    def draft_block(self, tok0: np.ndarray, index: np.ndarray, steps: int,
+                    valid: Optional[np.ndarray] = None,
+                    width: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Fused drafter round (``_draft_unroll`` in JAX): ``steps``
+        single-token :func:`~repro_torch.models.lm.lm_decode` calls in
+        one Python call, each fed the previous step's greedy argmax on
+        the device -- no host sync between steps; the tables, index and
+        ``valid`` are uploaded once.
+
+        tok0: (B, 1) each row's pending token; index: (B,) its write
+        position (-1 = idle row); valid: (B,) real steps per row (step t
+        of row b writes to the null page and freezes its recurrent state
+        when ``t >= valid[b]``); width: block-table columns.  Returns
+        (logits (B, steps, V), the tokens fed (B, steps)) on the device:
+        the caller resamples proposals from the logits with each
+        request's own sampling and repairs the rows where they differ
+        from the greedy feed.
+        """
+        dev = self.device
+        tables = self.layout.step_tables(
+            width if width is not None else self.layout.max_blocks_per_seq)
+        tok = _upload(tok0, np.int64, dev)
+        idx = _upload(index, np.int64, dev)
+        v = torch.full((tok.shape[0],), steps, dtype=torch.long,
+                       device=dev) if valid is None \
+            else _upload(valid, np.int64, dev)
+        fed, logits_all = [], []
+        for t in range(steps):
+            valid_t = (v - t).clamp(0, 1)
+            idx_t = torch.where(idx >= 0, idx + t, idx)
+            logits = lm.lm_decode(self.model, tok, self.layout.cache, idx_t,
+                                  tables, valid=valid_t)
+            fed.append(tok[:, 0])
+            logits_all.append(logits[:, 0])
+            # greedy device feed; the host resamples from the logits
+            tok = logits[:, 0].float().argmax(dim=-1)[:, None]
+        return torch.stack(logits_all, dim=1), torch.stack(fed, dim=1)
+
+    def snapshot(self) -> Tuple[torch.Tensor, ...]:
+        """Copy of the recurrent rows (empty for attention-only stacks:
+        their rollback is free)."""
+        return self.layout.snapshot()
+
+    def restore(self, snap: Tuple[torch.Tensor, ...], rows) -> None:
+        """Roll the slots with ``rows[b]`` true back to ``snap``; pair
+        with a ``valid``-masked replay :meth:`step` to rebuild the
+        accepted prefix."""
+        self.layout.restore(snap, rows)

@@ -203,8 +203,8 @@ def test_scheduler_raises_on_unported_arguments():
 
     cfg = get_config("qwen3-0.6b", smoke=True)
     model = init_lm(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="spec_tokens"):
-        Scheduler(cfg, model, device="cpu", spec_tokens=2)
+    with pytest.raises(NotImplementedError, match="arena"):
+        Scheduler(cfg, model, device="cpu", arena=object())
     with pytest.raises(NotImplementedError, match="layout"):
         Scheduler(cfg, model, device="cpu", layout="dense")
     with pytest.raises(TypeError):

@@ -255,15 +255,20 @@ def test_lm_forward_matches_jax(family):
 
 def test_recurrent_stacks_refuse_gradients_and_chunking():
     """Training the recurrent families and chunked prefill over them are
-    not ported: both raise rather than compute something else."""
+    not ported: both raise rather than compute something else.  The
+    K-token decode over recurrent state is ported (speculative decoding's
+    verify; ``tests/test_torch_spec.py`` holds it against JAX): two tokens
+    a row step the state rows and return a logit row per token."""
     _, _, model = _both("xlstm")
     with torch.enable_grad(), pytest.raises(NotImplementedError,
                                             match="A7"):
         tlm.lm_forward(model, torch.zeros((1, 4), dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="A7"):
-        tlm.lm_decode(model, torch.zeros((2, 2), dtype=torch.long), [],
-                      torch.zeros(2, dtype=torch.long),
-                      torch.zeros((2, 1), dtype=torch.int32))
+    cache = tlm.init_cache(model.cfg, pages=(4, 4), num_slots=2,
+                           device="cpu")
+    logits = tlm.lm_decode(model, torch.zeros((2, 2), dtype=torch.long),
+                           cache, torch.zeros(2, dtype=torch.long),
+                           torch.zeros((2, 1), dtype=torch.int32))
+    assert logits.shape == (2, 2, model.cfg.vocab_size)
     with pytest.raises(ValueError, match="attention-only"):
         tlm.lm_prefill(model, torch.zeros((1, 4), dtype=torch.long), [],
                        torch.zeros((1, 1), dtype=torch.int32), 0, 4, 3)
