@@ -213,7 +213,41 @@ and never prints the final ``ok`` line):
     session, per fused round Kv per drafter attention layer, the RMSNorm
     launches of every forward, a scan per recurrent layer and prefill;
     a fused run drafts once a round, a sequential one more than K times;
-26. a ``kernels`` line (``launches_by_path`` with one entry per new
+26. recurrent_bwd_kernels (in the kernel phases, after phase 19): the
+    two backward kernels (no TPU kernel is their counterpart: JAX
+    differentiates the ``lax.scan`` twins) against their plain backwards
+    in f32, every gradient within 1e-4 of its largest entry
+    (``SCAN_BWD_TOL``) and bit-equal over two calls:
+    ``mamba_scan_bwd`` at jamba's train shape (B = 2, S = 4096, d_in =
+    16384, N = 16), its serve prompt (1, 500), (2, 100, 1000, 8) with a
+    channel tail and a case with a nonzero final-state cotangent;
+    ``slstm_scan_bwd`` at xlstm's train shape (4, 4096, 768, 4), (1, 500,
+    768, 4), (2, 40, 392, 2) with a masked tail and a case with nonzero
+    final-state cotangents; the plain versions timed at S <= 500 only (at
+    S = 4096 their one comparison call is timed on the host clock); and
+    the RMSNorm forward and backward at jamba's train rows (8192 x 8192
+    bf16);
+27. train_recurrent: xlstm-125m FULL (B = 4, Adam) and jamba
+    ``NOEXP_8L`` (9.0 B parameters, published widths, no experts; B = 2,
+    Adafactor: Adam's two f32 moments would not fit one card beside the
+    bf16 weights and gradients) in bf16, S = 4096, remat full, 4 steps on
+    ``launch.train``'s batches: every loss finite, a finite nonzero
+    gradient on every weight at steps 0 and 3, the per-step launches of
+    both scans and their backwards (each scan forward twice a step, its
+    backward once), flash (jamba) and RMSNorm both ways exact; prints
+    step ms, tokens/s, peak memory, mfu and one profiled step by kernel
+    group; then a 4-layer xlstm and a 2-layer jamba at full width in f32
+    (TF32 off), B = 1, S = 256: the card's loss and every gradient
+    against the CPU's (``PARITY_TOL``'s loss and gradient tolerances;
+    xlstm's gradients within twice a measured f32 floor,
+    ``RECURRENT_PARITY``);
+28. ltfb_recurrent: ``repro_torch.launch.ltfb.main`` over xlstm-125m at
+    full width in bf16 as a user calls it: 2 trainers, 1 round x 2 steps,
+    B = 2, S = 1024, Adam, ``--ckpt-dir``, then a rerun that resumes for a
+    second round; finite values, the sLSTM scan, its
+    backward and RMSNorm launched; prints the tournament lines, the step
+    ms and the checkpoint seconds;
+29. a ``kernels`` line (``launches_by_path`` with one entry per new
     path and arch), the ``nvidia-smi`` line, and the ``ok`` line.
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and ``triton``; exits 1
@@ -249,20 +283,67 @@ REPLACES = {"paged_attention": "src/repro/kernels/paged_attention.py:106",
             "flash_attention_fwd": "src/repro/kernels/flash_attention.py:85",
             "flash_attention_bwd": "src/repro/kernels/flash_attention.py:85",
             "mamba_scan": "src/repro/kernels/mamba_scan.py:65",
-            "slstm_scan": "src/repro/kernels/slstm.py:86"}
+            "slstm_scan": "src/repro/kernels/slstm.py:86",
+            "mamba_scan_bwd": "none: JAX differentiates the lax.scan twins "
+                              "ssm._mamba_core / xlstm.slstm_block "
+                              "(src/repro/models/ssm.py:96)",
+            "slstm_scan_bwd": "none: JAX differentiates the lax.scan twins "
+                              "ssm._mamba_core / xlstm.slstm_block "
+                              "(src/repro/models/xlstm.py:288)"}
 SOURCES = {"paged_attention": "src/repro_torch/csrc/paged_attention.cu",
            "rmsnorm": "src/repro_torch/kernels/rmsnorm.py",
            "rmsnorm_bwd": "src/repro_torch/kernels/rmsnorm.py",
            "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
            "flash_attention_bwd": "src/repro_torch/csrc/flash_attention.cu",
            "mamba_scan": "src/repro_torch/csrc/mamba_scan.cu",
-           "slstm_scan": "src/repro_torch/csrc/slstm.cu"}
+           "slstm_scan": "src/repro_torch/csrc/slstm.cu",
+           "mamba_scan_bwd": "src/repro_torch/csrc/mamba_scan.cu",
+           "slstm_scan_bwd": "src/repro_torch/csrc/slstm.cu"}
 ROUTES = {"paged_attention": "cuda", "rmsnorm": "triton",
           "rmsnorm_bwd": "triton", "flash_attention_fwd": "cuda",
           "flash_attention_bwd": "cuda", "mamba_scan": "cuda",
-          "slstm_scan": "cuda"}
+          "slstm_scan": "cuda", "mamba_scan_bwd": "cuda",
+          "slstm_scan_bwd": "cuda"}
 # the scans: f32 over up to 500 sequential steps
 SCAN_TOL = 1e-4
+# the scans' backwards: f32, each gradient within 1e-4 of its largest entry
+# (d_a sums B * S terms, d_B and d_C the d_in channels, each in another
+# order than the plain version's; the kernels' exponentials are ex2.approx
+# on the special-function units)
+SCAN_BWD_TOL = 1e-4
+# the plain backwards are timed (median of the Timer's launches) up to this
+# many steps; past it their one comparison call is timed on the host clock
+PLAIN_TIMED_S = 500
+# train_recurrent: (phase's name for the model, arch, B, optimizer) at S =
+# 4096, bf16, remat full, 4 steps (6 took the whole script past 1000 s of
+# its 1200; the step time is the median of steps 1-3)
+TRAIN_RECURRENT = (("xlstm", "xlstm-125m", 4, "adam"),
+                   ("jamba", "jamba-1.5-large-398b", 2, "adafactor"))
+TRAIN_RECURRENT_STEPS = 4
+# the parity runs at B = 1, S = 256, f32: (layers, each recurrent kind of
+# the stack present; a conditioning witness).  Each gradient is held to
+# PARITY_TOL["grad_rel"] of its largest entry against the CPU's, or, with
+# the witness, to FLOOR_X times the step's f32 floor: the largest change
+# of a gradient on the CPU when the token embeddings move by 1e-7 of
+# themselves (an f32 rounding of the stack's input).  At random weights
+# the mLSTM's gradients are ill-conditioned in f32 (its stabilised
+# division max(|den|, exp(-m)) and the chunk's exponentials): such a
+# change moved xlstm's mLSTM weight gradients by up to 1.2e-4 of their
+# largest entry on a CPU, and in a run on the card, where the forward's
+# loss matched the CPU's to the bit, blocks.1.mixer.wv read 3.1e-4 from
+# the CPU's while the floor there read 6.4e-4.  jamba's stack has no mLSTM
+# (its parity holds at 1.5e-5) and takes no witness
+RECURRENT_PARITY = {"xlstm": (4, True), "jamba": (2, False)}
+RECURRENT_PARITY_S = 256
+FLOOR_EPS, FLOOR_X = 1e-7, 2.0
+# ltfb_recurrent: the ltfb CLI over xlstm-125m FULL, bf16 (its dtype); one
+# round, saved, then a rerun that resumes for a second (2 + 1 rounds took
+# the whole script past 1000 s of its 1200)
+LTFB_RECURRENT_ARGS = ["--arch", "xlstm-125m", "--trainers", "2",
+                       "--rounds", "1", "--steps-per-round", "2", "--batch",
+                       "2", "--seq", "1024", "--samples", "64",
+                       "--samples-per-file", "16", "--scope", "full",
+                       "--seed", "0"]
 # the train phase: qwen3-0.6b FULL, bf16
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 4096, 6
 # kernel launches per train step with remat full: 28 attention layers,
@@ -337,8 +418,14 @@ LTFB_ARGS = ["--arch", "icf-cyclegan", "--trainers", "4", "--rounds", "3",
              "--scope", "generator", "--seed", "0"]
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
-    """Print one JSON line."""
+    """Print one JSON line; a phase's or a kernel case's line carries
+    ``t_s``, the script's seconds so far."""
+    if "phase" in obj or "kernel" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1034,7 +1121,9 @@ def _all_counters():
     from repro_torch.kernels import slstm as sl
 
     return {**_train_counters(), "paged_attention": pa.paged_attention,
-            "mamba_scan": ms.mamba_scan, "slstm_scan": sl.slstm_scan}
+            "mamba_scan": ms.mamba_scan, "slstm_scan": sl.slstm_scan,
+            "mamba_scan_bwd": ms.mamba_scan_bwd,
+            "slstm_scan_bwd": sl.slstm_scan_bwd}
 
 
 def _check_grads(torch, model, where):
@@ -1052,7 +1141,9 @@ PROFILE_GROUPS = (("flash_attention_fwd", ("flash_fwd",)),
                   ("flash_attention_bwd", ("flash_bwd",)),
                   ("rmsnorm", ("rmsnorm",)),
                   ("paged_attention", ("paged_attention",)),
+                  ("mamba_scan_bwd", ("mamba_scan_bwd", "sum_parts")),
                   ("mamba_scan", ("mamba_scan",)),
+                  ("slstm_scan_bwd", ("slstm_bwd",)),
                   ("slstm_scan", ("slstm",)),
                   ("matmul", ("gemm", "sm90", "cutlass", "nvjet", "xmma",
                               "cublas")),
@@ -2651,6 +2742,130 @@ def phase_arch_kernels(torch, timer):
     return results
 
 
+def _bwd_case(torch, timer, plain_timer, name, fn, plain, S, moved, ops,
+              exps):
+    """A backward kernel against its plain backward (every gradient, f32,
+    within ``SCAN_BWD_TOL`` of its largest entry) and against itself (two
+    calls, equal bits), timed; the plain version (a Python loop over the
+    steps) is timed by ``plain_timer`` up to ``PLAIN_TIMED_S`` steps, past
+    it its one comparison call on the host clock.  ``library_ms`` is None:
+    no PyTorch call computes either gradient."""
+    got = fn()
+    again = fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = plain()
+    torch.cuda.synchronize()
+    plain_once_ms = (time.perf_counter() - t0) * 1e3
+    errs, rel = [], []
+    for g, a, w in zip(got, again, want):
+        check(torch.equal(g, a), f"{name} S={S}: two calls differ")
+        err = (g - w).abs().max().item()
+        scale = w.abs().max().item()
+        check(err <= SCAN_BWD_TOL * scale, f"{name} S={S}: max |err| {err} "
+              f"over {SCAN_BWD_TOL} x {scale}")
+        errs.append(err)
+        rel.append(err / scale if scale else 0.0)
+    b_ms, b_by = bound(moved, ops, "float32", exps)
+    timed = S <= PLAIN_TIMED_S
+    return {"kernel": name, "dtype": "float32", "max_abs_err": max(errs),
+            "max_err_over_scale": max(rel), "tol": SCAN_BWD_TOL,
+            "bit_equal_twice": True, "kernel_ms": timer.ms(fn),
+            "plain_ms": plain_timer.ms(plain) if timed else plain_once_ms,
+            "plain_timing": f"median of {plain_timer.reps}" if timed
+            else "one call, host clock",
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": moved, "ops": ops, "exps": exps}
+
+
+def phase_recurrent_bwd_kernels(torch, timer):
+    """recurrent_bwd_kernels: the selective scan's and the sLSTM's
+    backward kernels against their plain backwards at the train shapes,
+    a serve-length prompt, a ragged tail and nonzero final-state
+    cotangents; RMSNorm both ways at jamba's train rows."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import slstm as sl
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    # a plain backward at S = 500 takes 0.2-0.6 s a call
+    plain_timer = Timer(torch, reps=5, warmup=1)
+    results = {"mamba_scan_bwd": [], "slstm_scan_bwd": [], "rmsnorm": [],
+               "rmsnorm_bwd": []}
+    # (B, S, d_in, N, a nonzero cotangent of the final state)
+    for B, S, d, N, final in ((2, 4096, 16384, 16, False),
+                              (1, 500, 16384, 16, False),
+                              (2, 100, 1000, 8, False),
+                              (1, 77, 2048, 16, True)):
+        dt = F.softplus(rand(B, S, d) - 4.6)
+        a = -torch.arange(1, N + 1, dtype=torch.float32,
+                          device="cuda").repeat(d, 1)
+        args = (dt, rand(B, S, d), rand(B, S, N), rand(B, S, N), a)
+        dy = rand(B, S, d)
+        dh = rand(B, d, N) if final else torch.zeros((B, d, N),
+                                                     device="cuda")
+        h_ckpt = torch.empty(ms.ckpt_shape(dt, a), device="cuda")
+        ms.mamba_scan(*args, h_ckpt=h_ckpt)
+        tiles = h_ckpt.shape[1]
+        # read dt, xc, dy, B_t, C_t, a, the checkpoints and dh_last once;
+        # write d_dt, d_xc, d_B, d_C, d_a once.  Per (step, channel,
+        # state): one exponential and ~16 f32 flops
+        moved = 4 * (5 * B * S * d + 4 * B * S * N + 2 * d * N
+                     + B * tiles * d * N + B * d * N)
+        case = _bwd_case(
+            torch, timer, plain_timer, "mamba_scan_bwd",
+            lambda: ms.mamba_scan_bwd(*args, h_ckpt, dy, dh),
+            lambda: ref.mamba_scan_bwd_ref(*args, dy, dh), S, moved,
+            16 * B * S * d * N, B * S * d * N)
+        case.update(B=B, S=S, d_in=d, N=N, nonzero_final=final,
+                    ckpt_tiles=tiles)
+        emit(case)
+        results["mamba_scan_bwd"].append(case)
+        del args, dt, dy, dh, h_ckpt
+    # (B, S, d, H, a nonzero cotangent of the final state)
+    for B, S, d, H, final in ((4, 4096, 768, 4, False),
+                              (1, 500, 768, 4, False),
+                              (2, 40, 392, 2, False),
+                              (3, 33, 96, 2, True)):
+        dh = d // H
+        gx = rand(B, S, 4 * d)
+        r = rand(H, dh, 4 * dh) / math.sqrt(dh)
+        saved = sl.residuals(gx)
+        out, _ = sl.slstm_scan(gx, r, saved)
+        dy = rand(B, S, d)
+        dfin = tuple(rand(B, d) if final else torch.zeros((B, d),
+                                                          device="cuda")
+                     for _ in range(4))
+        # read the gates, the states, dy, h, r_h and the final cotangents;
+        # write d_gx and d_r_h.  Per step the transposed recurrent product
+        # and d_r_h's (8 d dh flops each), ~40 flops and 6 exponentials of
+        # the cell's backward a channel
+        moved = 4 * (8 * B * S * d + 3 * B * S * d + 2 * B * S * d
+                     + 2 * H * dh * 4 * dh + 4 * B * d)
+        case = _bwd_case(
+            torch, timer, plain_timer, "slstm_scan_bwd",
+            lambda: sl.slstm_scan_bwd(r, out, saved, dy, dfin),
+            lambda: ref.slstm_bwd_ref(gx, r, dy, dfin), S, moved,
+            B * S * (16 * d * dh + 40 * d), 6 * B * S * d)
+        C, cb = sl.cluster_plan(dh)
+        case.update(B=B, S=S, d=d, H=H, nonzero_final=final, cluster=C,
+                    channels_per_block=cb)
+        emit(case)
+        results["slstm_scan_bwd"].append(case)
+        del gx, r, saved, out, dy, dfin
+    # jamba's train rows: 2 x 4096 tokens of d_model 8192 (queue B item 6)
+    del plain_timer
+    fwd, bwd = _rms_train_cases(torch, timer, gen, (8192, 8192),
+                                path="train_recurrent")
+    results["rmsnorm"].append(fwd)
+    results["rmsnorm_bwd"].append(bwd)
+    return results
+
+
 def _release(torch, device) -> None:
     """:func:`release` on the card; a garbage collection on the CPU."""
     if str(device).startswith("cuda"):
@@ -2834,15 +3049,20 @@ def phase_recompute_archs(torch, device="cuda", smoke=False):
               "positions")
 
 
-def _train_cut(torch, phase, arch, layers, device="cuda", smoke=False):
+def _train_cut(torch, phase, arch, layers, device="cuda", smoke=False,
+               batch=CUT_B, optimizer="adam", moe=True, profile=False,
+               steps=CUT_STEPS):
     """Train ``arch`` at its published widths cut to ``layers`` layers in
-    bf16 (seed 0), B = 2, S = 4096, Adam lr 1e-3 with the CLI's warmup,
-    clip 1.0, remat full, 6 steps on ``launch.train``'s batches: losses and
-    the MoE aux losses finite (and positive with MoE), a finite nonzero
-    gradient on every weight the loss reads, the flash and RMSNorm
-    launches of every step exact; prints step time, tokens/s, peak memory,
-    the mfu over active parameters and, with MoE, the share of (token,
-    choice) pairs dropped (``smoke``: the SMOKE widths, for a CPU
+    bf16 (seed 0), B = ``batch`` (2), S = 4096, ``optimizer`` (Adam) at lr
+    1e-3 with the CLI's warmup, clip 1.0, remat full, ``steps`` (6) on
+    ``launch.train``'s batches: losses and the MoE aux losses finite (and
+    positive with MoE), a finite nonzero gradient on every weight the loss
+    reads, the launches of every step exact (flash, RMSNorm, the scans and
+    their backwards, those the stack runs; no other kernel); prints step
+    time, tokens/s, peak memory, the mfu over active parameters and, with
+    MoE, the share of (token, choice) pairs dropped; ``moe=False`` drops
+    the experts (jamba's ``NOEXP_8L`` cut), ``profile`` profiles one more
+    step by kernel group (``smoke``: the SMOKE widths, for a CPU
     rehearsal).  Returns the launches."""
     from repro_torch.configs.base import OptimizerConfig, replace
     from repro_torch.configs.registry import get_config
@@ -2850,9 +3070,10 @@ def _train_cut(torch, phase, arch, layers, device="cuda", smoke=False):
     from repro_torch.models.lm import layer_specs
     from repro_torch.train.steps import init_lm_state, make_lm_train_step
 
-    cfg = replace(get_config(arch, smoke=smoke), num_layers=layers)
-    opt_cfg = OptimizerConfig(name="adam", lr=1e-3,
-                              warmup_steps=min(100, CUT_STEPS // 10 + 1))
+    cfg = replace(get_config(arch, smoke=smoke), num_layers=layers,
+                  **({} if moe else {"moe": None}))
+    opt_cfg = OptimizerConfig(name=optimizer, lr=1e-3,
+                              warmup_steps=min(100, steps // 10 + 1))
     t0 = time.perf_counter()
     state = init_lm_state(cfg, opt_cfg, seed=0, device=device)
     step_fn = make_lm_train_step(cfg, opt_cfg, remat="full")
@@ -2861,25 +3082,31 @@ def _train_cut(torch, phase, arch, layers, device="cuda", smoke=False):
     model = state["model"]
     n_params = sum(p.numel() for p in model.parameters())
     active = cfg.param_count(active_only=True)
-    batches = [tl.device_batch(cfg, CUT_B, CUT_S, i, device)
-               for i in range(CUT_STEPS)]
+    batches = [tl.device_batch(cfg, batch, CUT_S, i, device)
+               for i in range(steps)]
     specs = layer_specs(cfg)
-    attn = sum(s.kind == "a" for s in specs)
+    per = {k: sum(s.kind == k for s in specs) for k in "aMs"}
     norms = _norms_per_forward(cfg)
-    # remat full: every block's forward runs twice, the final norm once
-    expect = {"flash_attention_fwd": 2 * attn, "flash_attention_bwd": attn,
-              "rmsnorm": 2 * norms - 1, "rmsnorm_bwd": norms}
+    # remat full: every block's forward runs twice (a scan's forward once
+    # outside the graph, once in the recompute before its backward), the
+    # final norm once
+    expect = {"flash_attention_fwd": 2 * per["a"],
+              "flash_attention_bwd": per["a"],
+              "rmsnorm": 2 * norms - 1, "rmsnorm_bwd": norms,
+              "mamba_scan": 2 * per["M"], "mamba_scan_bwd": per["M"],
+              "slstm_scan": 2 * per["s"], "slstm_scan_bwd": per["s"]}
+    expect = {n: v for n, v in expect.items() if v}
     moe_blocks = [b.ffn for b in model.blocks if b.ffn_kind == "moe"]
-    counters = _train_counters()
+    counters = _all_counters()
     for fn in counters.values():
         fn.launches = 0
     _sync(torch, device)
     _reset_peak(torch, device)
     losses, step_s, per_step, aux, drops = [], [], [], [], []
-    for i, batch in enumerate(batches):
+    for i, b in enumerate(batches):
         before = {n: fn.launches for n, fn in counters.items()}
         t0 = time.perf_counter()
-        _, m = step_fn(state, batch)
+        _, m = step_fn(state, b)
         _sync(torch, device)
         step_s.append(time.perf_counter() - t0)
         per_step.append({n: fn.launches - before[n]
@@ -2890,16 +3117,23 @@ def _train_cut(torch, phase, arch, layers, device="cuda", smoke=False):
         if moe_blocks:
             drops.append(sum(int(b.routed[0]) for b in moe_blocks)
                          / sum(b.routed[1] for b in moe_blocks))
-        if i in (0, CUT_STEPS - 1):
+        if i in (0, steps - 1):
             # a vlm's token embedding is not read: the embeddings replace it
-            unread = ("embed.weight",) if "embeds" in batch else ()
+            unread = ("embed.weight",) if "embeds" in b else ()
             bad = [n for n, p in model.named_parameters() if n not in unread
                    and (p.grad is None or not bool(torch.isfinite(
                        p.grad).all()) or not bool((p.grad != 0).any()))]
             check(not bad, f"{phase} step {i}: {len(bad)} parameters "
                   f"without a nonzero finite gradient, e.g. {bad[:5]}")
-    launches = {n: fn.launches for n, fn in counters.items()}
+    launches = {n: fn.launches for n, fn in counters.items()
+                if n in expect}
+    off_path = {n: fn.launches for n, fn in counters.items()
+                if n not in expect and fn.launches}
     peak = _peak_gib(torch, device)
+    prof = _profile(torch, lambda: step_fn(state, batches[0])) \
+        if profile and str(device).startswith("cuda") else None
+    check(not off_path, f"{phase}: kernels off the path launched: "
+          f"{off_path}")
     check(all(map(math.isfinite, losses)) and all(
         math.isfinite(v) for a in aux for v in a.values()),
         f"{phase}: non-finite loss or metric: {losses} {aux}")
@@ -2907,18 +3141,19 @@ def _train_cut(torch, phase, arch, layers, device="cuda", smoke=False):
         check(all(a["moe_load_balance"] > 0 and a["moe_z"] > 0
                   for a in aux), f"{phase}: aux losses not positive: {aux}")
     for i, got in enumerate(per_step):
-        _launch_check(torch, device, got, expect, f"{phase} step {i}")
-    step = statistics.median(step_s[-4:])
-    tokens = CUT_B * CUT_S
-    attn_flops = 2 * CUT_B * cfg.num_heads * CUT_S ** 2 \
+        _launch_check(torch, device, {n: got[n] for n in expect}, expect,
+                      f"{phase} step {i}")
+    step = statistics.median(step_s[-4:] if steps > 4 else step_s[1:])
+    tokens = batch * CUT_S
+    attn_flops = 2 * batch * cfg.num_heads * CUT_S ** 2 \
         * cfg.resolved_head_dim
-    model_flops = 6 * active * tokens + 3 * attn_flops * attn
+    model_flops = 6 * active * tokens + 3 * attn_flops * per["a"]
     stats = {"phase": phase, "arch": cfg.name, "dtype": cfg.dtype,
              "layers": layers,
              "cut_from_layers": get_config(arch, smoke=smoke).num_layers,
              "params": n_params, "active_params": active,
-             "batch": CUT_B, "seq": CUT_S, "steps": CUT_STEPS,
-             "optimizer": "adam", "lr": opt_cfg.lr, "remat": "full",
+             "batch": batch, "seq": CUT_S, "steps": steps,
+             "optimizer": optimizer, "lr": opt_cfg.lr, "remat": "full",
              "init_s": init_s, "losses": losses, "metrics": aux,
              "step_s": step_s, "step_ms": step * 1e3,
              "tokens_per_s": tokens / step, "peak_mem_gib": peak,
@@ -2928,7 +3163,7 @@ def _train_cut(torch, phase, arch, layers, device="cuda", smoke=False):
              "model_flops_per_step": model_flops,
              "dropped_pair_share": drops or None,
              "launches": launches, "launches_per_step": per_step[-1],
-             "expected_per_step": expect}
+             "expected_per_step": expect, "profiled_step": prof}
     emit(stats)
     del state, model, batches, step_fn
     _release(torch, device)
@@ -2985,6 +3220,175 @@ def phase_train_vlm(torch, device="cuda", smoke=False):
     emit({"phase": "train_vlm_parity", **_vlm_parity(torch, device, smoke)})
     _release(torch, device)
     return launches
+
+
+def phase_train_recurrent(torch, device="cuda", smoke=False):
+    """train_recurrent: xlstm-125m FULL and jamba ``NOEXP_8L`` trained
+    through the scans' backward kernels (``_train_cut``, one profiled step
+    each), then each stack's f32 parity of the card against the CPU.
+    Returns the launches."""
+    from repro_torch.configs.registry import get_config
+
+    launches = {}
+    for name, arch, batch, optimizer in TRAIN_RECURRENT:
+        layers = 8 if name == "jamba" else get_config(arch).num_layers
+        launches[name] = _train_cut(
+            torch, f"train_recurrent.{name}", arch, layers, device=device,
+            smoke=smoke, batch=batch, optimizer=optimizer, moe=False,
+            profile=True, steps=TRAIN_RECURRENT_STEPS)
+    for name, arch, _, _ in TRAIN_RECURRENT:
+        _recurrent_parity(torch, f"train_recurrent.{name}_parity", arch,
+                          *RECURRENT_PARITY[name], device, smoke)
+        _release(torch, device)
+    return {f"train_recurrent.{k}": v for k, v in launches.items()}
+
+
+def _rel(got, want) -> float:
+    """``max |got - want|`` over ``max |want|``."""
+    return ((got - want).abs().max()
+            / want.abs().max().clamp(min=1e-30)).item()
+
+
+@exact_f32
+def _recurrent_parity(torch, phase, arch, layers, witness, device="cuda",
+                      smoke=False):
+    """``arch`` at full width cut to ``layers`` layers (no experts), f32
+    (TF32 off), B = 1, S = ``RECURRENT_PARITY_S``: ``lm_loss`` and every
+    gradient on the card (the kernels) against the same weights on the
+    CPU (the plain versions), the loss to ``PARITY_TOL["loss_rel"]`` of
+    itself and each gradient to ``PARITY_TOL["grad_rel"]`` of its largest
+    entry, or, with the conditioning ``witness``, within ``FLOOR_X`` times
+    the step's f32 floor (``RECURRENT_PARITY``)."""
+    from repro_torch.configs.base import replace
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train as tl
+    from repro_torch.models.lm import LM, init_lm, layer_specs, lm_loss
+
+    cfg = replace(get_config(arch, smoke=smoke), dtype="float32",
+                  num_layers=layers, moe=None)
+    model = init_lm(cfg, seed=0, device=device).train()
+    batch = tl.device_batch(cfg, 1, RECURRENT_PARITY_S, 0, device)
+    t0 = time.perf_counter()
+    loss, _ = lm_loss(model, batch)
+    loss.backward()
+    _sync(torch, device)
+    card_s = time.perf_counter() - t0
+    got = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    weights = {k: v.cpu() for k, v in model.state_dict().items()}
+    del model
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+
+    def on_cpu(embed_eps=0.0):
+        state = dict(weights)
+        if embed_eps:
+            e = weights["embed.weight"]
+            noise = torch.randn(e.shape, generator=torch.Generator()
+                                .manual_seed(5))
+            state["embed.weight"] = e * (1 + embed_eps * noise)
+        # built on "meta" and handed the card's weights (no CPU init of
+        # jamba's 3.1 B weights only to overwrite them)
+        with torch.device("meta"):
+            m = LM(cfg)
+        m.load_state_dict(state, assign=True)
+        m.train()
+        t0 = time.perf_counter()
+        value, _ = lm_loss(m, cpu_batch)
+        value.backward()
+        grads = {n: p.grad for n, p in m.named_parameters()}
+        return value.item(), grads, time.perf_counter() - t0
+
+    want_loss, want, cpu_s = on_cpu()
+    loss_rel = abs(loss.item() - want_loss) / abs(want_loss)
+    rel = {n: _rel(got[n], want[n]) for n in want}
+    out = {"arch": cfg.name, "layers": layers,
+           "kinds": "".join(s.kind for s in layer_specs(cfg)),
+           "dtype": "float32", "allow_tf32": False, "batch": 1,
+           "seq": RECURRENT_PARITY_S, "loss_card": loss.item(),
+           "loss_cpu": want_loss, "loss_rel_err": loss_rel,
+           "grad_rel_err": max(rel.values()),
+           "worst_grad": max(rel, key=rel.get), "card_s": card_s,
+           "cpu_s": cpu_s,
+           "tol": {k: PARITY_TOL[k] for k in ("loss_rel", "grad_rel")}}
+    tol = PARITY_TOL["grad_rel"]
+    if witness:
+        _, moved, _ = on_cpu(FLOOR_EPS)
+        floor = max(_rel(moved[n], want[n]) for n in want)
+        tol = max(tol, FLOOR_X * floor)
+        out.update(f32_floor=floor, floor_eps=FLOOR_EPS, floor_x=FLOOR_X,
+                   over_grad_rel={n: r for n, r in rel.items()
+                                  if r > PARITY_TOL["grad_rel"]})
+    out["grad_tol"] = tol
+    bad = {n: r for n, r in rel.items() if r > tol}
+    emit({"phase": phase, **out})
+    check(loss_rel <= PARITY_TOL["loss_rel"] and math.isfinite(loss_rel),
+          f"{arch} parity: loss rel err {loss_rel}")
+    check(not bad, f"{arch} parity: gradients past tolerance: {bad}")
+    return out
+
+
+def phase_ltfb_recurrent(torch, workdir, device="cuda", smoke=False):
+    """ltfb_recurrent: the ltfb CLI over xlstm-125m as a user calls it,
+    with ``--ckpt-dir``, then a rerun that resumes (each step timed by
+    wrapping the CLI's trainer step).  Returns the launches."""
+    import re
+
+    from repro_torch.launch import ltfb as lt
+
+    step_ms = []
+    build_fns = lt.build_fns
+
+    def timed_fns(args):
+        fns = build_fns(args)
+
+        def train_step(*a, **kw):
+            t0 = time.perf_counter()
+            out = fns.train_step(*a, **kw)
+            _sync(torch, device)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        return dataclasses.replace(fns, train_step=train_step)
+
+    argv = LTFB_RECURRENT_ARGS + [
+        "--device", device, "--ckpt-dir", os.path.join(workdir, "rec_pop"),
+        "--data-dir", os.path.join(workdir, "rec_data")]
+    if smoke:
+        argv += ["--smoke", "--seq", "64"]
+    number = re.compile(r"\b(?:best_val|speedup|ckpt_s|tournament_s)="
+                        r"([^\s,x]+)")
+    lt.build_fns = timed_fns
+    try:
+        first = _run_cli(torch, lt.main, argv, "[ltfb]", number)
+        steps_first = len(step_ms)
+        # the rerun resumes and trains a round without saving it
+        rerun = _run_cli(torch, lt.main, argv + ["--ckpt-every", "0"],
+                         "[ltfb]", number)
+    finally:
+        lt.build_fns = build_fns
+    cuda = str(device).startswith("cuda")
+    runs = {"first": first, "rerun": rerun}
+    for what, run in runs.items():
+        check(run["rc"] == 0 and run["values"]
+              and all(map(math.isfinite, run["values"])),
+              f"ltfb_recurrent {what}: rc={run['rc']} {run['lines'][-6:]}")
+        on = ("slstm_scan", "slstm_scan_bwd", "rmsnorm", "rmsnorm_bwd")
+        check(all(bool(run["launches"][n]) == cuda for n in on),
+              f"ltfb_recurrent {what}: launches {run['launches']}")
+    check(any(ln.startswith("[ltfb] resumed at round 1")
+              for ln in rerun["lines"]),
+          f"ltfb_recurrent: the rerun did not resume: {rerun['lines'][:3]}")
+    ckpt_s = [float(m) for run in runs.values() for ln in run["lines"]
+              if ln.startswith("[ltfb] tournament:")
+              for m in re.findall(r"ckpt_s=([0-9.]+)", ln)]
+    emit({"phase": "ltfb_recurrent", "argv": argv,
+          "step_ms": step_ms, "steps_first_run": steps_first,
+          "step_ms_median": statistics.median(step_ms) if step_ms else None,
+          "ckpt_s": ckpt_s, "wall_s": {k: r["s"] for k, r in runs.items()},
+          "launches": {k: r["launches"] for k, r in runs.items()},
+          "lines": {k: r["lines"] for k, r in runs.items()}})
+    return {n: sum(run["launches"][n] for run in runs.values())
+            for n in first["launches"]
+            if any(run["launches"][n] for run in runs.values())}
 
 
 # ---------------------------------------------------------------------------
@@ -3492,7 +3896,8 @@ def main() -> int:
     cases = phase_kernels(torch, timer)
     for more in (phase_train_kernels(torch, timer),
                  phase_recurrent_kernels(torch, timer),
-                 phase_arch_kernels(torch, timer)):
+                 phase_arch_kernels(torch, timer),
+                 phase_recurrent_bwd_kernels(torch, timer)):
         for name, rows in more.items():
             cases.setdefault(name, []).extend(rows)
     del timer
@@ -3533,6 +3938,14 @@ def main() -> int:
     release(torch)
     arch_launches["train_moe"] = phase_train_moe(torch)
     arch_launches["train_vlm"] = phase_train_vlm(torch)
+    release(torch)
+    arch_launches.update(phase_train_recurrent(torch))
+    release(torch)
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        arch_launches["ltfb_recurrent"] = phase_ltfb_recurrent(torch, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     # the kernels line reports each kernel at the shape its path gives it
     # most: paged attention and the RMSNorm forward at the serve decode
@@ -3553,7 +3966,9 @@ def main() -> int:
                                           c["Hkv"])
         == ("bfloat16", TRAIN_B, TRAIN_S, 8),
         "mamba_scan": lambda c: (c["B"], c["S"]) == (1, 500),
-        "slstm_scan": lambda c: (c["B"], c["S"]) == (1, 500)}
+        "slstm_scan": lambda c: (c["B"], c["S"]) == (1, 500),
+        "mamba_scan_bwd": lambda c: (c["B"], c["S"]) == (2, 4096),
+        "slstm_scan_bwd": lambda c: (c["B"], c["S"]) == (4, 4096)}
     by_path = {"serve": serve_launches, "train": train_launches,
                **recurrent_launches, "ltfb_lm": lm_launches,
                "serve_swap": swap_launches, "serve_spec": spec_launches,

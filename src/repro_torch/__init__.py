@@ -1,7 +1,10 @@
-"""PyTorch/CUDA port of the ``repro`` serving path for NVIDIA Hopper.
+"""PyTorch/CUDA port of the ``repro`` system for NVIDIA Hopper: LTFB
+tournament training of the ICF CycleGAN and of the LM archs, LM training,
+and serving (the LMs with speculative decoding, the CycleGAN surrogate).
 
-The package mirrors ``repro``'s layout (``configs``, ``data``, ``kernels``,
-``models``, ``serve``, ``launch``) but imports neither JAX nor anything of
+The package mirrors ``repro``'s layout (``configs``, ``core``, ``data``,
+``datastore``, ``checkpoint``, ``kernels``, ``models``, ``optim``,
+``train``, ``serve``, ``launch``) but imports neither JAX nor anything of
 ``repro``: it keeps its own copy of what it needs.  Every entry point runs
 on the CUDA card unless the caller passes ``device="cpu"``; on the CPU the
 kernels' plain PyTorch versions stand in for the hand-written kernels.

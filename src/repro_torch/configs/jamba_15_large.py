@@ -3,14 +3,14 @@
 72L d_model=8192 64H (GQA kv=8) d_ff=24576 vocab=65536, MoE 16e top-2.
 Block pattern: 1 attention : 7 mamba per 8-layer period; MoE every 2nd
 layer.  ``FULL`` and ``SMOKE`` hold the values of
-``repro.configs.jamba_15_large``; the port has no MoE FFN yet (ROADMAP
-queue A), so a model built from either raises at its first MoE layer.
+``repro.configs.jamba_15_large``; both build with their MoE FFNs (a
+FULL model, 398 B parameters, fits no one card).
 
-``NOEXP_8L`` is the configuration the port serves: one whole period
-``MMMMaMMM`` at the published widths (d_model 8192, 64 heads over 8 KV
-heads, head_dim 128, d_ff 24576, vocab 65536, Mamba d_state 16, d_conv 4,
-expand 2 so d_in 16384, dt_rank 512), about 9.0 B parameters, 18 GB in
-bf16.  Two cuts, both of scale:
+``NOEXP_8L`` is the configuration the port serves and trains on one
+card: one whole period ``MMMMaMMM`` at the published widths (d_model
+8192, 64 heads over 8 KV heads, head_dim 128, d_ff 24576, vocab 65536,
+Mamba d_state 16, d_conv 4, expand 2 so d_in 16384, dt_rank 512), about
+9.0 B parameters, 18 GB in bf16.  Two cuts, both of scale:
 
 * depth 72 -> 8 (one period of the repeating pattern);
 * no experts: every layer keeps the dense SwiGLU FFN of width d_ff

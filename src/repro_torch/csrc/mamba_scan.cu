@@ -253,12 +253,15 @@ __device__ __forceinline__ void scan_tile(const float* st, float* s_y,
   }
 }
 
-template <int N, int L>
+// CKPT: the training instantiation, which also writes the state before
+// every tile into h_ckpt; serving runs the one without
+template <int N, int L, bool CKPT>
 __global__ void __launch_bounds__(THREADS)
 mamba_scan_kernel(const float* __restrict__ dt, const float* __restrict__ xc,
                   const float* __restrict__ bm, const float* __restrict__ cm,
                   const float* __restrict__ a, float* __restrict__ y,
-                  float* __restrict__ h_last, int S, int D, bool vec) {
+                  float* __restrict__ h_last, float* __restrict__ h_ckpt,
+                  int S, int D, bool vec) {
   using TL = Tile<N, L>;
   constexpr int CH = TL::CH, NL = TL::NL;
   extern __shared__ __align__(16) float smem[];
@@ -298,6 +301,18 @@ mamba_scan_kernel(const float* __restrict__ dt, const float* __restrict__ xc,
                       nk * T, S, D, d0, vec);
     cp_commit();  // possibly empty: keeps the group count uniform
 
+    if constexpr (CKPT) {  // training: the state before the tile
+#pragma unroll
+      for (int q = 0; q < K; ++q) {
+        const int d = d0 + c + q;
+        if (d < D) {
+#pragma unroll
+          for (int n = 0; n < NL; ++n)
+            h_ckpt[(((size_t)b * tiles + k) * D + d) * N + j * NL + n] =
+                h[q][n];
+        }
+      }
+    }
     const float* st = smem + (k % STAGES) * TL::STAGE;
     const int t0 = k * T;
     const int steps = min(T, S - t0);
@@ -333,49 +348,441 @@ inline bool aligned16(const void* p) {
   return reinterpret_cast<unsigned long long>(p) % 16 == 0;
 }
 
-template <int N, int L>
-cudaError_t launch(const void* dt, const void* xc, const void* bm,
-                   const void* cm, const void* a, void* y, void* h_last,
-                   int B, int S, int D, cudaStream_t stream) {
+template <int N, int L, bool CKPT>
+cudaError_t launch_fwd(const void* dt, const void* xc, const void* bm,
+                       const void* cm, const void* a, void* y, void* h_last,
+                       void* h_ckpt, int B, int S, int D,
+                       cudaStream_t stream) {
   using TL = Tile<N, L>;
   const cudaError_t err = cudaFuncSetAttribute(
-      mamba_scan_kernel<N, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)TL::SMEM);
+      mamba_scan_kernel<N, L, CKPT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TL::SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((D + TL::CH - 1) / TL::CH, B);
   const bool vec = D % 4 == 0 && aligned16(dt) && aligned16(xc) &&
                    aligned16(bm) && aligned16(cm) && aligned16(y);
-  mamba_scan_kernel<N, L><<<grid, THREADS, TL::SMEM, stream>>>(
+  mamba_scan_kernel<N, L, CKPT><<<grid, THREADS, TL::SMEM, stream>>>(
       static_cast<const float*>(dt), static_cast<const float*>(xc),
       static_cast<const float*>(bm), static_cast<const float*>(cm),
       static_cast<const float*>(a), static_cast<float*>(y),
-      static_cast<float*>(h_last), S, D, vec);
+      static_cast<float*>(h_last), static_cast<float*>(h_ckpt), S, D, vec);
   return cudaGetLastError();
+}
+
+template <int N, int L>
+cudaError_t launch(const void* dt, const void* xc, const void* bm,
+                   const void* cm, const void* a, void* y, void* h_last,
+                   void* h_ckpt, int B, int S, int D, cudaStream_t stream) {
+  return h_ckpt != nullptr
+             ? launch_fwd<N, L, true>(dt, xc, bm, cm, a, y, h_last, h_ckpt,
+                                      B, S, D, stream)
+             : launch_fwd<N, L, false>(dt, xc, bm, cm, a, y, h_last, h_ckpt,
+                                       B, S, D, stream);
+}
+
+// ---------------------------------------------------------------------------
+// Backward: repro_mamba_scan_bwd
+// ---------------------------------------------------------------------------
+// No TPU kernel is its counterpart: the TPU kernel is forward only, and the
+// JAX model gets these gradients from the autodiff of its `lax.scan` twin
+// (repro/models/ssm.py `_mamba_core`).  Semantics are those of the plain
+// version repro_torch.kernels.ref.mamba_scan_bwd_ref.  With e_t =
+// exp(dt_t A) and the state's cotangent g running backwards from
+// g = dh_last:
+//   g_t    = dy_t C_t + e_{t+1} g_{t+1}
+//   d_xc_t = dt_t sum_n g_t B_t
+//   d_dt_t = sum_n g_t (A e_t h_{t-1} + xc_t B_t)
+//   d_B_t  = sum_d g_t dt_t xc_t          (over the channels)
+//   d_C_t  = sum_d dy_t h_t               (over the channels)
+//   d_A    = sum_{b,t} g_t dt_t e_t h_{t-1}
+// What bounds it on the H100: bytes, then the exponentials.  It reads dt,
+// xc, dy and the checkpoints and writes d_dt and d_xc: at jamba's train
+// shape (B 2, S 4096, d_in 16384, N 16) five B*S*d_in f32 tensors of 537 MB
+// and 268 MB of checkpoints, 0.88 ms at 3.35 TB/s; its 2.1e9 exponentials
+// (one per step, channel and state) take 0.51 ms on the special-function
+// units.
+// Design (simple first; the forward's lane split kept).
+//   * States: the backward needs h_{t-1} in reverse order, and all of them
+//     would be 8.6 GB a layer at that shape.  The forward, called for
+//     training, writes the state before every tile of T = 32 steps
+//     (h_ckpt, 268 MB); the backward walks the tiles in reverse, recomputes
+//     a tile's states from its checkpoint into shared memory (each thread
+//     its own K * N/L values a step) and sweeps the tile backwards, the
+//     state's cotangent g carried across tiles in registers.  That is a
+//     second exponential per (step, channel, state).
+//   * Lanes: as in the forward, a channel's N states lie on L = 4 adjacent
+//     lanes and a thread runs K = 2 channels, so a B_t / C_t read serves two
+//     channels; d_xc and d_dt sum a channel's lanes by shuffles.
+//   * Reductions without atomics, so that two runs give equal bits: d_B and
+//     d_C sum a warp's channels by shuffles and the block's four warps in
+//     shared memory into per-block partials (one row per channel block); d_A
+//     is a per-row partial; a second small kernel sums the partials in a
+//     fixed order.
+// Left: the tile's states take 128 KB of shared memory, so one block (4
+// warps) runs on an SM and the sweep is latency-bound; the partials of d_B
+// and d_C are a channel-block's share of extra bytes.
+
+template <int N, int L>
+struct BwdTile {
+  static constexpr int CH = THREADS / L * K;  // channels per block
+  static constexpr int NL = N / L;            // states per lane
+  static constexpr int KN = K * NL;           // states a thread holds
+  static constexpr int WARPS = THREADS / 32;
+  // float offsets: dt, xc, dy (T x CH); B_t, C_t (T x N); the state before
+  // each step (T x KN x THREADS, thread-major within a value); d_dt and
+  // d_xc staged (T x CH); d_B and d_C of each warp (T x WARPS x 2N)
+  static constexpr int DT = 0, XC = T * CH, DY = 2 * T * CH;
+  static constexpr int BM = 3 * T * CH, CM = BM + T * N, HS = CM + T * N;
+  static constexpr int ODT = HS + T * KN * THREADS, OXC = ODT + T * CH;
+  static constexpr int RED = OXC + T * CH;
+  static constexpr int FLOATS = RED + T * WARPS * 2 * N;
+  static constexpr size_t SMEM = sizeof(float) * FLOATS;
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+// Copy the tile of steps t0 .. t0+T-1 of dt, xc, dy and B_t, C_t into
+// shared memory (zero past S and past D).
+template <int N, int L>
+__device__ __forceinline__ void load_bwd_tile(
+    float* sm, const float* __restrict__ dt, const float* __restrict__ xc,
+    const float* __restrict__ dy, const float* __restrict__ bm,
+    const float* __restrict__ cm, size_t row, int t0, int S, int D, int d0,
+    bool vec) {
+  using BT = BwdTile<N, L>;
+  constexpr int CH = BT::CH;
+  const int tid = threadIdx.x;
+  if (vec) {
+    constexpr int Q = CH / 4;
+    for (int i = tid; i < T * Q; i += THREADS) {
+      const int t = i / Q, ch = d0 + 4 * (i % Q);
+      const bool ok = t0 + t < S && ch < D;
+      const size_t src = ok ? (row + t0 + t) * D + ch : 0;
+      cp_async16(sm + BT::DT + 4 * i, dt + src, ok);
+      cp_async16(sm + BT::XC + 4 * i, xc + src, ok);
+      cp_async16(sm + BT::DY + 4 * i, dy + src, ok);
+    }
+    for (int i = tid; i < T * N / 4; i += THREADS) {
+      const bool ok = t0 + 4 * i / N < S;
+      const size_t src = ok ? (row + t0) * N + 4 * i : 0;
+      cp_async16(sm + BT::BM + 4 * i, bm + src, ok);
+      cp_async16(sm + BT::CM + 4 * i, cm + src, ok);
+    }
+  } else {
+    for (int i = tid; i < T * CH; i += THREADS) {
+      const int t = i / CH, ch = d0 + i % CH;
+      const bool ok = t0 + t < S && ch < D;
+      const size_t src = ok ? (row + t0 + t) * D + ch : 0;
+      cp_async4(sm + BT::DT + i, dt + src, ok);
+      cp_async4(sm + BT::XC + i, xc + src, ok);
+      cp_async4(sm + BT::DY + i, dy + src, ok);
+    }
+    for (int i = tid; i < T * N; i += THREADS) {
+      const bool ok = t0 + i / N < S;
+      const size_t src = ok ? (row + t0) * N + i : 0;
+      cp_async4(sm + BT::BM + i, bm + src, ok);
+      cp_async4(sm + BT::CM + i, cm + src, ok);
+    }
+  }
+}
+
+template <int N, int L>
+__global__ void __launch_bounds__(THREADS) mamba_scan_bwd_kernel(
+    const float* __restrict__ dt, const float* __restrict__ xc,
+    const float* __restrict__ bm, const float* __restrict__ cm,
+    const float* __restrict__ a, const float* __restrict__ h_ckpt,
+    const float* __restrict__ dy, const float* __restrict__ dh_last,
+    float* __restrict__ d_dt, float* __restrict__ d_xc,
+    float* __restrict__ part_b, float* __restrict__ part_c,
+    float* __restrict__ part_a, int B, int S, int D, bool vec) {
+  using BT = BwdTile<N, L>;
+  constexpr int CH = BT::CH, NL = BT::NL, KN = BT::KN, WARPS = BT::WARPS;
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x;
+  const int c = tid / L * K;  // the thread's first channel in the block
+  const int j = tid % L;      // lane within the channel group
+  const int lane = tid % 32, warp = tid / 32;
+  const int b = blockIdx.y;
+  const int d0 = blockIdx.x * CH;
+  const size_t row = (size_t)b * S;
+  const int tiles = (S + T - 1) / T;
+
+  float a1[K][NL], a2[K][NL], g[K][NL], da[K][NL], h[K][NL];
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    const int d = d0 + c + q;
+#pragma unroll
+    for (int n = 0; n < NL; ++n) {
+      a1[q][n] = d < D ? a[(size_t)d * N + j * NL + n] : 0.f;
+      a2[q][n] = a1[q][n] * LOG2E;
+      g[q][n] = d < D ? dh_last[((size_t)b * D + d) * N + j * NL + n] : 0.f;
+      da[q][n] = 0.f;
+    }
+  }
+
+  for (int k = tiles - 1; k >= 0; --k) {
+    const int t0 = k * T;
+    const int steps = min(T, S - t0);
+    __syncthreads();  // the last tile's shared memory has been read
+    load_bwd_tile<N, L>(sm, dt, xc, dy, bm, cm, row, t0, S, D, d0, vec);
+    cp_commit();
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      const int d = d0 + c + q;
+#pragma unroll
+      for (int n = 0; n < NL; ++n)
+        h[q][n] = d < D ? h_ckpt[(((size_t)b * tiles + k) * D + d) * N +
+                                 j * NL + n]
+                        : 0.f;
+    }
+    cp_wait<0>();
+    __syncthreads();  // the tile is in shared memory
+
+    // the tile's states again, keeping the one before each step
+    for (int u = 0; u < steps; ++u) {
+      float dtv[K], xv[K], bt[NL];
+      lds<K>(dtv, sm + BT::DT + u * CH + c);
+      lds<K>(xv, sm + BT::XC + u * CH + c);
+      lds<NL>(bt, sm + BT::BM + u * N + j * NL);
+      float* hs = sm + BT::HS + u * KN * THREADS + tid;
+#pragma unroll
+      for (int q = 0; q < K; ++q) {
+        const float dtx = dtv[q] * xv[q];
+#pragma unroll
+        for (int n = 0; n < NL; ++n) {
+          hs[(q * NL + n) * THREADS] = h[q][n];
+          h[q][n] = fmaf(ex2(dtv[q] * a2[q][n]), h[q][n], dtx * bt[n]);
+        }
+      }
+    }
+
+    // the sweep backwards; h is the state after step u
+    for (int u = steps - 1; u >= 0; --u) {
+      float dtv[K], xv[K], dyv[K], bt[NL], ct[NL];
+      lds<K>(dtv, sm + BT::DT + u * CH + c);
+      lds<K>(xv, sm + BT::XC + u * CH + c);
+      lds<K>(dyv, sm + BT::DY + u * CH + c);
+      lds<NL>(bt, sm + BT::BM + u * N + j * NL);
+      lds<NL>(ct, sm + BT::CM + u * N + j * NL);
+      const float* hs = sm + BT::HS + u * KN * THREADS + tid;
+      float gb[K], sa[K], pb[NL], pc[NL];
+#pragma unroll
+      for (int n = 0; n < NL; ++n) pb[n] = pc[n] = 0.f;
+#pragma unroll
+      for (int q = 0; q < K; ++q) {
+        const float dtx = dtv[q] * xv[q];
+        gb[q] = sa[q] = 0.f;
+#pragma unroll
+        for (int n = 0; n < NL; ++n) {
+          const float hp = hs[(q * NL + n) * THREADS];
+          const float e = ex2(dtv[q] * a2[q][n]);
+          g[q][n] = fmaf(dyv[q], ct[n], g[q][n]);
+          gb[q] = fmaf(g[q][n], bt[n], gb[q]);
+          const float w = g[q][n] * e * hp;
+          sa[q] = fmaf(a1[q][n], w, sa[q]);
+          da[q][n] = fmaf(dtv[q], w, da[q][n]);
+          pb[n] = fmaf(g[q][n], dtx, pb[n]);
+          pc[n] = fmaf(dyv[q], h[q][n], pc[n]);
+          g[q][n] *= e;
+          h[q][n] = hp;
+        }
+      }
+      // a channel's sums over its L lanes
+#pragma unroll
+      for (int q = 0; q < K; ++q) {
+#pragma unroll
+        for (int o = 1; o < L; o *= 2) {
+          gb[q] += __shfl_xor_sync(0xffffffffu, gb[q], o);
+          sa[q] += __shfl_xor_sync(0xffffffffu, sa[q], o);
+        }
+      }
+      if (j == 0) {
+        *reinterpret_cast<float2*>(sm + BT::ODT + u * CH + c) =
+            make_float2(fmaf(xv[0], gb[0], sa[0]), fmaf(xv[1], gb[1], sa[1]));
+        *reinterpret_cast<float2*>(sm + BT::OXC + u * CH + c) =
+            make_float2(dtv[0] * gb[0], dtv[1] * gb[1]);
+      }
+      // d_B_t and d_C_t over the warp's channels (the lanes of equal j)
+#pragma unroll
+      for (int n = 0; n < NL; ++n) {
+#pragma unroll
+        for (int o = L; o < 32; o *= 2) {
+          pb[n] += __shfl_xor_sync(0xffffffffu, pb[n], o);
+          pc[n] += __shfl_xor_sync(0xffffffffu, pc[n], o);
+        }
+      }
+      if (lane < L) {
+        float* r = sm + BT::RED + (u * WARPS + warp) * 2 * N + j * NL;
+#pragma unroll
+        for (int n = 0; n < NL; ++n) {
+          r[n] = pb[n];
+          r[N + n] = pc[n];
+        }
+      }
+    }
+    __syncthreads();  // the tile's d_dt, d_xc and warp partials are staged
+
+    if (vec) {
+      constexpr int Q = CH / 4;
+      for (int i = tid; i < steps * Q; i += THREADS) {
+        const int t = i / Q, ch = d0 + 4 * (i % Q);
+        if (ch < D) {
+          const size_t o = (row + t0 + t) * D + ch;
+          *reinterpret_cast<float4*>(d_dt + o) =
+              reinterpret_cast<const float4*>(sm + BT::ODT)[i];
+          *reinterpret_cast<float4*>(d_xc + o) =
+              reinterpret_cast<const float4*>(sm + BT::OXC)[i];
+        }
+      }
+    } else {
+      for (int i = tid; i < steps * CH; i += THREADS) {
+        const int t = i / CH, ch = d0 + i % CH;
+        if (ch < D) {
+          d_dt[(row + t0 + t) * D + ch] = sm[BT::ODT + i];
+          d_xc[(row + t0 + t) * D + ch] = sm[BT::OXC + i];
+        }
+      }
+    }
+    for (int i = tid; i < steps * N; i += THREADS) {
+      const int u = i / N, n = i % N;
+      float sb = 0.f, sc = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) {
+        sb += sm[BT::RED + (u * WARPS + w) * 2 * N + n];
+        sc += sm[BT::RED + (u * WARPS + w) * 2 * N + N + n];
+      }
+      const size_t o = (((size_t)blockIdx.x * B + b) * S + t0 + u) * N + n;
+      part_b[o] = sb;
+      part_c[o] = sc;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    const int d = d0 + c + q;
+    if (d < D) {
+#pragma unroll
+      for (int n = 0; n < NL; ++n)
+        part_a[((size_t)b * D + d) * N + j * NL + n] = da[q][n];
+    }
+  }
+}
+
+// out[i] = sum over k < P of part[k * M + i], k in order: the fixed-order
+// second pass of the backward's reductions
+__global__ void sum_parts_kernel(const float* __restrict__ part,
+                                 float* __restrict__ out, int P, size_t M) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < M;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int k = 0; k < P; ++k) s += part[k * M + i];
+    out[i] = s;
+  }
+}
+
+cudaError_t sum_parts(const float* part, float* out, int P, size_t M,
+                      cudaStream_t stream) {
+  const size_t blocks = (M + 255) / 256;
+  sum_parts_kernel<<<(unsigned)(blocks < 1056 ? blocks : 1056), 256, 0,
+                     stream>>>(part, out, P, M);
+  return cudaGetLastError();
+}
+
+template <int N, int L>
+cudaError_t launch_bwd(const float* dt, const float* xc, const float* bm,
+                       const float* cm, const float* a, const float* h_ckpt,
+                       const float* dy, const float* dh_last, float* d_dt,
+                       float* d_xc, float* d_bm, float* d_cm, float* d_a,
+                       float* part_b, float* part_c, float* part_a, int B,
+                       int S, int D, cudaStream_t stream) {
+  using BT = BwdTile<N, L>;
+  cudaError_t err = cudaFuncSetAttribute(
+      mamba_scan_bwd_kernel<N, L>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BT::SMEM);
+  if (err != cudaSuccess) return err;
+  const int blocks = (D + BT::CH - 1) / BT::CH;
+  const bool vec = D % 4 == 0 && aligned16(dt) && aligned16(xc) &&
+                   aligned16(dy) && aligned16(bm) && aligned16(cm) &&
+                   aligned16(d_dt) && aligned16(d_xc);
+  mamba_scan_bwd_kernel<N, L><<<dim3(blocks, B), THREADS, BT::SMEM,
+                                stream>>>(
+      dt, xc, bm, cm, a, h_ckpt, dy, dh_last, d_dt, d_xc, part_b, part_c,
+      part_a, B, S, D, vec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t bsn = (size_t)B * S * N;
+  if ((err = sum_parts(part_b, d_bm, blocks, bsn, stream)) != cudaSuccess)
+    return err;
+  if ((err = sum_parts(part_c, d_cm, blocks, bsn, stream)) != cudaSuccess)
+    return err;
+  return sum_parts(part_a, d_a, B, (size_t)D * N, stream);
 }
 
 }  // namespace
 
 // C entry point, loaded with ctypes by repro_torch.kernels.mamba_scan.
 // Shapes: dt/xc/y (B, S, D); bm/cm (B, S, N); a (D, N); h_last (B, D, N);
-// all float32, contiguous, on the current device; S >= 1; N in {8, 16};
-// L (lanes per channel) 4.  Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// h_ckpt null (serving) or (B, ceil(S / T), D, N), the state before every
+// tile of T steps (training: the backward's checkpoints); all float32,
+// contiguous, on the current device; S >= 1; N in {8, 16}; L (lanes per
+// channel) 4.  Launches on `stream` and returns cudaGetLastError() (0 on
+// success).
 extern "C" int repro_mamba_scan(const void* dt, const void* xc,
                                 const void* bm, const void* cm,
-                                const void* a, void* y, void* h_last, int B,
-                                int S, int D, int N, int L, void* stream) {
+                                const void* a, void* y, void* h_last,
+                                void* h_ckpt, int B, int S, int D, int N,
+                                int L, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (L != 4) return static_cast<int>(cudaErrorInvalidValue);  // one split
   switch (N) {
     case 8:
-      err = launch<8, 4>(dt, xc, bm, cm, a, y, h_last, B, S, D, s);
+      err = launch<8, 4>(dt, xc, bm, cm, a, y, h_last, h_ckpt, B, S, D, s);
       break;
     case 16:
-      err = launch<16, 4>(dt, xc, bm, cm, a, y, h_last, B, S, D, s);
+      err = launch<16, 4>(dt, xc, bm, cm, a, y, h_last, h_ckpt, B, S, D,
+                        s);
       break;
     default:
       err = cudaErrorInvalidValue;  // the wrapper refuses other state sizes
   }
+  return static_cast<int>(err);
+}
+
+
+// C entry point of the backward, loaded with ctypes by
+// repro_torch.kernels.mamba_scan.  Shapes: dt/xc/dy/d_dt/d_xc (B, S, D);
+// bm/cm/d_bm/d_cm (B, S, N); a/d_a (D, N); h_ckpt (B, ceil(S / 32), D, N),
+// as the forward wrote it; dh_last (B, D, N); scratch part_b/part_c
+// (ceil(D / 64), B, S, N) and part_a (B, D, N); all float32, contiguous, on
+// the current device; S >= 1; N in {8, 16}; L 4.  Launches the sweep and
+// three fixed-order sums on `stream` and returns the first CUDA error (0
+// on success).
+extern "C" int repro_mamba_scan_bwd(
+    const void* dt, const void* xc, const void* bm, const void* cm,
+    const void* a, const void* h_ckpt, const void* dy, const void* dh_last,
+    void* d_dt, void* d_xc, void* d_bm, void* d_cm, void* d_a, void* part_b,
+    void* part_c, void* part_a, int B, int S, int D, int N, int L,
+    void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (L != 4) return static_cast<int>(cudaErrorInvalidValue);
+#define REPRO_BWD_ARGS                                                     \
+  static_cast<const float*>(dt), static_cast<const float*>(xc),            \
+      static_cast<const float*>(bm), static_cast<const float*>(cm),        \
+      static_cast<const float*>(a), static_cast<const float*>(h_ckpt),     \
+      static_cast<const float*>(dy), static_cast<const float*>(dh_last),   \
+      static_cast<float*>(d_dt), static_cast<float*>(d_xc),                \
+      static_cast<float*>(d_bm), static_cast<float*>(d_cm),                \
+      static_cast<float*>(d_a), static_cast<float*>(part_b),               \
+      static_cast<float*>(part_c), static_cast<float*>(part_a), B, S, D, s
+  cudaError_t err;
+  switch (N) {
+    case 8:
+      err = launch_bwd<8, 4>(REPRO_BWD_ARGS);
+      break;
+    case 16:
+      err = launch_bwd<16, 4>(REPRO_BWD_ARGS);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+#undef REPRO_BWD_ARGS
   return static_cast<int>(err);
 }

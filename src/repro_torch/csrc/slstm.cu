@@ -122,6 +122,8 @@ slstm_cluster_kernel(const float* __restrict__ gx,
                      const float* __restrict__ r_h, float* __restrict__ out,
                      float* __restrict__ h_last, float* __restrict__ c_last,
                      float* __restrict__ n_last, float* __restrict__ m_last,
+                     float* __restrict__ pre_out, float* __restrict__ c_out,
+                     float* __restrict__ n_out, float* __restrict__ m_out,
                      int S, int d, int dh, int cb) {
   cg::cluster_group cluster = cg::this_cluster();
   const Layout L(dh, cb);
@@ -217,6 +219,16 @@ slstm_cluster_kernel(const float* __restrict__ gx,
       m = m1;
       h = 1.f / (1.f + expf(-pre[3])) * c / n;
       os[(t % OT) * cb + j] = h;
+      if (pre_out != nullptr) {  // training: what the backward reads
+        const size_t o = ((size_t)b * S + t) * d + head * dh + ch0 + j;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          pre_out[((size_t)b * S + t) * 4 * d + q * d + head * dh + ch0 +
+                  j] = pre[q];
+        c_out[o] = c;
+        n_out[o] = n;
+        m_out[o] = m;
+      }
       for (int r = 0; r < C; ++r)
         cluster.map_shared_rank(hnext, r)[ch0 + j] = h;
     }
@@ -243,37 +255,242 @@ slstm_cluster_kernel(const float* __restrict__ gx,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward: repro_slstm_scan_bwd
+// ---------------------------------------------------------------------------
+// No TPU kernel is its counterpart: the TPU kernel is forward only, and the
+// JAX model gets these gradients from the autodiff of its `lax.scan` twin
+// (repro/models/xlstm.py `slstm_block`, `_slstm_cell`).  Semantics are those
+// of the plain version repro_torch.kernels.ref.slstm_bwd_ref (term by term
+// JAX's: the stabiliser m carries a gradient, and max(lf + m, i) and the
+// 1e-6 clamp of n split theirs 1/2 : 1/2 at a tie).  The reverse
+// recurrence, per row and channel, from the final state's cotangents:
+//   dh_t     = dy_t + r_h[head] @ dpre_{t+1}[head]   (the forward's product,
+//              transposed)
+//   dpre_t, (dc, dn, dm)_{t-1} = the cell's backward from dh_t and the
+//              carried (dc, dn, dm)_t, reading the step's gate
+//              pre-activations and the state before and after it
+// The kernel writes d_gx = dpre (B, S, 4d).  d_r_h[head] = sum_{b,t}
+// h_{t-1}^T dpre_t is not part of the recurrence: given h and dpre for all
+// steps it is one batched product, which the wrapper computes after the
+// kernel (as the forward's gx = x @ w_x is computed before it).
+// What the forward saves, called for training: the gate pre-activations
+// (B, S, 4d) and the state (c, n, m) after every step (B, S, d each), 352
+// MB at xlstm-125m's train shape (B 4, S 4096, d 768).
+// What bounds it on the H100: as the forward, the S sequential steps.  Each
+// step's critical path is a 4dh-long dot product split over the block's
+// threads, the sum of their slices, the cell's backward on one warp and one
+// cluster-wide exchange of dpre_t.
+// Design: the forward's cluster plan.  Grid (C, H, B), cluster (C, 1, 1),
+// block c owns channels [c*cb, (c+1)*cb) of the head and holds their rows
+// of r_h[head] (cb x 4dh f32, as many weights as the forward's columns) in
+// registers: thread (slice, row) holds kl weights of one row.  Every block
+// keeps the head's whole dpre_t in shared memory, double-buffered by the
+// step's parity; each step the owning thread of a channel writes its 4
+// gates' dpre into every block of the cluster (distributed shared memory)
+// and one cluster barrier publishes them.  The step's inputs (dy, the
+// gates, the state before the step) stream into a shared-memory ring by
+// `cp.async`, GXR steps ahead.
+// Left: as the forward, one cluster per (row, head), latency per step.
+
+// The backward block's layout: thread `tid` holds row tid % cb of the
+// block's r_h rows, entries [slice * kl, slice * kl + kl) of its 4dh
+// (slice = tid / cb, kl a multiple of 4, zero past 4dh).
+struct BwdLayout {
+  int dh, cb, ks, kl, ep;
+  __host__ __device__ BwdLayout(int dh_, int cb_) : dh(dh_), cb(cb_) {
+    ks = MAX_THREADS / cb;
+    if (ks < 1) ks = 1;
+    kl = ((4 * dh + ks - 1) / ks + 3) / 4 * 4;
+    ep = ks * kl;  // dpre entries held, zero past 4dh
+  }
+  __host__ __device__ int threads() const { return cb * ks; }
+  // floats: dpre double buffer, partial sums, the step ring (8 per channel)
+  __host__ __device__ int red_off() const { return 2 * ep; }
+  __host__ __device__ int ring_off() const { return red_off() + ks * cb; }
+  __host__ __device__ int floats() const { return ring_off() + GXR * 8 * cb; }
+};
+
+// JAX's share of max(x, y)'s cotangent that reaches x
+__device__ __forceinline__ float max_share(float x, float y) {
+  return x > y ? 1.f : (x == y ? 0.5f : 0.f);
+}
+
+__global__ void __launch_bounds__(MAX_THREADS)
+slstm_bwd_cluster_kernel(const float* __restrict__ pre,
+                         const float* __restrict__ c_out,
+                         const float* __restrict__ n_out,
+                         const float* __restrict__ m_out,
+                         const float* __restrict__ r_h,
+                         const float* __restrict__ dy,
+                         const float* __restrict__ dh_T,
+                         const float* __restrict__ dc_T,
+                         const float* __restrict__ dn_T,
+                         const float* __restrict__ dm_T,
+                         float* __restrict__ d_gx, int S, int d, int dh,
+                         int cb) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const BwdLayout L(dh, cb);
+  const int C = cluster.num_blocks();
+  const int rank = cluster.block_rank();
+  const int head = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int row = tid % cb, sl = tid / cb;
+  const int ch0 = rank * cb;  // the block's first channel in the head
+  const int e0 = sl * L.kl;
+
+  extern __shared__ __align__(16) float sm[];
+  float* dpb = sm;                    // [2][ep]
+  float* red = sm + L.red_off();      // [ks][cb]
+  float* ring = sm + L.ring_off();    // [GXR][8][cb]
+
+  float rr[KMAX];
+  {
+    const bool ok = ch0 + row < dh;
+    const float* rrow = r_h + ((size_t)head * dh + ch0 + row) * 4 * dh;
+#pragma unroll
+    for (int i = 0; i < KMAX; ++i)
+      rr[i] = ok && i < L.kl && e0 + i < 4 * dh ? rrow[e0 + i] : 0.f;
+  }
+  for (int idx = tid; idx < 2 * L.ep; idx += blockDim.x) dpb[idx] = 0.f;
+
+  // step t's fields for channel jj: dy, the 4 gates and the state (c, n, m)
+  // before the step (zero-filled at t = 0; m is set there)
+  auto issue = [&](int t) {
+    for (int i = tid; i < 8 * cb; i += blockDim.x) {
+      const int f = i / cb, jj = i % cb;
+      const size_t ch = (size_t)head * dh + ch0 + jj;
+      const size_t bt = (size_t)b * S + t;
+      bool ok = ch0 + jj < dh;
+      const float* src;
+      if (f == 0) {
+        src = dy + bt * d + ch;
+      } else if (f < 5) {
+        src = pre + bt * 4 * d + (size_t)(f - 1) * d + ch;
+      } else {
+        ok = ok && t > 0;
+        const float* st = f == 5 ? c_out : f == 6 ? n_out : m_out;
+        src = st + (bt - (t > 0)) * d + ch;
+      }
+      cp_async4(ring + ((t % GXR) * 8 + f) * cb + jj, ok ? src : dy, ok);
+    }
+  };
+#pragma unroll
+  for (int k = 0; k < GXR - 1; ++k) {
+    if (S - 1 - k >= 0) issue(S - 1 - k);
+    cp_commit();
+  }
+
+  const int j = tid;  // the channel thread's index in the block
+  const bool live = j < cb && ch0 + j < dh;
+  // the state after the step and the carried cotangents of (c, n, m)
+  float c1 = 0.f, n1 = 1.f, m1 = 0.f, dc = 0.f, dn = 0.f, dm = 0.f;
+  float dhT = 0.f;
+  if (live) {
+    const size_t ch = (size_t)head * dh + ch0 + j;
+    const size_t o = ((size_t)b * S + S - 1) * d + ch;
+    c1 = c_out[o];
+    n1 = n_out[o];
+    m1 = m_out[o];
+    const size_t f = (size_t)b * d + ch;
+    dhT = dh_T[f];
+    dc = dc_T[f];
+    dn = dn_T[f];
+    dm = dm_T[f];
+  }
+  cluster.sync();  // every block's dpre_S = 0 is in place
+
+  for (int t = S - 1; t >= 0; --t) {
+    const float* dnext = dpb + ((t + 1) & 1) * L.ep + e0;  // dpre_{t+1}
+    float* dcur = dpb + (t & 1) * L.ep;
+    cp_wait<GXR - 2>();  // this thread's copies of step t have landed
+    if (t - (GXR - 1) >= 0) issue(t - (GXR - 1));
+    cp_commit();
+
+    // this thread's slice of one row's product with dpre_{t+1}
+    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll
+    for (int i = 0; i < KMAX; i += 4) {
+      if (i < L.kl) {  // kl is a multiple of 4
+        const float4 v = *reinterpret_cast<const float4*>(dnext + i);
+        a0 += v.x * rr[i];
+        a1 += v.y * rr[i + 1];
+        a2 += v.z * rr[i + 2];
+        a3 += v.w * rr[i + 3];
+      }
+    }
+    red[sl * cb + row] = (a0 + a1) + (a2 + a3);
+    __syncthreads();  // partial sums and step t's fields are visible
+
+    if (live) {
+      const float* rg = ring + (t % GXR) * 8 * cb + j;
+      float gh = rg[0] + dhT;
+      dhT = 0.f;
+      for (int x = 0; x < L.ks; ++x) gh += red[x * cb + j];
+      const float gi = rg[cb], gf = rg[2 * cb], gz = rg[3 * cb],
+                  go = rg[4 * cb];
+      const float c0 = rg[5 * cb], n0 = rg[6 * cb];
+      const float m0 = t > 0 ? rg[7 * cb] : -1e9f;
+      // the forward's cell again (log sigmoid as it computes it)
+      const float lf = -(log1pf(expf(-fabsf(gf))) + fmaxf(-gf, 0.f));
+      const float u = lf + m0;
+      const float ip = expf(gi - m1);
+      const float fp = expf(u - m1);
+      const float tz = tanhf(gz);
+      const float so = 1.f / (1.f + expf(-go));
+      // h1 = (so * c1) / n1
+      const float dq = gh / n1;
+      const float dn1 = dn - gh * (so * c1) / (n1 * n1);
+      const float dc1 = dc + dq * so;
+      const float dnn = dn1 * max_share(fp * n0 + ip, 1e-6f);
+      const float dfp = dc1 * c0 + dnn * n0;
+      const float dip = dc1 * tz + dnn;
+      const float dm1 = dm - dfp * fp - dip * ip;
+      const float wu = max_share(u, gi);
+      const float du = dfp * fp + dm1 * wu;
+      float dp[4];
+      dp[0] = dip * ip + dm1 * (1.f - wu);
+      dp[1] = du / (1.f + expf(gf));  // d log sigmoid(f) = sigmoid(-f)
+      dp[2] = dc1 * ip * (1.f - tz * tz);
+      dp[3] = dq * c1 * so * (1.f - so);
+      dc = dc1 * fp;
+      dn = dnn * fp;
+      dm = du;
+      c1 = c0;
+      n1 = n0;
+      m1 = m0;
+      float* gout = d_gx + ((size_t)b * S + t) * 4 * d + head * dh + ch0 + j;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) gout[(size_t)q * d] = dp[q];
+      for (int r = 0; r < C; ++r) {
+        float* dst = cluster.map_shared_rank(dcur, r);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) dst[q * dh + ch0 + j] = dp[q];
+      }
+    }
+    cluster_barrier();  // dpre_t is in every block; dnext may be rewritten
+  }
+  cp_wait<0>();
+}
+
 }  // namespace
 
-// C entry point, loaded with ctypes by repro_torch.kernels.slstm.
-// Shapes: gx (B, S, 4d); r_h (H, dh, 4dh) with dh = d / H; out (B, S, d);
-// h_last/c_last/n_last/m_last (B, d); all float32, contiguous, on the
-// current device; S >= 1.  C blocks per (row, head), each owning cb
-// channels (the last ones may own fewer, or none): C in {1, 2, 4, 8, 16},
-// dh <= C * cb (the wrapper's cluster_plan).  Launches on `stream` and returns the launch's
-// CUDA error (0 on success).
-extern "C" int repro_slstm_scan(const void* gx, const void* r_h, void* out,
-                                void* h_last, void* c_last, void* n_last,
-                                void* m_last, int B, int S, int d, int H,
-                                int C, int cb, void* stream) {
-  const int dh = d / H;
-  if (C < 1 || C > MAX_CLUSTER || (C & (C - 1)) || cb < 1 || C * cb < dh)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Layout L(dh, cb);
-  if (L.threads() > MAX_THREADS)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * L.floats();
+namespace {
+
+// Launch `kernel` on a (C, H, B) grid of clusters of C blocks
+template <typename... KArgs, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(KArgs...), int C, int H, int B,
+                           int threads, size_t smem, void* stream,
+                           Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
-      slstm_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess && C > 8)
-    err = cudaFuncSetAttribute(slstm_cluster_kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed,
-                               1);
-  if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(C, H, B);
-  cfg.blockDim = dim3(L.threads());
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
@@ -283,11 +500,70 @@ extern "C" int repro_slstm_scan(const void* gx, const void* r_h, void* out,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(
-      &cfg, slstm_cluster_kernel, static_cast<const float*>(gx),
-      static_cast<const float*>(r_h), static_cast<float*>(out),
-      static_cast<float*>(h_last), static_cast<float*>(c_last),
-      static_cast<float*>(n_last), static_cast<float*>(m_last), S, d, dh, cb);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry point, loaded with ctypes by repro_torch.kernels.slstm.
+// Shapes: gx (B, S, 4d); r_h (H, dh, 4dh) with dh = d / H; out (B, S, d);
+// h_last/c_last/n_last/m_last (B, d); pre_out (B, S, 4d) and c_out/n_out/
+// m_out (B, S, d) null (serving) or, for training, the gate pre-activations
+// and the state after every step, which the backward reads; all float32,
+// contiguous, on the current device; S >= 1.  C blocks per (row, head), each owning cb
+// channels (the last ones may own fewer, or none): C in {1, 2, 4, 8, 16},
+// dh <= C * cb (the wrapper's cluster_plan).  Launches on `stream` and returns the launch's
+// CUDA error (0 on success).
+extern "C" int repro_slstm_scan(const void* gx, const void* r_h, void* out,
+                                void* h_last, void* c_last, void* n_last,
+                                void* m_last, void* pre_out, void* c_out,
+                                void* n_out, void* m_out, int B, int S,
+                                int d, int H, int C, int cb, void* stream) {
+  const int dh = d / H;
+  if (C < 1 || C > MAX_CLUSTER || (C & (C - 1)) || cb < 1 || C * cb < dh)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Layout L(dh, cb);
+  if (L.threads() > MAX_THREADS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_cluster(
+      slstm_cluster_kernel, C, H, B, L.threads(), sizeof(float) * L.floats(),
+      stream, static_cast<const float*>(gx), static_cast<const float*>(r_h),
+      static_cast<float*>(out), static_cast<float*>(h_last),
+      static_cast<float*>(c_last), static_cast<float*>(n_last),
+      static_cast<float*>(m_last), static_cast<float*>(pre_out),
+      static_cast<float*>(c_out), static_cast<float*>(n_out),
+      static_cast<float*>(m_out), S, d, dh, cb));
+}
+
+// C entry point of the backward.  Shapes: pre (B, S, 4d) and c_out/n_out/
+// m_out (B, S, d) as the forward wrote them for training; r_h (H, dh, 4dh);
+// dy (B, S, d), the outputs' cotangent; dh_T/dc_T/dn_T/dm_T (B, d), the
+// final state's; d_gx (B, S, 4d), written; all float32, contiguous, on the
+// current device; S >= 1; C and cb as for the forward (the wrapper's
+// cluster_plan).  Launches on `stream` and returns the launch's CUDA error
+// (0 on success).
+extern "C" int repro_slstm_scan_bwd(const void* pre, const void* c_out,
+                                    const void* n_out, const void* m_out,
+                                    const void* r_h, const void* dy,
+                                    const void* dh_T, const void* dc_T,
+                                    const void* dn_T, const void* dm_T,
+                                    void* d_gx, int B, int S, int d, int H,
+                                    int C, int cb, void* stream) {
+  const int dh = d / H;
+  if (C < 1 || C > MAX_CLUSTER || (C & (C - 1)) || cb < 1 || C * cb < dh)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BwdLayout L(dh, cb);
+  if (L.threads() > MAX_THREADS || L.kl > KMAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_cluster(
+      slstm_bwd_cluster_kernel, C, H, B, L.threads(),
+      sizeof(float) * L.floats(), stream, static_cast<const float*>(pre),
+      static_cast<const float*>(c_out), static_cast<const float*>(n_out),
+      static_cast<const float*>(m_out), static_cast<const float*>(r_h),
+      static_cast<const float*>(dy), static_cast<const float*>(dh_T),
+      static_cast<const float*>(dc_T), static_cast<const float*>(dn_T),
+      static_cast<const float*>(dm_T), static_cast<float*>(d_gx), S, d, dh,
+      cb));
 }

@@ -117,10 +117,14 @@ def load_library() -> ctypes.CDLL:
         lib.repro_flash_attention_fwd.restype = i
         lib.repro_flash_attention_bwd.argtypes = [p] * 11 + [i] * 7 + [p]
         lib.repro_flash_attention_bwd.restype = i
-        lib.repro_mamba_scan.argtypes = [p] * 7 + [i] * 5 + [p]
+        lib.repro_mamba_scan.argtypes = [p] * 8 + [i] * 5 + [p]
         lib.repro_mamba_scan.restype = i
-        lib.repro_slstm_scan.argtypes = [p] * 7 + [i] * 6 + [p]
+        lib.repro_mamba_scan_bwd.argtypes = [p] * 16 + [i] * 5 + [p]
+        lib.repro_mamba_scan_bwd.restype = i
+        lib.repro_slstm_scan.argtypes = [p] * 11 + [i] * 6 + [p]
         lib.repro_slstm_scan.restype = i
+        lib.repro_slstm_scan_bwd.argtypes = [p] * 11 + [i] * 6 + [p]
+        lib.repro_slstm_scan_bwd.restype = i
         _lib = lib
     return _lib
 

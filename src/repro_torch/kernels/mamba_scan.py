@@ -1,4 +1,5 @@
-"""Selective scan (Mamba): the CUDA C++ kernel's wrapper.
+"""Selective scan (Mamba): the CUDA C++ kernels' wrappers, forward and
+backward.
 
 Replaces the Pallas TPU kernel ``repro/kernels/mamba_scan.py``
 (``mamba_scan``, body ``_kernel``).  The kernel itself is
@@ -13,19 +14,26 @@ holds the kernel against, is :func:`mamba_scan_ref`.
 
 Unlike the TPU kernel, which keeps the state in VMEM scratch, both return
 the state after the last step beside ``y``: the serving prefill writes it
-into the request's slot row.  :func:`mamba_scan` only ever launches the
-kernel: it raises for a tensor that is not on a CUDA device, and for any
-dtype, shape or layout the kernel does not take.  The device dispatch
-lives in :func:`repro_torch.kernels.ops.mamba_scan`.
+into the request's slot row.  Called for training, the forward also fills
+a buffer with the state before every tile of :data:`TILE` steps, from
+which :func:`mamba_scan_bwd` (``repro_mamba_scan_bwd`` in the same
+source; no TPU kernel is its counterpart, the JAX model differentiates
+its ``lax.scan`` twin ``ssm._mamba_core``) recomputes each tile's states
+on its reverse sweep; its plain version is :func:`mamba_scan_bwd_ref`.
+Both wrappers only ever launch their kernels: they raise for a tensor
+that is not on a CUDA device, and for any dtype, shape or layout the
+kernels do not take.  The device dispatch lives in
+:func:`repro_torch.kernels.ops.mamba_scan`.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import mamba_scan_ref
+from repro_torch.kernels.ref import mamba_scan_bwd_ref, mamba_scan_ref
 
-__all__ = ["mamba_scan", "mamba_scan_ref", "scan_plan"]
+__all__ = ["mamba_scan", "mamba_scan_bwd", "mamba_scan_ref",
+           "mamba_scan_bwd_ref", "scan_plan", "ckpt_shape"]
 
 # state sizes the kernel is compiled for (a template parameter)
 STATE_SIZES = (8, 16)
@@ -36,6 +44,9 @@ STATE_SIZES = (8, 16)
 THREADS = 128
 CHANNELS_PER_THREAD = 2
 LANES = 4
+# steps per staged tile (``T`` in the source): the forward checkpoints the
+# state before every tile for the backward
+TILE = 32
 
 
 def scan_plan(d: int, N: int) -> tuple:
@@ -54,9 +65,16 @@ def scan_plan(d: int, N: int) -> tuple:
     return LANES, THREADS // LANES * CHANNELS_PER_THREAD
 
 
-def _check(dt, xc, bm, cm, a) -> None:
+def ckpt_shape(dt: torch.Tensor, a: torch.Tensor) -> tuple:
+    """Shape of the forward's tile checkpoints for dt (B, S, d) and a (d,
+    N): (B, ceil(S / TILE), d, N)."""
+    B, S, d = dt.shape
+    return (B, -(-S // TILE), d, a.shape[1])
+
+
+def _check(dt, xc, bm, cm, a, **more) -> None:
     for name, t in (("dt", dt), ("xc", xc), ("bm", bm), ("cm", cm),
-                    ("a", a)):
+                    ("a", a), *more.items()):
         if not t.is_cuda or t.device != dt.device:
             raise ValueError(f"mamba_scan kernel: {name} must lie on dt's "
                              f"CUDA device {dt.device}, got {t.device}")
@@ -80,18 +98,26 @@ def _check(dt, xc, bm, cm, a) -> None:
     if N not in STATE_SIZES or S < 1 or B < 1:
         raise ValueError(f"mamba_scan kernel: N={N} must be one of "
                          f"{STATE_SIZES}, B and S at least 1")
+    want = {"h_ckpt": ckpt_shape(dt, a), "dy": (B, S, d),
+            "dh_last": (B, d, N)}
+    for name, t in more.items():
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"mamba_scan kernel: {name} must be "
+                             f"{want[name]}, got {tuple(t.shape)}")
 
 
 def mamba_scan(dt: torch.Tensor, xc: torch.Tensor, bm: torch.Tensor,
-               cm: torch.Tensor, a: torch.Tensor):
+               cm: torch.Tensor, a: torch.Tensor, h_ckpt=None):
     """Launch the CUDA kernel: the selective scan of :func:`mamba_scan_ref`.
 
     dt/xc: (B, S, d); bm/cm: (B, S, N), N in :data:`STATE_SIZES`; a: (d,
-    N); all float32, contiguous, on one CUDA device.  Returns ``y`` (B, S,
-    d) and the final state (B, d, N), float32.  Counts each launch in
-    ``mamba_scan.launches``.
+    N); all float32, contiguous, on one CUDA device.  ``h_ckpt`` (training
+    only) is a :func:`ckpt_shape` f32 buffer the kernel fills with the
+    state before every tile.  Returns ``y`` (B, S, d) and the final state
+    (B, d, N), float32.  Counts each launch in ``mamba_scan.launches``.
     """
-    _check(dt, xc, bm, cm, a)
+    _check(dt, xc, bm, cm, a,
+           **({} if h_ckpt is None else {"h_ckpt": h_ckpt}))
     B, S, d = dt.shape
     N = a.shape[1]
     L, _ = scan_plan(d, N)
@@ -102,7 +128,8 @@ def mamba_scan(dt: torch.Tensor, xc: torch.Tensor, bm: torch.Tensor,
         stream = torch.cuda.current_stream(dt.device).cuda_stream
         err = lib.repro_mamba_scan(
             dt.data_ptr(), xc.data_ptr(), bm.data_ptr(), cm.data_ptr(),
-            a.data_ptr(), y.data_ptr(), h_last.data_ptr(), B, S, d, N, L,
+            a.data_ptr(), y.data_ptr(), h_last.data_ptr(),
+            None if h_ckpt is None else h_ckpt.data_ptr(), B, S, d, N, L,
             stream)
     if err != 0:
         raise RuntimeError(f"mamba_scan kernel launch failed: CUDA error "
@@ -112,3 +139,43 @@ def mamba_scan(dt: torch.Tensor, xc: torch.Tensor, bm: torch.Tensor,
 
 
 mamba_scan.launches = 0
+
+
+def mamba_scan_bwd(dt: torch.Tensor, xc: torch.Tensor, bm: torch.Tensor,
+                   cm: torch.Tensor, a: torch.Tensor, h_ckpt: torch.Tensor,
+                   dy: torch.Tensor, dh_last: torch.Tensor):
+    """Launch the backward kernel: the gradients of
+    :func:`mamba_scan_bwd_ref`.
+
+    The forward's inputs and its tile checkpoints ``h_ckpt``
+    (:func:`ckpt_shape`), the cotangents ``dy`` (B, S, d) of ``y`` and
+    ``dh_last`` (B, d, N) of the final state; all float32, contiguous, on
+    one CUDA device.  Returns ``(d_dt, d_xc, d_bm, d_cm, d_a)``, each
+    summed in a fixed order (two calls give equal bits).  Counts each
+    launch in ``mamba_scan_bwd.launches``.
+    """
+    _check(dt, xc, bm, cm, a, h_ckpt=h_ckpt, dy=dy, dh_last=dh_last)
+    B, S, d = dt.shape
+    N = a.shape[1]
+    L, CH = scan_plan(d, N)
+    lib = build.load_library()
+    out = [torch.empty_like(t) for t in (dt, xc, bm, cm, a)]
+    f32 = dict(dtype=torch.float32, device=dt.device)
+    # per channel block d_bm, d_cm, and per row d_a: summed after the sweep
+    part_bc = torch.empty((2, -(-d // CH), B, S, N), **f32)
+    part_a = torch.empty((B, d, N), **f32)
+    with torch.cuda.device(dt.device):
+        stream = torch.cuda.current_stream(dt.device).cuda_stream
+        err = lib.repro_mamba_scan_bwd(
+            *(t.data_ptr() for t in (dt, xc, bm, cm, a, h_ckpt, dy,
+                                     dh_last)),
+            *(t.data_ptr() for t in out), part_bc[0].data_ptr(),
+            part_bc[1].data_ptr(), part_a.data_ptr(), B, S, d, N, L, stream)
+    if err != 0:
+        raise RuntimeError(f"mamba_scan_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    build.count_launch(mamba_scan_bwd)
+    return tuple(out)
+
+
+mamba_scan_bwd.launches = 0

@@ -5,9 +5,11 @@ oracles of the same name in ``repro.kernels.ref`` (the scans also return
 the final state, which serving keeps); the flash-attention forward and backward
 mirror the JAX model's ``_flash_fwd_scan`` and ``_flash_vjp_bwd``
 (``repro.models.layers``), and the RMSNorm backward the gradient JAX takes
-of ``layers.rmsnorm``.  On the CPU the model runs through these; on the
-card ``chip_smoke.py`` holds each hand-written kernel against them on the
-same inputs.
+of ``layers.rmsnorm``.  The two scans' backwards (:func:`mamba_scan_bwd_ref`,
+:func:`slstm_bwd_ref`) are explicit reverse-time loops: the gradients JAX
+takes of its ``lax.scan`` twins, term by term.  On the CPU the model runs
+through these; on the card ``chip_smoke.py`` holds each hand-written kernel
+against them on the same inputs.
 """
 from __future__ import annotations
 
@@ -248,3 +250,156 @@ def slstm_ref(gx: torch.Tensor, r_h: torch.Tensor):
         state = slstm_step(gx[:, t] + slstm_recurrent(state[0], r_h), state)
         hs.append(state[0])
     return torch.stack(hs, dim=1), state
+
+
+# steps between the states the plain backward keeps (the kernel's tile)
+MAMBA_BWD_CHUNK = 32
+
+
+def _mamba_step(h, dt_t, xc_t, bm_t, a):
+    """One selective-scan update: ``exp(dt_t a) h + (dt_t xc_t) bm_t``."""
+    return torch.exp(dt_t[..., None] * a) * h \
+        + (dt_t * xc_t)[..., None] * bm_t[:, None, :]
+
+
+def mamba_scan_bwd_ref(dt: torch.Tensor, xc: torch.Tensor, bm: torch.Tensor,
+                       cm: torch.Tensor, a: torch.Tensor, dy: torch.Tensor,
+                       dh_last: torch.Tensor = None):
+    """Gradients of :func:`mamba_scan_ref` given the cotangents of ``y``
+    (``dy``, (B, S, d)) and of the final state (``dh_last``, (B, d, N);
+    None is zero), in f32.
+
+    The state's cotangent runs backwards from ``g = dh_last``:
+    ``g_t = dy_t C_t + exp(dt_{t+1} a) g_{t+1}``, and with ``e_t =
+    exp(dt_t a)``: ``d_xc_t = dt_t sum_n g_t B_t``, ``d_dt_t = sum_n g_t (a
+    e_t h_{t-1} + xc_t B_t)``, ``d_B_t = sum_d g_t dt_t xc_t``, ``d_C_t =
+    sum_d dy_t h_t`` and ``d_a = sum_{b,t} g_t dt_t e_t h_{t-1}``.  The
+    states are kept every :data:`MAMBA_BWD_CHUNK` steps and a chunk's are
+    recomputed from its checkpoint before its reverse sweep, as the kernel
+    does.
+    Returns ``(d_dt, d_xc, d_bm, d_cm, d_a)``.
+    """
+    B, S, d = dt.shape
+    chunk = MAMBA_BWD_CHUNK
+    h = torch.zeros((B, d, a.shape[1]), dtype=torch.float32,
+                    device=dt.device)
+    ckpts = []
+    for t in range(S):
+        if t % chunk == 0:
+            ckpts.append(h)
+        h = _mamba_step(h, dt[:, t], xc[:, t], bm[:, t], a)
+    g = torch.zeros_like(h) if dh_last is None else dh_last.float()
+    d_dt, d_xc = torch.empty_like(dt), torch.empty_like(xc)
+    d_bm, d_cm = torch.empty_like(bm), torch.empty_like(cm)
+    d_a = torch.zeros_like(a)
+    for c in reversed(range(len(ckpts))):
+        t0 = c * chunk
+        hs = [ckpts[c]]                      # hs[i]: the state after t0+i-1
+        for t in range(t0, min(S, t0 + chunk)):
+            hs.append(_mamba_step(hs[-1], dt[:, t], xc[:, t], bm[:, t], a))
+        for t in reversed(range(t0, min(S, t0 + chunk))):
+            h_prev, h_t = hs[t - t0], hs[t - t0 + 1]
+            e = torch.exp(dt[:, t, :, None] * a)
+            g = g + dy[:, t, :, None] * cm[:, t, None, :]
+            gb = (g * bm[:, t, None, :]).sum(dim=-1)          # (B, d)
+            w = g * e * h_prev
+            d_xc[:, t] = dt[:, t] * gb
+            d_dt[:, t] = (w * a).sum(dim=-1) + xc[:, t] * gb
+            d_bm[:, t] = torch.einsum("bdn,bd->bn", g, dt[:, t] * xc[:, t])
+            d_cm[:, t] = torch.einsum("bdn,bd->bn", h_t, dy[:, t])
+            d_a += torch.einsum("bdn,bd->dn", w, dt[:, t])
+            g = e * g
+    return d_dt, d_xc, d_bm, d_cm, d_a
+
+
+def _max_share(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The share of ``max(x, y)``'s cotangent that reaches x, by JAX's rule
+    for ``jnp.maximum``: 1 where x is larger, 0 where smaller, 1/2 at a
+    tie."""
+    return torch.where(x > y, 1.0, torch.where(x == y, 0.5, 0.0))
+
+
+def slstm_step_bwd(gates: torch.Tensor, prev, new, gh, dc, dn, dm):
+    """The backward of :func:`slstm_step`, term by term as JAX
+    differentiates ``xlstm._slstm_cell``: the stabiliser ``m`` carries a
+    gradient, ``max(lf + m0, i)`` and the ``n`` clamp split theirs by
+    :func:`_max_share`.
+
+    ``gates`` (B, 4d) ``[i|f|z|o]``; ``prev = (c0, n0, m0)`` and ``new =
+    (c1, n1, m1)``, (B, d) each; ``gh``, ``dc``, ``dn``, ``dm`` the
+    cotangents of ``h1``, ``c1``, ``n1``, ``m1``.  Returns ``(dgates, dc0,
+    dn0, dm0)``.
+    """
+    c0, n0, m0 = prev
+    c1, n1, m1 = new
+    it, ft, zt, ot = gates.chunk(4, dim=-1)
+    u = torch.nn.functional.logsigmoid(ft) + m0
+    ip = torch.exp(it - m1)
+    fp = torch.exp(u - m1)
+    tz = torch.tanh(zt)
+    so = torch.sigmoid(ot)
+    # h1 = (so * c1) / n1
+    dq = gh / n1
+    dn1 = dn - gh * (so * c1) / (n1 * n1)
+    dc1 = dc + dq * so
+    dnn = dn1 * _max_share(fp * n0 + ip, torch.full_like(n0, 1e-6))
+    dfp = dc1 * c0 + dnn * n0
+    dip = dc1 * tz + dnn
+    dm1 = dm - dfp * fp - dip * ip
+    wu = _max_share(u, it)
+    du = dfp * fp + dm1 * wu
+    di = dip * ip + dm1 * (1.0 - wu)
+    df = du * torch.sigmoid(-ft)
+    dz = dc1 * ip * (1.0 - tz * tz)
+    do = dq * c1 * so * (1.0 - so)
+    return torch.cat([di, df, dz, do], dim=-1), dc1 * fp, dnn * fp, du
+
+
+def slstm_recurrent_bwd(dgates: torch.Tensor,
+                        r_h: torch.Tensor) -> torch.Tensor:
+    """The transpose of :func:`slstm_recurrent`: (B, 4d) gate cotangents
+    -> (B, d), head k's ``r_h[k] @ dgates[head k]``."""
+    B, d4 = dgates.shape
+    H, dh = r_h.shape[:2]
+    dg = dgates.reshape(B, 4, H, dh).transpose(1, 2).reshape(B, H, 4 * dh)
+    return torch.einsum("bhe,hke->bhk", dg, r_h).reshape(B, d4 // 4)
+
+
+def slstm_r_h_grad(h: torch.Tensor, dgates: torch.Tensor,
+                   H: int) -> torch.Tensor:
+    """``d_r_h[k] = sum_{b,t} h_{t-1}[head k]^T dgates_t[head k]`` from the
+    outputs h (B, S, d) (``h_{-1} = 0``) and the gate cotangents (B, S,
+    4d): one batched product over all steps, (H, dh, 4dh)."""
+    B, S, d = h.shape
+    dh = d // H
+    h_prev = torch.nn.functional.pad(h, (0, 0, 1, 0))[:, :S]
+    dg = dgates.reshape(B, S, 4, H, dh).transpose(2, 3).reshape(
+        B * S, H, 4 * dh)
+    return torch.einsum("nhk,nhe->hke", h_prev.reshape(B * S, H, dh), dg)
+
+
+def slstm_bwd_ref(gx: torch.Tensor, r_h: torch.Tensor, dh: torch.Tensor,
+                  d_final=None):
+    """Gradients of :func:`slstm_ref` given the cotangents of its outputs
+    ``dh`` (B, S, d) and of its final ``(h, c, n, m)`` (``d_final``, a
+    tuple of (B, d) tensors; None is zero), in f32: the forward is run
+    again keeping every step's gates and state, then one reverse sweep of
+    :func:`slstm_step_bwd` with the recurrent cotangent ``r_h @ dgates``
+    carried into the step before.  Returns ``(d_gx, d_r_h)``.
+    """
+    B, S, d4 = gx.shape
+    z = torch.zeros((B, d4 // 4), dtype=torch.float32, device=gx.device)
+    states = [(z, z, z, torch.full_like(z, -1e9))]
+    gates = []
+    for t in range(S):
+        gates.append(gx[:, t] + slstm_recurrent(states[-1][0], r_h))
+        states.append(slstm_step(gates[-1], states[-1]))
+    dh_c, dc, dn, dm = (z, z, z, z) if d_final is None else d_final
+    d_gx = torch.empty_like(gx)
+    for t in reversed(range(S)):
+        d_gx[:, t], dc, dn, dm = slstm_step_bwd(
+            gates[t], states[t][1:], states[t + 1][1:], dh[:, t] + dh_c,
+            dc, dn, dm)
+        dh_c = slstm_recurrent_bwd(d_gx[:, t], r_h)
+    hs = torch.stack([s[0] for s in states[1:]], dim=1)
+    return d_gx, slstm_r_h_grad(hs, d_gx, r_h.shape[0])

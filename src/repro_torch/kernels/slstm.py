@@ -1,4 +1,4 @@
-"""sLSTM recurrence: the CUDA C++ kernel's wrapper.
+"""sLSTM recurrence: the CUDA C++ kernels' wrappers, forward and backward.
 
 Replaces the Pallas TPU kernel ``repro/kernels/slstm.py`` (``slstm_scan``,
 body ``_kernel``).  The kernel itself is ``csrc/slstm.cu`` (its source
@@ -14,19 +14,26 @@ the ``r_h`` columns of its share of the head's channels in registers;
 :func:`cluster_plan` picks C.  Unlike the TPU kernel, which keeps the
 state in VMEM scratch, both return the final ``(h, c, n, m)`` beside the
 outputs: the serving prefill writes it into the request's slot row.
-:func:`slstm_scan` only ever launches the kernel: it raises for a tensor
-that is not on a CUDA device, and for any dtype, shape or layout the
-kernel does not take.  The device dispatch lives in
-:func:`repro_torch.kernels.ops.slstm_scan`.
+
+Called for training, the forward also writes every step's gate
+pre-activations and state ``(c, n, m)``, which :func:`slstm_scan_bwd`
+(``repro_slstm_scan_bwd`` in the same source, on the same cluster plan;
+no TPU kernel is its counterpart, the JAX model differentiates its
+``lax.scan`` twin ``xlstm.slstm_block``) reads on its reverse sweep; its
+plain version is :func:`slstm_bwd_ref`.  Both wrappers only ever launch
+their kernels: they raise for a tensor that is not on a CUDA device, and
+for any dtype, shape or layout the kernels do not take.  The device
+dispatch lives in :func:`repro_torch.kernels.ops.slstm_scan`.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import slstm_ref
+from repro_torch.kernels.ref import slstm_bwd_ref, slstm_r_h_grad, slstm_ref
 
-__all__ = ["slstm_scan", "slstm_ref", "cluster_plan"]
+__all__ = ["slstm_scan", "slstm_scan_bwd", "slstm_ref", "slstm_bwd_ref",
+           "cluster_plan", "residuals"]
 
 # cluster sizes the kernel launches with (16 is past the portable 8 and
 # needs the non-portable attribute, which the kernel sets)
@@ -68,6 +75,25 @@ def _max_head_dim() -> int:
 MAX_HEAD_DIM = _max_head_dim()
 
 
+def residuals(gx: torch.Tensor) -> tuple:
+    """Empty buffers for what the forward saves for training, for gx (B,
+    S, 4d): the gate pre-activations (B, S, 4d) and the state ``(c, n,
+    m)`` after every step, (B, S, d) each."""
+    B, S, d4 = gx.shape
+    return (torch.empty_like(gx),) + tuple(
+        torch.empty((B, S, d4 // 4), dtype=torch.float32, device=gx.device)
+        for _ in range(3))
+
+
+def _check_like(name: str, tensors, shape, device) -> None:
+    for t in tensors:
+        if tuple(t.shape) != tuple(shape) or t.device != device \
+                or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"slstm_scan kernel: {name} must be contiguous "
+                             f"float32 {tuple(shape)} on {device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
 def _check(gx: torch.Tensor, r_h: torch.Tensor) -> None:
     if gx.dim() != 3 or r_h.dim() != 3 or gx.shape[2] % 4:
         raise ValueError(f"slstm_scan kernel: gx must be (B, S, 4d) and "
@@ -93,16 +119,21 @@ def _check(gx: torch.Tensor, r_h: torch.Tensor) -> None:
                              "contiguous")
 
 
-def slstm_scan(gx: torch.Tensor, r_h: torch.Tensor):
+def slstm_scan(gx: torch.Tensor, r_h: torch.Tensor, saved=None):
     """Launch the CUDA kernel: the sLSTM recurrence of :func:`slstm_ref`.
 
     gx: (B, S, 4d) gate pre-activations ``[i|f|z|o]``; r_h: (H, dh, 4dh),
     dh = d / H at most :data:`MAX_HEAD_DIM`; both float32, contiguous, on
-    one CUDA device.  Returns ``h`` (B, S, d) and the final ``(h, c, n,
-    m)``, (B, d) each, float32.  Counts each launch in
-    ``slstm_scan.launches``.
+    one CUDA device.  ``saved`` (training only): the :func:`residuals`
+    buffers, which the kernel fills for :func:`slstm_scan_bwd`.  Returns
+    ``h`` (B, S, d) and the final ``(h, c, n, m)``, (B, d) each, float32.
+    Counts each launch in ``slstm_scan.launches``.
     """
     _check(gx, r_h)
+    if saved is not None:
+        _check_like("the gates buffer", saved[:1], gx.shape, gx.device)
+        _check_like("a state buffer", saved[1:], gx.shape[:2]
+                    + (gx.shape[2] // 4,), gx.device)
     B, S, d4 = gx.shape
     d, H = d4 // 4, r_h.shape[0]
     C, cb = cluster_plan(d // H)
@@ -114,7 +145,9 @@ def slstm_scan(gx: torch.Tensor, r_h: torch.Tensor):
         stream = torch.cuda.current_stream(gx.device).cuda_stream
         err = lib.repro_slstm_scan(
             gx.data_ptr(), r_h.data_ptr(), out.data_ptr(),
-            *(t.data_ptr() for t in state), B, S, d, H, C, cb, stream)
+            *(t.data_ptr() for t in state),
+            *((None,) * 4 if saved is None else (t.data_ptr() for t in saved)),
+            B, S, d, H, C, cb, stream)
     if err != 0:
         raise RuntimeError(f"slstm_scan kernel launch failed: CUDA error "
                            f"{err}")
@@ -123,3 +156,39 @@ def slstm_scan(gx: torch.Tensor, r_h: torch.Tensor):
 
 
 slstm_scan.launches = 0
+
+
+def slstm_scan_bwd(r_h: torch.Tensor, h: torch.Tensor, saved, dh: torch.Tensor,
+                   d_final):
+    """Launch the backward kernel: the gradients of :func:`slstm_bwd_ref`.
+
+    r_h: (H, dh, 4dh); h: the forward's outputs (B, S, d); saved: the
+    :func:`residuals` the forward filled; dh: the cotangent of ``h`` (B,
+    S, d); d_final: those of the final ``(h, c, n, m)``, (B, d) each; all
+    float32, contiguous, on one CUDA device.  The kernel writes ``d_gx``
+    (B, S, 4d); ``d_r_h`` is then one batched product over all steps
+    (:func:`slstm_r_h_grad`), outside the recurrence.  Returns ``(d_gx,
+    d_r_h)``.  Counts each launch in ``slstm_scan_bwd.launches``.
+    """
+    pre = saved[0]
+    _check(pre, r_h)
+    B, S, d4 = pre.shape
+    d, H = d4 // 4, r_h.shape[0]
+    _check_like("a state buffer", (*saved[1:], h, dh), (B, S, d), pre.device)
+    _check_like("a final-state cotangent", d_final, (B, d), pre.device)
+    C, cb = cluster_plan(d // H)
+    lib = build.load_library()
+    d_gx = torch.empty_like(pre)
+    with torch.cuda.device(pre.device):
+        stream = torch.cuda.current_stream(pre.device).cuda_stream
+        err = lib.repro_slstm_scan_bwd(
+            *(t.data_ptr() for t in (*saved, r_h, dh, *d_final, d_gx)),
+            B, S, d, H, C, cb, stream)
+    if err != 0:
+        raise RuntimeError(f"slstm_scan_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    build.count_launch(slstm_scan_bwd)
+    return d_gx, slstm_r_h_grad(h, d_gx, H)
+
+
+slstm_scan_bwd.launches = 0

@@ -14,16 +14,16 @@ CycleGAN and ``full`` for an LM, LM rows of ``--seq`` 64 tokens.
   python -m repro_torch.launch.ltfb --arch icf-cyclegan --smoke --device cpu
   python -m repro_torch.launch.ltfb --arch qwen3-0.6b --seq 4096 --batch 2
   python -m repro_torch.launch.ltfb --arch qwen3-0.6b --smoke --device cpu
+  python -m repro_torch.launch.ltfb --arch xlstm-125m --seq 1024 --batch 2
 
 Resumes from --ckpt-dir automatically unless --no-resume.  Checkpoints
 hold the JAX package's layout, so either package resumes the other's.
-LM tournaments run over every token arch but the recurrent ones (MoE
-and audio included).  Not ported yet: LM tournaments over the recurrent
-archs (ROADMAP.md queue A7) and over qwen2-vl-7b, whose token shards hold
-no embeddings (A15; the JAX launcher fails on them too), Adafactor's state
-in a checkpoint (A14), ``--backend mesh`` and ``--quantize-exchange``
-(A6), ``--log-json``, ``--trace-out``, ``--prom-out``, ``--metrics-port``
-and ``--genealogy`` (A5).
+LM tournaments run over every token arch (the recurrent ones, MoE and
+audio included).  Not ported yet: LM tournaments over qwen2-vl-7b, whose
+token shards hold no embeddings (A15; the JAX launcher fails on them
+too), Adafactor's state in a checkpoint (A14), ``--backend mesh`` and
+``--quantize-exchange`` (A6), ``--log-json``, ``--trace-out``,
+``--prom-out``, ``--metrics-port`` and ``--genealogy`` (A5).
 """
 from __future__ import annotations
 
@@ -42,7 +42,6 @@ from repro_torch.core.tournament import (
     TournamentOrchestrator,
 )
 from repro_torch.data import jag, tokens
-from repro_torch.models.lm import has_recurrent
 from repro_torch.train.steps import (make_gan_steps,
                                      make_lm_population_fns, tree_to)
 
@@ -60,11 +59,6 @@ def check_ported(args) -> None:
     arch or a flag the port does not run yet."""
     cfg = None if args.arch == ARCH_ID else get_config(args.arch,
                                                        args.smoke)
-    if cfg is not None and has_recurrent(cfg):
-        raise NotImplementedError(
-            f"--arch {args.arch}: training the recurrent families (and so "
-            "their LM tournaments) is not ported to repro_torch yet; see "
-            "ROADMAP.md queue A7")
     if cfg is not None and cfg.family == "vlm":
         raise NotImplementedError(
             f"--arch {args.arch}: an LM tournament reads token shards, and "

@@ -18,8 +18,12 @@ numpy from ``--seed``, and its ``step ... g= d= val=`` lines.
   python -m repro_torch.launch.train --arch deepseek-moe-16b --smoke \
       --device cpu
   python -m repro_torch.launch.train --arch qwen2-vl-7b --smoke --device cpu
+  python -m repro_torch.launch.train --arch xlstm-125m --batch 4 --seq 4096
+  python -m repro_torch.launch.train --arch jamba-1.5-large-398b --smoke \
+      --device cpu
 
-Every LM arch but the recurrent ones trains: the MoE archs with capacity
+Every LM arch trains: the recurrent ones (xlstm-125m, jamba) through the
+scans' backward kernels, the MoE archs with capacity
 dispatch and their aux losses in the loss, qwen2-vl-7b on the stub
 frontend's ``embeds`` and M-RoPE ``positions``, musicgen-medium on folded
 codebook token ids.  The ``[train]`` line counts the parameters and the
@@ -34,9 +38,7 @@ background (``ckpt.AsyncCheckpointer``) in JAX's state layout
 and a rerun resumes from the newest one at its step unless
 ``--no-resume``; either package resumes the other's files.
 
-Not ported yet: training the recurrent archs (``xlstm-125m``,
-``jamba-1.5-large-398b``; ROADMAP.md queue A7) and Adafactor's state in a
-checkpoint (A14).
+Not ported yet: Adafactor's state in a checkpoint (ROADMAP.md queue A14).
 """
 from __future__ import annotations
 
@@ -58,7 +60,6 @@ from repro_torch.configs.icf_cyclegan import CycleGANConfig
 from repro_torch.configs.registry import ARCHS, get_config
 from repro_torch.data import jag
 from repro_torch.data.tokens import train_batch
-from repro_torch.models.lm import has_recurrent
 from repro_torch.train.steps import (init_lm_state, make_gan_steps,
                                      make_lm_eval_metric,
                                      make_lm_train_step, tree_to)
@@ -82,11 +83,6 @@ def build_trainer(args) -> Trainer:
     flags describe (raises without a card unless ``--device cpu``)."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
-    if has_recurrent(cfg):
-        raise NotImplementedError(
-            f"--arch {args.arch}: training the recurrent families is not "
-            "ported to repro_torch yet (the scan kernels have no backward); "
-            "see ROADMAP.md queue A7")
     opt_cfg = OptimizerConfig(name=args.optimizer, lr=args.lr,
                               warmup_steps=min(100, args.steps // 10 + 1))
     state = init_lm_state(cfg, opt_cfg, seed=args.seed, device=device)

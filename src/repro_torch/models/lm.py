@@ -35,9 +35,9 @@ The cached entry points run MoE layers dropless, as JAX's prefill and
 decode do, and broadcast text positions to the three M-RoPE components.
 They write the pools and state rows **in place**; the JAX package returns
 a new cache pytree each call and donates the old one.
-The recurrent mixers' scans have no backward kernel, so a stack with a
-recurrent layer runs without gradients only (training them is ROADMAP
-queue A7).
+Every stack trains: the recurrent mixers' scans carry gradients through
+their backward kernels (``kernels/ops.py``), and ``remat="full"`` runs a
+recurrent block's scan forward again inside the backward.
 """
 from __future__ import annotations
 
@@ -407,11 +407,6 @@ def lm_forward(model: LM, tokens: Optional[torch.Tensor],
         raise NotImplementedError(
             f"remat={remat!r} is not ported to repro_torch yet; see "
             "ROADMAP.md queue A")
-    if torch.is_grad_enabled() and has_recurrent(model.cfg):
-        raise NotImplementedError(
-            f"{model.cfg.name}: training the recurrent families is not "
-            "ported yet (the scan kernels have no backward); see ROADMAP.md "
-            "queue A7")
     cfg = model.cfg
     x = model.embed(tokens) if embeds is None \
         else embeds.to(L.torch_dtype(cfg))

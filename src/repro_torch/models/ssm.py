@@ -3,8 +3,11 @@
 The counterpart of ``repro.models.ssm``.  The full-sequence path
 (:func:`mamba_core`) computes the step sizes ``dt`` for the whole sequence
 in f32 and hands the scan to :func:`repro_torch.kernels.ops.mamba_scan`
-(the CUDA kernel on the card, its plain version on the CPU), which also
-returns the state after the last step; :func:`mamba_decode` is the
+(the CUDA kernels on the card, their plain versions on the CPU), which
+also returns the state after the last step and carries gradients: every
+weight of the block (``conv_w``, ``dt_bias``, ``A_log``, ``D`` and the
+projections) trains, the scan's through its backward kernel, the rest
+through autograd; :func:`mamba_decode` is the
 single-token update in plain PyTorch, as in JAX, and
 :func:`mamba_decode_multi` steps it over the K tokens of a speculative
 verify or a rollback replay.

@@ -3,9 +3,11 @@
 The counterpart of ``repro.models.xlstm``.  The mLSTM runs in JAX's
 chunkwise-parallel form (attention-like mixing inside fixed-size chunks,
 a recurrent ``(C, n, m)`` carry across them) in plain PyTorch, since the
-JAX package has no kernel for it.  The sLSTM's sequential recurrence goes
-through :func:`repro_torch.kernels.ops.slstm_scan` (the CUDA kernel on the
-card, its plain version on the CPU), which also returns the final state;
+JAX package has no kernel for it, and trains through autograd.  The
+sLSTM's sequential recurrence goes through
+:func:`repro_torch.kernels.ops.slstm_scan` (the CUDA kernels on the card,
+their plain versions on the CPU), which also returns the final state and
+carries gradients to ``w_x``, ``bias`` and ``r_h`` through its backward;
 the single-token decode steps of both blocks are plain PyTorch, as in JAX,
 and their ``_multi`` forms step them over the K tokens of a speculative
 verify or a rollback replay, freezing each row past its real tokens.

@@ -637,6 +637,96 @@ def test_training_ops_count_one_launch_per_pass_on_card():
     assert q.grad is not None and torch.isfinite(q.grad.float()).all()
 
 
+def _scan_bwd_inputs(shape, seed, device="cpu"):
+    """Selective-scan inputs (dt around softplus(-2)), cotangents of y and
+    of the final state."""
+    B, S, d, N = shape
+    rng = np.random.default_rng(seed)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, d)) - 2.0))
+    a = -np.tile(np.arange(1, N + 1), (d, 1)) * rng.uniform(0.2, 1.0, (d, 1))
+    arrays = (dt, rng.standard_normal((B, S, d)),
+              rng.standard_normal((B, S, N)), rng.standard_normal((B, S, N)),
+              a, rng.standard_normal((B, S, d)),
+              rng.standard_normal((B, d, N)))
+    return [_torch(x.astype(np.float32)).to(device) for x in arrays]
+
+
+def _slstm_bwd_inputs(shape, seed, device="cpu"):
+    """sLSTM gx, r_h, the outputs' cotangent and the final state's."""
+    B, S, d, H = shape
+    dh = d // H
+    rng = np.random.default_rng(seed)
+    arrays = (rng.standard_normal((B, S, 4 * d)),
+              rng.standard_normal((H, dh, 4 * dh)) / np.sqrt(dh),
+              rng.standard_normal((B, S, d)),
+              *(rng.standard_normal((B, d)) for _ in range(4)))
+    out = [_torch(x.astype(np.float32)).to(device) for x in arrays]
+    return out[0], out[1], out[2], tuple(out[3:])
+
+
+def test_scan_bwd_wrappers_refuse_cpu_tensors_and_count_nothing():
+    """The backward kernels' wrappers launch or raise: CPU tensors are
+    refused (the CPU takes the plain backwards through ``ops``, which
+    count no launch), and a wrong checkpoint shape is refused."""
+    dt, xc, bm, cm, a, dy, dh = _scan_bwd_inputs((1, 40, 8, 8), 0)
+    before = (ms.mamba_scan_bwd.launches, sl.slstm_scan_bwd.launches,
+              ms.mamba_scan.launches, sl.slstm_scan.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        ms.mamba_scan_bwd(dt, xc, bm, cm, a,
+                          torch.empty(ms.ckpt_shape(dt, a)), dy, dh)
+    assert ms.ckpt_shape(dt, a) == (1, 2, 8, 8)
+    gx, r_h, dout, dfin = _slstm_bwd_inputs((1, 5, 8, 2), 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        sl.slstm_scan_bwd(r_h, dout, sl.residuals(gx), dout, dfin)
+    leaves = [t.clone().requires_grad_() for t in (dt, xc, bm, cm, a)]
+    y, h = ops.mamba_scan(*leaves)
+    (y.sum() + h.sum()).backward()
+    g, r = gx.clone().requires_grad_(), r_h.clone().requires_grad_()
+    out, state = ops.slstm_scan(g, r)
+    (out.sum() + sum(s.sum() for s in state)).backward()
+    assert all(t.grad is not None for t in (*leaves, g, r))
+    assert (ms.mamba_scan_bwd.launches, sl.slstm_scan_bwd.launches,
+            ms.mamba_scan.launches, sl.slstm_scan.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 100, 1000, 8), (1, 70, 256, 16)])
+def test_mamba_scan_bwd_kernel_matches_plain_on_card(shape):
+    """The backward kernel (from the forward's tile checkpoints) against
+    the plain backward, nonzero dh_last, f32: every gradient within 1e-4
+    of its largest entry; two calls give equal bits."""
+    dev = _card()
+    dt, xc, bm, cm, a, dy, dh = _scan_bwd_inputs(shape, 7, dev)
+    h_ckpt = torch.empty(ms.ckpt_shape(dt, a), device=dev)
+    ms.mamba_scan(dt, xc, bm, cm, a, h_ckpt=h_ckpt)
+    got = ms.mamba_scan_bwd(dt, xc, bm, cm, a, h_ckpt, dy, dh)
+    again = ms.mamba_scan_bwd(dt, xc, bm, cm, a, h_ckpt, dy, dh)
+    want = ref.mamba_scan_bwd_ref(dt, xc, bm, cm, a, dy, dh)
+    torch.cuda.synchronize()
+    for g, b, w in zip(got, again, want):
+        assert torch.equal(g, b)
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 40, 392, 2), (1, 50, 768, 4)])
+def test_slstm_scan_bwd_kernel_matches_plain_on_card(shape):
+    """The backward kernel (from the forward's saved gates and states)
+    against the plain backward with nonzero final-state cotangents, f32:
+    d_gx and d_r_h within 1e-4 of their largest entry; equal bits twice."""
+    dev = _card()
+    gx, r_h, dy, dfin = _slstm_bwd_inputs(shape, 8, dev)
+    saved = sl.residuals(gx)
+    out, _ = sl.slstm_scan(gx, r_h, saved)
+    got = sl.slstm_scan_bwd(r_h, out, saved, dy, dfin)
+    again = sl.slstm_scan_bwd(r_h, out, saved, dy, dfin)
+    want = ref.slstm_bwd_ref(gx, r_h, dy, dfin)
+    torch.cuda.synchronize()
+    for g, b, w in zip(got, again, want):
+        assert torch.equal(g, b)
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
 def test_count_launch_loses_no_launch_across_threads():
     """Wrappers count launches from the tournament's worker threads: 16
     threads x 2,000 counts under a short switch interval lose none."""

@@ -578,7 +578,7 @@ def test_ltfb_cli_on_cpu_prints_its_lines(tmp_path, capsys):
     (["--backend", "mesh"], "A6"), (["--quantize-exchange"], "A6"),
     (["--log-json"], "A5"), (["--trace-out", "t.json"], "A5"),
     (["--prom-out", "m.prom"], "A5"), (["--metrics-port", "0"], "A5"),
-    (["--genealogy", "g.jsonl"], "A5"), (["--arch", "xlstm-125m"], "A7"),
+    (["--genealogy", "g.jsonl"], "A5"),
     (["--arch", "qwen3-0.6b", "--optimizer", "adafactor"], "Adafactor")])
 def test_ltfb_cli_refuses_unported_flags(flags, queue):
     with pytest.raises(NotImplementedError, match=queue):

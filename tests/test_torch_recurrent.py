@@ -254,15 +254,22 @@ def test_lm_forward_matches_jax(family):
 
 
 def test_recurrent_stacks_refuse_gradients_and_chunking():
-    """Training the recurrent families and chunked prefill over them are
-    not ported: both raise rather than compute something else.  The
-    K-token decode over recurrent state is ported (speculative decoding's
-    verify; ``tests/test_torch_spec.py`` holds it against JAX): two tokens
-    a row step the state rows and return a logit row per token."""
+    """A gradient now flows through a recurrent stack (the scans' backward
+    kernels have plain versions on the CPU): finite and nonzero on every
+    parameter.  Chunked prefill over recurrent state is not ported and
+    raises.  The K-token decode over recurrent state is ported
+    (speculative decoding's verify; ``tests/test_torch_spec.py`` holds it
+    against JAX): two tokens a row step the state rows and return a logit
+    row per token."""
     _, _, model = _both("xlstm")
-    with torch.enable_grad(), pytest.raises(NotImplementedError,
-                                            match="A7"):
-        tlm.lm_forward(model, torch.zeros((1, 4), dtype=torch.long))
+    with torch.enable_grad():
+        toks = torch.arange(8, dtype=torch.long).reshape(2, 4)
+        tlm.lm_forward(model, toks).float().square().mean().backward()
+    for name, p in model.named_parameters():
+        assert p.grad is not None, name
+        assert bool(torch.isfinite(p.grad).all()), name
+        assert bool((p.grad != 0).any()), name
+        p.grad = None
     cache = tlm.init_cache(model.cfg, pages=(4, 4), num_slots=2,
                            device="cpu")
     logits = tlm.lm_decode(model, torch.zeros((2, 2), dtype=torch.long),
