@@ -220,13 +220,18 @@ and never prints the final ``ok`` line):
     (``SCAN_BWD_TOL``) and bit-equal over two calls:
     ``mamba_scan_bwd`` at jamba's train shape (B = 2, S = 4096, d_in =
     16384, N = 16), its serve prompt (1, 500), (2, 100, 1000, 8) with a
-    channel tail and a case with a nonzero final-state cotangent;
-    ``slstm_scan_bwd`` at xlstm's train shape (4, 4096, 768, 4), (1, 500,
-    768, 4), (2, 40, 392, 2) with a masked tail and a case with nonzero
-    final-state cotangents; the plain versions timed at S <= 500 only (at
-    S = 4096 their one comparison call is timed on the host clock); and
-    the RMSNorm forward and backward at jamba's train rows (8192 x 8192
-    bf16);
+    channel tail, a case with a nonzero final-state cotangent and (1, 45,
+    200, 8), whose last 64-channel block holds 8 channels, each line with
+    the sweep's blocks an SM and shared bytes a block
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and its share of
+    the bound; ``slstm_scan_bwd`` at xlstm's train shape (4, 4096, 768,
+    4), (1, 500, 768, 4), (2, 40, 392, 2) with a masked tail, a case with
+    nonzero final-state cotangents and (2, 64, 768, 4) at exact ties of
+    the stabiliser's max (checked on the forward's saved values), each
+    line with the product ``d_r_h`` timed alone and the recurrence's us
+    a step; the plain versions timed at S <= 500 only (at S = 4096 their
+    one comparison call is timed on the host clock); and the RMSNorm
+    forward and backward at jamba's train rows (8192 x 8192 bf16);
 27. train_recurrent: xlstm-125m FULL (B = 4, Adam) and jamba
     ``NOEXP_8L`` (9.0 B parameters, published widths, no experts; B = 2,
     Adafactor: Adam's two f32 moments would not fit one card beside the
@@ -2796,11 +2801,15 @@ def phase_recurrent_bwd_kernels(torch, timer):
     plain_timer = Timer(torch, reps=5, warmup=1)
     results = {"mamba_scan_bwd": [], "slstm_scan_bwd": [], "rmsnorm": [],
                "rmsnorm_bwd": []}
-    # (B, S, d_in, N, a nonzero cotangent of the final state)
+    # the sweep's blocks an SM and shared memory a block, by state size
+    occupancy = {N: ms.bwd_occupancy(N) for N in ms.STATE_SIZES}
+    # (B, S, d_in, N, a nonzero cotangent of the final state); d_in = 200
+    # leaves the last 64-channel block 8 channels
     for B, S, d, N, final in ((2, 4096, 16384, 16, False),
                               (1, 500, 16384, 16, False),
                               (2, 100, 1000, 8, False),
-                              (1, 77, 2048, 16, True)):
+                              (1, 77, 2048, 16, True),
+                              (1, 45, 200, 8, True)):
         dt = F.softplus(rand(B, S, d) - 4.6)
         a = -torch.arange(1, N + 1, dtype=torch.float32,
                           device="cuda").repeat(d, 1)
@@ -2822,18 +2831,26 @@ def phase_recurrent_bwd_kernels(torch, timer):
             lambda: ref.mamba_scan_bwd_ref(*args, dy, dh), S, moved,
             16 * B * S * d * N, B * S * d * N)
         case.update(B=B, S=S, d_in=d, N=N, nonzero_final=final,
-                    ckpt_tiles=tiles)
+                    ckpt_tiles=tiles, blocks_per_sm=occupancy[N][0],
+                    smem_bytes=occupancy[N][1],
+                    share_of_bound=case["bound_ms"] / case["kernel_ms"])
         emit(case)
         results["mamba_scan_bwd"].append(case)
         del args, dt, dy, dh, h_ckpt
-    # (B, S, d, H, a nonzero cotangent of the final state)
-    for B, S, d, H, final in ((4, 4096, 768, 4, False),
-                              (1, 500, 768, 4, False),
-                              (2, 40, 392, 2, False),
-                              (3, 33, 96, 2, True)):
+    # (B, S, d, H, a nonzero cotangent of the final state, exact ties of
+    # the stabiliser's max from step 1 on: the i gate 0.5, the f gate 100,
+    # r_h's i and f columns zero)
+    for B, S, d, H, final, ties in ((4, 4096, 768, 4, False, False),
+                                    (1, 500, 768, 4, False, False),
+                                    (2, 40, 392, 2, False, False),
+                                    (3, 33, 96, 2, True, False),
+                                    (2, 64, 768, 4, True, True)):
         dh = d // H
         gx = rand(B, S, 4 * d)
         r = rand(H, dh, 4 * dh) / math.sqrt(dh)
+        if ties:
+            gx[..., :d], gx[..., d:2 * d] = 0.5, 100.0
+            r[..., :2 * dh] = 0.0
         saved = sl.residuals(gx)
         out, _ = sl.slstm_scan(gx, r, saved)
         dy = rand(B, S, d)
@@ -2851,12 +2868,23 @@ def phase_recurrent_bwd_kernels(torch, timer):
             lambda: sl.slstm_scan_bwd(r, out, saved, dy, dfin),
             lambda: ref.slstm_bwd_ref(gx, r, dy, dfin), S, moved,
             B * S * (16 * d * dh + 40 * d), 6 * B * S * d)
-        C, cb = sl.cluster_plan(dh)
-        case.update(B=B, S=S, d=d, H=H, nonzero_final=final, cluster=C,
-                    channels_per_block=cb)
+        if ties:
+            lf = F.logsigmoid(saved[0][:, 1:, d:2 * d])
+            check(torch.equal(lf + saved[3][:, :-1], saved[0][:, 1:, :d]),
+                  "slstm_scan_bwd ties: lf + m_{t-1} != i")
+        C, cb, ks, kl = sl.bwd_plan(dh)
+        # the product d_r_h after the recurrence, alone
+        d_gx = sl.slstm_scan_bwd(r, out, saved, dy, dfin)[0]
+        r_h_grad_ms = timer.ms(lambda: ref.slstm_r_h_grad(out, d_gx, H))
+        case.update(B=B, S=S, d=d, H=H, nonzero_final=final, ties=ties,
+                    cluster=C, channels_per_block=cb, lanes_per_row=ks,
+                    weights_per_lane=kl,
+                    share_of_bound=case["bound_ms"] / case["kernel_ms"],
+                    r_h_grad_ms=r_h_grad_ms,
+                    us_per_step=(case["kernel_ms"] - r_h_grad_ms) * 1e3 / S)
         emit(case)
         results["slstm_scan_bwd"].append(case)
-        del gx, r, saved, out, dy, dfin
+        del gx, r, saved, out, dy, dfin, d_gx
     # jamba's train rows: 2 x 4096 tokens of d_model 8192 (queue B item 6)
     del plain_timer
     fwd, bwd = _rms_train_cases(torch, timer, gen, (8192, 8192),

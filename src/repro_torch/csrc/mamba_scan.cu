@@ -398,29 +398,46 @@ cudaError_t launch(const void* dt, const void* xc, const void* bm,
 // What bounds it on the H100: bytes, then the exponentials.  It reads dt,
 // xc, dy and the checkpoints and writes d_dt and d_xc: at jamba's train
 // shape (B 2, S 4096, d_in 16384, N 16) five B*S*d_in f32 tensors of 537 MB
-// and 268 MB of checkpoints, 0.88 ms at 3.35 TB/s; its 2.1e9 exponentials
-// (one per step, channel and state) take 0.51 ms on the special-function
-// units.
-// Design (simple first; the forward's lane split kept).
-//   * States: the backward needs h_{t-1} in reverse order, and all of them
-//     would be 8.6 GB a layer at that shape.  The forward, called for
-//     training, writes the state before every tile of T = 32 steps
-//     (h_ckpt, 268 MB); the backward walks the tiles in reverse, recomputes
-//     a tile's states from its checkpoint into shared memory (each thread
-//     its own K * N/L values a step) and sweeps the tile backwards, the
-//     state's cotangent g carried across tiles in registers.  That is a
-//     second exponential per (step, channel, state).
-//   * Lanes: as in the forward, a channel's N states lie on L = 4 adjacent
-//     lanes and a thread runs K = 2 channels, so a B_t / C_t read serves two
-//     channels; d_xc and d_dt sum a channel's lanes by shuffles.
-//   * Reductions without atomics, so that two runs give equal bits: d_B and
-//     d_C sum a warp's channels by shuffles and the block's four warps in
-//     shared memory into per-block partials (one row per channel block); d_A
-//     is a per-row partial; a second small kernel sums the partials in a
-//     fixed order.
-// Left: the tile's states take 128 KB of shared memory, so one block (4
-// warps) runs on an SM and the sweep is latency-bound; the partials of d_B
-// and d_C are a channel-block's share of extra bytes.
+// and 268 MB of checkpoints, 0.88 ms at 3.35 TB/s.  The sweep needs h_{t-1}
+// in reverse order, and keeping every state would take 8.6 GB a layer: the
+// training forward writes the state before every tile of T = 32 steps
+// (h_ckpt) and the backward recomputes from it, so each (step, channel,
+// state) costs a second exponential beside the sweep's own.
+// Design (the forward's lane split kept: a channel's N states on L = 4
+// adjacent lanes, K = 2 channels a thread, 64 channels a block):
+//   * States in registers, two blocks an SM.  A tile's 32 states took 128
+//     KB of shared memory a block in the first design, so one block of 4
+//     warps ran an SM, latency-bound.  Now a tile is walked in sub-tiles of
+//     SUB = 8 steps: one pass from the checkpoint leaves the states before
+//     steps 8, 16 and 24 in shared memory (each thread its own), then, last
+//     sub-tile first, the 8 states of a sub-tile are recomputed into
+//     registers (fully unrolled, 64 of them) and swept backwards.  That is
+//     2.75 exponentials per (step, channel, state) instead of 2, and 84 KB
+//     of shared memory a block: two blocks (8 warps) an SM, 255 registers
+//     a thread at most (`ptxas -v`: no spills).
+//   * Pipelined loads.  A tile's dt, xc, dy, B_t, C_t and its checkpoint
+//     are copied with cp.async into one of two stages while the other
+//     tile's sub-tiles run; d_dt and d_xc go straight from the lanes to
+//     device memory (a warp writes 64 contiguous bytes of each a step).
+//   * Reduce-scatters, not all-reduces.  A channel's d_dt and d_xc partials
+//     over its L lanes (2K = 4 values) are summed by the forward's
+//     transposed butterfly (sum_lanes: 3 shuffles, lane j ends with one
+//     value); d_B and d_C over the warp's 8 channel groups (2 * N/L = 8
+//     values a lane at N = 16) by the same butterfly over lane bits 4, 3
+//     and 2 (sum_groups: 7 shuffles, the first design's all-reduce took
+//     24).  Each lane of a warp then holds one of its 2N d_B / d_C sums.
+//   * Reductions without atomics, so that two runs give equal bits: the
+//     four warps' d_B / d_C are added in shared memory, a sub-tile at a
+//     time, into per-block partials (one row per channel block); d_A is a
+//     per-row partial; a second small kernel sums the partials in a fixed
+//     order.
+// Left: the partials of d_B and d_C (268 MB at the train shape, written
+// once and read once) and the 0.75 extra exponential per element; a
+// cluster that sums its blocks' partials through distributed shared memory
+// would cut the first, a ring of (e_t, h_{t-1}) pairs the second.
+
+constexpr int SUB = 8;         // steps of a sub-tile (its states in registers)
+constexpr int BWD_BLOCKS = 2;  // blocks an SM the backward is built for
 
 template <int N, int L>
 struct BwdTile {
@@ -428,29 +445,45 @@ struct BwdTile {
   static constexpr int NL = N / L;            // states per lane
   static constexpr int KN = K * NL;           // states a thread holds
   static constexpr int WARPS = THREADS / 32;
-  // float offsets: dt, xc, dy (T x CH); B_t, C_t (T x N); the state before
-  // each step (T x KN x THREADS, thread-major within a value); d_dt and
-  // d_xc staged (T x CH); d_B and d_C of each warp (T x WARPS x 2N)
+  static constexpr int P = 2 * NL;            // d_B / d_C sums of a lane
+  // float offsets in a stage: dt, xc, dy (T x CH); B_t, C_t (T x N); the
+  // tile's checkpoint (THREADS x KN, thread-major)
   static constexpr int DT = 0, XC = T * CH, DY = 2 * T * CH;
-  static constexpr int BM = 3 * T * CH, CM = BM + T * N, HS = CM + T * N;
-  static constexpr int ODT = HS + T * KN * THREADS, OXC = ODT + T * CH;
-  static constexpr int RED = OXC + T * CH;
-  static constexpr int FLOATS = RED + T * WARPS * 2 * N;
+  static constexpr int BM = 3 * T * CH, CM = BM + T * N, CK = CM + T * N;
+  static constexpr int STAGE = CK + THREADS * KN;
+  // after the two stages: the states before sub-tiles 1.. of the tile
+  // ((T / SUB - 1) x THREADS x KN), then the warps' d_B / d_C of a
+  // sub-tile, double-buffered (2 x SUB x WARPS x 2N)
+  static constexpr int SS = 2 * STAGE;
+  static constexpr int RED = SS + (T / SUB - 1) * THREADS * KN;
+  static constexpr int FLOATS = RED + 2 * SUB * WARPS * 2 * N;
   static constexpr size_t SMEM = sizeof(float) * FLOATS;
-  static_assert(SMEM <= 232448, "shared memory");
+  static_assert(T % SUB == 0 && 2 * K == L && (P == 4 || P == 8),
+                "the reductions' layouts");
+  static_assert(BWD_BLOCKS * (SMEM + 1024) <= 233472, "blocks an SM");
 };
 
-// Copy the tile of steps t0 .. t0+T-1 of dt, xc, dy and B_t, C_t into
-// shared memory (zero past S and past D).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 8 : 0)
+               : "memory");
+}
+
+// Copy the tile k of steps t0 .. t0+T-1 of dt, xc, dy and B_t, C_t into
+// the stage `sm` (zero past S and past D), with this thread's K * N/L
+// states of the tile's checkpoint.
 template <int N, int L>
 __device__ __forceinline__ void load_bwd_tile(
     float* sm, const float* __restrict__ dt, const float* __restrict__ xc,
     const float* __restrict__ dy, const float* __restrict__ bm,
-    const float* __restrict__ cm, size_t row, int t0, int S, int D, int d0,
-    bool vec) {
+    const float* __restrict__ cm, const float* __restrict__ h_ckpt,
+    size_t row, int b, int k, int tiles, int S, int D, int d0, bool vec) {
   using BT = BwdTile<N, L>;
-  constexpr int CH = BT::CH;
+  constexpr int CH = BT::CH, NL = BT::NL;
   const int tid = threadIdx.x;
+  const int t0 = k * T;
   if (vec) {
     constexpr int Q = CH / 4;
     for (int i = tid; i < T * Q; i += THREADS) {
@@ -483,10 +516,79 @@ __device__ __forceinline__ void load_bwd_tile(
       cp_async4(sm + BT::CM + i, cm + src, ok);
     }
   }
+  const int c = tid / L * K, j = tid % L;
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    const int d = d0 + c + q;
+    const bool ok = d < D;
+    const float* src =
+        h_ckpt + (ok ? (((size_t)b * tiles + k) * D + d) * N + j * NL : 0);
+    float* dst = sm + BT::CK + tid * BT::KN + q * NL;
+    if (!vec) {
+#pragma unroll
+      for (int n = 0; n < NL; ++n) cp_async4(dst + n, src + n, ok);
+    } else if constexpr (NL == 4) {
+      cp_async16(dst, src, ok);
+    } else {
+      cp_async8(dst, src, ok);
+    }
+  }
+}
+
+// One step of the forward again: h <- exp(dt A) h + dt xc B_t, for the
+// thread's K channels and N/L states, from the staged tile's step u.
+template <int N, int L>
+__device__ __forceinline__ void step_again(const float* st, int u, int c,
+                                           int j, float (&h)[K][N / L],
+                                           const float (&a2)[K][N / L]) {
+  using BT = BwdTile<N, L>;
+  constexpr int NL = BT::NL;
+  float dtv[K], xv[K], bt[NL];
+  lds<K>(dtv, st + BT::DT + u * BT::CH + c);
+  lds<K>(xv, st + BT::XC + u * BT::CH + c);
+  lds<NL>(bt, st + BT::BM + u * N + j * NL);
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    const float dtx = dtv[q] * xv[q];
+#pragma unroll
+    for (int n = 0; n < NL; ++n)
+      h[q][n] = fmaf(ex2(dtv[q] * a2[q][n]), h[q][n], dtx * bt[n]);
+  }
+}
+
+// One transposed-butterfly round over lane bit `o` (a power of two): the
+// lanes with the bit set keep the upper half of the n values, the others
+// the lower half, each adding its partner's copy of the half it keeps.
+template <int n, int P>
+__device__ __forceinline__ void fold(float (&v)[P], int lane, int o) {
+  const bool up = lane & o;
+#pragma unroll
+  for (int i = 0; i < n / 2; ++i) {
+    const float send = up ? v[i] : v[i + n / 2];
+    const float keep = up ? v[i + n / 2] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+  }
+}
+
+// The warp's 8 channel groups (lane bits 4, 3, 2; L = 4 lanes a group)
+// each hold P partial sums; returns the sum over the groups of value
+// (lane >> 2) (P = 8) or (lane >> 3) (P = 4, the pairs of groups that
+// differ in lane bit 2 ending with the same sum): P - 1 shuffles, plus
+// one at P = 4.
+template <int P>
+__device__ __forceinline__ float sum_groups(float (&v)[P], int lane) {
+  fold<P>(v, lane, 16);
+  fold<P / 2>(v, lane, 8);
+  if constexpr (P == 8) {
+    fold<2>(v, lane, 4);
+  } else {
+    v[0] += __shfl_xor_sync(0xffffffffu, v[0], 4);
+  }
+  return v[0];
 }
 
 template <int N, int L>
-__global__ void __launch_bounds__(THREADS) mamba_scan_bwd_kernel(
+__global__ void __launch_bounds__(THREADS, BWD_BLOCKS) mamba_scan_bwd_kernel(
     const float* __restrict__ dt, const float* __restrict__ xc,
     const float* __restrict__ bm, const float* __restrict__ cm,
     const float* __restrict__ a, const float* __restrict__ h_ckpt,
@@ -496,6 +598,7 @@ __global__ void __launch_bounds__(THREADS) mamba_scan_bwd_kernel(
     float* __restrict__ part_a, int B, int S, int D, bool vec) {
   using BT = BwdTile<N, L>;
   constexpr int CH = BT::CH, NL = BT::NL, KN = BT::KN, WARPS = BT::WARPS;
+  constexpr int P = BT::P;
   extern __shared__ __align__(16) float sm[];
   const int tid = threadIdx.x;
   const int c = tid / L * K;  // the thread's first channel in the block
@@ -505,8 +608,18 @@ __global__ void __launch_bounds__(THREADS) mamba_scan_bwd_kernel(
   const int d0 = blockIdx.x * CH;
   const size_t row = (size_t)b * S;
   const int tiles = (S + T - 1) / T;
+  // the d_B / d_C sum this lane ends a step with (sum_groups): value v of
+  // the lane's P, n = j * NL + v % NL of d_B (v < NL) or d_C; at P = 4
+  // only the lanes with bit 2 clear store it
+  const int v_idx = P == 8 ? lane >> 2 : lane >> 3;
+  const int slot = (v_idx < NL ? 0 : N) + j * NL + v_idx % NL;
+  const bool stores_bc = P == 8 || !(lane & 4);
+  // this lane's d_dt / d_xc sum (sum_lanes): d_dt (j < 2) or d_xc of
+  // channel d0 + c + (j & 1)
+  float* d_out = (j < 2 ? d_dt : d_xc) + d0 + c + (j & 1);
+  const bool out_live = d0 + c + (j & 1) < D;
 
-  float a1[K][NL], a2[K][NL], g[K][NL], da[K][NL], h[K][NL];
+  float a1[K][NL], a2[K][NL], g[K][NL], da[K][NL];
 #pragma unroll
   for (int q = 0; q < K; ++q) {
     const int d = d0 + c + q;
@@ -519,140 +632,106 @@ __global__ void __launch_bounds__(THREADS) mamba_scan_bwd_kernel(
     }
   }
 
+  load_bwd_tile<N, L>(sm + ((tiles - 1) & 1) * BT::STAGE, dt, xc, dy, bm, cm,
+                      h_ckpt, row, b, tiles - 1, tiles, S, D, d0, vec);
+  cp_commit();
+  int sub = 0;  // sub-tiles swept so far: the parity of the d_B / d_C buffer
   for (int k = tiles - 1; k >= 0; --k) {
+    __syncthreads();  // every thread is done with tile k + 1's stage
+    if (k > 0)
+      load_bwd_tile<N, L>(sm + ((k - 1) & 1) * BT::STAGE, dt, xc, dy, bm, cm,
+                          h_ckpt, row, b, k - 1, tiles, S, D, d0, vec);
+    cp_commit();  // possibly empty: keeps the group count uniform
+    cp_wait<1>();     // this thread's copies of tile k have landed
+    __syncthreads();  // everyone's
+    const float* st = sm + (k & 1) * BT::STAGE;
     const int t0 = k * T;
-    const int steps = min(T, S - t0);
-    __syncthreads();  // the last tile's shared memory has been read
-    load_bwd_tile<N, L>(sm, dt, xc, dy, bm, cm, row, t0, S, D, d0, vec);
-    cp_commit();
-#pragma unroll
-    for (int q = 0; q < K; ++q) {
-      const int d = d0 + c + q;
-#pragma unroll
-      for (int n = 0; n < NL; ++n)
-        h[q][n] = d < D ? h_ckpt[(((size_t)b * tiles + k) * D + d) * N +
-                                 j * NL + n]
-                        : 0.f;
-    }
-    cp_wait<0>();
-    __syncthreads();  // the tile is in shared memory
+    const int nsub = (min(T, S - t0) + SUB - 1) / SUB;
+    float* ss = sm + BT::SS + tid * KN;  // this thread's sub-tile starts
 
-    // the tile's states again, keeping the one before each step
-    for (int u = 0; u < steps; ++u) {
-      float dtv[K], xv[K], bt[NL];
-      lds<K>(dtv, sm + BT::DT + u * CH + c);
-      lds<K>(xv, sm + BT::XC + u * CH + c);
-      lds<NL>(bt, sm + BT::BM + u * N + j * NL);
-      float* hs = sm + BT::HS + u * KN * THREADS + tid;
+    // the states before sub-tiles 1 .. nsub-1, from the checkpoint
+    float h[K][NL];
+    lds<KN>(reinterpret_cast<float(&)[KN]>(h), st + BT::CK + tid * KN);
+    for (int s = 0; s + 1 < nsub; ++s) {
 #pragma unroll
-      for (int q = 0; q < K; ++q) {
-        const float dtx = dtv[q] * xv[q];
+      for (int i = 0; i < SUB; ++i)
+        step_again<N, L>(st, s * SUB + i, c, j, h, a2);
 #pragma unroll
-        for (int n = 0; n < NL; ++n) {
-          hs[(q * NL + n) * THREADS] = h[q][n];
-          h[q][n] = fmaf(ex2(dtv[q] * a2[q][n]), h[q][n], dtx * bt[n]);
-        }
-      }
+      for (int q = 0; q < K; ++q)
+#pragma unroll
+        for (int n = 0; n < NL; ++n)
+          ss[s * THREADS * KN + q * NL + n] = h[q][n];
     }
 
-    // the sweep backwards; h is the state after step u
-    for (int u = steps - 1; u >= 0; --u) {
-      float dtv[K], xv[K], dyv[K], bt[NL], ct[NL];
-      lds<K>(dtv, sm + BT::DT + u * CH + c);
-      lds<K>(xv, sm + BT::XC + u * CH + c);
-      lds<K>(dyv, sm + BT::DY + u * CH + c);
-      lds<NL>(bt, sm + BT::BM + u * N + j * NL);
-      lds<NL>(ct, sm + BT::CM + u * N + j * NL);
-      const float* hs = sm + BT::HS + u * KN * THREADS + tid;
-      float gb[K], sa[K], pb[NL], pc[NL];
+    for (int s = nsub - 1; s >= 0; --s, ++sub) {
+      // the sub-tile's states: hs[i] before step s * SUB + i, h after it
+      const float* start =
+          s == 0 ? st + BT::CK + tid * KN : ss + (s - 1) * THREADS * KN;
+      lds<KN>(reinterpret_cast<float(&)[KN]>(h), start);
+      float hs[SUB][K][NL];
 #pragma unroll
-      for (int n = 0; n < NL; ++n) pb[n] = pc[n] = 0.f;
+      for (int i = 0; i < SUB; ++i) {
 #pragma unroll
-      for (int q = 0; q < K; ++q) {
-        const float dtx = dtv[q] * xv[q];
-        gb[q] = sa[q] = 0.f;
+        for (int q = 0; q < K; ++q)
 #pragma unroll
-        for (int n = 0; n < NL; ++n) {
-          const float hp = hs[(q * NL + n) * THREADS];
-          const float e = ex2(dtv[q] * a2[q][n]);
-          g[q][n] = fmaf(dyv[q], ct[n], g[q][n]);
-          gb[q] = fmaf(g[q][n], bt[n], gb[q]);
-          const float w = g[q][n] * e * hp;
-          sa[q] = fmaf(a1[q][n], w, sa[q]);
-          da[q][n] = fmaf(dtv[q], w, da[q][n]);
-          pb[n] = fmaf(g[q][n], dtx, pb[n]);
-          pc[n] = fmaf(dyv[q], h[q][n], pc[n]);
-          g[q][n] *= e;
-          h[q][n] = hp;
-        }
+          for (int n = 0; n < NL; ++n) hs[i][q][n] = h[q][n];
+        step_again<N, L>(st, s * SUB + i, c, j, h, a2);
       }
-      // a channel's sums over its L lanes
-#pragma unroll
-      for (int q = 0; q < K; ++q) {
-#pragma unroll
-        for (int o = 1; o < L; o *= 2) {
-          gb[q] += __shfl_xor_sync(0xffffffffu, gb[q], o);
-          sa[q] += __shfl_xor_sync(0xffffffffu, sa[q], o);
-        }
-      }
-      if (j == 0) {
-        *reinterpret_cast<float2*>(sm + BT::ODT + u * CH + c) =
-            make_float2(fmaf(xv[0], gb[0], sa[0]), fmaf(xv[1], gb[1], sa[1]));
-        *reinterpret_cast<float2*>(sm + BT::OXC + u * CH + c) =
-            make_float2(dtv[0] * gb[0], dtv[1] * gb[1]);
-      }
-      // d_B_t and d_C_t over the warp's channels (the lanes of equal j)
-#pragma unroll
-      for (int n = 0; n < NL; ++n) {
-#pragma unroll
-        for (int o = L; o < 32; o *= 2) {
-          pb[n] += __shfl_xor_sync(0xffffffffu, pb[n], o);
-          pc[n] += __shfl_xor_sync(0xffffffffu, pc[n], o);
-        }
-      }
-      if (lane < L) {
-        float* r = sm + BT::RED + (u * WARPS + warp) * 2 * N + j * NL;
-#pragma unroll
-        for (int n = 0; n < NL; ++n) {
-          r[n] = pb[n];
-          r[N + n] = pc[n];
-        }
-      }
-    }
-    __syncthreads();  // the tile's d_dt, d_xc and warp partials are staged
 
-    if (vec) {
-      constexpr int Q = CH / 4;
-      for (int i = tid; i < steps * Q; i += THREADS) {
-        const int t = i / Q, ch = d0 + 4 * (i % Q);
-        if (ch < D) {
-          const size_t o = (row + t0 + t) * D + ch;
-          *reinterpret_cast<float4*>(d_dt + o) =
-              reinterpret_cast<const float4*>(sm + BT::ODT)[i];
-          *reinterpret_cast<float4*>(d_xc + o) =
-              reinterpret_cast<const float4*>(sm + BT::OXC)[i];
-        }
-      }
-    } else {
-      for (int i = tid; i < steps * CH; i += THREADS) {
-        const int t = i / CH, ch = d0 + i % CH;
-        if (ch < D) {
-          d_dt[(row + t0 + t) * D + ch] = sm[BT::ODT + i];
-          d_xc[(row + t0 + t) * D + ch] = sm[BT::OXC + i];
-        }
-      }
-    }
-    for (int i = tid; i < steps * N; i += THREADS) {
-      const int u = i / N, n = i % N;
-      float sb = 0.f, sc = 0.f;
+      float* red = sm + BT::RED + (sub & 1) * SUB * WARPS * 2 * N;
 #pragma unroll
-      for (int w = 0; w < WARPS; ++w) {
-        sb += sm[BT::RED + (u * WARPS + w) * 2 * N + n];
-        sc += sm[BT::RED + (u * WARPS + w) * 2 * N + N + n];
+      for (int i = SUB - 1; i >= 0; --i) {
+        const int u = s * SUB + i;
+        float dtv[K], xv[K], dyv[K], bt[NL], ct[NL];
+        lds<K>(dtv, st + BT::DT + u * CH + c);
+        lds<K>(xv, st + BT::XC + u * CH + c);
+        lds<K>(dyv, st + BT::DY + u * CH + c);
+        lds<NL>(bt, st + BT::BM + u * N + j * NL);
+        lds<NL>(ct, st + BT::CM + u * N + j * NL);
+        float gb[K], sa[K], pv[P];
+#pragma unroll
+        for (int v = 0; v < P; ++v) pv[v] = 0.f;
+#pragma unroll
+        for (int q = 0; q < K; ++q) {
+          const float dtx = dtv[q] * xv[q];
+          gb[q] = sa[q] = 0.f;
+#pragma unroll
+          for (int n = 0; n < NL; ++n) {
+            const float hp = hs[i][q][n];  // the states before and after
+            const float hc = i + 1 < SUB ? hs[min(i + 1, SUB - 1)][q][n]
+                                         : h[q][n];
+            const float e = ex2(dtv[q] * a2[q][n]);
+            g[q][n] = fmaf(dyv[q], ct[n], g[q][n]);
+            gb[q] = fmaf(g[q][n], bt[n], gb[q]);
+            const float w = g[q][n] * e * hp;
+            sa[q] = fmaf(a1[q][n], w, sa[q]);
+            da[q][n] = fmaf(dtv[q], w, da[q][n]);
+            pv[n] = fmaf(g[q][n], dtx, pv[n]);
+            pv[NL + n] = fmaf(dyv[q], hc, pv[NL + n]);
+            g[q][n] *= e;
+          }
+        }
+        // d_dt = xc sum gb + sum sa and d_xc = dt sum gb over the L lanes
+        float o[L] = {fmaf(xv[0], gb[0], sa[0]), fmaf(xv[1], gb[1], sa[1]),
+                      dtv[0] * gb[0], dtv[1] * gb[1]};
+        const float r = sum_lanes<L>(o, j);
+        const int t = t0 + u;
+        if (t < S && out_live) d_out[(row + t) * D] = r;
+        const float rb = sum_groups<P>(pv, lane);
+        if (stores_bc) red[(i * WARPS + warp) * 2 * N + slot] = rb;
       }
-      const size_t o = (((size_t)blockIdx.x * B + b) * S + t0 + u) * N + n;
-      part_b[o] = sb;
-      part_c[o] = sc;
+      __syncthreads();  // the sub-tile's warp sums of d_B / d_C are staged
+      for (int x = tid; x < SUB * 2 * N; x += THREADS) {
+        const int i = x / (2 * N), v = x % (2 * N);
+        const int t = t0 + s * SUB + i;
+        float sum = 0.f;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) sum += red[(i * WARPS + w) * 2 * N + v];
+        if (t < S)
+          (v < N ? part_b : part_c)[(((size_t)blockIdx.x * B + b) * S + t) *
+                                        N +
+                                    v % N] = sum;
+      }
     }
   }
 #pragma unroll
@@ -687,6 +766,18 @@ cudaError_t sum_parts(const float* part, float* out, int P, size_t M,
 }
 
 template <int N, int L>
+cudaError_t prepare_bwd() {
+  cudaError_t err = cudaFuncSetAttribute(
+      mamba_scan_bwd_kernel<N, L>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)BwdTile<N, L>::SMEM);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(mamba_scan_bwd_kernel<N, L>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+template <int N, int L>
 cudaError_t launch_bwd(const float* dt, const float* xc, const float* bm,
                        const float* cm, const float* a, const float* h_ckpt,
                        const float* dy, const float* dh_last, float* d_dt,
@@ -694,14 +785,12 @@ cudaError_t launch_bwd(const float* dt, const float* xc, const float* bm,
                        float* part_b, float* part_c, float* part_a, int B,
                        int S, int D, cudaStream_t stream) {
   using BT = BwdTile<N, L>;
-  cudaError_t err = cudaFuncSetAttribute(
-      mamba_scan_bwd_kernel<N, L>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BT::SMEM);
+  cudaError_t err = prepare_bwd<N, L>();
   if (err != cudaSuccess) return err;
   const int blocks = (D + BT::CH - 1) / BT::CH;
   const bool vec = D % 4 == 0 && aligned16(dt) && aligned16(xc) &&
                    aligned16(dy) && aligned16(bm) && aligned16(cm) &&
-                   aligned16(d_dt) && aligned16(d_xc);
+                   aligned16(h_ckpt);
   mamba_scan_bwd_kernel<N, L><<<dim3(blocks, B), THREADS, BT::SMEM,
                                 stream>>>(
       dt, xc, bm, cm, a, h_ckpt, dy, dh_last, d_dt, d_xc, part_b, part_c,
@@ -713,6 +802,15 @@ cudaError_t launch_bwd(const float* dt, const float* xc, const float* bm,
   if ((err = sum_parts(part_c, d_cm, blocks, bsn, stream)) != cudaSuccess)
     return err;
   return sum_parts(part_a, d_a, B, (size_t)D * N, stream);
+}
+
+template <int N, int L>
+cudaError_t occupancy_bwd(int* blocks, int* smem) {
+  cudaError_t err = prepare_bwd<N, L>();
+  if (err != cudaSuccess) return err;
+  *smem = (int)BwdTile<N, L>::SMEM;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, mamba_scan_bwd_kernel<N, L>, THREADS, BwdTile<N, L>::SMEM);
 }
 
 }  // namespace
@@ -785,4 +883,21 @@ extern "C" int repro_mamba_scan_bwd(
   }
 #undef REPRO_BWD_ARGS
   return static_cast<int>(err);
+}
+
+
+// Occupancy of the backward's sweep on the current device: the blocks an
+// SM holds (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`) and its
+// dynamic shared memory in bytes, for N in {8, 16}; returns the CUDA error
+// (0 on success).  Launches nothing.
+extern "C" int repro_mamba_scan_bwd_occupancy(int N, int* blocks,
+                                              int* smem) {
+  switch (N) {
+    case 8:
+      return static_cast<int>(occupancy_bwd<8, 4>(blocks, smem));
+    case 16:
+      return static_cast<int>(occupancy_bwd<16, 4>(blocks, smem));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

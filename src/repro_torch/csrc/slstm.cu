@@ -277,38 +277,93 @@ slstm_cluster_kernel(const float* __restrict__ gx,
 // What the forward saves, called for training: the gate pre-activations
 // (B, S, 4d) and the state (c, n, m) after every step (B, S, d each), 352
 // MB at xlstm-125m's train shape (B 4, S 4096, d 768).
-// What bounds it on the H100: as the forward, the S sequential steps.  Each
-// step's critical path is a 4dh-long dot product split over the block's
-// threads, the sum of their slices, the cell's backward on one warp and one
-// cluster-wide exchange of dpre_t.
+// What bounds it on the H100: as the forward, the S sequential steps, so
+// the design shortens one step's critical path: dpre_{t+1} complete in the
+// block -> a 4dh-long dot product per channel -> the cell's backward ->
+// dpre_t in every block of the cluster.
 // Design: the forward's cluster plan.  Grid (C, H, B), cluster (C, 1, 1),
 // block c owns channels [c*cb, (c+1)*cb) of the head and holds their rows
-// of r_h[head] (cb x 4dh f32, as many weights as the forward's columns) in
-// registers: thread (slice, row) holds kl weights of one row.  Every block
-// keeps the head's whole dpre_t in shared memory, double-buffered by the
-// step's parity; each step the owning thread of a channel writes its 4
-// gates' dpre into every block of the cluster (distributed shared memory)
-// and one cluster barrier publishes them.  The step's inputs (dy, the
-// gates, the state before the step) stream into a shared-memory ring by
-// `cp.async`, GXR steps ahead.
-// Left: as the forward, one cluster per (row, head), latency per step.
+// of r_h[head] (cb x 4dh f32) in registers.
+//   * Rows on adjacent lanes.  A row is run by ks adjacent lanes of one
+//     warp (8 at xlstm-125m's dh = 192; BwdLayout), each holding kl = 4
+//     ceil(dh / ks) of its weights; dpre is kept channel-major (the 4
+//     gates of channel jj at 4 jj), and slice s takes the channels s, s +
+//     ks, ..., so the lanes read adjacent float4s.  The slices are summed
+//     by a log2(ks)-round shuffle tree, and every lane of the row then has
+//     dh_t: no block barrier, no serial sum of slices on one thread.
+//   * Two blocks an SM.  A block of 192 threads holding 96 weights each
+//     (166 registers, no spills) leaves room for a second, so all 16
+//     clusters of a B = 4 call are resident at once.
+//   * The cell's coefficients off the critical path.  Given what the
+//     forward saved, the cell's backward is linear in (dh_t, dc, dn, dm):
+//     every factor (ip, fp, tanh z, sigma(o), sigma(-f), 1/n1, the two
+//     1/2-at-a-tie shares of the max and the clamp, read from the forward's
+//     values as before) depends on the saved gates and states only.  Each
+//     lane of a row computes the factors of one of the row's next ks steps
+//     (the fields streamed in by cp.async a batch of ks steps ahead) into
+//     shared memory, once per batch; on the critical path remain the
+//     linear update of (dh, dc, dn, dm) and the four dpre, a dozen FMAs.
+//   * Point-to-point exchange.  Each block has an mbarrier per dpre buffer
+//     parity.  The row's lane r sends the channel's 4 dpre to block r with
+//     one st.async of 16 bytes, which also completes 16 bytes of that
+//     block's barrier; a block's barrier phase expects 16 dh bytes (one
+//     thread arms it), and a warp waits only on its own block's barrier.
+//     The double buffer is safe with that wait alone: dpre_{t-1} reaches a
+//     block's buffer (t-1) & 1 only from a block that saw dpre_t complete,
+//     that is after every channel of the head sent dpre_t, and each warp
+//     sends dpre_t only after its last read of dpre_{t+1} in that buffer.
+//     A warp with no live channel, and a block with none, leave right after
+//     the start (no dpre is sent to such a block).
+// Left: B > 1 runs one cluster per (row, head), and at B = 4 two blocks
+// share an SM (a step 1.27 us against 0.85 us at B <= 2, PERF.md); a step
+// is still a chain of latencies (the barrier's wait, the dot product,
+// three shuffle rounds, the remote stores' flight).
 
-// The backward block's layout: thread `tid` holds row tid % cb of the
-// block's r_h rows, entries [slice * kl, slice * kl + kl) of its 4dh
-// (slice = tid / cb, kl a multiple of 4, zero past 4dh).
+// fields a lane streams in for one step: dy, the 4 gates, (c, n, m) after
+// and before the step
+constexpr int RAW = 12;  // 11 used
+// the step's factors: dy, 1/n1, sigma(o), h1 = sigma(o) c1 / n1, the clamp's
+// share, c0, n0, tanh z, fp, ip, the max's share wu and 1 - wu, sigma(-f),
+// ip (1 - tanh^2 z), c1 sigma(o) (1 - sigma(o))
+constexpr int COEF = 16;  // 15 used
+enum { F_DY, F_RN, F_SO, F_HQ, F_SN, F_C0, F_N0, F_TZ, F_FP, F_IP, F_WU,
+       F_WC, F_SF, F_KZ, F_PO };
+
+// The backward's limits: threads a block, and r_h weights a lane
+constexpr int BWD_THREADS = 448;
+constexpr int BWD_KMAX = 96;
+
+// The backward block's layout, shared by the host (threads, shared-memory
+// size) and the kernel: thread tid runs slice tid % ks of row tid / ks
+// (rows past cb idle).  ks is the fewest of 4, 8, 16 lanes whose slices
+// hold at most BWD_KMAX weights: fewer threads a block, so that at
+// xlstm-125m's dh = 192 (ks = 8, 96 weights a lane, 192 threads) two
+// blocks fit an SM and the H100 holds 30 clusters of 8 at once: all 16 of
+// a B = 4 call (with 16 lanes a row, 384 threads of 128 registers, one
+// block an SM, it holds 15, and the 16th ran as a second wave).  The
+// repro_torch.kernels.slstm `bwd_plan` mirrors it.
 struct BwdLayout {
   int dh, cb, ks, kl, ep;
   __host__ __device__ BwdLayout(int dh_, int cb_) : dh(dh_), cb(cb_) {
-    ks = MAX_THREADS / cb;
-    if (ks < 1) ks = 1;
-    kl = ((4 * dh + ks - 1) / ks + 3) / 4 * 4;
-    ep = ks * kl;  // dpre entries held, zero past 4dh
+    ks = 4;
+    while (ks < 16 && 4 * ((dh + ks - 1) / ks) > BWD_KMAX) ks *= 2;
+    kl = 4 * ((dh + ks - 1) / ks);
+    ep = ks * kl;  // floats of one dpre buffer, zero past 4dh
   }
-  __host__ __device__ int threads() const { return cb * ks; }
-  // floats: dpre double buffer, partial sums, the step ring (8 per channel)
-  __host__ __device__ int red_off() const { return 2 * ep; }
-  __host__ __device__ int ring_off() const { return red_off() + ks * cb; }
-  __host__ __device__ int floats() const { return ring_off() + GXR * 8 * cb; }
+  __host__ __device__ int threads() const {
+    return (cb * ks + WARP - 1) / WARP * WARP;
+  }
+  __host__ __device__ int rows() const { return threads() / ks; }
+  // floats: two mbarriers (4), the dpre double buffer, each row's raw
+  // fields ([2][ks][RAW]) and factors ([ks][COEF]), idle rows included
+  __host__ __device__ int dp_off() const { return 4; }
+  __host__ __device__ int raw_off() const { return dp_off() + 2 * ep; }
+  __host__ __device__ int coef_off() const {
+    return raw_off() + rows() * 2 * ks * RAW;
+  }
+  __host__ __device__ int floats() const {
+    return coef_off() + rows() * ks * COEF;
+  }
 };
 
 // JAX's share of max(x, y)'s cotangent that reaches x
@@ -316,7 +371,58 @@ __device__ __forceinline__ float max_share(float x, float y) {
   return x > y ? 1.f : (x == y ? 0.5f : 0.f);
 }
 
-__global__ void __launch_bounds__(MAX_THREADS)
+__device__ __forceinline__ void bar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+// one arrival, and `bytes` more of asynchronous writes to expect
+__device__ __forceinline__ void bar_arm(unsigned bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+// until the phase of the given parity has completed; acquire at cluster
+// scope: the st.async writes it counted are visible after it
+__device__ __forceinline__ void bar_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], "
+      "%1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+// the address of the same shared-memory location in block `rank`
+__device__ __forceinline__ unsigned map_rank(unsigned addr, unsigned rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+// 16 bytes into another block's shared memory, completing 16 bytes of the
+// transactions its barrier `bar` expects
+__device__ __forceinline__ void st_async4(unsigned addr, unsigned bar,
+                                          float a, float b, float c,
+                                          float d) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "r"(__float_as_uint(a)), "r"(__float_as_uint(b)),
+      "r"(__float_as_uint(c)), "r"(__float_as_uint(d)), "r"(bar)
+      : "memory");
+}
+
+// KS: lanes a row (BwdLayout's ks, a constant: with ks read at run time
+// the step took twice as long); KL: the weights a lane holds (registers);
+// LB: the most threads a block
+template <int KS, int KL, int LB>
+__global__ void __launch_bounds__(LB)
 slstm_bwd_cluster_kernel(const float* __restrict__ pre,
                          const float* __restrict__ c_out,
                          const float* __restrict__ n_out,
@@ -330,107 +436,98 @@ slstm_bwd_cluster_kernel(const float* __restrict__ pre,
                          float* __restrict__ d_gx, int S, int d, int dh,
                          int cb) {
   cg::cluster_group cluster = cg::this_cluster();
-  const BwdLayout L(dh, cb);
+  const BwdLayout L(dh, cb);  // L.ks == KS
+  constexpr int ks = KS;
   const int C = cluster.num_blocks();
   const int rank = cluster.block_rank();
+  const int ranks = min(C, (dh + cb - 1) / cb);  // blocks owning a channel
   const int head = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int row = tid % cb, sl = tid / cb;
+  const int row = tid / ks, s = tid % ks;  // the row and its slice
   const int ch0 = rank * cb;  // the block's first channel in the head
-  const int e0 = sl * L.kl;
+  const int ch = ch0 + row;   // the row's channel in the head
+  const bool live = row < cb && ch < dh;
+  const int wrow = (tid & ~(WARP - 1)) / ks;  // the warp's first row
+  const bool warp_live = wrow < cb && ch0 + wrow < dh && rank < ranks;
 
   extern __shared__ __align__(16) float sm[];
-  float* dpb = sm;                    // [2][ep]
-  float* red = sm + L.red_off();      // [ks][cb]
-  float* ring = sm + L.ring_off();    // [GXR][8][cb]
+  const unsigned bar0 = smem_u32(sm);  // two mbarriers, 8 bytes each
+  float* dpb = sm + L.dp_off();        // [2][ep]
+  float* raw = sm + L.raw_off() + row * 2 * ks * RAW;  // [2][ks][RAW]
+  float* coef = sm + L.coef_off() + row * ks * COEF;   // [ks][COEF]
 
-  float rr[KMAX];
+  // this lane's weights of its row: rr[4m + g] = r_h[head][ch][g dh + jj]
+  // for channel jj = m ks + s of the head (zero past dh)
+  float rr[KL];
   {
-    const bool ok = ch0 + row < dh;
-    const float* rrow = r_h + ((size_t)head * dh + ch0 + row) * 4 * dh;
+    const float* rrow = r_h + ((size_t)head * dh + (live ? ch : 0)) * 4 * dh;
 #pragma unroll
-    for (int i = 0; i < KMAX; ++i)
-      rr[i] = ok && i < L.kl && e0 + i < 4 * dh ? rrow[e0 + i] : 0.f;
+    for (int i = 0; i < KL; ++i) {
+      const int jj = (i / 4) * ks + s;
+      rr[i] = live && i < L.kl && jj < dh ? rrow[(i % 4) * dh + jj] : 0.f;
+    }
   }
   for (int idx = tid; idx < 2 * L.ep; idx += blockDim.x) dpb[idx] = 0.f;
-
-  // step t's fields for channel jj: dy, the 4 gates and the state (c, n, m)
-  // before the step (zero-filled at t = 0; m is set there)
-  auto issue = [&](int t) {
-    for (int i = tid; i < 8 * cb; i += blockDim.x) {
-      const int f = i / cb, jj = i % cb;
-      const size_t ch = (size_t)head * dh + ch0 + jj;
-      const size_t bt = (size_t)b * S + t;
-      bool ok = ch0 + jj < dh;
-      const float* src;
-      if (f == 0) {
-        src = dy + bt * d + ch;
-      } else if (f < 5) {
-        src = pre + bt * 4 * d + (size_t)(f - 1) * d + ch;
-      } else {
-        ok = ok && t > 0;
-        const float* st = f == 5 ? c_out : f == 6 ? n_out : m_out;
-        src = st + (bt - (t > 0)) * d + ch;
-      }
-      cp_async4(ring + ((t % GXR) * 8 + f) * cb + jj, ok ? src : dy, ok);
-    }
-  };
-#pragma unroll
-  for (int k = 0; k < GXR - 1; ++k) {
-    if (S - 1 - k >= 0) issue(S - 1 - k);
-    cp_commit();
+  if (tid == 0) {
+    bar_init(bar0, 1);
+    bar_init(bar0 + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // the first phases: dpre_{S-1} and dpre_{S-2}
+    bar_arm(bar0 + 8 * ((S - 1) & 1), 16 * dh);
+    if (S >= 2) bar_arm(bar0 + 8 * (S & 1), 16 * dh);
   }
+  cluster.sync();  // barriers and zeroed buffers are in place everywhere
+  if (!warp_live) return;  // no live row: nothing to send or to wait for
 
-  const int j = tid;  // the channel thread's index in the block
-  const bool live = j < cb && ch0 + j < dh;
-  // the state after the step and the carried cotangents of (c, n, m)
-  float c1 = 0.f, n1 = 1.f, m1 = 0.f, dc = 0.f, dn = 0.f, dm = 0.f;
-  float dhT = 0.f;
+  // lane s of a row streams in the fields of step tb - s of the batch
+  // starting at tb (zero-filled before step 0; m is set there)
+  const size_t cho = (size_t)head * dh + (live ? ch : 0);
+  auto issue = [&](int tb, int buf) {
+    const int t = tb - s;
+    const bool ok = live && t >= 0;
+    const size_t bt = (size_t)b * S + (ok ? t : 0);
+    const float* src[11] = {
+        dy + bt * d + cho,
+        pre + bt * 4 * d + cho,
+        pre + bt * 4 * d + d + cho,
+        pre + bt * 4 * d + 2 * (size_t)d + cho,
+        pre + bt * 4 * d + 3 * (size_t)d + cho,
+        c_out + bt * d + cho,
+        n_out + bt * d + cho,
+        m_out + bt * d + cho,
+        c_out + (bt - (t > 0)) * d + cho,
+        n_out + (bt - (t > 0)) * d + cho,
+        m_out + (bt - (t > 0)) * d + cho};
+    float* dst = raw + (buf * ks + s) * RAW;
+#pragma unroll
+    for (int f = 0; f < 11; ++f)
+      cp_async4(dst + f, src[f], f < 8 ? ok : ok && t > 0);
+  };
+  const int batches = (S + ks - 1) / ks;
+  issue(S - 1, 0);
+  cp_commit();
+  if (batches > 1) issue(S - 1 - ks, 1);
+  cp_commit();
+
+  // the carried cotangents of the state after the step
+  float dc = 0.f, dn = 0.f, dm = 0.f, dhT = 0.f;
   if (live) {
-    const size_t ch = (size_t)head * dh + ch0 + j;
-    const size_t o = ((size_t)b * S + S - 1) * d + ch;
-    c1 = c_out[o];
-    n1 = n_out[o];
-    m1 = m_out[o];
-    const size_t f = (size_t)b * d + ch;
+    const size_t f = (size_t)b * d + cho;
     dhT = dh_T[f];
     dc = dc_T[f];
     dn = dn_T[f];
     dm = dm_T[f];
   }
-  cluster.sync();  // every block's dpre_S = 0 is in place
-
-  for (int t = S - 1; t >= 0; --t) {
-    const float* dnext = dpb + ((t + 1) & 1) * L.ep + e0;  // dpre_{t+1}
-    float* dcur = dpb + (t & 1) * L.ep;
-    cp_wait<GXR - 2>();  // this thread's copies of step t have landed
-    if (t - (GXR - 1) >= 0) issue(t - (GXR - 1));
-    cp_commit();
-
-    // this thread's slice of one row's product with dpre_{t+1}
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-#pragma unroll
-    for (int i = 0; i < KMAX; i += 4) {
-      if (i < L.kl) {  // kl is a multiple of 4
-        const float4 v = *reinterpret_cast<const float4*>(dnext + i);
-        a0 += v.x * rr[i];
-        a1 += v.y * rr[i + 1];
-        a2 += v.z * rr[i + 2];
-        a3 += v.w * rr[i + 3];
-      }
-    }
-    red[sl * cb + row] = (a0 + a1) + (a2 + a3);
-    __syncthreads();  // partial sums and step t's fields are visible
-
-    if (live) {
-      const float* rg = ring + (t % GXR) * 8 * cb + j;
-      float gh = rg[0] + dhT;
-      dhT = 0.f;
-      for (int x = 0; x < L.ks; ++x) gh += red[x * cb + j];
-      const float gi = rg[cb], gf = rg[2 * cb], gz = rg[3 * cb],
-                  go = rg[4 * cb];
-      const float c0 = rg[5 * cb], n0 = rg[6 * cb];
-      const float m0 = t > 0 ? rg[7 * cb] : -1e9f;
+  unsigned phase = 0;  // bit p: the parity of barrier p's next phase
+  for (int k = 0; k < batches; ++k) {
+    const int tb = S - 1 - k * ks;
+    cp_wait<1>();  // this lane's fields of batch k have landed
+    {
+      const float* rw = raw + ((k & 1) * ks + s) * RAW;
+      const int t = tb - s;
+      const float gi = rw[1], gf = rw[2], gz = rw[3], go = rw[4];
+      const float c1 = rw[5], n1 = rw[6], m1 = rw[7], c0 = rw[8], n0 = rw[9];
+      const float m0 = t > 0 ? rw[10] : -1e9f;
       // the forward's cell again (log sigmoid as it computes it)
       const float lf = -(log1pf(expf(-fabsf(gf))) + fmaxf(-gf, 0.f));
       const float u = lf + m0;
@@ -438,38 +535,98 @@ slstm_bwd_cluster_kernel(const float* __restrict__ pre,
       const float fp = expf(u - m1);
       const float tz = tanhf(gz);
       const float so = 1.f / (1.f + expf(-go));
-      // h1 = (so * c1) / n1
-      const float dq = gh / n1;
-      const float dn1 = dn - gh * (so * c1) / (n1 * n1);
-      const float dc1 = dc + dq * so;
-      const float dnn = dn1 * max_share(fp * n0 + ip, 1e-6f);
-      const float dfp = dc1 * c0 + dnn * n0;
-      const float dip = dc1 * tz + dnn;
-      const float dm1 = dm - dfp * fp - dip * ip;
+      const float rn = 1.f / n1;
       const float wu = max_share(u, gi);
-      const float du = dfp * fp + dm1 * wu;
-      float dp[4];
-      dp[0] = dip * ip + dm1 * (1.f - wu);
-      dp[1] = du / (1.f + expf(gf));  // d log sigmoid(f) = sigmoid(-f)
-      dp[2] = dc1 * ip * (1.f - tz * tz);
-      dp[3] = dq * c1 * so * (1.f - so);
-      dc = dc1 * fp;
-      dn = dnn * fp;
+      float* cf = coef + s * COEF;
+      cf[F_DY] = rw[0];
+      cf[F_RN] = rn;
+      cf[F_SO] = so;
+      cf[F_HQ] = so * c1 * rn;
+      cf[F_SN] = max_share(fp * n0 + ip, 1e-6f);
+      cf[F_C0] = c0;
+      cf[F_N0] = n0;
+      cf[F_TZ] = tz;
+      cf[F_FP] = fp;
+      cf[F_IP] = ip;
+      cf[F_WU] = wu;
+      cf[F_WC] = 1.f - wu;
+      cf[F_SF] = 1.f / (1.f + expf(gf));  // d log sigmoid(f) = sigmoid(-f)
+      cf[F_KZ] = ip * (1.f - tz * tz);
+      cf[F_PO] = c1 * so * (1.f - so);
+    }
+    if (k + 2 < batches) issue(tb - 2 * ks, k & 1);
+    cp_commit();
+    __syncwarp();  // the row's factors of the batch are in place
+
+    const int steps = min(ks, tb + 1);
+    for (int i = 0; i < steps; ++i) {
+      const int t = tb - i;
+      float cf[COEF];
+#pragma unroll
+      for (int x = 0; x < COEF / 4; ++x) {
+        const float4 v = reinterpret_cast<const float4*>(coef + i * COEF)[x];
+        cf[4 * x] = v.x, cf[4 * x + 1] = v.y, cf[4 * x + 2] = v.z,
+                cf[4 * x + 3] = v.w;
+      }
+      float dot = 0.f;
+      if (t < S - 1) {
+        const int p = (t + 1) & 1;  // dpre_{t+1}'s buffer and barrier
+        bar_wait(bar0 + 8 * p, (phase >> p) & 1);
+        phase ^= 1u << p;
+        if (tid == 0 && t >= 1) bar_arm(bar0 + 8 * p, 16 * dh);  // dpre_{t-1}
+        // this slice's part of the row's product with dpre_{t+1}, in four
+        // independent sums (a short dependency chain)
+        const float4* dnext =
+            reinterpret_cast<const float4*>(dpb + p * L.ep) + s;
+        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll
+        for (int m = 0; m < KL / 4; ++m) {
+          if (4 * m < L.kl) {
+            const float4 v = dnext[m * ks];
+            a0 = fmaf(v.x, rr[4 * m], a0);
+            a1 = fmaf(v.y, rr[4 * m + 1], a1);
+            a2 = fmaf(v.z, rr[4 * m + 2], a2);
+            a3 = fmaf(v.w, rr[4 * m + 3], a3);
+          }
+        }
+        dot = (a0 + a1) + (a2 + a3);
+#pragma unroll
+        for (int o = ks / 2; o > 0; o /= 2)
+          dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      }
+      // the cell's backward, linear in (gh, dc, dn, dm); h1 = (so c1) / n1
+      const float gh = dot + cf[F_DY] + dhT;
+      dhT = 0.f;
+      const float dq = gh * cf[F_RN];
+      const float dc1 = fmaf(dq, cf[F_SO], dc);
+      const float dn1 = fmaf(-dq, cf[F_HQ], dn);
+      const float dnn = dn1 * cf[F_SN];
+      const float dfp = fmaf(dc1, cf[F_C0], dnn * cf[F_N0]);
+      const float dip = fmaf(dc1, cf[F_TZ], dnn);
+      const float dm1 = dm - dfp * cf[F_FP] - dip * cf[F_IP];
+      const float du = fmaf(dfp, cf[F_FP], dm1 * cf[F_WU]);
+      const float di = fmaf(dip, cf[F_IP], dm1 * cf[F_WC]);
+      const float df = du * cf[F_SF];
+      const float dz = dc1 * cf[F_KZ];
+      const float dov = dq * cf[F_PO];
+      dc = dc1 * cf[F_FP];
+      dn = dnn * cf[F_FP];
       dm = du;
-      c1 = c0;
-      n1 = n0;
-      m1 = m0;
-      float* gout = d_gx + ((size_t)b * S + t) * 4 * d + head * dh + ch0 + j;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) gout[(size_t)q * d] = dp[q];
-      for (int r = 0; r < C; ++r) {
-        float* dst = cluster.map_shared_rank(dcur, r);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) dst[q * dh + ch0 + j] = dp[q];
+      if (live) {
+        if (s < ranks) {  // dpre_t into block s's buffer t & 1
+          const int q = t & 1;
+          st_async4(map_rank(smem_u32(dpb + q * L.ep + 4 * ch), s),
+                    map_rank(bar0 + 8 * q, s), di, df, dz, dov);
+        }
+        if (s < 4)
+          d_gx[((size_t)b * S + t) * 4 * d + (size_t)s * d + cho] =
+              s == 0 ? di : s == 1 ? df : s == 2 ? dz : dov;
       }
     }
-    cluster_barrier();  // dpre_t is in every block; dnext may be rewritten
+    __syncwarp();  // the batch's factors are read before they are rewritten
   }
+  // dpre_0's phase: no write into this block is still in flight at exit
+  bar_wait(bar0, phase & 1);
   cp_wait<0>();
 }
 
@@ -555,15 +712,31 @@ extern "C" int repro_slstm_scan_bwd(const void* pre, const void* c_out,
   if (C < 1 || C > MAX_CLUSTER || (C & (C - 1)) || cb < 1 || C * cb < dh)
     return static_cast<int>(cudaErrorInvalidValue);
   const BwdLayout L(dh, cb);
-  if (L.threads() > MAX_THREADS || L.kl > KMAX)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_cluster(
-      slstm_bwd_cluster_kernel, C, H, B, L.threads(),
-      sizeof(float) * L.floats(), stream, static_cast<const float*>(pre),
-      static_cast<const float*>(c_out), static_cast<const float*>(n_out),
-      static_cast<const float*>(m_out), static_cast<const float*>(r_h),
-      static_cast<const float*>(dy), static_cast<const float*>(dh_T),
-      static_cast<const float*>(dc_T), static_cast<const float*>(dn_T),
-      static_cast<const float*>(dm_T), static_cast<float*>(d_gx), S, d, dh,
-      cb));
+  if (L.threads() > BWD_THREADS || L.kl > BWD_KMAX || C > L.ks)
+    return static_cast<int>(cudaErrorInvalidValue);  // lane r sends to r
+  auto run = [&](auto kernel) {
+    return static_cast<int>(launch_cluster(
+        kernel, C, H, B, L.threads(), sizeof(float) * L.floats(), stream,
+        static_cast<const float*>(pre), static_cast<const float*>(c_out),
+        static_cast<const float*>(n_out), static_cast<const float*>(m_out),
+        static_cast<const float*>(r_h), static_cast<const float*>(dy),
+        static_cast<const float*>(dh_T), static_cast<const float*>(dc_T),
+        static_cast<const float*>(dn_T), static_cast<const float*>(dm_T),
+        static_cast<float*>(d_gx), S, d, dh, cb));
+  };
+  // xlstm-125m's dh = 192: 8 lanes a row, 96 weights a lane, 192 threads,
+  // bounded at 256 threads so that ptxas may give a thread the registers
+  // it needs (bounded at 448 it spills); two blocks then share an SM
+  switch (L.ks) {
+    case 4:
+      return L.kl <= 48 ? run(slstm_bwd_cluster_kernel<4, 48, BWD_THREADS>)
+                        : run(slstm_bwd_cluster_kernel<4, 96, BWD_THREADS>);
+    case 8:
+      return L.threads() <= 256
+                 ? run(slstm_bwd_cluster_kernel<8, 96, 256>)
+                 : run(slstm_bwd_cluster_kernel<8, 96, BWD_THREADS>);
+    default:  // dh <= MAX_HEAD_DIM = 307 keeps kl <= 80
+      if (L.kl > 80) return static_cast<int>(cudaErrorInvalidValue);
+      return run(slstm_bwd_cluster_kernel<16, 80, BWD_THREADS>);
+  }
 }

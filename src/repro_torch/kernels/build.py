@@ -121,6 +121,9 @@ def load_library() -> ctypes.CDLL:
         lib.repro_mamba_scan.restype = i
         lib.repro_mamba_scan_bwd.argtypes = [p] * 16 + [i] * 5 + [p]
         lib.repro_mamba_scan_bwd.restype = i
+        lib.repro_mamba_scan_bwd_occupancy.argtypes = [
+            i, ctypes.POINTER(i), ctypes.POINTER(i)]
+        lib.repro_mamba_scan_bwd_occupancy.restype = i
         lib.repro_slstm_scan.argtypes = [p] * 11 + [i] * 6 + [p]
         lib.repro_slstm_scan.restype = i
         lib.repro_slstm_scan_bwd.argtypes = [p] * 11 + [i] * 6 + [p]

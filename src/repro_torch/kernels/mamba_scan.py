@@ -19,7 +19,9 @@ a buffer with the state before every tile of :data:`TILE` steps, from
 which :func:`mamba_scan_bwd` (``repro_mamba_scan_bwd`` in the same
 source; no TPU kernel is its counterpart, the JAX model differentiates
 its ``lax.scan`` twin ``ssm._mamba_core``) recomputes each tile's states
-on its reverse sweep; its plain version is :func:`mamba_scan_bwd_ref`.
+on its reverse sweep, a sub-tile of :data:`SUB` steps at a time into
+registers (:func:`bwd_sweep`); its plain version is
+:func:`mamba_scan_bwd_ref`.
 Both wrappers only ever launch their kernels: they raise for a tensor
 that is not on a CUDA device, and for any dtype, shape or layout the
 kernels do not take.  The device dispatch lives in
@@ -27,13 +29,16 @@ kernels do not take.  The device dispatch lives in
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import mamba_scan_bwd_ref, mamba_scan_ref
 
 __all__ = ["mamba_scan", "mamba_scan_bwd", "mamba_scan_ref",
-           "mamba_scan_bwd_ref", "scan_plan", "ckpt_shape"]
+           "mamba_scan_bwd_ref", "scan_plan", "ckpt_shape", "bwd_sweep",
+           "bwd_sum_lane", "bwd_occupancy"]
 
 # state sizes the kernel is compiled for (a template parameter)
 STATE_SIZES = (8, 16)
@@ -47,6 +52,9 @@ LANES = 4
 # steps per staged tile (``T`` in the source): the forward checkpoints the
 # state before every tile for the backward
 TILE = 32
+# steps of a backward sub-tile (``SUB`` in the source), whose states are
+# recomputed into registers from the tile's checkpoint and swept
+SUB = 8
 
 
 def scan_plan(d: int, N: int) -> tuple:
@@ -70,6 +78,59 @@ def ckpt_shape(dt: torch.Tensor, a: torch.Tensor) -> tuple:
     N): (B, ceil(S / TILE), d, N)."""
     B, S, d = dt.shape
     return (B, -(-S // TILE), d, a.shape[1])
+
+
+def bwd_sweep(S: int) -> list:
+    """The backward kernel's walk over S steps: ``(tile, sub_tile,
+    steps)`` for each sub-tile in the order it is swept, tiles of
+    :data:`TILE` steps last first and a tile's sub-tiles of :data:`SUB`
+    steps last first; ``steps`` are the sub-tile's steps below S in the
+    order swept.  Sub-tile 0 of a tile starts from the tile's checkpoint,
+    sub-tile ``u > 0`` from the state a first pass over the tile's
+    earlier steps left in shared memory."""
+    order = []
+    for k in reversed(range(-(-S // TILE))):
+        t0 = k * TILE
+        for u in reversed(range(-(-min(TILE, S - t0) // SUB))):
+            lo = t0 + u * SUB
+            order.append((k, u, list(range(min(lo + SUB, S) - 1, lo - 1,
+                                           -1))))
+    return order
+
+
+def bwd_sum_lane(lane: int, N: int):
+    """The per-step sum of d_B or d_C that lane ``lane`` of a warp stores
+    after the backward's reduce-scatter over the warp's 8 channel groups
+    (``sum_groups`` in the source): ``("b" | "c", state)``, or None where
+    another lane stores the same sum (N = 8: the lanes with bit 2 set).
+    The lane holds 2 N/L partial sums (d_B, then d_C, of the states
+    ``[j * N/L, (j+1) * N/L)``, j = lane % L) and ends with the one that
+    its lane bits 4, 3 (and 2, at 8 values) pick."""
+    L, _ = scan_plan(1, N)
+    nl = N // L
+    if 2 * nl == 8:
+        v = lane >> 2
+    elif lane & 4:
+        return None
+    else:
+        v = lane >> 3
+    return ("b" if v < nl else "c", (lane % L) * nl + v % nl)
+
+
+def bwd_occupancy(N: int) -> tuple:
+    """``(blocks, smem)``: the backward sweep's blocks an SM on the current
+    CUDA device (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and its
+    shared memory a block in bytes, for N in :data:`STATE_SIZES`.  Needs
+    the card; launches nothing."""
+    scan_plan(1, N)
+    lib = build.load_library()
+    blocks, smem = ctypes.c_int(), ctypes.c_int()
+    err = lib.repro_mamba_scan_bwd_occupancy(N, ctypes.byref(blocks),
+                                             ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"mamba_scan_bwd occupancy query failed: CUDA "
+                           f"error {err}")
+    return blocks.value, smem.value
 
 
 def _check(dt, xc, bm, cm, a, **more) -> None:

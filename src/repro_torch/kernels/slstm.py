@@ -33,7 +33,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import slstm_bwd_ref, slstm_r_h_grad, slstm_ref
 
 __all__ = ["slstm_scan", "slstm_scan_bwd", "slstm_ref", "slstm_bwd_ref",
-           "cluster_plan", "residuals"]
+           "cluster_plan", "bwd_plan", "residuals"]
 
 # cluster sizes the kernel launches with (16 is past the portable 8 and
 # needs the non-portable attribute, which the kernel sets)
@@ -73,6 +73,38 @@ def _max_head_dim() -> int:
 
 # the widest head a 16-block cluster holds (307 channels)
 MAX_HEAD_DIM = _max_head_dim()
+
+# the backward's lanes per r_h row (``ks`` in the source: the fewest whose
+# slices hold at most BWD_KMAX weights), its threads a block at most and
+# the most weights a lane holds (``BWD_THREADS``, ``BWD_KMAX``)
+BWD_SLICES = (4, 8, 16)
+BWD_THREADS = 448
+BWD_KMAX = 96
+
+
+def bwd_plan(dh: int) -> tuple:
+    """``(C, cb, ks, kl)`` of the backward kernel for a head of ``dh``
+    channels: the forward's :func:`cluster_plan`, and row ``r < cb`` of
+    block ``c`` (head channel ``c * cb + r``) run by ``ks`` adjacent lanes
+    of one warp (thread ``r * ks + s`` runs slice ``s``; ``ks`` the fewest
+    of :data:`BWD_SLICES` that keeps a slice within :data:`BWD_KMAX`
+    weights: 8 at xlstm-125m's dh = 192, 192 threads a block, two blocks
+    an SM).  Slice ``s`` holds ``kl = 4 * ceil(dh / ks)`` weights of its
+    row: for ``m < kl / 4`` and gate ``g``, the column ``g * dh + m * ks
+    + s`` (zero past dh), and reads the gate cotangents of the same
+    channels, kept channel-major (``BwdLayout`` in ``csrc/slstm.cu``).
+    Raises past :data:`MAX_HEAD_DIM`, as :func:`cluster_plan` does,
+    before any launch."""
+    C, cb = cluster_plan(dh)
+    ks = next((k for k in BWD_SLICES if 4 * -(-dh // k) <= BWD_KMAX),
+              BWD_SLICES[-1])
+    kl = 4 * -(-dh // ks)
+    if -(-ks * cb // 32) * 32 > BWD_THREADS or kl > BWD_KMAX or C > ks:
+        raise ValueError(f"slstm_scan_bwd kernel: {ks} slices of {kl} "
+                         f"weights for {cb} rows of a {C}-block cluster "
+                         f"exceed {BWD_THREADS} threads, {BWD_KMAX} "
+                         f"weights a lane or one sending lane a block")
+    return C, cb, ks, kl
 
 
 def residuals(gx: torch.Tensor) -> tuple:
@@ -176,7 +208,7 @@ def slstm_scan_bwd(r_h: torch.Tensor, h: torch.Tensor, saved, dh: torch.Tensor,
     d, H = d4 // 4, r_h.shape[0]
     _check_like("a state buffer", (*saved[1:], h, dh), (B, S, d), pre.device)
     _check_like("a final-state cotangent", d_final, (B, d), pre.device)
-    C, cb = cluster_plan(d // H)
+    C, cb, _, _ = bwd_plan(d // H)
     lib = build.load_library()
     d_gx = torch.empty_like(pre)
     with torch.cuda.device(pre.device):

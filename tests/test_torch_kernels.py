@@ -690,7 +690,8 @@ def test_scan_bwd_wrappers_refuse_cpu_tensors_and_count_nothing():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 100, 1000, 8), (1, 70, 256, 16)])
+@pytest.mark.parametrize("shape", [(2, 100, 1000, 8), (1, 70, 256, 16),
+                                   (1, 45, 200, 8)])
 def test_mamba_scan_bwd_kernel_matches_plain_on_card(shape):
     """The backward kernel (from the forward's tile checkpoints) against
     the plain backward, nonzero dh_last, f32: every gradient within 1e-4
@@ -709,11 +710,17 @@ def test_mamba_scan_bwd_kernel_matches_plain_on_card(shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 40, 392, 2), (1, 50, 768, 4)])
+@pytest.mark.parametrize("shape", [(2, 40, 392, 2), (1, 50, 768, 4),
+                                   (1, 20, 128, 2), (1, 20, 200, 2),
+                                   (1, 20, 450, 2)])
 def test_slstm_scan_bwd_kernel_matches_plain_on_card(shape):
     """The backward kernel (from the forward's saved gates and states)
     against the plain backward with nonzero final-state cotangents, f32:
-    d_gx and d_r_h within 1e-4 of their largest entry; equal bits twice."""
+    d_gx and d_r_h within 1e-4 of their largest entry; equal bits twice.
+    The heads reach every layout the kernel is built for (``bwd_plan``):
+    dh = 196 (16 lanes a row), 192 (8 lanes, 192 threads), 64 (4 lanes,
+    64 weights), 100 (8 lanes, 400 threads) and 225 (a 16-block cluster
+    whose last block owns no channel)."""
     dev = _card()
     gx, r_h, dy, dfin = _slstm_bwd_inputs(shape, 8, dev)
     saved = sl.residuals(gx)
@@ -725,6 +732,109 @@ def test_slstm_scan_bwd_kernel_matches_plain_on_card(shape):
     for g, b, w in zip(got, again, want):
         assert torch.equal(g, b)
         assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
+def _slstm_tie_inputs(shape, seed, device="cpu"):
+    """sLSTM backward inputs at exact ties of the stabiliser's max from the
+    second step on (the i gate 0.5, the f gate 100, r_h's i and f columns
+    zero: lf + m_{t-1} == i), with nonzero final-state cotangents, through
+    which the tied max's 1/2 : 1/2 share reaches d_gx."""
+    gx, r_h, dy, dfin = _slstm_bwd_inputs(shape, seed)
+    d, dh = shape[2], shape[2] // shape[3]
+    gx[..., :d], gx[..., d:2 * d] = 0.5, 100.0
+    r_h[..., :2 * dh] = 0.0
+    return (gx.to(device), r_h.to(device), dy.to(device),
+            tuple(t.to(device) for t in dfin))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 40, 768, 4), (1, 33, 96, 2)])
+def test_slstm_scan_bwd_kernel_at_exact_ties_on_card(shape):
+    """At exact ties of ``max(lf + m, i)`` the backward kernel (factors
+    computed ahead of the sweep from the forward's saved values) takes
+    JAX's 1/2 : 1/2 share as the plain backward does: d_gx and d_r_h
+    within 1e-4 of their largest entry, equal bits twice."""
+    dev = _card()
+    gx, r_h, dy, dfin = _slstm_tie_inputs(shape, 9, dev)
+    saved = sl.residuals(gx)
+    out, _ = sl.slstm_scan(gx, r_h, saved)
+    lf = torch.nn.functional.logsigmoid(saved[0][:, 1:, shape[2]:2 * shape[2]])
+    assert torch.equal(lf + saved[3][:, :-1], saved[0][:, 1:, :shape[2]])
+    got = sl.slstm_scan_bwd(r_h, out, saved, dy, dfin)
+    again = sl.slstm_scan_bwd(r_h, out, saved, dy, dfin)
+    want = ref.slstm_bwd_ref(gx, r_h, dy, dfin)
+    torch.cuda.synchronize()
+    for g, b, w in zip(got, again, want):
+        assert torch.equal(g, b)
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
+@pytest.mark.parametrize("dh", [16, 32, 48, 78, 110, 156, 192, 196, 221, 225,
+                                256, 307])
+def test_slstm_bwd_plan_holds_every_r_h_entry_once(dh):
+    """The backward's slice layout (``bwd_plan``: block c, row r, slice s,
+    weight i = 4 m + g holds ``r_h[head][c * cb + r][g * dh + m * ks +
+    s]``) holds every entry of a head's r_h exactly once, within 448
+    threads a block and ``BWD_KMAX`` weights a lane (the fewest lanes a
+    row that allow that); a row's slices are adjacent lanes of one warp
+    (ks divides 32), and a row has a lane for every block to send to."""
+    C, cb, ks, kl = sl.bwd_plan(dh)
+    assert (C, cb) == sl.cluster_plan(dh)
+    assert ks in sl.BWD_SLICES and 32 % ks == 0 and kl % 4 == 0
+    assert -(-cb * ks // 32) * 32 <= sl.BWD_THREADS and kl <= sl.BWD_KMAX
+    assert ks == sl.BWD_SLICES[0] or 4 * -(-dh // (ks // 2)) > sl.BWD_KMAX
+    assert C <= ks
+    held = np.zeros((dh, 4 * dh), dtype=np.int64)
+    for c in range(C):
+        for r in range(cb):
+            if c * cb + r >= dh:
+                continue
+            for s in range(ks):
+                for i in range(kl):
+                    jj = (i // 4) * ks + s
+                    if jj < dh:
+                        held[c * cb + r, (i % 4) * dh + jj] += 1
+    assert (held == 1).all()
+
+
+def test_slstm_bwd_plan_refuses_head_past_max_before_device():
+    """A head past ``MAX_HEAD_DIM`` is refused by the plan and by the
+    backward's wrapper before its device check, with no launch counted."""
+    dh = sl.MAX_HEAD_DIM + 1
+    with pytest.raises(ValueError, match="head dim"):
+        sl.bwd_plan(dh)
+    gx = torch.zeros((1, 2, 4 * dh))
+    z = torch.zeros((1, 2, dh))
+    before = sl.slstm_scan_bwd.launches
+    with pytest.raises(ValueError, match=f"at most {sl.MAX_HEAD_DIM}"):
+        sl.slstm_scan_bwd(torch.zeros((1, dh, 4 * dh)), z,
+                          (gx, z, z, z), z, (z[:, 0],) * 4)
+    assert sl.slstm_scan_bwd.launches == before
+
+
+@pytest.mark.parametrize("S", [1, 7, 8, 9, 32, 33, 45, 77, 100, 4096])
+def test_mamba_bwd_sweep_covers_every_step_once(S):
+    """The backward's walk (``bwd_sweep``): every step of [0, S) once, in
+    descending order, a tile's sub-tiles of ``SUB`` steps last first, at
+    most ``TILE / SUB`` of them a tile."""
+    order = ms.bwd_sweep(S)
+    assert [t for _, _, steps in order for t in steps] == \
+        list(range(S - 1, -1, -1))
+    for k, u, steps in order:
+        assert 0 <= u < ms.TILE // ms.SUB and steps
+        assert all(k * ms.TILE + u * ms.SUB <= t < k * ms.TILE + (u + 1)
+                   * ms.SUB for t in steps)
+
+
+@pytest.mark.parametrize("N", [8, 16])
+def test_mamba_bwd_sum_lanes_store_every_sum_once(N):
+    """After the backward's reduce-scatter over a warp's channel groups
+    the storing lanes (``bwd_sum_lane``) hold every one of the warp's 2N
+    per-step sums of d_B and d_C exactly once."""
+    held = [ms.bwd_sum_lane(lane, N) for lane in range(32)]
+    stored = sorted(h for h in held if h is not None)
+    assert stored == sorted((w, n) for w in "bc" for n in range(N))
+    assert sum(h is None for h in held) == 32 - 2 * N
 
 
 def test_count_launch_loses_no_launch_across_threads():

@@ -15,6 +15,7 @@ The card's backward kernels are held against the plain backwards by the
 """
 import dataclasses
 import functools
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -155,6 +156,73 @@ def test_slstm_bwd_ref_matches_jax_vjp(shape):
                      jnp.asarray(r_h))
     want = vjp(jnp.asarray(dy))
     got = ref.slstm_bwd_ref(_t(gx), _t(r_h), _t(dy))
+    for g, w, name in zip(got, want, ("gx", "r_h")):
+        _close(g, w, name)
+
+
+def _slstm_tie_inputs(Bn, Sn, d, H, seed):
+    """sLSTM inputs at which JAX's 1/2 : 1/2 rule for ``max(lf + m, i)``
+    decides every step after the first: the i gate a constant 0.5, the f
+    gate 100 (log sigmoid(100) vanishes beside 0.5 in f32), and r_h's i
+    and f columns zero, so that lf + m_{t-1} == i from t = 1 on."""
+    gx, r_h = _slstm_inputs(Bn, Sn, d, H, seed)
+    dh = d // H
+    gx[..., :d], gx[..., d:2 * d] = 0.5, 100.0
+    r_h[..., :2 * dh] = 0.0
+    return gx, r_h
+
+
+def test_slstm_bwd_ref_matches_jax_vjp_at_exact_ties():
+    """At exact ties of the stabiliser's max (checked step by step on the
+    plain forward), d_gx and d_r_h == ``jax.vjp`` of
+    ``repro.kernels.ref.slstm_ref``: both take half of the max's cotangent
+    to each side."""
+    Bn, Sn, d, H = 2, 19, 16, 2
+    gx, r_h = _slstm_tie_inputs(Bn, Sn, d, H, 5)
+    gxt, rt = _t(gx), _t(r_h)
+    z = torch.zeros((Bn, d))
+    state = (z, z, z, torch.full_like(z, -1e9))
+    ties = []
+    for t in range(Sn):
+        gates = gxt[:, t] + ref.slstm_recurrent(state[0], rt)
+        it, ft = gates[:, :d], gates[:, d:2 * d]
+        ties.append(bool((torch.nn.functional.logsigmoid(ft) + state[3]
+                          == it).all()))
+        state = ref.slstm_step(gates, state)
+    assert ties == [False] + [True] * (Sn - 1)
+    dy = _x((Bn, Sn, d), 6)
+    _, vjp = jax.vjp(lambda g, r: jref.slstm_ref(g, r, H), jnp.asarray(gx),
+                     jnp.asarray(r_h))
+    want = vjp(jnp.asarray(dy))
+    got = ref.slstm_bwd_ref(gxt, rt, _t(dy))
+    for g, w, name in zip(got, want, ("gx", "r_h")):
+        _close(g, w, name)
+
+
+def test_slstm_bwd_ref_matches_jax_cell_vjp_at_ties_with_final_cotangents():
+    """At the same ties, with nonzero cotangents of the final (h, c, n, m):
+    the plain backward == ``jax.vjp`` of a ``lax.scan`` over the JAX
+    model's own cell (``xlstm._slstm_cell``).  Through the outputs alone
+    the stabiliser's cotangent cancels to rounding (h does not depend on
+    m), so it is the final m's cotangent that makes the 1/2 : 1/2 share
+    of the tied max count."""
+    Bn, Sn, d, H = 2, 19, 16, 2
+    gx, r_h = _slstm_tie_inputs(Bn, Sn, d, H, 7)
+    cfg = SimpleNamespace(num_heads=H, d_model=d)
+
+    def scan(g, r):
+        z = jnp.zeros((Bn, d), jnp.float32)
+        st = {"h": z, "c": z, "n": z, "m": jnp.full((Bn, d), -1e9)}
+        st, hs = jax.lax.scan(lambda s, x: jxl._slstm_cell({"r_h": r}, cfg,
+                                                            s, x)[::-1],
+                              st, g.swapaxes(0, 1))
+        return hs.swapaxes(0, 1), (st["h"], st["c"], st["n"], st["m"])
+
+    dy = _x((Bn, Sn, d), 8)
+    dfin = tuple(_x((Bn, d), 9 + i) for i in range(4))
+    _, vjp = jax.vjp(scan, jnp.asarray(gx), jnp.asarray(r_h))
+    want = vjp((jnp.asarray(dy), tuple(map(jnp.asarray, dfin))))
+    got = ref.slstm_bwd_ref(_t(gx), _t(r_h), _t(dy), tuple(map(_t, dfin)))
     for g, w, name in zip(got, want, ("gx", "r_h")):
         _close(g, w, name)
 
