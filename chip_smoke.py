@@ -147,7 +147,10 @@ and never prints the final ``ok`` line):
     the winner exported on the way), the ltfb CLI resuming phase 15's
     population for one more round without saving, and the train CLI with
     ``--batch 1 --seq 1024 --steps 3 --ckpt-every 2`` and a rerun that
-    resumes at step 2;
+    resumes at step 2; since the thirteenth slice also the serve CLI with
+    ``--layout dense`` on phase 15's population and the train CLI with
+    ``--optimizer adafactor`` (checkpoints in JAX's layout) and its
+    resuming rerun;
 19. arch_kernels (in the kernel phases, after phase 9): each kernel at
     the shapes the seven archs of the ninth slice give it, against its
     plain version and timed as in phase 3: paged attention in bf16 at
@@ -254,6 +257,28 @@ and never prints the final ``ok`` line):
     ms and the checkpoint seconds;
 29. a ``kernels`` line (``launches_by_path`` with one entry per new
     path and arch), the ``nvidia-smi`` line, and the ``ok`` line.
+30. serve_dense (run after phase 6): phase 5's trace (qwen3-0.6b FULL
+    bf16, 16 requests over 8 slots, prompts 128/256/512, 64 new) through
+    ``Scheduler(layout="dense")``, slot rows of 576 tokens: every logit
+    row finite, no paged-attention launch, the RMSNorm launches of every
+    prefill and decode step exact; prints tokens/s, TTFT and TPOT beside
+    phase 5's and one profiled decode step; then one 4,096-token prompt
+    and 32 new tokens on a one-slot pool, whose prefill launches flash
+    forward once a layer (28);
+31. recompute_dense (after phase 30), f32, TF32 off: qwen3-0.6b FULL (8
+    prompts of 128, 64 new) and xlstm-125m FULL (4 of 128): the dense
+    scheduler, the paged scheduler and ``Engine.generate`` over one
+    uniform batch of the same prompts give the same greedy tokens (the
+    schedulers' streams may part only at a top-2 tie within 1e-4; the
+    engine's, whose prefill is one batch, at a gap below twice the
+    logit difference this run measures between a batched and a one-row
+    prefill), and every dense token is the argmax of ``lm_forward``,
+    save ties within 1e-4;
+32. train_remat (after phase 7): the train cell (B = 4, S = 4096, Adam,
+    seed 0) for 4 steps under ``remat`` full, dots and dots_no_batch
+    from the same weights: first-step losses bit-equal, each step's
+    launches the train phase's, step ms (median of the last 3) and peak
+    memory per policy.
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and ``triton``; exits 1
 without a card and 2 when run outside a checkout of the repo.
@@ -848,7 +873,7 @@ def phase_serve(torch):
           "sample": results[0][:8].tolist(),
           "profiled_decode_step": _profile_decode(
               torch, sched, [r.prompt for r in reqs[:8]])})
-    return launches
+    return launches, {k: st[k] for k in SERVE_FIGURES}
 
 
 def _profile_decode(torch, sched, prompts, ranges=()):
@@ -2650,6 +2675,11 @@ def phase_clis(torch, workdir, surrogate_dir, lm, device="cuda",
         torch, serve.main, ["--arch", "qwen3-0.6b", "--ckpt-dir", lm["pop"],
                             "--requests", "4", "--device", device, *size],
         "[serve]", re.compile(r"([\d.]+) tok/s"))
+    runs["serve_lm_dense"] = _run_cli(
+        torch, serve.main, ["--arch", "qwen3-0.6b", "--ckpt-dir", lm["pop"],
+                            "--requests", "4", "--layout", "dense",
+                            "--device", device, *size],
+        "[serve]", re.compile(r"([\d.]+) tok/s"))
     runs["ltfb_lm"] = _run_cli(
         torch, lt.main, [*LM_LTFB_ARGS, *(LM_SMOKE if smoke else ()),
                          "--rounds", "1", "--ckpt-every", "0", "--device",
@@ -2665,10 +2695,18 @@ def phase_clis(torch, workdir, surrogate_dir, lm, device="cuda",
     runs["train_lm"] = _run_cli(torch, tl.main, train, "", number)
     runs["train_lm_resumed"] = _run_cli(torch, tl.main, train, "", number)
     shutil.rmtree(train_dir, ignore_errors=True)
+    adafactor = [*train, "--optimizer", "adafactor"]
+    runs["train_adafactor"] = _run_cli(torch, tl.main, adafactor, "",
+                                       number)
+    runs["train_adafactor_resumed"] = _run_cli(torch, tl.main, adafactor,
+                                               "", number)
+    shutil.rmtree(train_dir, ignore_errors=True)
     flags = {"serve_surrogate": "[serve] winner: step=",
              "serve_lm": "[serve] winner: step=2",
+             "serve_lm_dense": "layout=dense",
              "ltfb_lm": "[ltfb] resumed at round 2",
-             "train_lm_resumed": "[train] resumed from"}
+             "train_lm_resumed": "[train] resumed from",
+             "train_adafactor_resumed": "[train] resumed from"}
     for name, tag in flags.items():
         runs[name]["flag"] = any(tag in ln for ln in runs[name]["lines"])
     emit({"phase": "clis", **{n: {k: v for k, v in r.items()
@@ -3900,6 +3938,292 @@ def phase_serve_spec(torch, pop, device="cuda", smoke=False):
     return total, cases
 
 
+# ---------------------------------------------------------------------------
+# the thirteenth slice: dense slot rows, the batch engine, remat dots
+# ---------------------------------------------------------------------------
+
+# the end-to-end figures serve_dense prints beside the paged serve phase's
+SERVE_FIGURES = ("tokens_per_s", "ttft_p50_s", "ttft_p99_s", "tpot_mean_s",
+                 "wall_s", "decode_steps")
+# serve_dense: the serve phase's traffic over dense rows (max_len 576),
+# then one long prompt on a one-slot pool (flash in its prefill)
+DENSE_TRAFFIC = dict(n_req=16, prompt_lens=[128, 256, 512], max_new=64,
+                     slots=8)
+DENSE_LONG = dict(n_req=1, prompt_lens=[4096], max_new=32, slots=1)
+DENSE_SMOKE_TRAFFIC = dict(n_req=6, prompt_lens=[8, 20], max_new=6,
+                           slots=4)
+# recompute_dense: uniform prompts (the engine takes one uniform batch)
+DENSE_F32 = (("qwen3-0.6b", 8, 128, 64), ("xlstm-125m", 4, 128, 64))
+DENSE_F32_SMOKE = (("qwen3-0.6b", 4, 12, 8), ("xlstm-125m", 2, 12, 8))
+# train_remat: the train cell's batch, 4 steps a policy from one seed
+# (the step time is the median of the last 3: one warm step alone varied
+# by 20% between two runs)
+REMAT_POLICIES = ("full", "dots", "dots_no_batch")
+REMAT_STEPS = 4
+
+
+def _dense_serve(torch, cfg, model, traffic, device):
+    """Serve ``traffic`` over dense slot rows (max_len = the longest
+    prompt + max_new): every logit row finite, the paged-attention,
+    flash-forward and RMSNorm counters set to 0 just before the run and
+    read just after.  Returns (scheduler, requests, results, stats,
+    launches, logit rows checked)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.launch.serve import build_requests
+    from repro_torch.serve.scheduler import Scheduler
+
+    lens, max_new = traffic["prompt_lens"], traffic["max_new"]
+    sched = Scheduler(cfg, model, num_slots=traffic["slots"], block_size=16,
+                      max_len=max(lens) + max_new, layout="dense",
+                      device=device)
+    rows = [0]
+    _check_finite(torch, sched.session, rows)
+    reqs = build_requests(cfg, traffic["n_req"], lens, max_new, seed=0)
+    for r in reqs:
+        sched.submit(r)
+    counters = {"paged_attention": pa.paged_attention,
+                "flash_attention_fwd": fa.flash_attention_fwd,
+                "rmsnorm": rn.rmsnorm}
+    _sync(torch, device)
+    _reset_peak(torch, device)
+    for fn in counters.values():
+        fn.launches = 0
+    results = sched.run()
+    launches = {n: fn.launches for n, fn in counters.items()}
+    st = sched.stats.as_dict()
+    check(st["completed"] == len(reqs) and all(
+        len(results[r.rid]) == max_new for r in reqs),
+        f"serve_dense: {st['completed']} of {len(reqs)} requests completed "
+        "in full")
+    return sched, reqs, results, st, launches, rows[0]
+
+
+def _profile_dense_decode(torch, sched, prompts):
+    """After a dense run (every slot free): each slot prefilled with one
+    of ``prompts`` (padded to its bucket), then one decode step over all
+    of them under torch.profiler."""
+    import numpy as np
+
+    pool, session = sched.pool, sched.session
+    index = np.zeros((pool.num_slots,), np.int32)
+    rids = [f"profiled{i}" for i in range(len(prompts))]
+    for rid, prompt in zip(rids, prompts):
+        pool.admit(rid, len(prompt) + 1)
+        session.prefill(rid, prompt, bucket=sched._bucket(len(prompt)))
+        index[pool.slot_of(rid)] = len(prompt)
+    tokens = np.zeros((pool.num_slots, 1), np.int32)
+    out = _profile(torch, lambda: session.step(tokens, index))
+    for rid in rids:
+        pool.release(rid)
+    return out
+
+
+def phase_serve_dense(torch, paged=None, device="cuda", smoke=False):
+    """serve_dense: the serve phase's trace (qwen3-0.6b FULL bf16, seed 0)
+    over dense slot rows: no paged-attention launch, the RMSNorm launches
+    of every prefill and decode step exact, its tokens/s, TTFT and TPOT
+    printed beside the paged phase's (``paged``); one decode step
+    profiled; then one 4,096-token prompt on a one-slot pool, whose
+    prefill runs flash attention, one forward launch a layer."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.lm import init_lm
+
+    cfg = get_config("qwen3-0.6b", smoke=smoke)
+    model = init_lm(cfg, seed=0, device=device)
+    norms = _norms_per_forward(cfg)
+    traffic = DENSE_SMOKE_TRAFFIC if smoke else DENSE_TRAFFIC
+    sched, reqs, results, st, launches, rows = _dense_serve(
+        torch, cfg, model, traffic, device)
+    calls = st["prefills"] + st["decode_steps"]
+    check(launches["paged_attention"] == 0,
+          f"serve_dense launched paged attention {launches}")
+    _launch_check(torch, device, {"rmsnorm": launches["rmsnorm"]},
+                  {"rmsnorm": norms * calls}, "serve_dense")
+    check(launches["flash_attention_fwd"] == 0,
+          f"serve_dense: flash below 4,096 tokens {launches}")
+    peak = _peak_gib(torch, device)
+    profiled = _profile_dense_decode(
+        torch, sched, [r.prompt for r in reqs[:traffic["slots"]]])
+    del sched
+    _release(torch, device)
+    long_sched, _, long_res, long_st, long_launches, long_rows = \
+        _dense_serve(torch, cfg, model, DENSE_LONG, device)
+    long_calls = long_st["prefills"] + long_st["decode_steps"]
+    check(long_launches["paged_attention"] == 0,
+          f"serve_dense long: paged attention {long_launches}")
+    _launch_check(torch, device,
+                  {k: long_launches[k] for k in ("flash_attention_fwd",
+                                                 "rmsnorm")},
+                  {"flash_attention_fwd": cfg.num_layers,
+                   "rmsnorm": norms * long_calls}, "serve_dense long")
+    emit({"phase": "serve_dense", "arch": cfg.name, "dtype": cfg.dtype,
+          "layout": "dense", **{k: traffic[k] for k in traffic},
+          "max_len": max(traffic["prompt_lens"]) + traffic["max_new"],
+          "completed": st["completed"],
+          **{k: st[k] for k in SERVE_FIGURES},
+          "prefills": st["prefills"],
+          "padded_prefill_tokens": st["padded_prefill_tokens"],
+          "paged_serve": paged, "logit_rows_checked": rows,
+          "launches": launches, "peak_mem_gib": peak,
+          "sample": results[0][:8].tolist(),
+          "profiled_decode_step": profiled,
+          "long": {**DENSE_LONG, "ttft_s": long_st["ttft_p50_s"],
+                   "tpot_mean_s": long_st["tpot_mean_s"],
+                   "wall_s": long_st["wall_s"],
+                   "launches": long_launches,
+                   "logit_rows_checked": long_rows,
+                   "peak_mem_gib": _peak_gib(torch, device),
+                   "sample": long_res[0][:8].tolist()}})
+    del long_sched, model
+    _release(torch, device)
+    return {n: launches[n] + long_launches[n] for n in launches}
+
+
+def _batch_floor(torch, model, prompts, device) -> float:
+    """The largest |difference| between the last-position prefill logits
+    of ``prompts`` as one batch (the engine's prefill) and one row at a
+    time (the schedulers'): f32 rounding that differs with the batch's
+    shape, amplified by the stack's depth."""
+    import numpy as np
+
+    from repro_torch.models.lm import lm_prefill_dense
+
+    toks = torch.from_numpy(np.stack(prompts)).long().to(device)
+    with torch.no_grad():
+        batched = lm_prefill_dense(model, toks)[0][:, -1]
+        single = torch.cat([lm_prefill_dense(model, toks[i:i + 1])[0][:, -1]
+                            for i in range(len(prompts))])
+    return float((batched - single).abs().max())
+
+
+@exact_f32
+def phase_recompute_dense(torch, device="cuda", smoke=False):
+    """recompute_dense, in f32 (TF32 off): for qwen3-0.6b and xlstm-125m
+    at full width, the dense scheduler, the paged scheduler and
+    ``Engine.generate`` over one uniform batch of the same prompts give
+    the same greedy tokens, and every token served on dense rows is the
+    argmax of ``lm_forward`` over the served sequence, save top-2 ties
+    within 1e-4.  The dense and paged streams may part only at such a
+    tie; the engine's, which prefills the prompts as one batch where the
+    schedulers prefill one row at a time, only at a top-2 gap below
+    twice the batch floor :func:`_batch_floor` measures in this run
+    (never below 1e-4).  Every parting is counted."""
+    import numpy as np
+
+    from repro_torch.configs.base import replace
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import build_requests
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.scheduler import Scheduler
+
+    out = {"phase": "recompute_dense", "dtype": "float32",
+           "allow_tf32": False}
+    for arch, n, P, new in (DENSE_F32_SMOKE if smoke else DENSE_F32):
+        cfg = replace(get_config(arch, smoke=smoke), dtype="float32")
+        model = init_lm(cfg, seed=1, device=device)
+        reqs = build_requests(cfg, n, [P], new, seed=1)
+        runs, gaps = {}, {}
+        for layout in ("paged", "dense"):
+            sched = Scheduler(cfg, model, num_slots=n, block_size=16,
+                              max_len=P + new, layout=layout, device=device)
+            _record_gaps(sched, gaps.setdefault(layout, {}))
+            for r in reqs:
+                sched.submit(r)
+            runs[layout] = {rid: v.tolist()
+                            for rid, v in sched.run().items()}
+            if layout == "dense":
+                checked, ties, mismatches = _recompute_check(
+                    torch, model, sched, reqs, new)
+            del sched
+        t0 = time.perf_counter()
+        gen = Engine(cfg, model, max_len=P + new).generate(
+            np.stack([r.prompt for r in reqs]), new)
+        engine_s = time.perf_counter() - t0
+        runs["engine"] = {r.rid: gen[i, P:].tolist()
+                          for i, r in enumerate(reqs)}
+        floor = _batch_floor(torch, model, [r.prompt for r in reqs], device)
+        engine_tie = max(SPEC_TIE["float32"], 2 * floor)
+        partings = {
+            "dense_vs_paged": _partings(runs["paged"], runs["dense"],
+                                        gaps["paged"], SPEC_TIE["float32"]),
+            "engine_vs_dense": _partings(runs["dense"], runs["engine"],
+                                         gaps["dense"], engine_tie)}
+        out[arch] = {"requests": n, "prompt_len": P, "max_new": new,
+                     "positions": checked, "tie_count": len(ties),
+                     "mismatches": mismatches, "partings": partings,
+                     "batch_floor": floor, "engine_tie": engine_tie,
+                     "engine_s": engine_s,
+                     "identical": all(not p for p in partings.values())}
+        check(not mismatches, f"recompute_dense {arch}: served tokens "
+              f"differ from lm_forward at {mismatches[:3]}")
+        for what, parts in partings.items():
+            check(all(p["tie"] for p in parts), f"recompute_dense {arch}: "
+                  f"{what} part off a tie: {parts}")
+        del model, gen
+        _release(torch, device)
+    emit(out)
+
+
+def phase_train_remat(torch, device="cuda", smoke=False):
+    """train_remat: the train cell (qwen3-0.6b FULL bf16, B = 4, S =
+    4096, Adam, seed 0) for ``REMAT_STEPS`` steps under each of
+    ``REMAT_POLICIES`` from the same weights: the first-step losses
+    bit-equal, the launches of every step the train phase's, each
+    policy's step ms (median of the steps after the first) and peak
+    memory printed.  ``dots`` keeps every block's matmul outputs (and recomputes
+    no product), so its peak should sit above ``full``'s."""
+    from repro_torch.launch import train as tl
+
+    size = ["--smoke", "--device", "cpu"] if smoke else []
+    B, S = (2, 64) if smoke else (TRAIN_B, TRAIN_S)
+    runs, launches = {}, {}
+    for remat in REMAT_POLICIES:
+        tr = tl.build_trainer(tl.build_parser().parse_args([
+            "--arch", "qwen3-0.6b", "--steps", str(REMAT_STEPS), "--batch",
+            str(B), "--seq", str(S), "--lr", "1e-3", "--optimizer", "adam",
+            "--remat", remat, "--seed", "0", *size]))
+        batches = [tl.device_batch(tr.cfg, B, S, i, tr.device)
+                   for i in range(REMAT_STEPS)]
+        counters = _train_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        _sync(torch, device)
+        _reset_peak(torch, device)
+        losses, step_s, per_step = [], [], []
+        for batch in batches:
+            before = {n: fn.launches for n, fn in counters.items()}
+            t0 = time.perf_counter()
+            _, m = tr.step(tr.state, batch)
+            _sync(torch, device)
+            step_s.append(time.perf_counter() - t0)
+            per_step.append({n: fn.launches - before[n]
+                             for n, fn in counters.items()})
+            losses.append(float(m["loss"]))
+        check(all(map(math.isfinite, losses)),
+              f"train_remat {remat}: losses {losses}")
+        for got in per_step:
+            _launch_check(torch, device, got, TRAIN_PER_STEP,
+                          f"train_remat {remat}")
+        runs[remat] = {"losses": losses, "step_s": step_s,
+                       "step_ms": statistics.median(step_s[1:]) * 1e3,
+                       "peak_mem_gib": _peak_gib(torch, device),
+                       "launches_per_step": per_step[-1]}
+        for n, fn in counters.items():
+            launches[n] = launches.get(n, 0) + fn.launches
+        del tr, batches
+        _release(torch, device)
+    first = {r: runs[r]["losses"][0] for r in REMAT_POLICIES}
+    emit({"phase": "train_remat", "arch": "qwen3-0.6b", "batch": B,
+          "seq": S, "steps": REMAT_STEPS, "runs": runs,
+          "first_losses_equal": len(set(first.values())) == 1})
+    check(len(set(first.values())) == 1,
+          f"train_remat: first-step losses differ across policies {first}")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repo (src/repro_torch "
@@ -3930,11 +4254,17 @@ def main() -> int:
             cases.setdefault(name, []).extend(rows)
     del timer
     release(torch)
-    serve_launches = phase_serve(torch)
+    serve_launches, serve_figures = phase_serve(torch)
     release(torch)
     phase_recompute(torch)
     release(torch)
+    dense_launches = phase_serve_dense(torch, serve_figures)
+    release(torch)
+    phase_recompute_dense(torch)
+    release(torch)
     train_launches, _ = phase_train(torch)
+    release(torch)
+    remat_launches = phase_train_remat(torch)
     release(torch)
     phase_train_parity(torch)
     release(torch)
@@ -3997,7 +4327,8 @@ def main() -> int:
         "slstm_scan": lambda c: (c["B"], c["S"]) == (1, 500),
         "mamba_scan_bwd": lambda c: (c["B"], c["S"]) == (2, 4096),
         "slstm_scan_bwd": lambda c: (c["B"], c["S"]) == (4, 4096)}
-    by_path = {"serve": serve_launches, "train": train_launches,
+    by_path = {"serve": serve_launches, "serve_dense": dense_launches,
+               "train": train_launches, "train_remat": remat_launches,
                **recurrent_launches, "ltfb_lm": lm_launches,
                "serve_swap": swap_launches, "serve_spec": spec_launches,
                **arch_launches}

@@ -29,10 +29,11 @@ router and expert stacks, which the port keeps as JAX does) keep JAX's
 layout.
 
 :func:`opt_state_from_jax` carries an optimizer state of
-``repro.optim.optimizers`` the same way.  :func:`params_to_jax_layout` and
-:func:`opt_state_to_jax_layout` go back: the port's per-layer tensors
-stacked into JAX's periods, as CPU tensors (bf16 has no numpy dtype; the
-checkpoint stores its bits), so that an LM checkpoint either package
+``repro.optim.optimizers`` the same way (Adam, AdamW, SGD and Adafactor).
+:func:`params_to_jax_layout` and :func:`opt_state_to_jax_layout` go back:
+the port's per-layer tensors stacked into JAX's periods (Adafactor's
+grouped factors to their leaves), as CPU tensors (bf16 has no numpy dtype;
+the checkpoint stores its bits), so that an LM checkpoint either package
 writes restores in the other.
 
 The CycleGAN (``repro.models.icf_cyclegan``) keeps each MLP stack as
@@ -241,17 +242,54 @@ def params_to_jax_layout(model_or_params, cfg: ModelConfig) -> dict:
     return tree
 
 
+def _group_path(key: str, cfg: ModelConfig) -> Tuple[Optional[int], str]:
+    """(position j of JAX's ``body[j]``, -1 for ``prefix``, None outside
+    the blocks; port name within the layer) of a group key of
+    :func:`repro_torch.models.lm.group_key`: :func:`group_key` inverted."""
+    if not key.startswith("blocks["):
+        return None, key
+    span, rest = key[len("blocks["):].split("].", 1)
+    k0, R, _ = grouping(cfg)
+    start = int(span.split(":")[0])
+    return (-1 if span == f"0:{k0}" else start - k0), rest
+
+
 def opt_state_to_jax_layout(opt_state, cfg: ModelConfig) -> dict:
     """JAX's optimizer state from the port's: Adam/AdamW ``m``/``v`` and
     SGD ``mom`` stacked like the weights (:func:`params_to_jax_layout`),
-    ``step`` a 0-dim int32 array.  Adafactor's factored state raises."""
-    if "vr" in opt_state:
-        raise NotImplementedError(
-            "Adafactor's factored state does not cross to the JAX "
-            "checkpoint layout yet (Adam, AdamW and SGD state do); see "
-            "ROADMAP.md queue A14")
+    ``step`` a 0-dim int32 array.
+
+    Adafactor's ``vr``/``vc`` (:func:`opt_state_from_jax` inverted): each
+    group key goes back to its leaf, ``prefix`` or ``body[j]`` (the group
+    is already stacked over its layers, as JAX's leaf is) or a top-level
+    weight, and for a transposed dense weight the port's row factor is
+    JAX's column factor and the other way round.  An unfactored leaf
+    keeps its ``vc`` pad slot of shape (1,), as ``make_adafactor``
+    initialises it.  Leaves are contiguous CPU tensors.
+    """
     out = {k: params_to_jax_layout(opt_state[k], cfg)
            for k in _PARAM_SHAPED if k in opt_state}
+    if "vr" in opt_state:
+        k0, R, _ = grouping(cfg)
+        out["vr"], out["vc"] = {}, {}
+        body = {"vr": [dict() for _ in range(R)],
+                "vc": [dict() for _ in range(R)]}
+        prefix: Dict[str, dict] = {"vr": {}, "vc": {}}
+        for key, vr in opt_state["vr"].items():
+            j, name = _group_path(key, cfg)
+            path, transpose = _jax_path(name)
+            pair = {"vr": vr, "vc": opt_state["vc"][key]}
+            if transpose:
+                pair = {"vr": pair["vc"], "vc": pair["vr"]}
+            for which, leaf in pair.items():
+                tree = out[which] if j is None else \
+                    prefix[which] if j < 0 else body[which][j]
+                _put(tree, path, _host(leaf).clone(
+                    memory_format=torch.contiguous_format))
+        for which in ("vr", "vc"):
+            if k0:
+                out[which]["prefix"] = prefix[which]
+            out[which]["body"] = tuple(body[which])
     out["step"] = np.asarray(_np(opt_state["step"]), np.int32)
     return out
 

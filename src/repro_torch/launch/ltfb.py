@@ -21,9 +21,11 @@ hold the JAX package's layout, so either package resumes the other's.
 LM tournaments run over every token arch (the recurrent ones, MoE and
 audio included).  Not ported yet: LM tournaments over qwen2-vl-7b, whose
 token shards hold no embeddings (A15; the JAX launcher fails on them
-too), Adafactor's state in a checkpoint (A14), ``--backend mesh`` and
-``--quantize-exchange`` (A6), ``--log-json``, ``--trace-out``,
-``--prom-out``, ``--metrics-port`` and ``--genealogy`` (A5).
+too), ``--backend mesh`` and ``--quantize-exchange`` (A6),
+``--log-json``, ``--trace-out``, ``--prom-out``, ``--metrics-port`` and
+``--genealogy`` (A5).  ``--optimizer adafactor`` trains and checkpoints
+every LM arch; the CycleGAN's checkpoint layout carries Adam and SGD
+state only, so it refuses Adafactor there.
 """
 from __future__ import annotations
 
@@ -65,11 +67,11 @@ def check_ported(args) -> None:
             "a vlm backbone takes patch embeddings and (3, B, S) M-RoPE "
             "positions the shards do not hold (the JAX launcher fails on "
             "them in apply_mrope); see ROADMAP.md queue A15")
-    if args.optimizer == "adafactor":
+    if args.optimizer == "adafactor" and cfg is None:
         raise NotImplementedError(
-            "--optimizer adafactor: Adafactor's factored state does not "
-            "cross to the JAX checkpoint layout a population is saved in; "
-            "see ROADMAP.md queue A14")
+            "--optimizer adafactor with --arch icf-cyclegan: the CycleGAN "
+            "checkpoint layout carries Adam and SGD state only (JAX keys "
+            "Adafactor's factors there by leaf, not by weight)")
     if args.backend == "mesh":
         raise NotImplementedError(
             "--backend mesh is not ported to repro_torch yet; see "
@@ -221,7 +223,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--optimizer", default="adam",
                     choices=("adam", "adamw", "adafactor", "sgd"),
-                    help="adafactor: not ported here (ROADMAP A14)")
+                    help="adafactor: LM archs only")
     ap.add_argument("--data-dir", default=None,
                     help="bundle manifest dir (default: fresh tempdir)")
     ap.add_argument("--ckpt-dir", default=None)

@@ -4,7 +4,9 @@ trace through the scheduler, or the CycleGAN surrogate's queries.
 Two workloads, on the CUDA card unless ``--device cpu`` is given:
 
 * ``lm``: a mixed-length request trace (prompts from the synthetic token
-  stream) through the continuous-batching paged scheduler;
+  stream) through the continuous-batching scheduler, over the paged KV
+  pool or, with ``--layout dense``, over dense slot rows (``--pin-prefix``
+  keeps registered prompt pages resident on the paged pool);
 * ``surrogate`` (the default for ``--arch icf-cyclegan``): ``--queries``
   batches of ``--query-batch`` JAG input rows through the micro-batching
   :class:`~repro_torch.serve.surrogate.SurrogateEngine`, in f32.
@@ -22,6 +24,7 @@ that the served model verifies, with the same output as serving alone;
 
   python -m repro_torch.launch.serve --arch qwen3-0.6b
   python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke --device cpu
+  python -m repro_torch.launch.serve --arch qwen3-0.6b --layout dense
   python -m repro_torch.launch.serve --arch icf-cyclegan --ckpt-dir POP
   python -m repro_torch.launch.serve --arch qwen3-0.6b --ckpt-dir POP \
       --watch-every 2 --swap-mode drain
@@ -151,9 +154,10 @@ def run_lm(args) -> Dict[str, object]:
     sched = Scheduler(
         cfg, model, num_slots=args.slots, max_len=max_len,
         block_size=args.block_size, num_blocks=args.num_blocks,
-        max_seq=args.max_seq, policy=args.policy,
+        max_seq=args.max_seq, layout=args.layout, policy=args.policy,
         prefill_chunk=args.prefill_chunk,
         prefix_sharing=not args.no_prefix_sharing,
+        pin_prefix=args.pin_prefix,
         max_prefills_per_step=args.prefill_per_step, registry=registry,
         watch_every=args.watch_every, swap_mode=args.swap_mode,
         draft_params=draft_model, spec_tokens=args.spec_tokens,
@@ -163,6 +167,7 @@ def run_lm(args) -> Dict[str, object]:
                           args.max_new, eos_id=args.eos_id,
                           temperature=args.temperature, seed=args.seed)
     print(f"[serve] arch={cfg.name} dtype={cfg.dtype} device={device} "
+          f"layout={args.layout} "
           f"policy={args.policy} slots={args.slots} max_len={max_len} "
           f"max_seq={sched.max_seq} block_size={args.block_size} "
           f"prefill_chunk={args.prefill_chunk} "
@@ -180,9 +185,11 @@ def run_lm(args) -> Dict[str, object]:
           f"blocks_used_high_water={pd['high_water_blocks']}/"
           f"{pd['num_blocks']} block_allocs={pd['block_allocs']} "
           f"block_frees={pd['block_frees']}")
-    print(f"[serve] prefix-cache: hits={pd['prefix_hits']} "
-          f"shared_tokens={pd['prefix_shared_tokens']} "
-          f"prefill_chunks={sched.stats.prefill_chunks}")
+    if args.layout == "paged":
+        print(f"[serve] prefix-cache: hits={pd['prefix_hits']} "
+              f"shared_tokens={pd['prefix_shared_tokens']} "
+              f"pinned={pd['pinned_blocks']} "
+              f"prefill_chunks={sched.stats.prefill_chunks}")
     if args.spec_adapt and sched.spec_k_by_rid:
         ks = sched.spec_k_by_rid
         print(f"[serve] spec-adapt per-row K (final): "
@@ -303,7 +310,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--num-blocks", type=int, default=None,
                     help="page-pool size (default: slots*max_len worth)")
     ap.add_argument("--max-seq", type=int, default=None,
-                    help="per-request length cap (default max_len)")
+                    help="per-request length cap (paged layout; default "
+                         "max_len)")
+    ap.add_argument("--layout", default="paged",
+                    choices=("paged", "dense"),
+                    help="paged: scattered KV pages + the paged-attention "
+                         "kernel; dense: contiguous slot rows of max_len "
+                         "(the baseline)")
     ap.add_argument("--policy", default="continuous",
                     choices=("continuous", "static"))
     ap.add_argument("--prefill-chunk", type=int, default=0,
@@ -311,6 +324,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "with decode (0 = one pow2-bucketed shot)")
     ap.add_argument("--no-prefix-sharing", action="store_true",
                     help="disable copy-on-admit prompt prefix sharing")
+    ap.add_argument("--pin-prefix", action="store_true",
+                    help="keep registered prompt-prefix pages resident "
+                         "across idle periods (paged layout; reclaimed "
+                         "oldest-first under pool pressure)")
     ap.add_argument("--prefill-per-step", type=int, default=1)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)

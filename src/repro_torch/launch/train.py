@@ -34,11 +34,10 @@ The LM path checkpoints as the JAX launcher does: every ``--ckpt-every``
 steps (step 0 excepted) ``<ckpt-dir>/step_<i>.ckpt`` is written in the
 background (``ckpt.AsyncCheckpointer``) in JAX's state layout
 (``{"params", "opt_state"}``, weights stacked into periods by
-:func:`repro_torch.bridge.params_to_jax_layout`, metadata ``{"step": i}``),
-and a rerun resumes from the newest one at its step unless
-``--no-resume``; either package resumes the other's files.
-
-Not ported yet: Adafactor's state in a checkpoint (ROADMAP.md queue A14).
+:func:`repro_torch.bridge.params_to_jax_layout`, Adam's, SGD's or
+Adafactor's state by :func:`repro_torch.bridge.opt_state_to_jax_layout`,
+metadata ``{"step": i}``), and a rerun resumes from the newest one at its
+step unless ``--no-resume``; either package resumes the other's files.
 """
 from __future__ import annotations
 
@@ -124,11 +123,6 @@ def restore_trainer(tr: Trainer, path: str) -> int:
     return int(meta.get("step", 0))
 
 
-def _saves(args) -> bool:
-    every = args.ckpt_every
-    return bool(every) and any(i % every == 0 for i in range(1, args.steps))
-
-
 def train_lm(args) -> Dict[str, object]:
     """Run ``--steps`` steps (from the newest checkpoint's step when one
     is found and ``--no-resume`` is not given), printing the JAX
@@ -138,11 +132,6 @@ def train_lm(args) -> Dict[str, object]:
     tr = build_trainer(args)
     latest: Optional[str] = None if args.no_resume \
         else ckpt.latest_step_path(args.ckpt_dir)
-    if args.optimizer == "adafactor" and (latest or _saves(args)):
-        raise NotImplementedError(
-            "--optimizer adafactor with checkpoints: Adafactor's factored "
-            "state does not cross to the JAX checkpoint layout yet; see "
-            "ROADMAP.md queue A14 (or pass --ckpt-every 0 --no-resume)")
     n_params = sum(p.numel() for p in tr.state["model"].parameters())
     print(f"[train] arch={tr.cfg.name} params={n_params / 1e6:.1f}M "
           f"active={tr.cfg.param_count(active_only=True) / 1e6:.1f}M "
@@ -241,7 +230,9 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=("adam", "adamw", "adafactor", "sgd"))
     ap.add_argument("--remat", default="full",
                     choices=("none", "full", "dots", "dots_no_batch"),
-                    help="per-block rematerialization (dots* not ported)")
+                    help="per-block rematerialization: full keeps only "
+                         "each block's input, dots also every matmul "
+                         "output, dots_no_batch those without batch dims")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir",
                     default=os.path.join(tempfile.gettempdir(),

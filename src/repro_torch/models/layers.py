@@ -6,7 +6,9 @@ M-RoPE (as cos/sin tables, so attention keeps one rotation), the GQA attention
 projections with qk-norm, paged decode/verify attention (through
 :func:`repro_torch.kernels.ops.paged_attention`), chunked-prefill
 attention over the gathered pages (plain PyTorch, as in JAX), the
-exact-length one-shot prefill of a whole prompt into its pages, causal
+exact-length one-shot prefill of a whole prompt into its pages, the dense
+slot rows with their batch prefill and decode (plain PyTorch products
+over the rows, as JAX computes them outside any Pallas kernel), causal
 attention for the full forward (dense below S = 4096, flash attention
 through :func:`repro_torch.kernels.ops.flash_attention` from there, as
 ``repro.models.layers.causal_attention`` dispatches), the SwiGLU MLP and
@@ -15,13 +17,15 @@ indexing, as the JAX package computes it outside any Pallas kernel).
 
 Layouts follow the JAX package at every public function: activations
 ``(B, S, d)``, heads ``(B, S, H, D)``, KV pools ``(P+1, bs, Hkv, D)``
-whose last page is the null page.  Weights live in ``nn.Linear`` modules,
+whose last page is the null page, dense rows ``(B, max_len, Hkv, D)``.
+Weights live in ``nn.Linear`` modules,
 stored ``(d_out, d_in)`` (JAX keeps ``(d_in, d_out)``; the bridge
 transposes).
 
 Unlike the JAX package, which returns a new pool from every step (the
-update is functional and the old pool donated), the paged functions here
-write the new K/V into the pools **in place** with indexed assignment.
+update is functional and the old pool donated), the paged and dense decode
+functions here write the new K/V into the pools and rows **in place** with
+indexed assignment.
 """
 from __future__ import annotations
 
@@ -299,6 +303,114 @@ def chunk_write(hist_len: int, prompt_len: int, C: int, tables: torch.Tensor,
     kv_pos = torch.arange(W * block_size, device=dev)
     return PagedWrite(page, abs_pos % block_size, tables,
                       mask=kv_pos[None, :] <= abs_pos[:, None])
+
+
+def init_attention_cache(cfg: ModelConfig, batch: int, max_len: int,
+                         device: torch.device,
+                         dtype: torch.dtype = None) -> Cache:
+    """One layer's dense KV rows (``repro.models.layers.
+    init_attention_cache``): ``k``/``v`` of ``(batch, max_len, Hkv, D)``,
+    row b the whole cache of the request in slot b."""
+    dt = dtype or torch_dtype(cfg)
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+class DenseWrite(NamedTuple):
+    """Where one dense decode/verify call writes its new K/V and what each
+    query reaches, computed once per model call and shared by every
+    layer: flattened ``(B*K,)`` ``rows`` and target positions ``pos``,
+    ``keep`` (false for a write at or past ``max_len``, which JAX's
+    ``mode="drop"`` scatter drops) and ``reach`` (B, K), the last position
+    token t of row b attends to (``index[b] + t``)."""
+
+    rows: torch.Tensor
+    pos: torch.Tensor
+    keep: torch.Tensor
+    reach: torch.Tensor
+
+
+def dense_write(index: torch.Tensor, K: int, max_len: int) -> DenseWrite:
+    """Targets of a K-token step over dense rows (``attention_decode``).
+
+    index: (B,) write position of each row's first token.  A write at
+    ``index[b] + t >= max_len`` must be dropped; indexing past the row
+    would raise (a device assert on the card), and a host check of the
+    mask would stall the step.  Such a write is aimed instead at
+    ``index[b] - 1``, a position no token of this call writes, with that
+    position's own value (:func:`_write_rows` reads it first), so every
+    duplicate target receives the same bits.  (K <= max_len keeps
+    ``index[b] >= 1`` for a row that drops.)
+    """
+    B = index.shape[0]
+    if K > max_len:
+        raise ValueError(f"{K} tokens a row do not fit rows of {max_len}")
+    ar = torch.arange(K, device=index.device)
+    reach = index[:, None] + ar[None, :]                     # (B, K)
+    keep = reach < max_len
+    pos = torch.where(keep, reach, (index - 1).clamp(min=0)[:, None])
+    rows = torch.arange(B, device=index.device)[:, None].expand(B, K)
+    return DenseWrite(rows.reshape(-1), pos.reshape(-1), keep.reshape(-1),
+                      reach)
+
+
+def _write_rows(cache: Cache, k_new: torch.Tensor, v_new: torch.Tensor,
+                w: DenseWrite) -> None:
+    """Write rows of (Hkv, D) into the dense cache in place; a dropped
+    write puts back the value its target holds."""
+    Hkv, D = k_new.shape[-2:]
+    keep = w.keep[:, None, None]
+    for name, new in (("k", k_new), ("v", v_new)):
+        leaf = cache[name]
+        new = new.reshape(-1, Hkv, D).to(leaf.dtype)
+        leaf[w.rows, w.pos] = torch.where(keep, new, leaf[w.rows, w.pos])
+
+
+def attention_prefill(attn: Attention, x: torch.Tensor, cos: torch.Tensor,
+                      sin: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+    """Causal attention over a whole (right-padded) prompt batch that
+    also returns its K/V (``repro.models.layers.attention_prefill``): x
+    (B, S, d) -> (out (B, S, d), {"k", "v"} of (B, S, Hkv, D)), through
+    the config's ``attn_impl`` dispatch (dense below S = 4096, the flash
+    kernel from there)."""
+    B, S, _ = x.shape
+    cfg = attn.cfg
+    q, k, v = attn.project_qkv(x, cos, sin)
+    out = causal_attention(q, k, v, impl=cfg.attn_impl,
+                           k_chunk=cfg.attn_chunk)
+    return attn.wo(out.reshape(B, S, cfg.q_dim)), {"k": k, "v": v}
+
+
+def attention_decode(attn: Attention, x: torch.Tensor, cache: Cache,
+                     cos: torch.Tensor, sin: torch.Tensor,
+                     w: DenseWrite) -> torch.Tensor:
+    """K-token decode/verify over dense rows
+    (``repro.models.layers.attention_decode``), plain PyTorch as in JAX.
+
+    x: (B, K, d).  Token t of row b is written at ``index[b] + t`` (or
+    dropped past ``max_len``), then attends over the whole row under the
+    mask ``pos <= index[b] + t``.  Scores are f32, as JAX's
+    ``preferred_element_type=f32`` product: q and K are cast up before
+    the product (exact for bf16), not multiplied in bf16 and rounded.
+    The softmax weights are cast back to V's dtype for the second
+    product, as in JAX.  Returns the attention output (B, K, d).
+    """
+    B, K, _ = x.shape
+    cfg = attn.cfg
+    q, k_new, v_new = attn.project_qkv(x, cos, sin)
+    _write_rows(cache, k_new, v_new, w)
+    k, v = cache["k"], cache["v"]
+    S_max, Hkv, D = k.shape[1:]
+    qh = q.reshape(B, K, Hkv, cfg.num_heads // Hkv, D)
+    scores = torch.einsum("bthgd,bkhd->bthgk", qh.float(),
+                          k.float()) / math.sqrt(D)
+    pos = torch.arange(S_max, device=x.device)
+    valid = pos[None, None, :] <= w.reach[..., None]             # (B, K, S)
+    scores = scores.masked_fill(~valid[:, :, None, None, :], float("-inf"))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bthgk,bkhd->bthgd", p.to(v.dtype), v)
+    return attn.wo(out.reshape(B, K, cfg.q_dim))
 
 
 def init_paged_attention_cache(cfg: ModelConfig, num_pages: int,

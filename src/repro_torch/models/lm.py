@@ -9,7 +9,7 @@ The JAX package stacks each period's layer weights (after a separate stack
 of ``first_k_dense`` prefix layers) and drives them with ``lax.scan``;
 here the layers are an ``nn.ModuleList`` walked in a Python loop
 (:func:`param_groups` recovers JAX's stacking where an optimizer needs
-it).  Five entry points:
+it).  Six entry points:
 
   ``lm_forward``        full causal forward, no cache (training, and the
                         serve recompute yardstick), optionally
@@ -24,9 +24,13 @@ it).  Five entry points:
                         attention K/V into its pages, recurrent state into
                         its slot row (JAX's one-shot prefill plus
                         ``insert_prefill``; any stack)
+  ``lm_prefill_dense``  a right-padded prompt batch, logits at each row's
+                        ``last_pos``, returning a fresh dense cache (JAX's
+                        full prefill, ``lm_prefill`` without tables)
   ``lm_decode``         K >= 1 tokens per row over the paged pools (block
                         tables, per-row index with -1 for idle rows,
-                        ``valid``); recurrent layers step every slot row's
+                        ``valid``) or, without tables, over dense slot
+                        rows; recurrent layers step every slot row's
                         state token by token, freezing a row past its
                         ``valid`` tokens (the speculative verify and the
                         rollback replay)
@@ -36,19 +40,21 @@ decode do, and broadcast text positions to the three M-RoPE components.
 They write the pools and state rows **in place**; the JAX package returns
 a new cache pytree each call and donates the old one.
 Every stack trains: the recurrent mixers' scans carry gradients through
-their backward kernels (``kernels/ops.py``), and ``remat="full"`` runs a
-recurrent block's scan forward again inside the backward.
+their backward kernels (``kernels/ops.py``), and a ``remat`` policy runs
+a recurrent block's scan forward again inside the backward.
 """
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -244,25 +250,35 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
     return model.eval()
 
 
-def init_cache(cfg: ModelConfig, pages: Tuple[int, int], num_slots: int = 0,
-               device="cuda") -> List[L.Cache]:
-    """Per-layer decode cache (``repro.models.lm.init_cache`` with
-    ``pages``): an attention layer gets one shared paged KV pool,
-    ``pages=(num_pages, block_size)``, each ``(num_pages + 1, block_size,
-    Hkv, D)`` with the null page last; a recurrent layer keeps
-    ``num_slots`` dense state rows, one per decode slot (Mamba ``ssm`` and
-    ``conv``; mLSTM ``C``, ``n``, ``m``; sLSTM ``h``, ``c``, ``n``,
-    ``m``)."""
+def init_cache(cfg: ModelConfig, pages: Optional[Tuple[int, int]] = None,
+               num_slots: int = 0, device="cuda",
+               max_len: int = 0) -> List[L.Cache]:
+    """Per-layer decode cache (``repro.models.lm.init_cache``).
+
+    With ``pages=(num_pages, block_size)`` an attention layer gets one
+    shared paged KV pool, each ``(num_pages + 1, block_size, Hkv, D)``
+    with the null page last; without ``pages`` it gets ``num_slots`` dense
+    rows of ``max_len`` tokens, ``(num_slots, max_len, Hkv, D)``.  A
+    recurrent layer keeps ``num_slots`` state rows, one per decode slot,
+    in both layouts (Mamba ``ssm`` and ``conv``; mLSTM ``C``, ``n``,
+    ``m``; sLSTM ``h``, ``c``, ``n``, ``m``)."""
     dev = resolve_device(device)
-    num_pages, block_size = pages
     dt = L.torch_dtype(cfg)
     specs = layer_specs(cfg)
     if num_slots < 1 and any(s.kind in RECURRENT for s in specs):
         raise ValueError("a stack with recurrent layers needs num_slots "
                          ">= 1 state rows")
+    if pages is None:
+        if num_slots < 1 or max_len < 1:
+            raise ValueError("dense rows need num_slots >= 1 and max_len "
+                             ">= 1")
+        attention = lambda: L.init_attention_cache(  # noqa: E731
+            cfg, num_slots, max_len, dev)
+    else:
+        attention = lambda: L.init_paged_attention_cache(  # noqa: E731
+            cfg, pages[0], pages[1], dev)
     make = {
-        "a": lambda: L.init_paged_attention_cache(cfg, num_pages,
-                                                  block_size, dev),
+        "a": attention,
         "M": lambda: S.init_mamba_state(cfg, num_slots, dt, dev),
         "m": lambda: X.init_mlstm_state(cfg, num_slots, dev),
         "s": lambda: X.init_slstm_state(cfg, num_slots, dev)}
@@ -280,28 +296,34 @@ ATTENTION_RANGE = "attention"
 
 def _apply_block(block: Block, x: torch.Tensor, cos: torch.Tensor,
                  sin: torch.Tensor, mode: str, cache: Optional[L.Cache] = None,
-                 write: Optional[L.PagedWrite] = None,
-                 slot: Optional[int] = None, dropless: bool = False,
+                 write=None, slot: Optional[int] = None,
+                 dropless: bool = False,
                  valid: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """One block in mode ``train`` (no cache), ``prefill`` (one request's
-    whole prompt at exact length: attention K/V into its pages, recurrent
-    state into its slot row ``slot``), ``chunk`` (chunked prefill,
-    attention only) or ``decode`` (K >= 1 tokens per row over every slot;
-    with K > 1 or ``valid`` a recurrent mixer steps token by token and
-    freezes row b after its first ``valid[b]`` tokens, as JAX's
-    ``_apply_block`` routes to the ``_multi`` decodes); returns the new
-    residual and, for a MoE FFN, its aux losses (else None).  A MoE FFN
-    runs with capacity in mode ``train`` unless ``dropless``, and
-    dropless in the cached modes, as JAX's ``_apply_block`` does.  Caches
-    are written in place."""
+    """One block in mode ``train`` (no cache), ``full`` (a whole prompt
+    batch, JAX's ``prefill`` mode: the new dense cache entry -- attention
+    K/V, or a recurrent mixer's state after the last step -- goes into the
+    empty dict ``cache``), ``prefill`` (one request's whole prompt at
+    exact length: attention K/V into its pages, recurrent state into its
+    slot row ``slot``), ``chunk`` (chunked prefill, attention only) or
+    ``decode`` (K >= 1 tokens per row over every slot, paged for a
+    :class:`~repro_torch.models.layers.PagedWrite` ``write`` and dense
+    rows for a :class:`~repro_torch.models.layers.DenseWrite`; with K > 1
+    or ``valid`` a recurrent mixer steps token by token and freezes row b
+    after its first ``valid[b]`` tokens, as JAX's ``_apply_block`` routes
+    to the ``_multi`` decodes); returns the new residual and, for a MoE
+    FFN, its aux losses (else None).  A MoE FFN runs with capacity in mode
+    ``train`` unless ``dropless``, and dropless in the cached modes, as
+    JAX's ``_apply_block`` does.  Caches are written in place."""
     h = block.ln1(x)
     if block.kind == "a":
         with record_function(ATTENTION_RANGE):
             mix = _attention(block.mixer, h, cos, sin, mode, cache, write)
-    elif mode in ("train", "prefill"):
+    elif mode in ("train", "full", "prefill"):
         mix, state = _FULL_SEQUENCE[block.kind](block.mixer, h)
-        if mode == "prefill":
+        if mode == "full":
+            cache.update(state)
+        elif mode == "prefill":
             for k, v in state.items():
                 cache[k][slot] = v[0]
     elif mode == "decode":
@@ -328,13 +350,19 @@ def _apply_block(block: Block, x: torch.Tensor, cos: torch.Tensor,
 
 def _attention(attn: L.Attention, h: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor, mode: str, cache: Optional[L.Cache],
-               write: Optional[L.PagedWrite]) -> torch.Tensor:
+               write) -> torch.Tensor:
     if mode == "train":
         return L.attention_block(attn, h, cos, sin)
+    if mode == "full":
+        out, kv = L.attention_prefill(attn, h, cos, sin)
+        cache.update(kv)
+        return out
     if mode == "prefill":
         return L.attention_prefill_paged(attn, h, cache, cos, sin, write)
     if mode == "chunk":
         return L.attention_chunk_paged(attn, h, cache, cos, sin, write)
+    if mode == "decode" and isinstance(write, L.DenseWrite):
+        return L.attention_decode(attn, h, cache, cos, sin, write)
     if mode == "decode":
         return L.attention_decode_paged(attn, h, cache, cos, sin, write)
     raise ValueError(f"unknown mode {mode!r}")
@@ -376,6 +404,15 @@ def _zero_aux(device) -> Dict[str, torch.Tensor]:
 
 
 REMAT = ("none", "full", "dots", "dots_no_batch")
+_ATEN = torch.ops.aten
+# the products each selective policy keeps from the forward (JAX's
+# ``checkpoint_dots`` saves every dot_general, batched ones included;
+# ``dots_with_no_batch_dims_saveable`` only those without batch dims):
+# nn.Linear reaches mm/addmm, the einsums with batch dims bmm/baddbmm
+_SAVED_DOTS = {
+    "dots": [_ATEN.mm.default, _ATEN.addmm.default, _ATEN.bmm.default,
+             _ATEN.baddbmm.default],
+    "dots_no_batch": [_ATEN.mm.default, _ATEN.addmm.default]}
 
 
 def lm_forward(model: LM, tokens: Optional[torch.Tensor],
@@ -395,18 +432,20 @@ def lm_forward(model: LM, tokens: Optional[torch.Tensor],
     cached paths do (the serve recompute yardstick).  ``with_aux``
     returns (logits, aux), aux the MoE losses summed over layers.
 
-    ``remat="full"`` recomputes each block in the backward pass
-    (``torch.utils.checkpoint``, non-reentrant), the granularity of JAX's
-    ``_remat_wrap``: only the blocks' inputs are kept.  It takes effect
-    only where autograd records.  JAX's ``"dots"`` policies, which save the
-    matmul outputs, are not ported.
+    ``remat`` rematerializes per block, the granularity of JAX's
+    ``_remat_wrap`` (``torch.utils.checkpoint``, non-reentrant), and takes
+    effect only where autograd records.  ``"full"`` keeps only the
+    blocks' inputs and recomputes each block in the backward pass.
+    ``"dots"`` (JAX's ``checkpoint_dots``) also keeps every matmul output
+    of the forward, batched products (``bmm``) included, and
+    ``"dots_no_batch"`` (``dots_with_no_batch_dims_saveable``) those
+    without batch dims (``mm``/``addmm``, the projections): selective
+    checkpointing (``create_selective_checkpoint_contexts``) saves them
+    and recomputes everything else, the flash and RMSNorm kernels
+    included.
     """
     if remat not in REMAT:
         raise ValueError(f"unknown remat {remat!r}; one of {REMAT}")
-    if remat in ("dots", "dots_no_batch"):
-        raise NotImplementedError(
-            f"remat={remat!r} is not ported to repro_torch yet; see "
-            "ROADMAP.md queue A")
     cfg = model.cfg
     x = model.embed(tokens) if embeds is None \
         else embeds.to(L.torch_dtype(cfg))
@@ -417,12 +456,15 @@ def lm_forward(model: LM, tokens: Optional[torch.Tensor],
                              "positions")
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
     cos, sin = _rope(model, positions)
-    recompute = remat == "full" and torch.is_grad_enabled()
+    recompute = remat != "none" and torch.is_grad_enabled()
+    context = {} if remat not in _SAVED_DOTS else {"context_fn": partial(
+        create_selective_checkpoint_contexts, _SAVED_DOTS[remat])}
     aux = _zero_aux(x.device)
     for block in model.blocks:
         if recompute:
             x, a = checkpoint(_apply_block, block, x, cos, sin, "train",
-                              dropless=dropless, use_reentrant=False)
+                              dropless=dropless, use_reentrant=False,
+                              **context)
         else:
             x, a = _apply_block(block, x, cos, sin, "train",
                                 dropless=dropless)
@@ -524,26 +566,77 @@ def lm_prefill_exact(model: LM, tokens: torch.Tensor, cache: List[L.Cache],
 
 
 @torch.no_grad()
+def lm_prefill_dense(model: LM, tokens: torch.Tensor,
+                     last_pos: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, List[L.Cache]]:
+    """The full prefill of a prompt batch (``repro.models.lm.lm_prefill``
+    without ``tables``): a fresh dense cache, no pools.
+
+    tokens: (B, L), right-padded to a bucket; last_pos: optional (B,)
+    position whose logits each row returns (default L - 1: the serving
+    session reads a padded prompt at its true last token).  Attention
+    layers attend causally over the L positions through the config's
+    ``attn_impl`` dispatch (the flash kernel from L = 4096) and return
+    their K/V, ``(B, L, Hkv, D)``; recurrent layers run their
+    full-sequence path and return their state after the last step (so a
+    recurrent stack is prefilled at its exact length).  MoE layers run
+    dropless.  Returns (logits (B, 1, V), cache: per layer ``{"k", "v"}``
+    or the state rows), to be copied into slot rows
+    (:class:`repro_torch.serve.kv_cache.SlotLayout`).
+    """
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    cos, sin = _text_rope(model, positions)
+    x = model.embed(tokens)
+    cache: List[L.Cache] = []
+    for block in model.blocks:
+        cache.append({})
+        x, _ = _apply_block(block, x, cos, sin, "full", cache[-1])
+    if last_pos is None:
+        sel = x[:, -1:]
+    else:
+        sel = x.gather(1, last_pos.long()[:, None, None].expand(
+            B, 1, x.shape[2]))
+    return _logits(model, sel), cache
+
+
+def _dense_len(cache: List[L.Cache]) -> Optional[int]:
+    """``max_len`` of the dense rows, or None for a stack without
+    attention layers."""
+    rows = next((c["k"] for c in cache if "k" in c), None)
+    return None if rows is None else rows.shape[1]
+
+
+@torch.no_grad()
 def lm_decode(model: LM, tokens: torch.Tensor, cache: List[L.Cache],
-              index: torch.Tensor, tables: torch.Tensor,
+              index: torch.Tensor, tables: Optional[torch.Tensor] = None,
               valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One decode/verify step over K >= 1 tokens per row, paged pools.
+    """One decode/verify step over K >= 1 tokens per row.
 
     tokens: (B, K); index: (B,) write position of each row's first token
-    (its current KV length), -1 for an idle row; tables: (B, W) int32
-    block tables; valid: optional (B,) count of real tokens per row
-    (tokens past it write to the null page).  Token t of row b lands at
-    ``index[b] + t`` and attends over positions ``<= index[b] + t``.
-    A stack with recurrent layers takes one row per slot: every row's
-    state steps through the K tokens in order and, with ``valid``, stops
-    after row b's first ``valid[b]`` (an idle row without ``valid`` steps
-    too: it is garbage until an admission overwrites it, as in JAX).
-    Returns logits (B, K, V).
+    (its current KV length); tables: (B, W) int32 block tables over paged
+    pools, where an idle row's index is -1; without ``tables`` the cache
+    holds dense rows (:func:`init_cache` without ``pages``), where an idle
+    row decodes at index 0 (its own row, harmless).  valid: optional (B,)
+    count of real tokens per row: past it a paged write goes to the null
+    page, and a dense one lands at a future position the causal mask hides
+    until it is overwritten (or is dropped at ``max_len``).  Token t of
+    row b lands at ``index[b] + t`` and attends over positions ``<=
+    index[b] + t``.  A stack with recurrent layers takes one row per
+    slot: every row's state steps through the K tokens in order and, with
+    ``valid``, stops after row b's first ``valid[b]`` (an idle row without
+    ``valid`` steps too: it is garbage until an admission overwrites it,
+    as in JAX).  Returns logits (B, K, V).
     """
     K = tokens.shape[1]
-    geometry = _pool_geometry(cache)
-    write = None if geometry is None else \
-        L.decode_write(index, tables, geometry[1], geometry[0], K, valid)
+    if tables is None:
+        max_len = _dense_len(cache)
+        write = None if max_len is None else \
+            L.dense_write(index, K, max_len)
+    else:
+        geometry = _pool_geometry(cache)
+        write = None if geometry is None else \
+            L.decode_write(index, tables, geometry[1], geometry[0], K, valid)
     positions = index.clamp(min=0)[:, None] \
         + torch.arange(K, device=tokens.device)[None]
     cos, sin = _text_rope(model, positions)

@@ -1,4 +1,4 @@
-"""Paged KV-cache management of the port: block accounting + page pools.
+"""KV-cache management of the port: block accounting, page pools, slot rows.
 
 The host-side accounting — :class:`BlockManager` (token-budget admission,
 lazy page materialization, refcounts, pinning) and :class:`PageShard`
@@ -12,7 +12,10 @@ recurrent (Mamba / xLSTM) layer, and host-side numpy block tables,
 uploaded to the device for each step.  Decode and prefill write the pools
 and rows in place.  :meth:`PagedLayout.snapshot` and
 :meth:`PagedLayout.restore` copy the recurrent rows out and masked back
-in per slot, the rollback of speculative decoding.
+in per slot, the rollback of speculative decoding.  Both come from
+:class:`CacheLayout`, the surface the session is written against, which
+:class:`SlotLayout` shares: the dense layout of ``num_slots`` contiguous
+``max_len`` rows per attention layer, its pages bookkeeping only.
 """
 from __future__ import annotations
 
@@ -162,6 +165,21 @@ class BlockManager:
         self.allocs += n
         self.high_water = max(self.high_water, self.used_blocks)
         return got
+
+    def allocate(self, rid, n_tokens: int) -> List[int]:
+        """Reserve AND materialize pages for `n_tokens` (eager; the
+        dense layout's bookkeeping).  Raises if rid is live or over
+        budget."""
+        if rid in self._tables:
+            raise ValueError(f"request {rid!r} already holds blocks")
+        need = blocks_for(n_tokens, self.block_size)
+        if not self.can_allocate(n_tokens):
+            raise RuntimeError(
+                f"out of cache blocks: need {need}, "
+                f"available {self.available_blocks}")
+        self._tables[rid] = []
+        self._pending[rid] = need
+        return self._claim(rid, need)
 
     def reserve(self, rid, n_tokens: int,
                 shared: Sequence[int] = ()) -> None:
@@ -395,7 +413,80 @@ def _prefix_key_memo(prompt: np.ndarray, block_size: int):
 
 
 
-class PagedLayout:
+class CacheLayout:
+    """The cache surface :class:`repro_torch.serve.session.DecodeSession`
+    is written against (``repro.serve.kv_cache.CacheLayout``), shared by
+    the paged and the dense layout: the per-layer ``cache`` on ``device``
+    (:func:`repro_torch.models.lm.init_cache`), slot bookkeeping
+    (``admit`` / ``release`` / ``slot_of``), and ``snapshot`` /
+    ``restore`` of the recurrent rows, the rollback of speculative
+    decoding (attention K/V needs none: a stale tail position is causally
+    masked until it is overwritten).  Page accounting is the subclass's
+    :class:`BlockManager`."""
+
+    def _init_layout(self, cfg: ModelConfig, num_slots: int,
+                     cache: List[dict], device: torch.device) -> None:
+        self.cfg = cfg
+        self.device = device
+        self.cache = cache
+        self.has_recurrent = lm.has_recurrent(cfg)
+        # the (layer, state name) of every per-slot recurrent leaf, in the
+        # order snapshot() copies them
+        self._rec_leaves = [(i, k) for i, s in enumerate(lm.layer_specs(cfg))
+                            if s.kind in lm.RECURRENT
+                            for k in sorted(self.cache[i])]
+        self.num_slots = num_slots
+        self._free_slots = list(range(num_slots))
+        self._slot_of: Dict[Any, int] = {}
+
+    @property
+    def free_slots(self) -> int:
+        """Decode slots not currently assigned to a request."""
+        return len(self._free_slots)
+
+    def slot_of(self, rid) -> int:
+        """The decode-batch row assigned to ``rid``."""
+        return self._slot_of[rid]
+
+    def _pick_slot(self, slot: Optional[int]) -> int:
+        """The slot an admission takes: ``slot`` when given (it must be
+        free), else the last free one."""
+        if not self._free_slots:
+            raise RuntimeError("no free cache slots")
+        if slot is None:
+            return self._free_slots[-1]
+        if slot not in self._free_slots:
+            raise RuntimeError(f"cache slot {slot} is not free")
+        return slot
+
+    def _bind_slot(self, rid, slot: int) -> None:
+        self._free_slots.remove(slot)
+        self._slot_of[rid] = slot
+
+    def _unbind_slot(self, rid) -> int:
+        slot = self._slot_of.pop(rid)
+        self._free_slots.append(slot)
+        return slot
+
+    def snapshot(self) -> Tuple[torch.Tensor, ...]:
+        """Copies (``clone``, never views: a decode step writes the rows in
+        place) of every recurrent layer's per-slot state; empty for an
+        attention-only stack, whose rollback is free."""
+        return tuple(self.cache[i][k].clone() for i, k in self._rec_leaves)
+
+    def restore(self, snap: Tuple[torch.Tensor, ...], rows) -> None:
+        """Roll the slots with ``rows[b]`` true back to ``snap`` (a
+        :meth:`snapshot`); the other rows keep their state."""
+        if not snap:
+            return
+        mask = torch.from_numpy(np.asarray(rows, bool)).to(self.device)
+        for (i, k), saved in zip(self._rec_leaves, snap):
+            leaf = self.cache[i][k]
+            sel = mask.view((-1,) + (1,) * (leaf.dim() - 1))
+            leaf.copy_(torch.where(sel, saved, leaf))
+
+
+class PagedLayout(CacheLayout):
     """Paged decode cache on one device: page pools + per-slot tables.
 
     ``num_slots`` bounds the decode batch width; memory capacity is
@@ -421,36 +512,18 @@ class PagedLayout:
     def __init__(self, cfg: ModelConfig, num_slots: int, num_pages: int,
                  block_size: int = 16, max_seq: Optional[int] = None,
                  pin_prefix: bool = False, device="cuda"):
-        self.cfg = cfg
-        self.device = resolve_device(device)
+        dev = resolve_device(device)
         self.block_size = block_size
         pool_tokens = num_pages * block_size
         self.max_seq = min(max_seq or pool_tokens, pool_tokens)
         self.max_blocks_per_seq = blocks_for(self.max_seq, block_size)
         self.shard = PageShard(num_pages, block_size, pin_prefix=pin_prefix)
         self.null_page = num_pages
-        self.cache = lm.init_cache(cfg, pages=(num_pages, block_size),
-                                   num_slots=num_slots, device=self.device)
-        self.has_recurrent = lm.has_recurrent(cfg)
-        # the (layer, state name) of every per-slot recurrent leaf, in the
-        # order snapshot() copies them
-        self._rec_leaves = [(i, k) for i, s in enumerate(lm.layer_specs(cfg))
-                            if s.kind in lm.RECURRENT
-                            for k in sorted(self.cache[i])]
-        self.num_slots = num_slots
-        self._free_slots = list(range(num_slots))
-        self._slot_of: Dict[Any, int] = {}
+        self._init_layout(cfg, num_slots, lm.init_cache(
+            cfg, pages=(num_pages, block_size), num_slots=num_slots,
+            device=dev), dev)
         self.tables = np.full((num_slots, self.max_blocks_per_seq),
                               self.null_page, np.int32)
-
-    @property
-    def free_slots(self) -> int:
-        """Decode slots not currently assigned to a request."""
-        return len(self._free_slots)
-
-    def slot_of(self, rid) -> int:
-        """The decode-batch row assigned to ``rid``."""
-        return self._slot_of[rid]
 
     @property
     def blocks(self) -> BlockManager:
@@ -509,8 +582,7 @@ class PagedLayout:
         computed.  ``slot`` claims that free slot (a drafter's pool
         mirrors the target's rows).  Returns (slot, shared_len).
         """
-        if not self._free_slots:
-            raise RuntimeError("no free cache slots")
+        slot = self._pick_slot(slot)
         if n_tokens > self.max_seq:
             raise ValueError(
                 f"request needs {n_tokens} tokens > pool max_seq "
@@ -519,13 +591,8 @@ class PagedLayout:
             shared = ([], 0) if prompt is None else \
                 self.find_shared_prefix(prompt)
         shared_pages, shared_len = shared
-        if slot is None:
-            slot = self._free_slots[-1]
-        elif slot not in self._free_slots:
-            raise RuntimeError(f"cache slot {slot} is not free")
         self.shard.admit(rid, n_tokens, (shared_pages, shared_len))
-        self._free_slots.remove(slot)
-        self._slot_of[rid] = slot
+        self._bind_slot(rid, slot)
         self.tables[slot, :] = self.null_page
         if shared_pages:
             self.tables[slot, :len(shared_pages)] = shared_pages
@@ -542,28 +609,10 @@ class PagedLayout:
 
     def release(self, rid) -> int:
         """Free `rid`'s slot + page refs; returns the freed slot."""
-        slot = self._slot_of.pop(rid)
-        self._free_slots.append(slot)
+        slot = self._unbind_slot(rid)
         self.tables[slot, :] = self.null_page
         self.shard.release(rid)
         return slot
-
-    def snapshot(self) -> Tuple[torch.Tensor, ...]:
-        """Copies (``clone``, never views: a decode step writes the rows in
-        place) of every recurrent layer's per-slot state; empty for an
-        attention-only stack, whose rollback is free."""
-        return tuple(self.cache[i][k].clone() for i, k in self._rec_leaves)
-
-    def restore(self, snap: Tuple[torch.Tensor, ...], rows) -> None:
-        """Roll the slots with ``rows[b]`` true back to ``snap`` (a
-        :meth:`snapshot`); the other rows keep their state."""
-        if not snap:
-            return
-        mask = torch.from_numpy(np.asarray(rows, bool)).to(self.device)
-        for (i, k), saved in zip(self._rec_leaves, snap):
-            leaf = self.cache[i][k]
-            sel = mask.view((-1,) + (1,) * (leaf.dim() - 1))
-            leaf.copy_(torch.where(sel, saved, leaf))
 
     def table_width_for(self, max_tokens: int) -> int:
         """Block-table columns needed to cover `max_tokens`."""
@@ -578,3 +627,89 @@ class PagedLayout:
                 "prefix_hits": self.prefix_hits,
                 "prefix_shared_tokens": self.prefix_shared_tokens,
                 "data_shards": 1, **self.shard.blocks.as_dict()}
+
+
+class SlotLayout(CacheLayout):
+    """One preallocated dense decode cache shared by all requests
+    (``repro.serve.kv_cache.SlotLayout``, the serving benchmark's
+    baseline layout).
+
+    ``cache`` holds ``num_slots`` rows of ``max_len`` tokens per
+    attention layer (``(num_slots, max_len, Hkv, D)``) and ``num_slots``
+    state rows per recurrent layer, allocated once on ``device``; a
+    request's cache is its contiguous slot row.  Pages are bookkeeping
+    only (a :class:`BlockManager`, as in JAX), so ``as_dict`` reports
+    the same counters.  :meth:`insert` / :meth:`insert_batch` copy a
+    prefill cache (:func:`repro_torch.models.lm.lm_prefill_dense`) into
+    one row or every row, zeroing what the prompt does not cover, as
+    JAX pads its prefill cache to the row.
+    """
+
+    def __init__(self, cfg: ModelConfig, num_slots: int, max_len: int,
+                 block_size: int = 16, num_blocks: Optional[int] = None,
+                 device="cuda"):
+        dev = resolve_device(device)
+        self.max_len = max_len
+        self.blocks = BlockManager(
+            num_blocks if num_blocks is not None
+            else num_slots * blocks_for(max_len, block_size), block_size)
+        self._init_layout(cfg, num_slots, lm.init_cache(
+            cfg, num_slots=num_slots, max_len=max_len, device=dev), dev)
+
+    def can_admit(self, n_tokens: int) -> bool:
+        """Room for a request reserving ``n_tokens`` (prompt + max new)?"""
+        return bool(self._free_slots) and n_tokens <= self.max_len \
+            and self.blocks.can_allocate(n_tokens)
+
+    def admit(self, rid, n_tokens: int, slot: Optional[int] = None) -> int:
+        """Claim a slot + pages for ``rid``; returns the slot index.
+        ``slot`` claims that free slot (a drafter's pool mirrors the
+        target's rows)."""
+        slot = self._pick_slot(slot)
+        if n_tokens > self.max_len:
+            raise ValueError(
+                f"request needs {n_tokens} tokens > pool max_len "
+                f"{self.max_len}")
+        self.blocks.allocate(rid, n_tokens)
+        self._bind_slot(rid, slot)
+        return slot
+
+    def _insert_rows(self, rows, prefill_cache: List[dict]) -> None:
+        for leaf, new in zip(self.cache, prefill_cache):
+            for name, src in new.items():
+                dst = leaf[name]
+                if name in ("k", "v"):
+                    # attention K/V (B, L, Hkv, D) into rows of max_len:
+                    # slot reuse must not leak the last occupant's tail
+                    L = src.shape[1]
+                    dst[rows, :L] = src.to(dst.dtype)
+                    dst[rows, L:] = 0
+                else:
+                    dst[rows] = src.to(dst.dtype)
+
+    def insert(self, rid, prefill_cache: List[dict]) -> None:
+        """Overwrite ``rid``'s slot row with a (batch = 1) prefill cache."""
+        slot = self._slot_of[rid]
+        self._insert_rows(slice(slot, slot + 1), prefill_cache)
+
+    def insert_batch(self, prefill_cache: List[dict]) -> None:
+        """Overwrite every slot row with a (batch = num_slots) prefill
+        cache: the engine's path, where one uniform-length batch fills
+        the whole pool at once."""
+        B = next(iter(prefill_cache[0].values())).shape[0]
+        if B != self.num_slots:
+            raise ValueError(f"a prefill of {B} rows into {self.num_slots} "
+                             "slots")
+        self._insert_rows(slice(None), prefill_cache)
+
+    def release(self, rid) -> int:
+        """Free ``rid``'s slot + pages; returns the freed slot index."""
+        slot = self._unbind_slot(rid)
+        self.blocks.free(rid)
+        return slot
+
+    def as_dict(self) -> Dict[str, int]:
+        """Counters for the ``[serve] pool`` summary line (the keys of
+        ``repro.serve.kv_cache.SlotLayout.as_dict``)."""
+        return {"num_slots": self.num_slots, "max_len": self.max_len,
+                "free_slots": self.free_slots, **self.blocks.as_dict()}

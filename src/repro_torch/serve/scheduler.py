@@ -1,9 +1,13 @@
-"""Continuous-batching LM serving scheduler of the port (paged KV cache).
+"""Continuous-batching LM serving scheduler of the port.
 
-The counterpart of ``repro.serve.scheduler.Scheduler`` for the paged
-layout and every token-input family: dense, moe, audio, hybrid (jamba)
-and ssm (xLSTM); a vlm is refused, as in JAX (its prompts would be
-embeddings).  Per scheduler step:
+The counterpart of ``repro.serve.scheduler.Scheduler`` for both cache
+layouts -- paged (:class:`~repro_torch.serve.kv_cache.PagedLayout`, the
+default) and the dense slot rows kept as the serving benchmark's baseline
+(``layout="dense"``, :class:`~repro_torch.serve.kv_cache.SlotLayout`) --
+and every token-input family: dense, moe, audio, hybrid (jamba) and ssm
+(xLSTM); a vlm is refused, as in JAX (its prompts would be embeddings).
+Every model call goes through a
+:class:`~repro_torch.serve.session.DecodeSession`.  Per scheduler step:
 
   1. *admission* — pop queued requests while a slot AND a full
      token-budget page reservation (prompt + max new tokens) are
@@ -18,13 +22,17 @@ embeddings).  Per scheduler step:
      (Mamba / xLSTM) layer instead prefills each admitted prompt in one
      shot at its exact length, and shares no prefixes: padding would feed
      its state extra steps, a shared prefix would skip them, and the state
-     cannot resume mid-prompt.
-  3. *decode* — one batched ``session.step`` over every slot; each row's
-     next token is sampled on the host.  On the CPU (the plain-version
-     gather pays each row's full table width) a round whose one long row
-     is >= 4x wider than every other row splits into (narrow, wide)
-     groups; on the card the paged-attention kernel skips each row's
-     unused pages by itself, so the round stays one dispatch.  With a
+     cannot resume mid-prompt.  On dense rows every prompt is prefilled in
+     one shot when admitted, padded to its pow2 bucket (attention-only
+     stacks) or at its exact length, and no prefix is shared.
+  3. *decode* — one batched ``session.step`` over every slot (an idle
+     row decodes at index -1 on paged pools, writing the null page, and
+     at index 0 on dense rows, its own); each row's next token is sampled
+     on the host.  On the CPU (the plain-version gather pays each row's
+     full table width) a paged round whose one long row is >= 4x wider
+     than every other row splits into (narrow, wide) groups; on the card
+     the paged-attention kernel skips each row's unused pages by itself,
+     so the round stays one dispatch.  With a
      drafter (``draft_params`` + ``spec_tokens`` K) each round is
      **population speculative decoding** instead: the drafter (an
      earlier or smaller LTFB checkpoint, in its own pool at the same
@@ -68,13 +76,15 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.paged_attention import MAX_ROWS
 from repro_torch.models import lm
-from repro_torch.serve.kv_cache import PagedLayout, blocks_for
+from repro_torch.serve.kv_cache import PagedLayout, SlotLayout, blocks_for
 from repro_torch.serve.metrics import ServeStats
 from repro_torch.serve.registry import check_draft_compat
 from repro_torch.serve.session import DecodeSession
 
 # constructor arguments of the JAX scheduler this port does not serve yet
-# (ROADMAP queue A); passing any of them raises rather than being ignored
+# (ROADMAP queue A5: the request lifecycle, serving telemetry, the
+# journal, fault injection and the arena); passing any of them raises
+# rather than being ignored
 UNPORTED_ARGS = ("max_queue", "telemetry", "trace_capacity", "journal",
                  "faults", "arena")
 # profiler ranges of a speculative round: a profile splits its device time
@@ -124,7 +134,9 @@ def _next_pow2(n: int) -> int:
 
 
 class Scheduler:
-    """Continuous-batching scheduler over a paged KV-cache pool.
+    """Continuous-batching scheduler over a paged KV-cache pool, or over
+    dense slot rows with ``layout="dense"`` (``max_len`` tokens a row;
+    ``max_seq``, if given, must equal it).
 
     ``model`` is a :class:`repro_torch.models.lm.LM` on ``device`` (the
     card unless ``device="cpu"``; without a card the default raises).
@@ -139,8 +151,9 @@ class Scheduler:
     is another arch (its vocab must equal the target's), ``spec_fused``
     drafts a round in one fused call (else K+1 single steps) and
     ``spec_adapt`` adapts each row's depth within [1, K].  On the card
-    the verify's K+1 query tokens times the target's query heads per KV
-    head must fit the paged kernel's ``MAX_ROWS``.
+    a paged verify's K+1 query tokens times the target's query heads per
+    KV head must fit the paged kernel's ``MAX_ROWS`` (a dense verify runs
+    no kernel).
     """
 
     _SPLIT_RATIO = 4
@@ -167,13 +180,11 @@ class Scheduler:
         if bad:
             raise NotImplementedError(
                 f"Scheduler arguments {bad} are not ported to repro_torch "
-                "yet; see ROADMAP.md queue A")
+                "yet; see ROADMAP.md queue A5")
         if unported:
             raise TypeError(f"unexpected arguments {sorted(unported)}")
-        if layout != "paged":
-            raise NotImplementedError(
-                f"layout {layout!r} is not ported; the port serves the "
-                "paged layout")
+        if layout not in ("paged", "dense"):
+            raise ValueError(f"unknown layout {layout!r}")
         if policy not in ("continuous", "static"):
             raise ValueError(f"unknown policy {policy!r}")
         if swap_mode not in ("immediate", "drain"):
@@ -195,11 +206,15 @@ class Scheduler:
         self.draft_cfg = draft_cfg if draft_cfg is not None else cfg
         if draft_params is not None and self.draft_cfg is not cfg:
             check_draft_compat(cfg, self.draft_cfg)
-        if self.device.type == "cuda" and self.spec_tokens > 0:
+        if self.device.type == "cuda" and self.spec_tokens > 0 \
+                and layout == "paged":
             for c in (cfg, self.draft_cfg):
                 self._check_verify_rows(c)
         self.cfg = cfg
         self.policy = policy
+        self.paged = layout == "paged"
+        if max_seq is not None and max_seq != max_len and not self.paged:
+            raise ValueError("layout='dense' caps requests at max_len")
         self.prefill_chunk = int(prefill_chunk)
         self.max_prefills_per_step = max_prefills_per_step
         self.min_prefill_bucket = min_prefill_bucket
@@ -208,11 +223,20 @@ class Scheduler:
         self.swap_mode = swap_mode
         n_blocks = num_blocks if num_blocks is not None \
             else num_slots * blocks_for(max_len, block_size)
-        self.pool = PagedLayout(cfg, num_slots, n_blocks,
-                                block_size=block_size,
-                                max_seq=max_seq or max_len,
-                                pin_prefix=pin_prefix, device=self.device)
-        self.max_seq = self.pool.max_seq
+
+        def make_layout(c: ModelConfig):
+            """A pool of this geometry for ``c``: the target's, or the
+            drafter's mirror at the same slots."""
+            if self.paged:
+                return PagedLayout(c, num_slots, n_blocks,
+                                   block_size=block_size,
+                                   max_seq=max_seq or max_len,
+                                   pin_prefix=pin_prefix, device=self.device)
+            return SlotLayout(c, num_slots, max_len, block_size=block_size,
+                              num_blocks=n_blocks, device=self.device)
+
+        self.pool = make_layout(cfg)
+        self.max_seq = self.pool.max_seq if self.paged else max_len
         self.session = DecodeSession(cfg, model, self.pool)
         # the drafter: a second session over its own pool of the same
         # geometry, admitted at the same slots (the batches stay aligned)
@@ -223,18 +247,20 @@ class Scheduler:
                                 f"(got {type(draft_params).__name__})")
             self.draft = DecodeSession(
                 self.draft_cfg, draft_params,
-                PagedLayout(self.draft_cfg, num_slots, n_blocks,
-                            block_size=block_size,
-                            max_seq=max_seq or max_len, device=self.device))
+                make_layout(self.draft_cfg))
         # right-padding and chunking prompts is only sound for
         # attention-only stacks: recurrent layers prefill one-shot at the
-        # exact prompt length, with no prefix sharing (as in JAX)
+        # exact prompt length, with no prefix sharing (as in JAX);
+        # chunking and prefix sharing need the paged pools
         self._can_pad = not self.pool.has_recurrent
-        self.prefix_sharing = bool(prefix_sharing) and self._can_pad
+        self._draft_can_pad = self.draft is not None \
+            and not self.draft.layout.has_recurrent
+        self._chunked = self.paged and self._can_pad
+        self.prefix_sharing = bool(prefix_sharing) and self._chunked
         # ragged gather-width grouping pays only for the plain version on
         # the CPU (the CUDA kernel skips each row's unused pages itself),
-        # and needs a cache with no per-slot rows
-        self._group_decode = self.device.type == "cpu" and self._can_pad
+        # and needs paged pools with no per-slot rows
+        self._group_decode = self.device.type == "cpu" and self._chunked
         self.queue: deque[Request] = deque()
         self.active: Dict[Any, _Active] = {}
         self.prefilling: Dict[Any, _Active] = {}
@@ -243,9 +269,11 @@ class Scheduler:
         self._pending_draft: List[Request] = []
         self._by_slot: Dict[int, _Active] = {}
         self._next_token = np.zeros((num_slots,), np.int32)
-        # -1 marks a row that holds no request (KV writes go to the null
-        # page)
-        self._index = np.full((num_slots,), -1, np.int32)
+        # the index an idle row decodes at: -1 on paged pools (its KV
+        # writes go to the null page), 0 on dense rows (the row is the
+        # slot's own, so its writes are harmless)
+        self._idle_index = -1 if self.paged else 0
+        self._index = np.full((num_slots,), self._idle_index, np.int32)
         # per-row speculative depth (spec_adapt): proposals offered next
         # round to the request in each slot, within [1, spec_tokens]
         self._spec_k = np.full((num_slots,), max(self.spec_tokens, 1),
@@ -323,6 +351,8 @@ class Scheduler:
         if self.draft is not None and \
                 not self.draft.layout.can_admit(total):
             return False
+        if not self.paged:
+            return self.pool.can_admit(total)
         self._head_share = None
         shared = ()
         if self.prefix_sharing:
@@ -336,6 +366,14 @@ class Scheduler:
         """Claim slot + pages; the prefill runs in :meth:`_prefill_phase`
         (chunked) or one-shot right after admission."""
         total = req.prompt_len + req.max_new
+        if not self.paged:
+            slot = self.pool.admit(req.rid, total)
+            self._admit_draft(req, slot, total)
+            self._spec_k[slot] = max(self.spec_tokens, 1)
+            self._pending_onepass.append(_Active(
+                req=req, slot=slot, submit_t=getattr(
+                    req, "_submit_t", time.perf_counter())))
+            return
         head = self._head_share
         shared = head[1] if head is not None and head[0] == req.rid \
             else None
@@ -347,7 +385,7 @@ class Scheduler:
         act = _Active(req=req, slot=slot, pf_pos=shared_len,
                       submit_t=getattr(req, "_submit_t", time.perf_counter()))
         self._spec_k[slot] = max(self.spec_tokens, 1)
-        if self._can_pad:
+        if self._chunked:
             self.prefilling[req.rid] = act
         else:
             self._pending_onepass.append(act)
@@ -362,20 +400,32 @@ class Scheduler:
         self._pending_draft.append(req)
 
     def _prefill_onepass(self, act: _Active) -> None:
-        """Exact-length one-shot prefill into the request's pages and slot
-        row (stacks with recurrent layers)."""
+        """One-shot prefill into the request's pages or slot row: at the
+        exact length, but on dense rows padded to the prompt's bucket for
+        an attention-only stack (``ServeStats`` counts the padded
+        tokens, as JAX's ``_prefill_dense`` does)."""
         P = act.req.prompt_len
-        last = self.session.prefill(act.req.rid, act.req.prompt)
+        bucket = self._bucket(P) if not self.paged and self._can_pad \
+            else None
+        last = self.session.prefill(act.req.rid, act.req.prompt,
+                                    bucket=bucket)
         self.stats.prefills += 1
         self.stats.prefill_tokens += P
-        self.stats.padded_prefill_tokens += P
+        self.stats.padded_prefill_tokens += bucket or P
         self._start_decoding(act, last)
+
+    def _prefill_draft(self, req: Request) -> None:
+        """The drafter's prompt: padded to its bucket on dense rows when
+        the drafter is attention-only, as JAX's ``_prefill_draft``."""
+        bucket = self._bucket(req.prompt_len) \
+            if not self.paged and self._draft_can_pad else None
+        self.draft.prefill(req.rid, req.prompt, bucket=bucket)
 
     def _prefill_phase(self) -> None:
         """The prefills admission deferred: the drafter's prompts, every
         one-shot prefill, then one round of chunked-prefill slices."""
         for req in self._pending_draft:
-            self.draft.prefill(req.rid, req.prompt)
+            self._prefill_draft(req)
         self._pending_draft.clear()
         for act in self._pending_onepass:
             self._prefill_onepass(act)
@@ -469,7 +519,7 @@ class Scheduler:
         del self.active[rid]
         del self._by_slot[slot]
         self._next_token[slot] = 0
-        self._index[slot] = -1
+        self._index[slot] = self._idle_index
 
     # -- hot swap -------------------------------------------------------------
     def set_params(self, params) -> None:
@@ -484,8 +534,9 @@ class Scheduler:
                 self.draft.model is self.session.model:
             self.draft.model = copy.deepcopy(self.session.model)
         self.session.set_params(params)
-        self.pool.invalidate_prefix()
-        self._head_share = None
+        if self.paged:
+            self.pool.invalidate_prefix()
+            self._head_share = None
         self.stats.hot_swaps += 1
 
     @property
@@ -586,9 +637,13 @@ class Scheduler:
         return [(narrow_w, narrow), (wide_w, wide)]
 
     def _decode_round(self) -> None:
-        self._ensure_decode_pages(self.pool, {
-            a.slot: int(self._index[a.slot]) for a in self.active.values()})
-        groups = self._width_split()
+        if self.paged:
+            self._ensure_decode_pages(self.pool, {
+                a.slot: int(self._index[a.slot])
+                for a in self.active.values()})
+            groups = self._width_split()
+        else:
+            groups = [(None, None)]
         self.stats.decode_steps += 1
         if len(groups) == 1:
             # common path: one full-batch dispatch
@@ -665,11 +720,14 @@ class Scheduler:
                 else self.spec_tokens
             cap[act.slot] = min(k_row + 1, act.req.max_new - act.ntok + 1)
         Kv = int(cap.max())
-        targets = {a.slot: int(base[a.slot]) + int(cap[a.slot]) - 1
-                   for a in acts}
-        self._ensure_decode_pages(self.pool, targets)
-        self._ensure_decode_pages(self.draft.layout, targets)
-        W = self._table_bucket(int((base + cap).max()))
+        if self.paged:
+            targets = {a.slot: int(base[a.slot]) + int(cap[a.slot]) - 1
+                       for a in acts}
+            self._ensure_decode_pages(self.pool, targets)
+            self._ensure_decode_pages(self.draft.layout, targets)
+            W = self._table_bucket(int((base + cap).max()))
+        else:
+            W = None
         block = np.zeros((B, Kv), np.int32)
         block[:, 0] = self._next_token
         ntok0 = {act.slot: act.ntok for act in acts}
@@ -695,7 +753,7 @@ class Scheduler:
                 for t in range(Kv):
                     valid_t = (cap > t).astype(np.int32)
                     idx_t = np.where(self._index >= 0, base + t,
-                                     -1).astype(np.int32)
+                                     self._idle_index).astype(np.int32)
                     logits = self.draft.step(block[:, t:t + 1], idx_t,
                                              valid=valid_t, width=W)
                     self.stats.spec_draft_steps += 1

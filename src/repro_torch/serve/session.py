@@ -1,24 +1,32 @@
-"""DecodeSession of the port: weights + a paged layout behind two calls.
+"""DecodeSession of the port: weights + a cache layout behind one API.
 
-The counterpart of ``repro.serve.session.DecodeSession`` for the paged
-layout:
+The counterpart of ``repro.serve.session.DecodeSession`` for both
+layouts, paged (:class:`~repro_torch.serve.kv_cache.PagedLayout`) and
+dense slot rows (:class:`~repro_torch.serve.kv_cache.SlotLayout`):
 
-  ``prefill(rid, prompt)``        the whole prompt at exact length into
-                                  rid's pages and slot row (any stack)
-  ``prefill_chunk(rid, ...)``     one chunked-prefill slice into rid's pages
-                                  (attention-only stacks)
-  ``step(tokens, index, ...)``    K >= 1 tokens per row over the pools
-  ``draft_block(tok0, ...)``      the fused drafter round: ``steps``
-                                  single-token decodes in one call, each
-                                  fed the last one's greedy argmax
-  ``snapshot() / restore(...)``   recurrent-state rollback
+  ``prefill(rid, prompt, bucket)``  the whole prompt into rid's pages or
+                                    slot row: exact length on paged pools
+                                    (any stack); on dense rows right-padded
+                                    to ``bucket`` (attention-only stacks;
+                                    None = exact length, the recurrent ones)
+  ``prefill_batch(tokens)``         one uniform batch into every slot row
+                                    (dense; the engine's path)
+  ``prefill_chunk(rid, ...)``       one chunked-prefill slice into rid's pages
+                                    (paged, attention-only stacks)
+  ``step(tokens, index, ...)``      K >= 1 tokens per row, either layout
+  ``draft_block(tok0, ...)``        the fused drafter round: ``steps``
+                                    single-token decodes in one call, each
+                                    fed the last one's greedy argmax
+  ``snapshot() / restore(...)``     recurrent-state rollback
 
 Host arrays (numpy) go in; the session uploads them to the layout's
 device, runs :func:`repro_torch.models.lm.lm_prefill_exact` /
+:func:`~repro_torch.models.lm.lm_prefill_dense` /
 :func:`~repro_torch.models.lm.lm_prefill` /
-:func:`~repro_torch.models.lm.lm_decode`, which write the pools and state
-rows in place, and hands back logits.  The JAX session instead donates the cache
-pytree to a jitted step and rebinds the returned one.
+:func:`~repro_torch.models.lm.lm_decode`, which write the pools and rows
+in place (a dense prefill's cache is copied into its rows by the layout),
+and hands back logits.  The JAX session instead donates the cache pytree
+to a jitted step and rebinds the returned one.
 """
 from __future__ import annotations
 
@@ -29,7 +37,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
-from repro_torch.serve.kv_cache import PagedLayout
+from repro_torch.serve.kv_cache import CacheLayout, PagedLayout
 
 
 def _upload(a, dtype, device: torch.device) -> torch.Tensor:
@@ -37,15 +45,22 @@ def _upload(a, dtype, device: torch.device) -> torch.Tensor:
 
 
 class DecodeSession:
-    """Model weights + a :class:`PagedLayout`, driven through one API."""
+    """Model weights + a cache layout (:class:`PagedLayout` or
+    :class:`~repro_torch.serve.kv_cache.SlotLayout`), driven through one
+    API; ``paged`` says which."""
 
-    def __init__(self, cfg: ModelConfig, model: lm.LM, layout: PagedLayout):
+    def __init__(self, cfg: ModelConfig, model: lm.LM, layout: CacheLayout):
         if model.device != layout.device:
             raise ValueError(f"model weights on {model.device} but the KV "
                              f"pools on {layout.device}")
         self.cfg = cfg
         self.model = model
         self.layout = layout
+
+    @property
+    def paged(self) -> bool:
+        """True when the KV cache is the paged (scattered-page) layout."""
+        return isinstance(self.layout, PagedLayout)
 
     @property
     def device(self) -> torch.device:
@@ -60,12 +75,28 @@ class DecodeSession:
         with torch.no_grad():
             self.model.load_state_dict(params, strict=True)
 
-    def prefill(self, rid, prompt: np.ndarray) -> np.ndarray:
-        """The whole prompt of `rid` at its exact length (no padding: a
-        recurrent layer would fold padding into its state), written into
-        rid's pages and slot row.  Returns the last token's logits row
-        (V,) as float32 on the host."""
+    def prefill(self, rid, prompt: np.ndarray,
+                bucket: Optional[int] = None) -> np.ndarray:
+        """The whole prompt of `rid`, written into its pages or slot row.
+        Returns the last real token's logits row (V,) as float32 on the
+        host.
+
+        Paged pools take it at its exact length (no padding: a recurrent
+        layer would fold padding into its state).  Dense rows take it
+        right-padded to ``bucket`` (attention-only stacks; the pad K/V
+        past the prompt stay in the row, hidden by the causal mask until
+        decode overwrites them) or, with ``bucket=None``, at its exact
+        length (the recurrent families), as the JAX session does.
+        """
         P = int(len(prompt))
+        if not self.paged:
+            toks = np.zeros((1, bucket or P), np.int64)
+            toks[0, :P] = prompt
+            logits, cache = lm.lm_prefill_dense(
+                self.model, _upload(toks, np.int64, self.device),
+                torch.tensor([P - 1], device=self.device))
+            self.layout.insert(rid, cache)
+            return logits[0, -1].float().cpu().numpy()
         self.layout.ensure(rid, P)
         slot = self.layout.slot_of(rid)
         width = self.layout.table_width_for(P)
@@ -76,6 +107,15 @@ class DecodeSession:
                                 self.device),
             self.layout.cache, tables, slot)
         return logits[0, -1].float().cpu().numpy()
+
+    def prefill_batch(self, tokens: np.ndarray) -> torch.Tensor:
+        """A uniform-length batch (B = num_slots, S) prefilled into every
+        slot row (the engine's path; dense rows only).  Returns logits
+        (B, 1, V) at each row's last position, on the device."""
+        logits, cache = lm.lm_prefill_dense(
+            self.model, _upload(tokens, np.int64, self.device))
+        self.layout.insert_batch(cache)
+        return logits
 
     def prefill_chunk(self, rid, chunk: np.ndarray, hist_len: int,
                       prompt_len: int, chunk_bucket: int,
@@ -107,14 +147,17 @@ class DecodeSession:
         """One decode/verify step: K >= 1 tokens per row.
 
         tokens: (B, K) ints; index: (B,) first-token write positions (-1
-        = idle row); valid: optional (B,) real-token counts; width:
-        block-table columns of the layout's tables to expose; tables: an
-        explicit (B, W) block-table array instead of the layout's (the
-        ragged-split subset calls).  Returns logits (B, K, V) on the
-        device (callers cast/copy).
+        = idle row on paged pools, 0 on dense rows); valid: optional (B,)
+        real-token counts; width: block-table columns of the layout's
+        tables to expose; tables: an explicit (B, W) block-table array
+        instead of the layout's (the ragged-split subset calls).  On dense
+        rows ``width`` and ``tables`` are unused.  Returns logits (B, K,
+        V) on the device (callers cast/copy).
         """
         dev = self.device
-        if tables is None:
+        if not self.paged:
+            t = None
+        elif tables is None:
             t = self.layout.step_tables(
                 width if width is not None
                 else self.layout.max_blocks_per_seq)
@@ -136,16 +179,17 @@ class DecodeSession:
         ``valid`` are uploaded once.
 
         tok0: (B, 1) each row's pending token; index: (B,) its write
-        position (-1 = idle row); valid: (B,) real steps per row (step t
-        of row b writes to the null page and freezes its recurrent state
-        when ``t >= valid[b]``); width: block-table columns.  Returns
+        position (-1 = idle row on paged pools); valid: (B,) real steps
+        per row (step t of row b writes to the null page, or on dense rows
+        at a masked future position, and freezes its recurrent state when
+        ``t >= valid[b]``); width: block-table columns (paged).  Returns
         (logits (B, steps, V), the tokens fed (B, steps)) on the device:
         the caller resamples proposals from the logits with each
         request's own sampling and repairs the rows where they differ
         from the greedy feed.
         """
         dev = self.device
-        tables = self.layout.step_tables(
+        tables = None if not self.paged else self.layout.step_tables(
             width if width is not None else self.layout.max_blocks_per_seq)
         tok = _upload(tok0, np.int64, dev)
         idx = _upload(index, np.int64, dev)

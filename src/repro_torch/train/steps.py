@@ -33,7 +33,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import threading
-from typing import Any, Callable, Dict, Iterator, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Tuple
 
 import torch
 from torch import nn
@@ -174,6 +174,11 @@ class _Skeleton:
         self.model = model
         self._lock = threading.Lock()
 
+    @property
+    def names(self) -> List[str]:
+        """The model's parameter names, in order."""
+        return [name for _, _, name in self._slots]
+
     def ordered(self, tensors: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
         """``tensors`` in the model's parameter order (the global-norm
@@ -227,8 +232,7 @@ def make_lm_population_fns(cfg: ModelConfig, opt_cfg: OptimizerConfig,
     * ``to_ckpt`` / ``from_ckpt``: weights and optimizer state to JAX's
       stacked layout (:func:`repro_torch.bridge.params_to_jax_layout`) and
       back onto ``device``, so that either package restores the other's
-      population checkpoints.  Adafactor's state raises there (ROADMAP.md
-      queue A14).
+      population checkpoints (Adafactor's grouped factors included).
     """
     dev = resolve_device(device)
     optimizer = make_optimizer(cfg, opt_cfg)
@@ -269,8 +273,12 @@ def make_lm_population_fns(cfg: ModelConfig, opt_cfg: OptimizerConfig,
 
     def from_ckpt(params, opt_state):
         opt = tree_to(bridge.opt_state_from_jax(opt_state, cfg), dev)
-        opt = {k: skeleton.ordered(v) if isinstance(v, dict) else v
-               for k, v in opt.items()}
+        # per-weight moments in parameter order, Adafactor's factors in
+        # the optimizer's group order
+        groups = list(lm.param_groups(cfg, skeleton.names))
+        opt = {k: v if not isinstance(v, dict)
+               else {g: v[g] for g in groups} if k in ("vr", "vc")
+               else skeleton.ordered(v) for k, v in opt.items()}
         return skeleton.ordered(params_from_ckpt(cfg, params, dev)), opt
 
     return init, train_step, metric, to_ckpt, from_ckpt

@@ -205,8 +205,8 @@ def test_scheduler_raises_on_unported_arguments():
     model = init_lm(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="arena"):
         Scheduler(cfg, model, device="cpu", arena=object())
-    with pytest.raises(NotImplementedError, match="layout"):
-        Scheduler(cfg, model, device="cpu", layout="dense")
+    with pytest.raises(ValueError, match="layout"):
+        Scheduler(cfg, model, device="cpu", layout="bogus")
     with pytest.raises(TypeError):
         Scheduler(cfg, model, device="cpu", no_such_option=1)
 

@@ -579,7 +579,7 @@ def test_ltfb_cli_on_cpu_prints_its_lines(tmp_path, capsys):
     (["--log-json"], "A5"), (["--trace-out", "t.json"], "A5"),
     (["--prom-out", "m.prom"], "A5"), (["--metrics-port", "0"], "A5"),
     (["--genealogy", "g.jsonl"], "A5"),
-    (["--arch", "qwen3-0.6b", "--optimizer", "adafactor"], "Adafactor")])
+    (["--optimizer", "adafactor"], "CycleGAN checkpoint layout")])
 def test_ltfb_cli_refuses_unported_flags(flags, queue):
     with pytest.raises(NotImplementedError, match=queue):
         tlaunch.main(["--smoke", "--device", "cpu", *flags])
@@ -873,12 +873,111 @@ def test_lm_metric_from_many_threads_sees_each_calls_own_weights(
     assert got == [want[i % 3] for i in range(24)]
 
 
-def test_adafactor_lm_state_refuses_the_checkpoint_layout(lm_cfgs):
+def _adafactor_cfgs(arch):
+    """(JAX config, port config) SMOKE at f32; jamba without experts."""
+    from repro.configs.registry import get_config as jax_get_config
+    from repro_torch.configs.base import replace
+    from repro_torch.configs.registry import get_config
+
+    j = dataclasses.replace(jax_get_config(arch, smoke=True),
+                            dtype="float32")
+    t = replace(get_config(arch, smoke=True), dtype="float32")
+    if arch.startswith("jamba"):
+        j, t = dataclasses.replace(j, moe=None), replace(t, moe=None)
+    return j, t
+
+
+def _noisy_adafactor_state(fns, seed):
+    """A trainer's weights and an Adafactor state with random factors
+    and step 3 (the zero state would hide a swapped or misplaced
+    factor)."""
+    p, o, _ = fns.init(seed)
+    gen = torch.Generator().manual_seed(seed)
+    for which in ("vr", "vc"):
+        o[which] = {k: torch.rand(v.shape, generator=gen)
+                    for k, v in o[which].items()}
+    o["step"] = torch.tensor(3, dtype=torch.int32)
+    return p, o
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "jamba-1.5-large-398b"])
+def test_adafactor_state_crosses_to_the_jax_layout_and_back(arch):
+    """The port's grouped Adafactor factors go to JAX's leaves (the tree
+    of ``make_adafactor(...).init``: its structure and every shape, row
+    and column factors swapped for transposed dense weights, the
+    unfactored leaves' (1,) pad slot) and come back bit for bit."""
+    from repro.models import lm as jlm
+    from repro.optim import optimizers as jopt
+
+    jcfg, tcfg = _adafactor_cfgs(arch)
     fns = TrainerFns(*tsteps.make_lm_population_fns(
-        lm_cfgs[1], OptimizerConfig(name="adafactor"), device="cpu"))
-    p, o, _ = fns.init(0)
-    with pytest.raises(NotImplementedError, match="Adafactor.*A14"):
-        fns.to_ckpt(p, o)
+        tcfg, OptimizerConfig(name="adafactor"), device="cpu"))
+    p, o = _noisy_adafactor_state(fns, 1)
+    _, jax_o = fns.to_ckpt(p, o)
+    like = jopt.make_adafactor(jbase.OptimizerConfig(name="adafactor")).init(
+        jax.eval_shape(lambda k: jlm.init_lm(jcfg, k)[0],
+                       jax.random.PRNGKey(0)))
+    assert jax.tree.structure(jax.tree.map(lambda x: 0, jax_o)) == \
+        jax.tree.structure(jax.tree.map(lambda x: 0, like))
+    for a, b in zip(jax.tree.leaves(jax_o), jax.tree.leaves(like)):
+        assert tuple(a.shape) == tuple(b.shape)
+    _, back = fns.from_ckpt(fns.to_ckpt(p, o)[0], jax_o)
+    assert int(back["step"]) == 3
+    for which in ("vr", "vc"):
+        assert list(back[which]) == list(o[which])
+        for k, t in o[which].items():
+            assert torch.equal(back[which][k], t), (which, k)
+
+
+def test_jax_restores_the_ports_adafactor_population(tmp_path, lm_cfgs):
+    """A population checkpoint the port writes with Adafactor state
+    restores in JAX's ``restore_population`` against JAX's own trainer
+    template, leaf for leaf equal to the port's JAX layout."""
+    jcfg, tcfg = lm_cfgs
+    fns = TrainerFns(*tsteps.make_lm_population_fns(
+        tcfg, OptimizerConfig(name="adafactor"), device="cpu"))
+    trainers = []
+    for i in range(2):
+        p, o = _noisy_adafactor_state(fns, i)
+        jp, jo = fns.to_ckpt(p, o)
+        trainers.append({"params": jp, "opt_state": jo, "hparams":
+                         {"lr": 1e-3}, "steps": 4 + i, "wins": i,
+                         "alive": True})
+    tckpt.save_population(str(tmp_path), 2, {"round": 2,
+                                             "trainers": trainers})
+    jfns = JTrainerFns(*jsteps.make_lm_population_fns(
+        jcfg, jbase.OptimizerConfig(name="adafactor")))
+    jp, jo, _ = jfns.init(0)
+    got = jckpt.restore_population(str(tmp_path), 2,
+                                   {"params": jp, "opt_state": jo})
+    assert len(got["trainers"]) == 2
+    for want, tr in zip(trainers, got["trainers"]):
+        g = {"params": tr["params"], "opt_state": tr["opt_state"]}
+        w = {"params": want["params"], "opt_state": want["opt_state"]}
+        assert jax.tree.structure(_np(g)) == jax.tree.structure(
+            jax.tree.map(lambda x: 0, w))
+        for a, b in zip(jax.tree.leaves(g), jax.tree.leaves(w)):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        assert (tr["steps"], tr["wins"]) == (want["steps"], want["wins"])
+
+
+def test_ltfb_cli_lm_adafactor_checkpoints_and_resumes(tmp_path, capsys):
+    """The ltfb CLI trains two qwen3 SMOKE trainers with Adafactor,
+    checkpoints the population and resumes from it."""
+    argv = ["--arch", "qwen3-0.6b", "--smoke", "--device", "cpu",
+            "--trainers", "2", "--rounds", "2", "--steps-per-round", "2",
+            "--batch", "4", "--seq", "16", "--samples", "96",
+            "--samples-per-file", "32", "--optimizer", "adafactor",
+            "--data-dir", str(tmp_path / "data"), "--ckpt-dir",
+            str(tmp_path / "ck")]
+    assert tlaunch.main(argv) == 0
+    text = capsys.readouterr().out
+    assert text.count("[ltfb] round=") == 2
+    assert tckpt.latest_population_step(str(tmp_path / "ck")) == 2
+    assert tlaunch.main(argv[:7] + ["--rounds", "1"] + argv[9:]) == 0
+    text = capsys.readouterr().out
+    assert "[ltfb] resumed at round 2" in text
+    assert "[ltfb] tournament: rounds=3" in text
 
 
 def test_ltfb_cli_lm_on_cpu_prints_its_lines(tmp_path, capsys):

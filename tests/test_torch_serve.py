@@ -385,3 +385,38 @@ def test_recurrent_scheduler_on_card_matches_cpu(arch):
         results[device] = {k: v.tolist() for k, v in s.run().items()}
     assert results["cuda"] == results["cpu"]
     assert counter.launches - before == len(prompts) * per_prefill
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "jamba-1.5-large-398b"])
+def test_dense_scheduler_on_card_matches_cpu(arch):
+    """The smoke trace served over dense slot rows on the card gives the
+    CPU path's tokens at f32 (jamba without experts), with a K = 2 self
+    drafter too, and never launches the paged-attention kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.configs.base import replace
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serve.scheduler import Request, Scheduler
+
+    cfg = replace(get_config(arch, smoke=True), moe=None, dtype="float32")
+    cpu_model = init_lm(cfg, device="cpu")
+    results = {}
+    before = (pa.paged_attention.launches, rn.rmsnorm.launches)
+    for device in ("cpu", "cuda"):
+        model = init_lm(cfg, device=device)
+        model.load_state_dict(cpu_model.state_dict())
+        for k in (0, 2):
+            s = Scheduler(cfg, model, num_slots=2, max_len=30, block_size=4,
+                          layout="dense", draft_params=model if k else None,
+                          spec_tokens=k, device=device)
+            for r in _trace(cfg.vocab_size, 0.0):
+                s.submit(Request(**r))
+            results[device, k] = {i: v.tolist() for i, v in s.run().items()}
+    assert results["cuda", 0] == results["cpu", 0] == results["cuda", 2] \
+        == results["cpu", 2]
+    assert pa.paged_attention.launches == before[0]
+    assert rn.rmsnorm.launches > before[1]

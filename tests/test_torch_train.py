@@ -121,7 +121,7 @@ def test_configs_carry_attention_dispatch_and_optimizer_fields():
         assert getattr(mine, f.name) == getattr(ref, f.name), f.name
 
 
-@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("remat", ["none", "full", "dots", "dots_no_batch"])
 def test_lm_loss_and_every_gradient_match_jax(cfgs, weights, remat):
     """Loss and the gradient of every weight == ``jax.value_and_grad`` of
     ``lm.lm_loss`` (the flash route on both sides); one label masked."""
@@ -148,7 +148,7 @@ def test_lm_loss_and_every_gradient_match_jax(cfgs, weights, remat):
                   **TOL)
 
 
-@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("remat", ["none", "full", "dots", "dots_no_batch"])
 def test_three_train_steps_match_jax(cfgs, weights, remat):
     """Three ``make_lm_train_step`` steps (Adam, clip 1.0, warmup 2, so
     the lr runs 0, 5e-4, 1e-3) == the JAX step under ``jax.jit``: loss,
@@ -284,12 +284,50 @@ def test_clip_by_global_norm_matches_jax(max_norm):
     assert clipped["x"].dtype == torch.bfloat16
 
 
-def test_remat_dots_policies_name_the_roadmap(cfgs):
+def _backward_products(model, tb, remat):
+    """(forward, backward) counts of matmul ops (``mm``/``addmm``/``bmm``
+    /``baddbmm``) under a ``TorchDispatchMode``: the products of one
+    ``lm_loss`` forward, and those its backward runs, the forward's
+    recomputed ones included."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+    products = {aten.mm.default, aten.addmm.default, aten.bmm.default,
+                aten.baddbmm.default}
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += func in products
+            return func(*args, **(kwargs or {}))
+
+    model.zero_grad()
+    with Count() as fwd:
+        loss, _ = tlm.lm_loss(model, tb, remat=remat)
+    with Count() as bwd:
+        loss.backward()
+    return fwd.n, bwd.n
+
+
+def test_dots_remat_recomputes_no_forward_product(cfgs, weights):
+    """Under ``full`` the backward runs every block's forward products
+    again; under ``dots`` it runs none of them (the saved outputs stand
+    in), so it runs exactly the products ``none`` runs; ``dots_no_batch``
+    recomputes only the batched attention products (``bmm``).  The
+    gradients are the same in all four."""
     _, tcfg = cfgs
-    model = tlm.init_lm(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.lm_forward(model, torch.zeros((1, 4), dtype=torch.long),
-                       remat="dots")
+    model = _port_model(tcfg, weights)
+    _, tb = _batch(cfgs[0], seed=3)
+    counts = {r: _backward_products(model, tb, r)
+              for r in ("none", "full", "dots", "dots_no_batch")}
+    fwd, base = counts["none"]
+    assert all(c[0] == fwd for c in counts.values())
+    assert counts["full"][1] > base
+    assert counts["dots"][1] == base
+    assert base < counts["dots_no_batch"][1] < counts["full"][1]
 
 
 def test_train_cli_on_cpu_prints_its_lines_and_a_finite_val(capsys,
@@ -461,9 +499,35 @@ def test_train_cli_rerun_resumes_at_the_saved_step(tmp_path, capsys):
     out = tlaunch.train_lm(_cli_args(tmp_path, "--steps", "5"))
     assert out["start"] == 4 and len(out["losses"]) == 1
     assert "at step 4" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="Adafactor.*A14"):
-        tlaunch.train_lm(_cli_args(tmp_path, "--steps", "5",
-                                   "--optimizer", "adafactor"))
+
+
+def test_train_cli_adafactor_checkpoints_and_resumes(tmp_path, capsys):
+    """``--optimizer adafactor --ckpt-every 2``: the run writes its
+    grouped factors in JAX's layout; the last checkpoint (after step 4's
+    update, the run's final state) restores bit for bit and gives the
+    run's own validation loss, and a rerun resumes at step 4."""
+    argv = ["--arch", "qwen3-0.6b", "--smoke", "--device", "cpu",
+            "--batch", "2", "--seq", "16", "--optimizer", "adafactor",
+            "--ckpt-dir", str(tmp_path)]
+    first = tlaunch.train_lm(tlaunch.build_parser().parse_args(
+        argv + ["--steps", "5", "--ckpt-every", "2"]))
+    assert sorted(os.listdir(tmp_path)) == ["step_2.ckpt", "step_4.ckpt"]
+    capsys.readouterr()
+    args = tlaunch.build_parser().parse_args(argv + ["--steps", "6"])
+    tr = tlaunch.build_trainer(args)
+    assert tlaunch.restore_trainer(tr, str(tmp_path / "step_4.ckpt")) == 4
+    saved, _ = tckpt.restore(str(tmp_path / "step_4.ckpt"),
+                             tlaunch.checkpoint_tree(tr))
+    _assert_same_tree(saved, tlaunch.checkpoint_tree(tr))
+    # saved after step 4's update: Adafactor has counted five
+    assert int(tr.state["opt_state"]["step"]) == 5
+    assert set(tr.state["opt_state"]) == {"vr", "vc", "step"}
+    val = tlaunch.device_batch(tr.cfg, 2, 16, tlaunch.VAL_SEED, tr.device)
+    assert float(tr.metric(tr.state["model"], val)) == first["val"]
+    out = tlaunch.train_lm(args)
+    assert out["start"] == 4 and len(out["losses"]) == 2
+    assert all(map(np.isfinite, out["losses"]))
+    assert "resumed from" in capsys.readouterr().out
 
 
 def test_population_step_equals_the_in_place_step(cfgs, weights):
