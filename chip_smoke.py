@@ -856,6 +856,12 @@ def phase_serve(torch):
     check(launches["rmsnorm"] == norms_per_call * calls > 0,
           f"rmsnorm launches {launches['rmsnorm']} != {norms_per_call} x "
           f"{calls} model calls")
+    telemetry = _telemetry_twins(
+        torch, lambda **kw: Scheduler(
+            cfg, model, num_slots=8, block_size=16,
+            max_len=max(prompt_lens) + max_new, device="cuda", **kw),
+        lambda: build_requests(cfg, n_req, prompt_lens, max_new, seed=0),
+        sched, results, launches, "cuda")
     emit({"phase": "serve", "arch": cfg.name, "dtype": cfg.dtype,
           "params": n_params, "init_s": init_s, "requests": n_req,
           "slots": 8, "block_size": 16, "prompt_lens": prompt_lens,
@@ -870,10 +876,110 @@ def phase_serve(torch):
               launches["paged_attention"] / st["decode_steps"],
           "rmsnorm_per_model_call": launches["rmsnorm"] / calls,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-          "sample": results[0][:8].tolist(),
+          "sample": results[0][:8].tolist(), "telemetry": telemetry,
           "profiled_decode_step": _profile_decode(
               torch, sched, [r.prompt for r in reqs[:8]])})
     return launches, {k: st[k] for k in SERVE_FIGURES}
+
+
+# the span chain every request served from a paged pool by an
+# attention-only stack leaves on its trace row (its prompt prefills in
+# one or more chunks)
+SPAN_CHAIN = ("enqueue", "queued", "admit", "prefill_chunk", "first_token",
+              "finish")
+
+
+def _span_rows(trace: dict) -> dict:
+    """Every request's event names in emission order, by rid, from a
+    Chrome-trace export."""
+    rows = {}
+    for ev in trace["traceEvents"]:
+        if ev["ph"] in ("X", "i") and "rid" in ev["args"]:
+            rows.setdefault(ev["args"]["rid"], []).append(ev["name"])
+    return rows
+
+
+def _chain_complete(names) -> bool:
+    """``names`` opens with ``enqueue``, closes with ``finish`` and holds
+    :data:`SPAN_CHAIN` in order."""
+    it = iter(names)
+    return bool(names) and names[0] == SPAN_CHAIN[0] \
+        and names[-1] == SPAN_CHAIN[-1] \
+        and all(any(n == want for n in it) for want in SPAN_CHAIN)
+
+
+def _phase_split(sched) -> dict:
+    """A served run's host wall time by scheduler phase: each phase's
+    share of the run's wall, its calls and its ms a call."""
+    tel, wall = sched.telemetry, sched.stats.wall
+    return {"wall_s": wall,
+            "share": {ph: v / wall for ph, v in
+                      sorted(tel.phase_seconds.items())},
+            "calls": dict(tel.phase_calls),
+            "ms_per_call": {ph: 1e3 * v / tel.phase_calls[ph]
+                            for ph, v in sorted(tel.phase_seconds.items())}}
+
+
+def _telemetry_twins(torch, make, requests, first, first_results,
+                     first_launches, device) -> dict:
+    """The serve phase's trace twice more after its default run (telemetry
+    on): on a fresh scheduler with ``telemetry=False``, then with it on
+    again.  Fails unless every run serves the same tokens with the same
+    kernel launches, every request of a telemetry run leaves a complete
+    span chain with no event dropped, and the telemetry-off run leaves no
+    event.  Returns each run's tokens/s, events and phase split, and the
+    overhead ``1 - median(on tokens/s) / median(off tokens/s)`` (reported,
+    not gated: the host's speed varies between runs)."""
+    def figures(sched, results, launches):
+        tr = sched.telemetry.tracer
+        rows = _span_rows(tr.export())
+        complete = sum(_chain_complete(rows.get(str(rid), []))
+                       for rid in results)
+        return {"telemetry": sched.telemetry.enabled,
+                "tokens_per_s": sched.stats.as_dict()["tokens_per_s"],
+                "events": tr.emitted, "dropped": tr.dropped,
+                "chains_complete": complete, "launches": launches,
+                "phases": _phase_split(sched)}
+
+    runs = [figures(first, first_results, first_launches)]
+    for telemetry in (False, True):
+        sched = make(telemetry=telemetry)
+        for r in requests():
+            sched.submit(r)
+        counters = {n: _all_counters()[n] for n in first_launches}
+        before = {n: fn.launches for n, fn in counters.items()}
+        results = sched.run()
+        _sync(torch, device)
+        launches = {n: fn.launches - before[n] for n, fn in counters.items()}
+        check(sorted(results) == sorted(first_results) and all(
+            results[rid].tolist() == first_results[rid].tolist()
+            for rid in results),
+            f"serve: the telemetry={telemetry} run served other tokens")
+        check(launches == first_launches,
+              f"serve: telemetry={telemetry} launches {launches} != "
+              f"{first_launches}")
+        runs.append(figures(sched, results, launches))
+        del sched
+    n = len(first_results)
+    for run in runs:
+        if run["telemetry"]:
+            check(run["chains_complete"] == n and run["dropped"] == 0,
+                  f"serve: {run['chains_complete']} of {n} span chains "
+                  f"complete, {run['dropped']} events dropped")
+        else:
+            check(run["events"] == 0,
+                  f"serve: telemetry off emitted {run['events']} events")
+    on = statistics.median(r["tokens_per_s"] for r in runs
+                           if r["telemetry"])
+    off = statistics.median(r["tokens_per_s"] for r in runs
+                            if not r["telemetry"])
+    # the first run also pays the scheduler's first calls; the last two
+    # are both warm
+    warm = 1.0 - runs[2]["tokens_per_s"] / runs[1]["tokens_per_s"]
+    return {"order": ["on", "off", "on"], "runs": runs,
+            "tokens_per_s_on_median": on, "tokens_per_s_off_median": off,
+            "overhead": 1.0 - on / off, "overhead_warm_pair": warm,
+            "tokens_identical": True}
 
 
 def _profile_decode(torch, sched, prompts, ranges=()):
@@ -1922,7 +2028,12 @@ def phase_ltfb(torch, device="cuda", workdir=None):
         clis = _ltfb_clis(torch, device, [
             *LTFB_ARGS, "--rounds", "1", "--ckpt-every",
             "1" if workdir else "0", "--device", device, "--data-dir",
-            f"{tmp}/data", "--ckpt-dir", f"{tmp}/ckpt"])
+            f"{tmp}/data", "--ckpt-dir", f"{tmp}/ckpt",
+            "--trace-out", f"{tmp}/ltfb_trace.json",
+            "--prom-out", f"{tmp}/ltfb.prom",
+            "--genealogy", f"{tmp}/genealogy.jsonl", "--metrics-port", "0"])
+        clis["ltfb"]["telemetry"] = _ltfb_telemetry(
+            tmp, clis["ltfb"].pop("scraped"), len(trainers))
         served = _keep_winners(fns, trainers[0], f"{tmp}/ckpt",
                                f"{tmp}/next") if workdir else None
     finally:
@@ -2026,21 +2137,94 @@ def _prune_members(pop_dir, steps):
 
 def _ltfb_clis(torch, device, ltfb_argv):
     """Both CycleGAN entry points as a user calls them, on the card: the
-    ltfb CLI resuming from the phase's checkpoint for one more round, and
-    the train CLI's CycleGAN path for 20 steps (:func:`_run_cli`)."""
+    ltfb CLI resuming from the phase's checkpoint for one more round (its
+    ``--metrics-port`` endpoint scraped over HTTP just before the CLI
+    closes it), and the train CLI's CycleGAN path for 20 steps
+    (:func:`_run_cli`)."""
     import re
+    import urllib.request
 
     from repro_torch.launch import ltfb as lt
     from repro_torch.launch import train as tlaunch
+    from repro_torch.train import telemetry as train_tel
 
     number = re.compile(r"\b(?:best_val|speedup|val|g|d)=([^\s,x]+)")
-    runs = {"ltfb": _run_cli(torch, lt.main, ltfb_argv, "[ltfb]", number),
+    scraped = []
+    close = train_tel.MetricsServer.close
+
+    def scrape_then_close(server):
+        url = f"http://127.0.0.1:{server.port}/metrics"
+        with urllib.request.urlopen(url, timeout=60) as r:
+            scraped.append(r.read().decode())
+        close(server)
+
+    train_tel.MetricsServer.close = scrape_then_close
+    try:
+        ltfb_run = _run_cli(torch, lt.main, ltfb_argv, "[ltfb]", number)
+    finally:
+        train_tel.MetricsServer.close = close
+    ltfb_run["scraped"] = scraped
+    runs = {"ltfb": ltfb_run,
             "train": _run_cli(torch, tlaunch.main,
                               ["--arch", "icf-cyclegan", "--steps", "20",
                                "--device", device], "", number)}
     runs["ltfb"]["resumed"] = any("[ltfb] resumed at round 3" in ln
                                   for ln in runs["ltfb"]["lines"])
     return runs
+
+
+TRAINER_SPANS = {"data_wait", "step", "train_round", "tournament_eval",
+                 "partner_exchange"}
+
+
+def _ltfb_telemetry(tmp, scraped, k) -> dict:
+    """The ltfb CLI's telemetry outputs: every trainer's row in the trace
+    holds :data:`TRAINER_SPANS`, the Prometheus file states a finite
+    model FLOP/s, the HTTP endpoint served the file's text, and
+    ``python -m repro_torch.launch.lineage`` walks the champion's
+    ancestry back to the population's init."""
+    trace = json.load(open(f"{tmp}/ltfb_trace.json"))
+    rows = {e["tid"]: e["args"]["name"] for e in trace["traceEvents"]
+            if e["ph"] == "M"}
+    spans = {}
+    for e in trace["traceEvents"]:
+        if e["ph"] == "X":
+            spans.setdefault(rows[e["tid"]], set()).add(e["name"])
+    prom = open(f"{tmp}/ltfb.prom").read()
+    samples = dict(ln.rsplit(" ", 1) for ln in prom.splitlines()
+                   if not ln.startswith("#"))
+    flops_s = float(samples.get("repro_train_model_flops_per_s", "nan"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.lineage", "--genealogy",
+         f"{tmp}/genealogy.jsonl", "--json"], env=env, capture_output=True,
+        text=True, timeout=300)
+    lineage = json.loads(proc.stdout) if proc.returncode == 0 else {}
+    chain = lineage.get("ancestry", [])
+    out = {"trace_events": trace["otherData"]["emitted"],
+           "dropped": trace["otherData"]["dropped"],
+           "trainer_rows": {r: sorted(v) for r, v in sorted(spans.items())},
+           "flops_per_step": float(samples.get("repro_train_flops_per_step",
+                                               "nan")),
+           "model_flops_per_s": flops_s,
+           "prom_lines": len(prom.splitlines()),
+           "http_equals_file": scraped == [prom],
+           "lineage_rc": proc.returncode,
+           "champion": lineage.get("champion"),
+           "lineage_summary": lineage.get("summary"),
+           "ancestry": [r.get("t") for r in chain]}
+    check(all(spans.get(f"trainer {i}") == TRAINER_SPANS for i in range(k))
+          and out["dropped"] == 0,
+          f"ltfb CLI trace: rows {out['trainer_rows']}")
+    check(math.isfinite(flops_s) and flops_s > 0,
+          f"ltfb CLI --prom-out: model FLOP/s {flops_s}")
+    check(out["http_equals_file"],
+          f"ltfb CLI --metrics-port served {len(scraped)} bodies, not the "
+          "--prom-out text")
+    check(proc.returncode == 0 and chain and chain[0]["t"] == "init",
+          f"lineage: rc={proc.returncode} {proc.stderr[-400:]} "
+          f"ancestry={out['ancestry']}")
+    return out
 
 
 def _run_cli(torch, main, argv, pick, number):
@@ -2664,8 +2848,12 @@ def phase_clis(torch, workdir, surrogate_dir, lm, device="cuda",
     from repro_torch.launch import serve
     from repro_torch.launch import train as tl
 
+    from repro_torch.telemetry import enable_json_logs
+
     size = ["--smoke"] if smoke else []
     train_dir = f"{workdir}/train_ckpt"
+    serve_trace = f"{workdir}/serve_trace.json"
+    profile_dir = f"{workdir}/serve_profile"
     runs = {}
     runs["serve_surrogate"] = _run_cli(
         torch, serve.main, ["--arch", "icf-cyclegan", "--ckpt-dir",
@@ -2673,19 +2861,29 @@ def phase_clis(torch, workdir, surrogate_dir, lm, device="cuda",
         "[serve]", re.compile(r"output_mean=(\S+)"))
     runs["serve_lm"] = _run_cli(
         torch, serve.main, ["--arch", "qwen3-0.6b", "--ckpt-dir", lm["pop"],
-                            "--requests", "4", "--device", device, *size],
+                            "--requests", "4", "--device", device,
+                            "--trace-out", serve_trace, "--profile-steps",
+                            "4", "--profile-dir", profile_dir, *size],
         "[serve]", re.compile(r"([\d.]+) tok/s"))
+    runs["serve_lm"]["telemetry"] = _serve_cli_telemetry(
+        runs["serve_lm"], serve_trace, profile_dir)
     runs["serve_lm_dense"] = _run_cli(
         torch, serve.main, ["--arch", "qwen3-0.6b", "--ckpt-dir", lm["pop"],
                             "--requests", "4", "--layout", "dense",
                             "--device", device, *size],
         "[serve]", re.compile(r"([\d.]+) tok/s"))
-    runs["ltfb_lm"] = _run_cli(
-        torch, lt.main, [*LM_LTFB_ARGS, *(LM_SMOKE if smoke else ()),
-                         "--rounds", "1", "--ckpt-every", "0", "--device",
-                         device, "--data-dir", lm["data"], "--ckpt-dir",
-                         lm["pop"]],
-        "[ltfb]", re.compile(r"\b(?:best_val|speedup)=([^\s,x]+)"))
+    # under --log-json every report line is one JSON record; the switch
+    # is global, so it goes off again before the next CLI reports
+    try:
+        runs["ltfb_lm"] = _run_cli(
+            torch, lt.main, [*LM_LTFB_ARGS, *(LM_SMOKE if smoke else ()),
+                             "--rounds", "1", "--ckpt-every", "0",
+                             "--device", device, "--data-dir", lm["data"],
+                             "--ckpt-dir", lm["pop"], "--log-json"],
+            "", re.compile(r'"(?:best_val|speedup)": ([^\s,}]+)'))
+    finally:
+        enable_json_logs(False)
+    runs["ltfb_lm"]["events"] = _json_events(runs["ltfb_lm"]["lines"])
     shutil.rmtree(lm["pop"], ignore_errors=True)
     shutil.rmtree(lm["data"], ignore_errors=True)
     train = ["--arch", "qwen3-0.6b", "--batch", "1", "--seq", "1024",
@@ -2704,7 +2902,7 @@ def phase_clis(torch, workdir, surrogate_dir, lm, device="cuda",
     flags = {"serve_surrogate": "[serve] winner: step=",
              "serve_lm": "[serve] winner: step=2",
              "serve_lm_dense": "layout=dense",
-             "ltfb_lm": "[ltfb] resumed at round 2",
+             "ltfb_lm": '"event": "ltfb_resumed"',
              "train_lm_resumed": "[train] resumed from",
              "train_adafactor_resumed": "[train] resumed from"}
     for name, tag in flags.items():
@@ -2722,6 +2920,45 @@ def phase_clis(torch, workdir, surrogate_dir, lm, device="cuda",
         moved = any(run["launches"].values())
         want = cuda and name != "serve_surrogate"
         check(moved == want, f"clis: {name} launches {run['launches']}")
+    events = runs["ltfb_lm"]["events"]
+    check(events is not None and events.count("ltfb_round") == 1
+          and "ltfb_efficiency" in events,
+          f"clis: ltfb_lm --log-json printed {events}")
+
+
+def _json_events(lines):
+    """The event names of a ``--log-json`` run's output, every non-empty
+    line one JSON record (None when a line is not one)."""
+    try:
+        return [json.loads(ln)["event"] for ln in lines if ln.strip()]
+    except (ValueError, KeyError):
+        return None
+
+
+def _serve_cli_telemetry(run, trace_path, profile_dir) -> dict:
+    """The serve CLI's ``--trace-out`` and ``--profile-steps`` outputs:
+    every request's span chain complete with nothing dropped, one
+    profile window taken with no error, one trace file written."""
+    trace = json.load(open(trace_path))
+    tracer_rows = _span_rows(trace)
+    complete = sum(map(_chain_complete, tracer_rows.values()))
+    profiles = sorted(os.listdir(profile_dir)) \
+        if os.path.isdir(profile_dir) else []
+    line = next((ln for ln in run["lines"]
+                 if ln.startswith("[serve] profile:")), "")
+    out = {"requests_traced": len(tracer_rows), "chains_complete": complete,
+           "dropped": trace["otherData"]["dropped"],
+           "events": trace["otherData"]["emitted"], "profile_line": line,
+           "profile_files": profiles,
+           "profile_bytes": sum(os.path.getsize(os.path.join(
+               profile_dir, f)) for f in profiles)}
+    check(len(tracer_rows) == 4 and complete == 4 and out["dropped"] == 0,
+          f"clis: serve_lm --trace-out: {out}")
+    check("taken=1 " in line and "error=None" in line
+          and len(profiles) == 1,
+          f"clis: serve_lm --profile-steps: {out}")
+    shutil.rmtree(profile_dir, ignore_errors=True)
+    return out
 
 
 # ---------------------------------------------------------------------------

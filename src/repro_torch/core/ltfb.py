@@ -15,6 +15,7 @@ not ported yet (ROADMAP.md queue A6).
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -104,13 +105,34 @@ def tree_nbytes(tree) -> int:
                    for t in _tensors(tree)))
 
 
+def _exchange(population: List[Params], i: int, j: int, scope: str,
+              log: Dict[str, Any], telemetry) -> Params:
+    """Trainer ``i``'s candidate: ``j``'s exchanged part merged with
+    ``i``'s local part; its bytes go to ``log`` and, with ``telemetry``, a
+    ``partner_exchange`` span to trainer ``i``'s row."""
+    x0 = time.perf_counter()
+    exch_j, _ = split_scope(population[j], scope)
+    _, local_i = split_scope(population[i], scope)
+    cand = merge_scope(exch_j, local_i, scope)
+    nbytes = tree_nbytes(exch_j)
+    log["exchange_bytes"] += nbytes
+    if telemetry is not None:
+        telemetry.trainer_span("partner_exchange", i, x0,
+                               time.perf_counter(), phase="partner_exchange",
+                               partner=j, bytes=nbytes)
+    return cand
+
+
 def host_tournament(population: List[Params], metrics_eval: Callable,
-                    partner: np.ndarray, scope: str = "full"
+                    partner: np.ndarray, scope: str = "full",
+                    telemetry=None
                     ) -> Tuple[List[Params], Dict[str, Any]]:
     """One tournament round over an explicit population.
 
     metrics_eval(trainer_idx, candidate_params) -> float (lower better);
     candidate evaluation uses trainer_idx's LOCAL tournament data.
+    ``telemetry`` (a :class:`repro_torch.train.telemetry.TrainTelemetry`)
+    gets one ``partner_exchange`` span per receiving trainer.
     """
     K = len(population)
     winners: List[Params] = [None] * K
@@ -122,10 +144,7 @@ def host_tournament(population: List[Params], metrics_eval: Callable,
             winners[i] = population[i]
             log["kept_local"] += 1
             continue
-        exch_j, _ = split_scope(population[j], scope)
-        _, local_i = split_scope(population[i], scope)
-        cand = merge_scope(exch_j, local_i, scope)
-        log["exchange_bytes"] += tree_nbytes(exch_j)
+        cand = _exchange(population, i, j, scope, log, telemetry)
         m_local = float(metrics_eval(i, population[i]))
         m_other = float(metrics_eval(i, cand))
         if m_other < m_local:
@@ -140,7 +159,7 @@ def host_tournament(population: List[Params], metrics_eval: Callable,
 
 def host_tournament_async(population: List[Params], metrics_eval: Callable,
                           partner: np.ndarray, scope: str = "full",
-                          executor=None
+                          executor=None, telemetry=None
                           ) -> Tuple[List[Params], Dict[str, Any]]:
     """Tournament round with evaluation overlapped with the exchange.
 
@@ -149,10 +168,13 @@ def host_tournament_async(population: List[Params], metrics_eval: Callable,
     flight.  The local-metric evaluations are submitted to ``executor``
     *before* the exchange (split/merge + byte accounting) runs, then the
     received-candidate evaluations are submitted, so the two phases
-    overlap instead of strictly alternating per trainer.
+    overlap instead of strictly alternating per trainer.  ``telemetry``
+    gets one ``partner_exchange`` span per receiving trainer (the eval
+    spans come from ``metrics_eval`` itself).
     """
     if executor is None:
-        return host_tournament(population, metrics_eval, partner, scope)
+        return host_tournament(population, metrics_eval, partner, scope,
+                               telemetry=telemetry)
     K = len(population)
     log = {"exchanged": 0, "kept_local": 0, "metrics": [],
            "exchange_bytes": 0}
@@ -162,11 +184,8 @@ def host_tournament_async(population: List[Params], metrics_eval: Callable,
                for i in active}
     cands: Dict[int, Params] = {}
     for i in active:
-        j = int(partner[i])
-        exch_j, _ = split_scope(population[j], scope)
-        _, local_i = split_scope(population[i], scope)
-        cands[i] = merge_scope(exch_j, local_i, scope)
-        log["exchange_bytes"] += tree_nbytes(exch_j)
+        cands[i] = _exchange(population, i, int(partner[i]), scope, log,
+                             telemetry)
     # phase 2: received-candidate evals
     other_f = {i: executor.submit(metrics_eval, i, cands[i]) for i in active}
     winners = list(population)

@@ -89,6 +89,9 @@ class Population:
         self.perturb_hparams = perturb_hparams
         self.round = 0
         self.rng = np.random.default_rng(seed)
+        # optional repro_torch.train.telemetry.TrainTelemetry (set by the
+        # orchestrator); None keeps the loop span-free
+        self.telemetry = None
         self.trainers: List[TrainerState] = []
         for i, (loader, tb) in enumerate(zip(loaders, tournament_batches)):
             params, opt_state, hparams = fns.init(seed + 1000 * i + 1)
@@ -103,10 +106,15 @@ class Population:
         slice of ``train_seconds`` spent blocked in ``loader()``, the rest
         is compute.  The last step's metrics are read to the host before
         the clock is read, so ``train_seconds`` covers the device work and
-        not only its launches.
+        not only its launches.  With ``telemetry`` set, each step emits
+        ``data_wait`` + ``step`` spans on the trainer's trace row (host
+        time: a ``step`` span ends once the step's launches are queued)
+        and each trainer a ``train_round`` span, which ends after that
+        read.
         """
         metrics = []
-        for t in self.trainers:
+        tel = self.telemetry
+        for i, t in enumerate(self.trainers):
             if not t.alive:
                 continue
             t0 = time.perf_counter()
@@ -115,22 +123,39 @@ class Population:
             for _ in range(steps):
                 w0 = time.perf_counter()
                 batch = t.loader()
-                wait += time.perf_counter() - w0
+                w1 = time.perf_counter()
+                wait += w1 - w0
                 t.params, t.opt_state, m = self.fns.train_step(
                     t.params, t.opt_state, batch, t.hparams)
                 t.steps += 1
+                if tel is not None:
+                    tel.trainer_span("data_wait", i, w0, w1)
+                    tel.trainer_span("step", i, w1, time.perf_counter(),
+                                     step=t.steps)
             if m is not None:
                 # waits for the device: makes the timing honest
                 t.last_metrics = {k: float(v) for k, v in m.items()}
-            t.train_seconds += time.perf_counter() - t0
+            t1 = time.perf_counter()
+            t.train_seconds += t1 - t0
             t.data_wait_seconds += wait
+            if tel is not None:
+                tel.trainer_span("train_round", i, t0, t1, round=self.round,
+                                 steps=steps)
+                tel.add_phase("data_wait", wait)
+                tel.add_phase("compute", (t1 - t0) - wait)
             metrics.append(m)
         return {"last_metrics": metrics}
 
     # -- tournament ------------------------------------------------------------
     def _metric_on(self, idx: int, params: Params) -> float:
+        tel = self.telemetry
+        t0 = time.perf_counter()
         vals = [float(self.fns.metric(params, b))
                 for b in self.trainers[idx].tournament_batches]
+        if tel is not None:
+            tel.trainer_span("tournament_eval", idx, t0,
+                             time.perf_counter(), phase="tournament_eval",
+                             batches=len(vals))
         return float(np.mean(vals))
 
     def tournament(self, executor=None) -> Dict[str, Any]:
@@ -146,7 +171,8 @@ class Population:
                                       self.seed, alive)
         pop = [t.params for t in self.trainers]
         winners, log = ltfb.host_tournament_async(
-            pop, self._metric_on, partner, self.scope, executor)
+            pop, self._metric_on, partner, self.scope, executor,
+            telemetry=self.telemetry)
         for i, j, m_local, m_other in log["metrics"]:
             winner_idx = j if m_other < m_local else i
             self.trainers[winner_idx].wins += 1
@@ -165,6 +191,11 @@ class Population:
         log["partner"] = partner.tolist()
         log["seconds"] = time.perf_counter() - t0
         log["pairing_seed"] = self.seed
+        if self.telemetry is not None:
+            self.telemetry.span("tournament", t0, time.perf_counter(),
+                                round=self.round - 1,
+                                exchanged=log["exchanged"],
+                                exchange_bytes=log["exchange_bytes"])
         return log
 
     def run(self, rounds: int, steps_per_round: int,

@@ -11,8 +11,13 @@ to the device in one copy, and exchanges models through host tournaments
 thread pool).  Failure/recovery, elastic rescale and population
 checkpoint/restart as in the JAX package.
 
-Not ported yet: ``backend="mesh"`` and the int8 exchange (ROADMAP.md
-queue A6), ``telemetry=`` and ``genealogy=`` (A5).
+``telemetry=`` (a :class:`repro_torch.train.telemetry.TrainTelemetry`)
+traces every trainer's steps, data waits, evals and exchanges and the
+orchestrator's tournaments, rescales, checkpoints and restores;
+``genealogy=`` (a :class:`~repro_torch.train.telemetry.GenealogyLog`)
+appends the JAX package's genealogy records; the ``ltfb_*`` JSON-log
+records go out under ``--log-json``.  Not ported yet: ``backend="mesh"``
+and the int8 exchange (ROADMAP.md queue A6).
 """
 from __future__ import annotations
 
@@ -33,7 +38,8 @@ from repro_torch.datastore.store import (
     aggregate_stats,
     partition_files,
 )
-from repro_torch.train.telemetry import efficiency_snapshot
+from repro_torch.telemetry import log_event
+from repro_torch.train.telemetry import efficiency_snapshot, step_flops
 
 
 @dataclass
@@ -122,16 +128,17 @@ class TournamentOrchestrator:
                 "ported to repro_torch yet; see ROADMAP.md queue A6")
         if cfg.backend != "host":
             raise ValueError(f"unknown backend {cfg.backend!r}")
-        if telemetry is not None or genealogy is not None:
-            raise NotImplementedError(
-                "training telemetry and the genealogy log are not ported "
-                "to repro_torch yet; see ROADMAP.md queue A5")
         self.device = resolve_device(cfg.device)
         self.fns = fns
         self.plan = plan
         self.cfg = cfg
         self._retired_stats: Dict[str, float] = {}
         self.tournament_exchange_bytes = 0
+        # observability: tracing (TrainTelemetry), the genealogy JSONL
+        # (GenealogyLog), per-round wall/tournament/checkpoint timings,
+        # event counters and the live efficiency
+        self.telemetry = telemetry
+        self.genealogy = genealogy
         self.events = {"rescales": 0, "failures": 0, "recoveries": 0,
                        "checkpoints": 0, "restores": 0}
         self.tournament_seconds = 0.0
@@ -140,8 +147,11 @@ class TournamentOrchestrator:
         self.checkpoint_seconds = 0.0
         self.restore_seconds = 0.0
         self.last_efficiency: Optional[Dict[str, Any]] = None
+        self._flops_per_step: Optional[float] = None
+        self._flops_probed = False
         # per-round hook, called with the orchestrator after each round's
-        # accounting
+        # accounting (the launcher writes the Prometheus snapshot and
+        # updates the metrics endpoint from here)
         self.on_round: Optional[Callable[["TournamentOrchestrator"],
                                          None]] = None
         self._executor = ThreadPoolExecutor(max_workers=cfg.eval_workers) \
@@ -166,6 +176,12 @@ class TournamentOrchestrator:
             scope=cfg.scope, seed=cfg.seed,
             perturb_factor=cfg.perturb_factor,
             perturb_hparams=cfg.perturb_hparams)
+        self.population.telemetry = telemetry
+        if self.genealogy is not None:
+            self.genealogy.append(
+                "init", trainers=cfg.trainers, backend=cfg.backend,
+                scope=cfg.scope, seed=cfg.seed,
+                partition=cfg.partition, files=len(self._train_files))
 
     # -- data plumbing -----------------------------------------------------
     def _build_data(self, k: int):
@@ -235,21 +251,42 @@ class TournamentOrchestrator:
         self.tournament_exchange_bytes += int(log.get("exchange_bytes", 0))
         return log
 
+    def _maybe_probe_flops(self):
+        """FLOPs of one train step (once, lazily, telemetry runs only),
+        so the efficiency is also stated in model-FLOP/s.  The probe
+        batch is read from trainer 0's store as JAX's probe reads it, and
+        the step runs on ``meta`` copies
+        (:func:`repro_torch.train.telemetry.step_flops`): trainer 0 is
+        not stepped."""
+        if self._flops_probed or self.telemetry is None:
+            return
+        self._flops_probed = True
+        t0 = self.population.trainers[0]
+        perm = self.stores[0].epoch_permutation(0)
+        batch = _to_device(self.plan.adapt(
+            self.stores[0].get_batch(perm, 0, self.cfg.batch_size)), "meta")
+        self._flops_per_step = step_flops(
+            self.fns.train_step, t0.params, t0.opt_state, batch, t0.hparams)
+
     def run(self, rounds: int, steps_per_round: int, ckpt_every: int = 0,
             log: Optional[Callable[[str], None]] = None) -> List[float]:
         """rounds x (independent training, tournament[, checkpoint]).
 
         Returns the best-trainer validation trace (one entry/round).
         Each round also computes the parallel-efficiency figures
-        (:func:`repro_torch.train.telemetry.efficiency_snapshot`).
+        (:func:`repro_torch.train.telemetry.efficiency_snapshot`),
+        appends ``match`` + ``round`` genealogy records, and emits an
+        ``ltfb_round`` structured log record (``--log-json``).
         """
         trace = []
+        self._maybe_probe_flops()
         for _ in range(rounds):
             r0 = time.perf_counter()
             before = {id(t): (t.steps, t.train_seconds, t.data_wait_seconds)
                       for t in self.population.trainers}
             self.train_round(steps_per_round)
             tlog = self.tournament()
+            round_idx = self.population.round - 1
             deltas = []
             for t in self.population.trainers:
                 s0, tr0, dw0 = before.get(id(t), (t.steps, 0.0, 0.0))
@@ -260,14 +297,36 @@ class TournamentOrchestrator:
             vals = [(float(self.fns.metric(t.params, self.val_batch)), i)
                     for i, t in enumerate(self.population.trainers)
                     if t.alive]
-            best, _ = min(vals)
+            best, best_idx = min(vals)
             trace.append(best)
             self.last_round_seconds = time.perf_counter() - r0
             self.round_wall_seconds += self.last_round_seconds
             eff = efficiency_snapshot(
                 deltas, self.cfg.batch_size,
-                float(tlog.get("seconds", 0.0)), self.last_round_seconds)
+                float(tlog.get("seconds", 0.0)), self.last_round_seconds,
+                flops_per_step=self._flops_per_step)
             self.last_efficiency = eff
+            if self.genealogy is not None:
+                seed = tlog.get("pairing_seed", self.cfg.seed)
+                for i, j, m_local, m_other in tlog["metrics"]:
+                    adopted = m_other < m_local
+                    self.genealogy.append(
+                        "match", round=round_idx, trainer=i, partner=j,
+                        m_local=m_local, m_other=m_other,
+                        winner=(j if adopted else i), adopted=adopted,
+                        seed=seed)
+                self.genealogy.append(
+                    "round", round=round_idx, best_val=best,
+                    best_trainer=best_idx,
+                    exchanged=tlog["exchanged"],
+                    exchange_bytes=int(tlog.get("exchange_bytes", 0)),
+                    efficiency=eff)
+            log_event("ltfb_round", round=round_idx, best_val=best,
+                      best_trainer=best_idx, exchanged=tlog["exchanged"],
+                      exchange_bytes=int(tlog.get("exchange_bytes", 0)),
+                      tournament_seconds=float(tlog.get("seconds", 0.0)),
+                      wall_seconds=self.last_round_seconds,
+                      efficiency=eff)
             if log is not None:
                 sp = eff.get("speedup")
                 eff_txt = (f" speedup={sp:.2f}x "
@@ -289,24 +348,47 @@ class TournamentOrchestrator:
         """Take trainer ``idx`` out of training and tournaments."""
         self.population.fail(idx)
         self.events["failures"] += 1
+        if self.genealogy is not None:
+            self.genealogy.append("fail", trainer=idx,
+                                  round=self.population.round)
+        if self.telemetry is not None:
+            self.telemetry.event("trainer_fail", trainer=idx)
+        log_event("ltfb_trainer_fail", trainer=idx,
+                  round=self.population.round)
 
     def recover(self, idx: int, from_best: bool = True):
         """Bring trainer ``idx`` back, cloning the best trainer's weights
         on the held-out batch (or resuming its own)."""
-        self.population.recover(
+        src = self.population.recover(
             idx, from_best_of=self.val_batch if from_best else None)
         self.events["recoveries"] += 1
+        if self.genealogy is not None:
+            self.genealogy.append("recover", trainer=idx, cloned_from=src,
+                                  round=self.population.round)
+        if self.telemetry is not None:
+            self.telemetry.event("trainer_recover", trainer=idx,
+                                 cloned_from=src)
+        log_event("ltfb_trainer_recover", trainer=idx, cloned_from=src,
+                  round=self.population.round)
 
     def rescale(self, new_k: int):
         """Elastic rescale: re-partition the datastore manifest across
         `new_k` trainers and grow (cloning tournament winners) or shrink
         (keeping the best) the population."""
+        t0 = time.perf_counter()
         self._teardown_data()
         self._build_data(new_k)
-        self.population.resize(new_k, self._loader_fns,
-                               self._tournament_batches,
-                               clone_batch=self.val_batch)
+        info = self.population.resize(new_k, self._loader_fns,
+                                      self._tournament_batches,
+                                      clone_batch=self.val_batch)
         self.events["rescales"] += 1
+        if self.genealogy is not None:
+            self.genealogy.append("rescale", round=self.population.round,
+                                  **info)
+        if self.telemetry is not None:
+            self.telemetry.span("rescale", t0, time.perf_counter(),
+                                **info)
+        log_event("ltfb_rescale", round=self.population.round, **info)
 
     # -- checkpoint / restart -----------------------------------------------
     def _to_ckpt(self, params, opt_state):
@@ -325,8 +407,21 @@ class TournamentOrchestrator:
                                                           tr["opt_state"])
         ckpt.save_population(self.cfg.ckpt_dir, self.population.round,
                              state)
-        self.checkpoint_seconds += time.perf_counter() - t0
+        dur = time.perf_counter() - t0
+        self.checkpoint_seconds += dur
         self.events["checkpoints"] += 1
+        if self.genealogy is not None:
+            self.genealogy.append("checkpoint",
+                                  round=self.population.round,
+                                  seconds=dur)
+            # a checkpoint is a durability point for the ancestry too
+            self.genealogy.sync()
+        if self.telemetry is not None:
+            self.telemetry.span("checkpoint", t0, time.perf_counter(),
+                                phase="checkpoint",
+                                round=self.population.round)
+        log_event("ltfb_checkpoint", round=self.population.round,
+                  seconds=dur)
 
     def maybe_resume(self) -> bool:
         """Restore the newest population checkpoint, if any.  Elastic:
@@ -347,8 +442,17 @@ class TournamentOrchestrator:
                 tr["params"], tr["opt_state"] = self.fns.from_ckpt(
                     tr["params"], tr["opt_state"])
         self.population.load_state_dict(state)
-        self.restore_seconds += time.perf_counter() - w0
+        dur = time.perf_counter() - w0
+        self.restore_seconds += dur
         self.events["restores"] += 1
+        if self.genealogy is not None:
+            self.genealogy.append("resume", round=self.population.round,
+                                  step=step, seconds=dur)
+        if self.telemetry is not None:
+            self.telemetry.span("restore", w0, time.perf_counter(),
+                                phase="restore", step=step)
+        log_event("ltfb_resume", round=self.population.round, step=step,
+                  seconds=dur)
         return True
 
     # -- accounting ----------------------------------------------------------
@@ -396,7 +500,8 @@ class TournamentOrchestrator:
                 "checkpoint_seconds": self.checkpoint_seconds,
                 "restore_seconds": self.restore_seconds,
                 "events": dict(self.events),
-                "efficiency": self.last_efficiency}
+                "efficiency": self.last_efficiency,
+                "flops_per_step": self._flops_per_step}
 
     # -- lifecycle -----------------------------------------------------------
     def close(self):

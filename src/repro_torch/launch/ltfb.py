@@ -19,17 +19,23 @@ CycleGAN and ``full`` for an LM, LM rows of ``--seq`` 64 tokens.
 Resumes from --ckpt-dir automatically unless --no-resume.  Checkpoints
 hold the JAX package's layout, so either package resumes the other's.
 LM tournaments run over every token arch (the recurrent ones, MoE and
-audio included).  Not ported yet: LM tournaments over qwen2-vl-7b, whose
-token shards hold no embeddings (A15; the JAX launcher fails on them
-too), ``--backend mesh`` and ``--quantize-exchange`` (A6),
-``--log-json``, ``--trace-out``, ``--prom-out``, ``--metrics-port`` and
-``--genealogy`` (A5).  ``--optimizer adafactor`` trains and checkpoints
-every LM arch; the CycleGAN's checkpoint layout carries Adam and SGD
-state only, so it refuses Adafactor there.
+audio included).  Telemetry as in the JAX launcher: ``--log-json`` turns
+every report line into one JSON record, ``--trace-out`` writes a
+Chrome trace of every trainer's steps, data waits, evals and exchanges,
+``--prom-out`` a Prometheus snapshot each round, ``--metrics-port``
+serves it over HTTP (0 = an ephemeral port), and ``--genealogy``
+(default ``<ckpt-dir>/genealogy.jsonl`` with ``--ckpt-dir``) logs the
+tournament's ancestry for ``python -m repro_torch.launch.lineage``.
+Not ported yet: LM tournaments over qwen2-vl-7b, whose token shards hold
+no embeddings (A15; the JAX launcher fails on them too), ``--backend
+mesh`` and ``--quantize-exchange`` (A6).  ``--optimizer adafactor`` trains
+and checkpoints every LM arch; the CycleGAN's checkpoint layout carries
+Adam and SGD state only, so it refuses Adafactor there.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import tempfile
 
@@ -44,16 +50,23 @@ from repro_torch.core.tournament import (
     TournamentOrchestrator,
 )
 from repro_torch.data import jag, tokens
+from repro_torch.telemetry import (enable_json_logs, json_logs_enabled,
+                                   log_event, write_trace)
+from repro_torch.train import telemetry as train_tel
 from repro_torch.train.steps import (make_gan_steps,
                                      make_lm_population_fns, tree_to)
 
 # flags of the JAX launcher the port refuses, and the queue that ports them
-_UNPORTED_FLAGS = (("quantize_exchange", "--quantize-exchange", "A6"),
-                   ("log_json", "--log-json", "A5"),
-                   ("trace_out", "--trace-out", "A5"),
-                   ("prom_out", "--prom-out", "A5"),
-                   ("metrics_port", "--metrics-port", "A5"),
-                   ("genealogy", "--genealogy", "A5"))
+_UNPORTED_FLAGS = (("quantize_exchange", "--quantize-exchange", "A6"),)
+
+
+def say(human: str, event: str, **fields):
+    """Report line: one-line JSON under --log-json, human text otherwise
+    (the JAX launcher's records, same event names)."""
+    if json_logs_enabled():
+        log_event(event, **fields)
+    else:
+        print(human)
 
 
 def check_ported(args) -> None:
@@ -77,8 +90,7 @@ def check_ported(args) -> None:
             "--backend mesh is not ported to repro_torch yet; see "
             "ROADMAP.md queue A6")
     for dest, flag, queue in _UNPORTED_FLAGS:
-        value = getattr(args, dest)
-        if value is not None and value is not False:    # port 0 counts
+        if getattr(args, dest):
             raise NotImplementedError(
                 f"{flag} is not ported to repro_torch yet; see ROADMAP.md "
                 f"queue {queue}")
@@ -102,7 +114,8 @@ def build_plan(args) -> DataPlan:
     else:
         files = jag.write_bundles(root, args.samples, args.samples_per_file,
                                   image_size=image_size, seed=args.seed)
-    print(f"[ltfb] manifest: {len(files)} JAG bundles in {root}")
+    say(f"[ltfb] manifest: {len(files)} JAG bundles in {root}",
+        "ltfb_manifest", files=len(files), root=root, kind="jag")
     return DataPlan.jag_cyclegan(files)
 
 
@@ -121,7 +134,8 @@ def _token_plan(args, root: str) -> DataPlan:
         files = tokens.write_token_shards(
             root, args.samples, seq_len=args.seq, vocab=cfg.vocab_size,
             samples_per_file=args.samples_per_file, seed=args.seed)
-    print(f"[ltfb] manifest: {len(files)} token shards in {root}")
+    say(f"[ltfb] manifest: {len(files)} token shards in {root}",
+        "ltfb_manifest", files=len(files), root=root, kind="tokens")
     return DataPlan.lm_tokens(files)
 
 
@@ -151,36 +165,46 @@ def build_fns(args) -> TrainerFns:
 
 
 def report(orch: TournamentOrchestrator):
-    """Print the per-trainer, datastore, tournament and efficiency lines."""
+    """Report the per-trainer, datastore, tournament and efficiency
+    lines (one JSON record each under --log-json)."""
     st = orch.stats()
     for i, d in enumerate(st["per_trainer"]):
-        print(f"[ltfb] trainer {i}: files={d['files']} "
-              f"cache_hits={d['cache_hits']} "
-              f"cache_misses={d['cache_misses']} "
-              f"file_opens={d['file_opens']} "
-              f"exchange_MB={d['exchange_bytes'] / 1e6:.2f} "
-              f"wins={d['wins']} adoptions={d['adoptions']} "
-              f"steps={d['steps']} "
-              f"data_wait_s={d['data_wait_seconds']:.2f}")
+        say(f"[ltfb] trainer {i}: files={d['files']} "
+            f"cache_hits={d['cache_hits']} "
+            f"cache_misses={d['cache_misses']} "
+            f"file_opens={d['file_opens']} "
+            f"exchange_MB={d['exchange_bytes'] / 1e6:.2f} "
+            f"wins={d['wins']} adoptions={d['adoptions']} "
+            f"steps={d['steps']} "
+            f"data_wait_s={d['data_wait_seconds']:.2f}",
+            "ltfb_trainer_stats", trainer=i, **d)
     tot = st["total"]
-    print(f"[ltfb] datastore total: read_MB={tot['bytes_read'] / 1e6:.2f} "
-          f"exchange_MB={tot['exchange_bytes'] / 1e6:.2f} "
-          f"cache_hits={int(tot['cache_hits'])} "
-          f"cache_misses={int(tot['cache_misses'])} "
-          f"samples={int(tot.get('samples_fetched', 0))} "
-          f"prefetch_wait_s={st['prefetch_wait_seconds']:.2f}")
+    say(f"[ltfb] datastore total: read_MB={tot['bytes_read'] / 1e6:.2f} "
+        f"exchange_MB={tot['exchange_bytes'] / 1e6:.2f} "
+        f"cache_hits={int(tot['cache_hits'])} "
+        f"cache_misses={int(tot['cache_misses'])} "
+        f"samples={int(tot.get('samples_fetched', 0))} "
+        f"prefetch_wait_s={st['prefetch_wait_seconds']:.2f}",
+        "ltfb_datastore_stats",
+        prefetch_wait_seconds=st["prefetch_wait_seconds"], **tot)
     wins = [d["wins"] for d in st["per_trainer"]]
-    print(f"[ltfb] tournament: rounds={st['round']} win_counts={wins} "
-          f"model_exchange_MB="
-          f"{st['tournament_exchange_bytes'] / 1e6:.2f} "
-          f"tournament_s={st['tournament_seconds']:.2f} "
-          f"ckpt_s={st['checkpoint_seconds']:.2f}")
+    say(f"[ltfb] tournament: rounds={st['round']} win_counts={wins} "
+        f"model_exchange_MB="
+        f"{st['tournament_exchange_bytes'] / 1e6:.2f} "
+        f"tournament_s={st['tournament_seconds']:.2f} "
+        f"ckpt_s={st['checkpoint_seconds']:.2f}",
+        "ltfb_tournament_stats", rounds=st["round"], win_counts=wins,
+        tournament_exchange_bytes=st["tournament_exchange_bytes"],
+        tournament_seconds=st["tournament_seconds"],
+        checkpoint_seconds=st["checkpoint_seconds"],
+        restore_seconds=st["restore_seconds"], events=st["events"])
     eff = st.get("efficiency") or {}
     if eff.get("speedup") is not None:
-        print(f"[ltfb] efficiency: speedup={eff['speedup']:.2f}x "
-              f"efficiency={eff['efficiency'] * 100:.0f}% "
-              f"parallel_samples_per_s="
-              f"{eff['parallel_samples_per_s']:.0f}")
+        say(f"[ltfb] efficiency: speedup={eff['speedup']:.2f}x "
+            f"efficiency={eff['efficiency'] * 100:.0f}% "
+            f"parallel_samples_per_s="
+            f"{eff['parallel_samples_per_s']:.0f}",
+            "ltfb_efficiency", **eff)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -233,12 +257,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--rescale-to", type=int, default=0,
                     help="elastically rescale to K' trainers mid-run")
     ap.add_argument("--seed", type=int, default=0)
-    # observability of the JAX launcher: not ported (ROADMAP A5)
-    ap.add_argument("--log-json", action="store_true")
-    ap.add_argument("--trace-out", default=None)
-    ap.add_argument("--prom-out", default=None)
-    ap.add_argument("--metrics-port", type=int, default=None)
-    ap.add_argument("--genealogy", default=None)
+    # telemetry, as in the JAX launcher
+    ap.add_argument("--log-json", action="store_true",
+                    help="one-line JSON log records instead of human text")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Chrome-trace JSON of per-trainer "
+                         "step/exchange/eval spans here on exit")
+    ap.add_argument("--prom-out", default=None,
+                    help="write a Prometheus text snapshot here each round")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="serve the Prometheus snapshot on this HTTP "
+                         "port of 127.0.0.1 (0 = ephemeral)")
+    ap.add_argument("--genealogy", default=None,
+                    help="tournament genealogy JSONL (default: "
+                         "<ckpt-dir>/genealogy.jsonl when --ckpt-dir is "
+                         "set; see repro_torch.launch.lineage)")
     return ap
 
 
@@ -250,8 +283,9 @@ def finish_args(args):
         args.samples_per_file = 64 if args.smoke else 512
     rounded = (args.samples // args.samples_per_file) * args.samples_per_file
     if rounded != args.samples:
-        print(f"[ltfb] rounding --samples {args.samples} -> {rounded} "
-              "(datastore bundles must be uniform)")
+        say(f"[ltfb] rounding --samples {args.samples} -> {rounded} "
+            "(datastore bundles must be uniform)",
+            "ltfb_samples_rounded", requested=args.samples, used=rounded)
         args.samples = max(rounded, args.samples_per_file)
     return args
 
@@ -271,33 +305,87 @@ def build_config(args) -> TournamentConfig:
         ckpt_dir=args.ckpt_dir, seed=args.seed, device=args.device)
 
 
+def _on_round(args, tel, server):
+    """The per-round hook writing ``--prom-out`` and updating the
+    ``--metrics-port`` endpoint (None when neither is asked for)."""
+    if not args.prom_out and server is None:
+        return None
+
+    def on_round(o: TournamentOrchestrator):
+        text = train_tel.train_prometheus(
+            o.stats(), tel.phase_seconds if tel else None)
+        if args.prom_out:
+            train_tel.write_prom(text, args.prom_out)
+        if server is not None:
+            server.update(text)
+
+    return on_round
+
+
 def main(argv=None) -> int:
     """CLI entry point: parse args, run the LTFB tournament."""
-    args = finish_args(build_parser().parse_args(argv))
+    args = build_parser().parse_args(argv)
+    if args.log_json:
+        enable_json_logs()
+    args = finish_args(args)
     check_ported(args)
     fns = build_fns(args)                  # raises first without a card
     plan = build_plan(args)
     cfg = build_config(args)
-    orch = TournamentOrchestrator(fns, plan, cfg)
+    tel = train_tel.TrainTelemetry() \
+        if (args.trace_out or args.prom_out
+            or args.metrics_port is not None) else None
+    gen_path = args.genealogy or (
+        os.path.join(args.ckpt_dir, "genealogy.jsonl")
+        if args.ckpt_dir else None)
+    gen = train_tel.GenealogyLog(gen_path) if gen_path else None
+    server = train_tel.MetricsServer(args.metrics_port) \
+        if args.metrics_port is not None else None
+    if server is not None:
+        say(f"[ltfb] metrics endpoint: "
+            f"http://127.0.0.1:{server.port}/metrics",
+            "ltfb_metrics_endpoint", port=server.port)
+    orch = None
     try:
+        orch = TournamentOrchestrator(fns, plan, cfg, telemetry=tel,
+                                      genealogy=gen)
+        orch.on_round = _on_round(args, tel, server)
+        log_line = None if args.log_json else print
         if not args.no_resume and orch.maybe_resume():
-            print(f"[ltfb] resumed at round {orch.population.round}")
-        print(f"[ltfb] arch={args.arch} K={args.trainers} "
-              f"backend={args.backend} scope={cfg.scope} "
-              f"store={args.store_mode}/{args.partition} "
-              f"ranks={args.num_ranks} device={orch.device}")
+            say(f"[ltfb] resumed at round {orch.population.round}",
+                "ltfb_resumed", round=orch.population.round)
+        say(f"[ltfb] arch={args.arch} K={args.trainers} "
+            f"backend={args.backend} scope={cfg.scope} "
+            f"store={args.store_mode}/{args.partition} "
+            f"ranks={args.num_ranks} device={orch.device}",
+            "ltfb_start", arch=args.arch, trainers=args.trainers,
+            backend=args.backend, scope=cfg.scope,
+            store_mode=args.store_mode, partition=args.partition,
+            num_ranks=args.num_ranks, device=str(orch.device))
         first = args.rounds // 2 if args.rescale_to else args.rounds
         orch.run(first, args.steps_per_round,
-                 ckpt_every=args.ckpt_every, log=print)
+                 ckpt_every=args.ckpt_every, log=log_line)
         if args.rescale_to:
-            print(f"[ltfb] elastic rescale {args.trainers} -> "
-                  f"{args.rescale_to}")
+            if not args.log_json:
+                print(f"[ltfb] elastic rescale {args.trainers} -> "
+                      f"{args.rescale_to}")
             orch.rescale(args.rescale_to)
             orch.run(args.rounds - first, args.steps_per_round,
-                     ckpt_every=args.ckpt_every, log=print)
+                     ckpt_every=args.ckpt_every, log=log_line)
         report(orch)
+        if args.trace_out and tel is not None:
+            write_trace(tel.tracer, args.trace_out)
+            say(f"[ltfb] wrote {args.trace_out} "
+                f"(Perfetto/chrome://tracing)",
+                "ltfb_trace_written", path=args.trace_out,
+                events=tel.tracer.emitted, dropped=tel.tracer.dropped)
     finally:
-        orch.close()
+        if orch is not None:
+            orch.close()
+        if gen is not None:
+            gen.close()
+        if server is not None:
+            server.close()
     return 0
 
 

@@ -22,6 +22,13 @@ or a population directory (its earliest step's winner by default) drafts
 that the served model verifies, with the same output as serving alone;
 ``--draft-arch`` names a drafter of another arch with the same vocab.
 
+Telemetry is on by default, as in JAX (``--no-telemetry`` drops the trace
+spans and keeps the counters): ``--trace-out`` writes every request's
+span chain as a Chrome trace, ``--profile-steps N`` records the first N
+scheduler steps with ``torch.profiler`` into a Chrome trace under
+``--profile-dir``, and ``--log-json`` adds a JSON record for the
+``[serve]`` report, hot swaps and profiler windows.
+
   python -m repro_torch.launch.serve --arch qwen3-0.6b
   python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke --device cpu
   python -m repro_torch.launch.serve --arch qwen3-0.6b --layout dense
@@ -35,7 +42,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
+import tempfile
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -54,6 +63,7 @@ from repro_torch.serve.registry import (ModelRegistry, check_draft_compat,
                                         load_draft)
 from repro_torch.serve.scheduler import Request, Scheduler
 from repro_torch.serve.surrogate import SurrogateEngine
+from repro_torch.serve.telemetry import enable_json_logs, write_trace
 from repro_torch.train.steps import params_from_ckpt, tree_to
 
 
@@ -131,6 +141,16 @@ def load_drafter(args, cfg, device):
     return dmodel, draft_cfg
 
 
+def _maybe_write_trace(args, sched) -> None:
+    """Export the Chrome-trace ring buffer if --trace-out was given."""
+    if not args.trace_out:
+        return
+    tr = sched.telemetry.tracer
+    write_trace(tr, args.trace_out)
+    print(f"[serve] trace: {args.trace_out} events={len(tr.events)} "
+          f"dropped={tr.dropped} (chrome://tracing / ui.perfetto.dev)")
+
+
 def run_lm(args) -> Dict[str, object]:
     """Serve the trace the flags describe (from ``--ckpt-dir``'s winner
     when given); returns stats, pool and results (and writes them with
@@ -162,7 +182,12 @@ def run_lm(args) -> Dict[str, object]:
         watch_every=args.watch_every, swap_mode=args.swap_mode,
         draft_params=draft_model, spec_tokens=args.spec_tokens,
         draft_cfg=draft_cfg, spec_fused=not args.no_spec_fused,
-        spec_adapt=args.spec_adapt, device=device)
+        spec_adapt=args.spec_adapt, telemetry=not args.no_telemetry,
+        device=device)
+    if args.profile_steps > 0:
+        sched.profile_steps(args.profile_steps, args.profile_dir)
+        print(f"[serve] profiler armed: steps={args.profile_steps} "
+              f"dir={args.profile_dir}")
     reqs = build_requests(cfg, args.requests, parse_lens(args.prompt_lens),
                           args.max_new, eos_id=args.eos_id,
                           temperature=args.temperature, seed=args.seed)
@@ -198,6 +223,11 @@ def run_lm(args) -> Dict[str, object]:
     if registry is not None:
         print(f"[serve] registry: serving_step={registry.step} "
               f"hot_swaps={sched.stats.hot_swaps}")
+    if args.profile_steps > 0:
+        tel = sched.telemetry
+        print(f"[serve] profile: taken={tel.profiles_taken} "
+              f"files={tel.profile_files} error={tel.profile_error}")
+    _maybe_write_trace(args, sched)
     out = {"stats": sched.stats.as_dict(), "pool": pd,
            "device": str(device), "results": results,
            "registry_step": registry.step if registry else None}
@@ -228,7 +258,8 @@ def run_surrogate(args) -> Dict[str, object]:
         _print_winner(registry)
     eng = SurrogateEngine(ccfg, params, max_batch=args.slots * 16,
                           bucket=8, registry=registry,
-                          watch_every=args.watch_every, device=device)
+                          watch_every=args.watch_every,
+                          telemetry=not args.no_telemetry, device=device)
     print(f"[serve] arch={ccfg.name} workload=surrogate device={device} "
           f"queries={args.queries} query_batch={args.query_batch} "
           f"max_batch={eng.max_batch}")
@@ -244,6 +275,7 @@ def run_surrogate(args) -> Dict[str, object]:
     if registry is not None:
         print(f"[serve] registry: serving_step={registry.step} "
               f"hot_swaps={eng.stats.hot_swaps}")
+    _maybe_write_trace(args, eng)
     return {"stats": eng.stats.as_dict(),
             "registry_step": registry.step if registry else None,
             "results": results}
@@ -343,12 +375,34 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--out-json", default=None,
                     help="write final stats + per-request token streams "
                          "as JSON")
+    # telemetry (tracing / profiler / JSON logs)
+    ap.add_argument("--no-telemetry", action="store_true",
+                    help="disable per-request trace spans and phase "
+                         "spans (counters, histograms, phase times and "
+                         "the profiler window stay on)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write the per-request trace ring buffer as "
+                         "Chrome-trace JSON on exit (open in "
+                         "chrome://tracing or ui.perfetto.dev)")
+    ap.add_argument("--profile-steps", type=int, default=0,
+                    help="record the first N scheduler steps with "
+                         "torch.profiler (0 = off; lm workload)")
+    ap.add_argument("--profile-dir",
+                    default=os.path.join(tempfile.gettempdir(),
+                                         "repro_torch_profile"),
+                    help="output dir of --profile-steps' Chrome trace")
+    ap.add_argument("--log-json", action="store_true",
+                    help="emit the [serve] report and lifecycle events "
+                         "(hot swap, profiler window) as one-line JSON "
+                         "records on stdout too")
     return ap
 
 
 def main(argv=None) -> int:
     """CLI entry point: parse args, pick the workload, run it."""
     args = build_parser().parse_args(argv)
+    if args.log_json:
+        enable_json_logs()
     if args.arena is not None:
         raise NotImplementedError(
             "--arena (the online LTFB arena, where challengers draft) is "

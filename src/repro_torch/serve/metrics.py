@@ -3,8 +3,11 @@
 ``percentile``, ``Histogram`` and ``BoundedSeries`` are copies of
 ``repro.serve.metrics``; :class:`ServeStats` keeps the counters the
 port's scheduler updates, population speculative decoding's ``spec_*``
-included, under the same names (faults, the gateway and the arena are
-not ported yet).
+included, under the same names (the request lifecycle, faults, the
+journal, the gateway and the arena are not ported yet: the Prometheus
+export reads their counters as 0).  Under ``--log-json``
+:meth:`ServeStats.report` also emits the summary as one ``serve_report``
+record.
 """
 from __future__ import annotations
 
@@ -12,6 +15,8 @@ import random
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Union
+
+from repro_torch.telemetry import json_logs_enabled, log_event
 
 
 def percentile(xs: Union[Sequence[float], "BoundedSeries"],
@@ -42,7 +47,9 @@ class Histogram:
     """Fixed-bucket histogram: O(len(bounds)) memory forever.
 
     ``bounds`` are inclusive upper edges; values above the last bound
-    land in the implicit ``+Inf`` bucket.
+    land in the implicit ``+Inf`` bucket.  ``bucket_counts`` yields
+    per-bucket (non-cumulative) counts for the finite bounds — the
+    Prometheus exporter accumulates them into cumulative ``le`` series.
     """
 
     __slots__ = ("bounds", "counts", "total", "sum")
@@ -63,6 +70,10 @@ class Histogram:
         self.counts[i] += 1
         self.total += 1
         self.sum += v
+
+    def bucket_counts(self) -> List[tuple]:
+        """Per-bucket ``(upper_bound, count)`` pairs for finite bounds."""
+        return list(zip(self.bounds, self.counts[:-1]))
 
 
 class BoundedSeries:
@@ -231,8 +242,12 @@ class ServeStats:
 
     def report(self, log: Callable[[str], None] = print,
                prefix: str = "[serve]"):
-        """Print the human-readable ``[serve]`` summary via ``log``."""
+        """Print the human-readable ``[serve]`` summary via ``log``;
+        under ``--log-json`` the same summary also goes out as one
+        ``serve_report`` JSON record."""
         d = self.as_dict()
+        if json_logs_enabled():
+            log_event("serve_report", **d)
         log(f"{prefix} requests: submitted={d['submitted']} "
             f"completed={d['completed']} rejected={d['rejected']} "
             f"hot_swaps={d['hot_swaps']}")

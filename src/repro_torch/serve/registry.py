@@ -31,8 +31,10 @@ layout on its device: ``registry.params`` and the ``metric_fn`` of
 The population is also a free source of draft models for speculative
 decoding: :func:`load_draft` loads an earlier (or smaller) checkpoint as
 the drafter, and :func:`check_draft_compat` refuses a drafter whose vocab
-differs from the target's.  Not ported yet: ``archive_member`` and the
-JSON lifecycle events (ROADMAP.md queue A5).
+differs from the target's.  A quarantined winner also goes out as a
+``swap_rejected_corrupt`` JSON-log record under ``--log-json``.  Not
+ported yet: ``archive_member``, which comes with the online arena
+(ROADMAP.md queue A5 e).
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.checkpoint import ckpt
+from repro_torch.telemetry import log_event
 
 Params = Any
 
@@ -343,6 +346,8 @@ class ModelRegistry:
         print(f"[registry] REJECTED corrupt winner step {step}: "
               f"{type(err).__name__}: {err} — previous winner "
               f"(step {self.step}) keeps serving", flush=True)
+        log_event("swap_rejected_corrupt", step=step,
+                  serving_step=self.step, error=str(err))
 
     def load_step(self, step: int, strict: bool = True) -> bool:
         """Load a specific exported winner (no newer-than scan).

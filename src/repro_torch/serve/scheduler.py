@@ -57,9 +57,19 @@ Sampling stays on the host exactly as in the JAX package: greedy argmax,
 or a Gumbel draw from ``default_rng([seed, ntok])`` at temperature > 0,
 so both packages emit the same tokens for the same logits -- and a
 speculative run emits the target-only tokens at any temperature, since
-every emitted token is sampled from the target's logits.  The journal,
-fault injection, the arena and trace spans are not ported yet: the
-constructor raises on their arguments.
+every emitted token is sampled from the target's logits.
+
+Telemetry as in JAX (``telemetry=True``, the default): every request
+leaves a span chain on its own trace row (``enqueue`` → ``queued`` →
+``admit`` → ``prefill`` / ``prefill_chunk`` → ``first_token`` →
+``finish``), every step's host wall time is split into ``admit`` /
+``prefill`` / ``decode`` phases (``draft`` / ``verify`` inside a
+speculative round), a hot swap is an event and a JSON-log record, and
+:meth:`Scheduler.profile_steps` arms ``torch.profiler`` around a window
+of steps (:class:`~repro_torch.serve.telemetry.ServeTelemetry`).
+``telemetry=False`` keeps the counters and phase times and drops the
+spans.  The bounded queue, the journal, fault injection and the arena
+are not ported yet: the constructor raises on their arguments.
 """
 from __future__ import annotations
 
@@ -80,13 +90,12 @@ from repro_torch.serve.kv_cache import PagedLayout, SlotLayout, blocks_for
 from repro_torch.serve.metrics import ServeStats
 from repro_torch.serve.registry import check_draft_compat
 from repro_torch.serve.session import DecodeSession
+from repro_torch.serve.telemetry import ServeTelemetry, log_event
 
 # constructor arguments of the JAX scheduler this port does not serve yet
-# (ROADMAP queue A5: the request lifecycle, serving telemetry, the
-# journal, fault injection and the arena); passing any of them raises
-# rather than being ignored
-UNPORTED_ARGS = ("max_queue", "telemetry", "trace_capacity", "journal",
-                 "faults", "arena")
+# (ROADMAP queue A5: the request lifecycle, the journal, fault injection
+# and the arena); passing any of them raises rather than being ignored
+UNPORTED_ARGS = ("max_queue", "journal", "faults", "arena")
 # profiler ranges of a speculative round: a profile splits its device time
 # between the drafter, the target's verify and the rollback (snapshots,
 # restores and replays)
@@ -154,6 +163,9 @@ class Scheduler:
     a paged verify's K+1 query tokens times the target's query heads per
     KV head must fit the paged kernel's ``MAX_ROWS`` (a dense verify runs
     no kernel).
+
+    ``telemetry`` turns the trace spans on (the default) or off;
+    ``trace_capacity`` bounds the trace's ring of events.
     """
 
     _SPLIT_RATIO = 4
@@ -174,6 +186,7 @@ class Scheduler:
                  draft_params=None, spec_tokens: int = 0,
                  draft_cfg: Optional[ModelConfig] = None,
                  spec_fused: bool = True, spec_adapt: bool = False,
+                 telemetry: bool = True, trace_capacity: int = 8192,
                  device="cuda", **unported):
         self.device = resolve_device(device)
         bad = sorted(set(unported) & set(UNPORTED_ARGS))
@@ -281,6 +294,10 @@ class Scheduler:
         self.spec_k_by_rid: Dict[Any, int] = {}
         self.results: Dict[Any, np.ndarray] = {}
         self.stats = ServeStats(slots=num_slots)
+        # request tracing + phase attribution + profiler window;
+        # telemetry=False keeps the counters but drops the spans
+        self.telemetry = ServeTelemetry(enabled=telemetry,
+                                        trace_capacity=trace_capacity)
         self._pending_params = None
         self._head_share = None
         self._step_count = 0
@@ -337,6 +354,8 @@ class Scheduler:
         self.stats.submitted += 1
         req._submit_t = time.perf_counter()   # TTFT includes queueing delay
         self.queue.append(req)
+        self.telemetry.req_instant(req.rid, "enqueue", t=req._submit_t,
+                                   queue_depth=len(self.queue))
 
     # -- scheduling ---------------------------------------------------------
     def _bucket(self, n: int, cap: Optional[int] = None) -> int:
@@ -366,6 +385,9 @@ class Scheduler:
         """Claim slot + pages; the prefill runs in :meth:`_prefill_phase`
         (chunked) or one-shot right after admission."""
         total = req.prompt_len + req.max_new
+        now = time.perf_counter()
+        self.telemetry.req_span(req.rid, "queued",
+                                getattr(req, "_submit_t", None), now)
         if not self.paged:
             slot = self.pool.admit(req.rid, total)
             self._admit_draft(req, slot, total)
@@ -373,6 +395,7 @@ class Scheduler:
             self._pending_onepass.append(_Active(
                 req=req, slot=slot, submit_t=getattr(
                     req, "_submit_t", time.perf_counter())))
+            self.telemetry.req_instant(req.rid, "admit", t=now, slot=slot)
             return
         head = self._head_share
         shared = head[1] if head is not None and head[0] == req.rid \
@@ -385,6 +408,8 @@ class Scheduler:
         act = _Active(req=req, slot=slot, pf_pos=shared_len,
                       submit_t=getattr(req, "_submit_t", time.perf_counter()))
         self._spec_k[slot] = max(self.spec_tokens, 1)
+        self.telemetry.req_instant(req.rid, "admit", t=now, slot=slot,
+                                   shared_prefix_tokens=shared_len)
         if self._chunked:
             self.prefilling[req.rid] = act
         else:
@@ -407,8 +432,14 @@ class Scheduler:
         P = act.req.prompt_len
         bucket = self._bucket(P) if not self.paged and self._can_pad \
             else None
+        t0 = time.perf_counter()
         last = self.session.prefill(act.req.rid, act.req.prompt,
                                     bucket=bucket)
+        # JAX's span names the dense path's bucket (the exact length when
+        # the stack cannot pad), the paged one-shot's tokens only
+        extra = {} if self.paged else {"bucket": bucket or P}
+        self.telemetry.req_span(act.req.rid, "prefill", t0,
+                                time.perf_counter(), tokens=P, **extra)
         self.stats.prefills += 1
         self.stats.prefill_tokens += P
         self.stats.padded_prefill_tokens += bucket or P
@@ -453,9 +484,13 @@ class Scheduler:
             else self._bucket(n, cap=chunk)
         self.pool.ensure(req.rid, act.pf_pos + n)
         W = self._table_bucket(act.pf_pos + n)
+        t0 = time.perf_counter()
         last = self.session.prefill_chunk(
             req.rid, req.prompt[act.pf_pos:act.pf_pos + n],
             hist_len=act.pf_pos, prompt_len=P, chunk_bucket=Cb, width=W)
+        self.telemetry.req_span(
+            req.rid, "prefill_chunk", t0, time.perf_counter(),
+            tokens=n, pos=act.pf_pos, prompt_len=P)
         act.pf_pos += n
         self.stats.prefills += 1
         self.stats.prefill_chunks += 1
@@ -477,6 +512,9 @@ class Scheduler:
         tok = self._sample(last_logits, act.req, 0)
         act.first_token_t = time.perf_counter()
         self.stats.ttft.append(act.first_token_t - act.submit_t)
+        self.telemetry.req_instant(
+            act.req.rid, "first_token", t=act.first_token_t,
+            ttft_s=act.first_token_t - act.submit_t)
         self._accept_token(act, tok)
 
     @staticmethod
@@ -513,6 +551,8 @@ class Scheduler:
         if act.ntok > 1 and act.first_token_t is not None:
             self.stats.tpot.append(
                 (now - act.first_token_t) / (act.ntok - 1))
+        self.telemetry.terminal(rid, "finish", t=now, ntok=act.ntok,
+                                latency_s=now - act.submit_t)
         slot = self.pool.release(rid)
         if self.draft is not None:
             self.draft.layout.release(rid)
@@ -538,6 +578,10 @@ class Scheduler:
             self.pool.invalidate_prefix()
             self._head_share = None
         self.stats.hot_swaps += 1
+        self.telemetry.event("hot_swap", step=self._step_count,
+                             swaps=self.stats.hot_swaps)
+        log_event("hot_swap", step=self._step_count,
+                  swaps=self.stats.hot_swaps)
 
     @property
     def draining(self) -> bool:
@@ -572,36 +616,71 @@ class Scheduler:
             self.set_params(self._pending_params)
             self._pending_params = None
 
-    def _admission_phase(self) -> None:
+    def _admission_phase(self) -> int:
+        """Admit what fits; returns the number of requests admitted."""
         if self.draining:
-            return
+            return 0
+        admitted = 0
         if self.policy == "static":
             if not (self.active or self.prefilling):
                 while self.queue and self._can_admit_head():
                     self._admit(self.queue.popleft())
-            return
-        admitted = 0
+                    admitted += 1
+            return admitted
         while (admitted < self.max_prefills_per_step and self.queue
                and self._can_admit_head()):
             self._admit(self.queue.popleft())
             admitted += 1
+        return admitted
+
+    def _decode_phase(self) -> None:
+        if self.active:
+            if self.spec_tokens > 0:
+                self._spec_round()
+            else:
+                self._decode_round()
+
+    def _timed_phases(self) -> None:
+        """Run admission → prefill → decode with per-phase host wall-time
+        attribution (``telemetry.phase_seconds`` + step-timeline spans,
+        emitted only for phases that had work)."""
+        tel = self.telemetry
+        t0 = time.perf_counter()
+        admitted = self._admission_phase()
+        t1 = time.perf_counter()
+        tel.phase("admit", t0, t1, emit=bool(admitted))
+        had_pf = bool(self._pending_draft or self._pending_onepass
+                      or self.prefilling)
+        t0 = t1
+        self._prefill_phase()
+        t1 = time.perf_counter()
+        tel.phase("prefill", t0, t1, emit=had_pf)
+        had_dec = bool(self.active)
+        t0 = t1
+        self._decode_phase()
+        tel.phase("decode", t0, time.perf_counter(), emit=had_dec)
+
+    def profile_steps(self, steps: int, outdir: str) -> None:
+        """Arm ``torch.profiler`` around the next ``steps`` scheduler
+        steps (``--profile-steps``): it starts at the next :meth:`step`
+        and stops after the window closes, writing one Chrome trace
+        under ``outdir``.  No other profiler may record meanwhile: a
+        failure to start or stop is kept in
+        ``telemetry.profile_error``."""
+        self.telemetry.arm_profile(steps, outdir)
 
     def step(self) -> None:
         """One scheduler iteration: the hot-swap check, admission, the
         one-shot prefills and one round of chunked prefill, one batched
         decode round, completion."""
         self.stats.start()
+        self.telemetry.step_begin(self._step_count + 1)
         self._apply_swap(self._poll_registry())
         self._step_count += 1
-        self._admission_phase()
-        self._prefill_phase()
-        if self.active:
-            if self.spec_tokens > 0:
-                self._spec_round()
-            else:
-                self._decode_round()
+        self._timed_phases()
         self.stats.sample_step(len(self.queue),
                                len(self.active) + len(self.prefilling))
+        self.telemetry.step_end()
 
     # -- decode --------------------------------------------------------------
     def _ensure_decode_pages(self, pool: PagedLayout,
@@ -734,6 +813,7 @@ class Scheduler:
 
         with record_function("rollback"):
             d_snap = self.draft.snapshot() if d_rec else ()
+        t_draft = time.perf_counter()
         with record_function("draft"):
             if self.spec_fused:
                 dlogits, fed_dev = self.draft.draft_block(
@@ -766,6 +846,8 @@ class Scheduler:
                             block[s, t + 1] = self._sample(
                                 rows[s, 0], act.req, ntok0[s] + t)
                 dev = block         # the drafter was fed the host's block
+        t_verify = time.perf_counter()
+        self.telemetry.phase("draft", t_draft, t_verify, k=Kv - 1)
 
         # the target verifies the whole block in one K-token step
         with record_function("rollback"):
@@ -773,6 +855,7 @@ class Scheduler:
         with record_function("verify"):
             vlogits = self.session.step(block, base, valid=cap, width=W)
             rows = vlogits.float().cpu().numpy()             # (B, Kv, V)
+        self.telemetry.phase("verify", t_verify, time.perf_counter(), k=Kv)
         self.stats.decode_steps += 1
         self.stats.spec_rounds += 1
         self.stats.decode_slot_steps += B

@@ -23,7 +23,9 @@ for each 128-row batch of the full-width surrogate costs the host more
 than the copy out, and a copy into pageable memory runs some 25x slower
 than into pinned (``PERF.md``).  On the CPU the dispatch
 computes at once and the pipeline keeps only its bookkeeping (the same
-counters as JAX's).  The forward is the CycleGAN's f32 MLP (``F.linear``),
+counters as JAX's).  Telemetry as in JAX: an ``enqueue`` instant and a
+``finish`` terminal per query and a ``surrogate_collect`` phase per
+batch (``telemetry=False`` drops the events, keeps the counters).  The forward is the CycleGAN's f32 MLP (``F.linear``),
 as JAX computes it outside any Pallas kernel.
 """
 from __future__ import annotations
@@ -39,6 +41,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.icf_cyclegan import CycleGANConfig
 from repro_torch.models import icf_cyclegan as cg
 from repro_torch.serve.metrics import ServeStats
+from repro_torch.serve.telemetry import ServeTelemetry
 
 # a staged micro-batch: (taken queue items, true rows, padded rows)
 _Staged = Tuple[List[Tuple[Any, np.ndarray, float]], int, torch.Tensor]
@@ -55,7 +58,7 @@ class SurrogateEngine:
 
     def __init__(self, cfg: CycleGANConfig, params, max_batch: int = 64,
                  bucket: int = 8, registry=None, watch_every: int = 0,
-                 device="cuda"):
+                 telemetry: bool = True, device="cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -70,6 +73,7 @@ class SurrogateEngine:
         self.results: Dict[Any, np.ndarray] = {}
         self.served_by: Dict[Any, int] = {}
         self.stats = ServeStats(slots=max_batch)
+        self.telemetry = ServeTelemetry(enabled=telemetry)
         self._step_count = 0
         # software pipeline state: the batch staged for the next dispatch,
         # and the batch whose device compute is in flight
@@ -88,7 +92,10 @@ class SurrogateEngine:
                 f"query {rid!r}: expected (n, {self.cfg.input_dim}), "
                 f"got {x.shape}")
         self.stats.submitted += 1
-        self.queue.append((rid, x, time.perf_counter()))
+        t0 = time.perf_counter()
+        self.queue.append((rid, x, t0))
+        self.telemetry.req_instant(rid, "enqueue", t=t0,
+                                   rows=int(x.shape[0]))
 
     def _pad(self, n: int) -> int:
         b = self.bucket
@@ -148,12 +155,14 @@ class SurrogateEngine:
         """Wait for the in-flight batch and distribute its results."""
         taken, rows, padded, y, inflight = self._pending
         self._pending = None
+        tc = time.perf_counter()
         if inflight is not None:
             inflight[0].synchronize()
             y = y[:rows].numpy().copy()     # the pinned buffer is reused
         else:
             y = y.numpy()
         now = time.perf_counter()
+        self.telemetry.phase("surrogate_collect", tc, now, rows=rows)
         off = 0
         for rid, q, t0 in taken:
             n = q.shape[0]
@@ -162,6 +171,8 @@ class SurrogateEngine:
             self.stats.completed += 1
             self.stats.ttft.append(now - t0)
             self.stats.latency.append(now - t0)
+            self.telemetry.terminal(rid, "finish", t=now,
+                                    latency_s=now - t0, rows=n)
         self.stats.prefills += 1
         self.stats.prefill_tokens += rows       # true query rows
         self.stats.padded_prefill_tokens += padded

@@ -262,6 +262,11 @@ def make_lm_population_fns(cfg: ModelConfig, opt_cfg: OptimizerConfig,
         return new_params, new_opt, {**metrics, "loss": loss.detach(),
                                      "lr": lr}
 
+    # the step launches the port's kernels through ctypes, whose FLOPs
+    # FlopCounterMode cannot see: step_flops reports None for it, as the
+    # JAX package's step_flops does for its LM step
+    train_step.hidden_kernel_flops = True
+
     @torch.no_grad()
     def metric(params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         with skeleton.bound(params) as (model, _):

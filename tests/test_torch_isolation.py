@@ -205,6 +205,15 @@ def test_scheduler_raises_on_unported_arguments():
     model = init_lm(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="arena"):
         Scheduler(cfg, model, device="cpu", arena=object())
+    # the bounded queue, the journal and fault injection still raise,
+    # naming their queue; telemetry and trace_capacity are ported
+    for arg in ("max_queue", "journal", "faults"):
+        with pytest.raises(NotImplementedError, match=f"{arg}.*A5"):
+            Scheduler(cfg, model, device="cpu", **{arg: object()})
+    sched = Scheduler(cfg, model, device="cpu", telemetry=False,
+                      trace_capacity=16)
+    assert not sched.telemetry.enabled
+    assert sched.telemetry.tracer.capacity == 16
     with pytest.raises(ValueError, match="layout"):
         Scheduler(cfg, model, device="cpu", layout="bogus")
     with pytest.raises(TypeError):

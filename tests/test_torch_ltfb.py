@@ -536,12 +536,14 @@ def test_orchestrator_refuses_what_is_not_ported(fns, bundle_files):
         _orch(fns, bundle_files, backend="mesh")
     with pytest.raises(NotImplementedError, match="A6"):
         _orch(fns, bundle_files, quantize_exchange=True)
+    # telemetry and the genealogy (A5) are ported: the orchestrator
+    # takes both
     cfg = TournamentConfig(trainers=2, device="cpu")
     plan = DataPlan.jag_cyclegan(bundle_files)
-    with pytest.raises(NotImplementedError, match="A5"):
-        TournamentOrchestrator(fns, plan, cfg, telemetry=object())
-    with pytest.raises(NotImplementedError, match="A5"):
-        TournamentOrchestrator(fns, plan, cfg, genealogy=object())
+    tel = ttel.TrainTelemetry()
+    with TournamentOrchestrator(fns, plan, cfg, telemetry=tel,
+                                genealogy=None) as orch:
+        assert orch.telemetry is tel and orch.population.telemetry is tel
 
 
 # ---------------------------------------------------------------------------
@@ -576,9 +578,6 @@ def test_ltfb_cli_on_cpu_prints_its_lines(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,queue", [
     (["--backend", "mesh"], "A6"), (["--quantize-exchange"], "A6"),
-    (["--log-json"], "A5"), (["--trace-out", "t.json"], "A5"),
-    (["--prom-out", "m.prom"], "A5"), (["--metrics-port", "0"], "A5"),
-    (["--genealogy", "g.jsonl"], "A5"),
     (["--optimizer", "adafactor"], "CycleGAN checkpoint layout")])
 def test_ltfb_cli_refuses_unported_flags(flags, queue):
     with pytest.raises(NotImplementedError, match=queue):
