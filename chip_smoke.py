@@ -19,7 +19,8 @@ and never prints the final ``ok`` line):
    splits, idle rows, a batch of idle rows, a one-page table, K = 1 and
    5) within f32 2e-5, bf16 2e-2, with its time (CUDA events, median of
    30 after warm-up, L2 flushed before each launch), the plain version's
-   time, the library call's time and the bound; paged attention's
+   time (the slow flash and scan references: median of 5), the library
+   call's time and the bound; paged attention's
    library time is the faster of SDPA over K/V repeated to all heads and
    SDPA with ``enable_gqa=True`` (named in ``library``), and each case
    prints the split plan the wrapper chose;
@@ -196,24 +197,28 @@ and never prints the final ``ok`` line):
     rows; H = 16 over 8 at K = 5 in bf16 and f32 -- qwen3-0.6b's; lengths
     114-499 and the split edges of a 36-page table).  spec_arch:
     qwen2.5-3b FULL in bf16 (random weights, seed 0), 16 requests over 8
-    slots, prompts 128/256/512, 64 new tokens, greedy, 4 draft tokens a
-    round: target-only, a self drafter and a qwen3-0.6b FULL drafter
-    (``draft_cfg``), each speculative stream equal to the target-only one
+    slots (the first 8 admitted in one step), prompts 128/256/512, 16 new
+    tokens, greedy, 4 draft tokens a round: target-only, a self drafter
+    and a qwen3-0.6b FULL drafter (``draft_cfg``), each speculative
+    stream equal to the target-only one
     save where it first parts at a target-only top-2 gap below 0.25 (bf16;
     such partings are counted); one plain decode round and one speculative
-    round profiled, the round's device time split by the ranges ``draft``,
-    ``verify`` and ``rollback``.  spec_pop: phase 15's latest winner in
-    f32 (TF32 off) verifies, its earliest winner drafts (``load_draft``):
-    8 requests over 4 slots, prompts 128/256, 32 new tokens, fused,
-    sequential, fused at temperature 0.8 (a seed a request) and
-    ``spec_adapt``, each identical to target-only decoding save top-2
-    ties within 1e-4; then the serve CLI with ``--draft-ckpt --spec-tokens
-    3 --spec-adapt``.  spec_recurrent: xlstm-125m FULL in f32 with a self
-    and a fresh-seed drafter (exact save ties; the fresh one must replay)
-    and jamba ``NOEXP_8L`` in bf16 with a self drafter (the bf16 rule),
-    its snapshot timed.  Every run's launches are exact: per verify,
-    replay or plain step one paged launch per attention layer of the
-    session, per fused round Kv per drafter attention layer, the RMSNorm
+    round profiled with every slot busy, the round's device time split by
+    the ranges ``draft``, ``verify`` and ``rollback``.  spec_pop: phase
+    15's latest winner in f32 (TF32 off) verifies, its earliest winner
+    drafts (``load_draft``): 8 requests over 4 slots, prompts 128/256, 8
+    new tokens, fused, sequential, fused at temperature 0.8 (a seed a
+    request) and ``spec_adapt``, each identical to target-only decoding
+    save top-2 ties within 1e-4; then the serve CLI with ``--draft-ckpt
+    --spec-tokens 3 --spec-adapt``.  spec_recurrent: xlstm-125m FULL in
+    f32 with a self and a fresh-seed drafter (exact save ties; the fresh
+    one must replay) and jamba ``NOEXP_8L`` in bf16 with a self drafter
+    (the bf16 rule; 8 requests admitted in one step, one round profiled
+    with every slot busy), its snapshot timed.  A run with more requests
+    than slots admits each late one into a freed slot (counted and
+    checked).  Every run's launches are exact: per verify, replay or
+    plain step one paged launch per attention layer of the session, per
+    fused round Kv per drafter attention layer, the RMSNorm
     launches of every forward, a scan per recurrent layer and prefill;
     a fused run drafts once a round, a sequential one more than K times;
 26. recurrent_bwd_kernels (in the kernel phases, after phase 19): the
@@ -278,7 +283,28 @@ and never prints the final ``ok`` line):
     seed 0) for 4 steps under ``remat`` full, dots and dots_no_batch
     from the same weights: first-step losses bit-equal, each step's
     launches the train phase's, step ms (median of the last 3) and peak
-    memory per policy.
+    memory per policy;
+33. serve_lifecycle (after phase 31): qwen3-0.6b FULL in f32, TF32 off,
+    8 requests over 4 slots, prompts 128/256/512, 32 new tokens, the even
+    rids greedy and the odd ones at temperature 0.8: (1) the crash drill
+    -- the trace with a write-ahead journal, then again with ``crash@20``,
+    the journal replayed into a fresh scheduler whose stitched streams
+    equal the uninterrupted ones (a parting only at a top-2 gap below
+    1e-4, counted); (2) the lifecycle script -- ``max_queue=4`` refuses a
+    fifth submit, ``shed_expired`` takes a queued request past its TTFT
+    deadline, ``cancel`` takes one in a chunked prefill (``prefill_chunk
+    =64``) and one in decode, ``stall``, ``oom`` and ``disconnect`` fire,
+    every counter exact, the pool's free pages back at their start, the
+    completed streams equal to (1)'s; (3) the HTTP gateway on port 0 --
+    the 8 requests at once (4 streamed), tokens equal to (1)'s, a 429 at
+    ``max_queue`` and on a missed deadline, an idempotent replay,
+    ``/metrics`` as text and JSON, a drain with 503s; the paged and
+    RMSNorm launches of (1)-(3) exact (28 per decode step, 113 per model
+    call); (4) the serve CLI's SIGKILL drill in subprocesses --
+    ``--journal J --fault-spec kill@10`` returns -9, ``--resume-journal J
+    --out-json R`` finishes without rebuilding a kernel, R's streams equal
+    an in-process run of the same trace; prints the journal's lines,
+    bytes and cost a step, the gateway's tokens/s beside the scheduler's.
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and ``triton``; exits 1
 without a card and 2 when run outside a checkout of the repo.
@@ -488,8 +514,15 @@ class Timer:
 
     The device is held in a spin kernel while the host enqueues every
     timed launch, so the events bracket device work only: the host's
-    launch overhead (large for Triton's launcher) is not counted.
+    launch overhead (large for Triton's launcher) is not counted.  The
+    spin lasts twice the host's enqueue of the timed launches, as the
+    warm-up calls measure it, plus 10 ms, and at most ~0.1 s.
     """
+
+    # spin cycles a second: the H100's top SM clock (1.98 GHz) rounded
+    # up, so a spin at a lower clock only lasts longer
+    CYCLES_PER_S = 2e9
+    MAX_SPIN_S = 0.1
 
     def __init__(self, torch, reps: int = 30, warmup: int = 5):
         self.torch = torch
@@ -501,13 +534,18 @@ class Timer:
     def ms(self, fn) -> float:
         """Median milliseconds of ``fn()`` over ``reps`` launches."""
         torch = self.torch
+        t0 = time.perf_counter()
         for _ in range(self.warmup):
             fn()
+        host_s = (time.perf_counter() - t0) / max(self.warmup, 1)
         torch.cuda.synchronize()
         events = [(torch.cuda.Event(enable_timing=True),
                    torch.cuda.Event(enable_timing=True))
                   for _ in range(self.reps)]
-        torch.cuda._sleep(200_000_000)        # ~0.1 s: covers the enqueue
+        # each timed launch also enqueues the flush and two events
+        spin_s = min(2 * self.reps * (host_s + 50e-6) + 0.01,
+                     self.MAX_SPIN_S)
+        torch.cuda._sleep(int(spin_s * self.CYCLES_PER_S))
         for start, end in events:
             self._flush.zero_()
             start.record()
@@ -1084,7 +1122,7 @@ def _sdpa_train(torch, q, k, v, causal):
     return (lambda: fwd(q, k, v)), out, leaves
 
 
-def phase_train_kernels(torch, timer):
+def phase_train_kernels(torch, timer, plain_timer):
     """Flash attention and the RMSNorm forward/backward at the train
     phase's shapes, each against its plain version (same inputs)."""
     gen = torch.Generator(device="cuda")
@@ -1103,7 +1141,8 @@ def phase_train_kernels(torch, timer):
              (1, 1000, 16, 8, 64, "bfloat16"),
              (2, 300, 4, 2, 16, "bfloat16")]
     for B, S, H, Hkv, D, dtype in cases:
-        fwd, bwd = _flash_cases(torch, timer, gen, B, S, H, Hkv, D, dtype)
+        fwd, bwd = _flash_cases(torch, timer, plain_timer, gen, B, S, H,
+                                Hkv, D, dtype)
         results["flash_attention_fwd"].append(fwd)
         results["flash_attention_bwd"].append(bwd)
 
@@ -1119,7 +1158,7 @@ def phase_train_kernels(torch, timer):
     return results
 
 
-def _flash_cases(torch, timer, gen, B, S, H, Hkv, D, dtype):
+def _flash_cases(torch, timer, plain_timer, gen, B, S, H, Hkv, D, dtype):
     """Flash attention forward and backward against their plain versions
     on one random causal case, each timed beside SDPA; returns (forward
     case, backward case)."""
@@ -1159,7 +1198,7 @@ def _flash_cases(torch, timer, gen, B, S, H, Hkv, D, dtype):
            "max_abs_err": max(errs["out"], errs["lse"]),
            "kernel_ms": timer.ms(
                lambda: fa.flash_attention_fwd(q, k, v, True)),
-           "plain_ms": timer.ms(
+           "plain_ms": plain_timer.ms(
                lambda: ref.flash_attention_fwd_ref(q, k, v, True)),
            "library_ms": timer.ms(lib_fwd), "bound_ms": b_ms,
            "bound_by": b_by, "flops": 4 * D * pairs}
@@ -1169,7 +1208,7 @@ def _flash_cases(torch, timer, gen, B, S, H, Hkv, D, dtype):
            "max_abs_err": max(errs["dq"], errs["dk"], errs["dv"]),
            "kernel_ms": timer.ms(lambda: fa.flash_attention_bwd(
                q, k, v, out, lse, do, True)),
-           "plain_ms": timer.ms(lambda: ref.flash_attention_bwd_ref(
+           "plain_ms": plain_timer.ms(lambda: ref.flash_attention_bwd_ref(
                q, k, v, out, lse, do, True)),
            "library_ms": timer.ms(lambda: torch.autograd.grad(
                lib_out, leaves, do.transpose(1, 2), retain_graph=True)),
@@ -1293,14 +1332,19 @@ def _profile(torch, fn, ranges=()):
     wall time (None where the profiler saw no device time).  ``ranges``
     names ``record_function`` ranges whose kernels' device time is
     reported under ``range_ms``; the model's own ranges (attention, the
-    MoE's routing and expert products) are never counted as kernels."""
+    MoE's routing and expert products) are never counted as kernels.  The
+    host's operators are recorded only for ``ranges``: the kernels' times
+    come from the device records alone, and on an H100 host an xlstm train
+    step's 320k host and device events took ~41 s to read where its 90k
+    device events take ~11 s."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import layers, lm
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if ranges else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1493,7 +1537,8 @@ def phase_train_parity(torch):
           f"train parity: weight abs err {w_err}")
 
 
-def _scan_case(torch, timer, name, fn, plain, args, moved, ops, exps=0):
+def _scan_case(torch, timer, plain_timer, name, fn, plain, args, moved, ops,
+               exps=0):
     """A scan kernel against its plain version (every output, f32, within
     ``SCAN_TOL``), timed; ``library_ms`` is None: no PyTorch call computes
     either recurrence."""
@@ -1511,12 +1556,13 @@ def _scan_case(torch, timer, name, fn, plain, args, moved, ops, exps=0):
     b_ms, b_by = bound(moved, ops, "float32", exps)
     return {"kernel": name, "dtype": "float32", "max_abs_err": max(errs),
             "tol": SCAN_TOL, "kernel_ms": timer.ms(lambda: fn(*args)),
-            "plain_ms": timer.ms(lambda: plain(*args)), "library_ms": None,
+            "plain_ms": plain_timer.ms(lambda: plain(*args)),
+            "library_ms": None,
             "bound_ms": b_ms, "bound_by": b_by, "bytes": moved, "ops": ops,
             "exps": exps}
 
 
-def phase_recurrent_kernels(torch, timer):
+def phase_recurrent_kernels(torch, timer, plain_timer):
     """The selective scan and the sLSTM against their plain versions at
     the recurrent serve phases' shapes, and paged attention and RMSNorm at
     the new widths those phases give them."""
@@ -1544,7 +1590,8 @@ def phase_recurrent_kernels(torch, timer):
         moved = 4 * (3 * B * S * d + 2 * B * S * N + d * N + B * d * N)
         # per (step, channel, state): one exponential, and two products and
         # two fmas on the f32 pipes
-        case = _scan_case(torch, timer, "mamba_scan", ms.mamba_scan,
+        case = _scan_case(torch, timer, plain_timer, "mamba_scan",
+                          ms.mamba_scan,
                           ref.mamba_scan_ref, args, moved, 4 * B * S * d * N,
                           B * S * d * N)
         lanes, channels = ms.scan_plan(d, N)
@@ -1563,7 +1610,8 @@ def phase_recurrent_kernels(torch, timer):
         # per step: the (dh x 4dh) product of every head, ~16 flops of
         # gate math per channel
         ops = B * S * (8 * d * dh + 16 * d)
-        case = _scan_case(torch, timer, "slstm_scan", sl.slstm_scan,
+        case = _scan_case(torch, timer, plain_timer, "slstm_scan",
+                          sl.slstm_scan,
                           ref.slstm_ref, (gx, r), moved, ops)
         C, cb = sl.cluster_plan(dh)
         case.update(B=B, S=S, d=d, H=H, cluster=C, channels_per_block=cb)
@@ -2987,7 +3035,7 @@ CUT_B, CUT_S, CUT_STEPS = 2, 4096, 6
 VLM_PARITY_S, VLM_PARITY_TOL = 256, 1e-3
 
 
-def phase_arch_kernels(torch, timer):
+def phase_arch_kernels(torch, timer, plain_timer):
     """The kernels at the shapes the new archs give them, each against its
     plain version: paged attention in bf16 at K = 1 over every new served
     head layout (musicgen's 24 heads of 64 with one query head a KV head,
@@ -3008,8 +3056,8 @@ def phase_arch_kernels(torch, timer):
         results["paged_attention"].append(_paged_check(
             torch, timer, gen, 8, H, Hkv, D, 16, 1, "bfloat16", lengths))
     for H, Hkv in ((28, 4), (16, 16)):
-        fwd, bwd = _flash_cases(torch, timer, gen, CUT_B, CUT_S, H, Hkv,
-                                128, "bfloat16")
+        fwd, bwd = _flash_cases(torch, timer, plain_timer, gen, CUT_B,
+                                CUT_S, H, Hkv, 128, "bfloat16")
         results["flash_attention_fwd"].append(fwd)
         results["flash_attention_bwd"].append(bwd)
     for d in (1536, 2048, 3584, 4096):
@@ -3058,7 +3106,7 @@ def _bwd_case(torch, timer, plain_timer, name, fn, plain, S, moved, ops,
             "bytes": moved, "ops": ops, "exps": exps}
 
 
-def phase_recurrent_bwd_kernels(torch, timer):
+def phase_recurrent_bwd_kernels(torch, timer, plain_timer):
     """recurrent_bwd_kernels: the selective scan's and the sLSTM's
     backward kernels against their plain backwards at the train shapes,
     a serve-length prompt, a ragged tail and nonzero final-state
@@ -3072,8 +3120,6 @@ def phase_recurrent_bwd_kernels(torch, timer):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     rand = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
-    # a plain backward at S = 500 takes 0.2-0.6 s a call
-    plain_timer = Timer(torch, reps=5, warmup=1)
     results = {"mamba_scan_bwd": [], "slstm_scan_bwd": [], "rmsnorm": [],
                "rmsnorm_bwd": []}
     # the sweep's blocks an SM and shared memory a block, by state size
@@ -3161,7 +3207,6 @@ def phase_recurrent_bwd_kernels(torch, timer):
         results["slstm_scan_bwd"].append(case)
         del gx, r, saved, out, dy, dfin, d_gx
     # jamba's train rows: 2 x 4096 tokens of d_model 8192 (queue B item 6)
-    del plain_timer
     fwd, bwd = _rms_train_cases(torch, timer, gen, (8192, 8192),
                                 path="train_recurrent")
     results["rmsnorm"].append(fwd)
@@ -3433,8 +3478,10 @@ def _train_cut(torch, phase, arch, layers, device="cuda", smoke=False,
     off_path = {n: fn.launches for n, fn in counters.items()
                 if n not in expect and fn.launches}
     peak = _peak_gib(torch, device)
+    t0 = time.perf_counter()
     prof = _profile(torch, lambda: step_fn(state, batches[0])) \
         if profile and str(device).startswith("cuda") else None
+    profile_s = time.perf_counter() - t0
     check(not off_path, f"{phase}: kernels off the path launched: "
           f"{off_path}")
     check(all(map(math.isfinite, losses)) and all(
@@ -3466,7 +3513,8 @@ def _train_cut(torch, phase, arch, layers, device="cuda", smoke=False,
              "model_flops_per_step": model_flops,
              "dropped_pair_share": drops or None,
              "launches": launches, "launches_per_step": per_step[-1],
-             "expected_per_step": expect, "profiled_step": prof}
+             "expected_per_step": expect, "profiled_step": prof,
+             "profile_s": profile_s if prof else None}
     emit(stats)
     del state, model, batches, step_fn
     _release(torch, device)
@@ -3703,20 +3751,26 @@ def phase_ltfb_recurrent(torch, workdir, device="cuda", smoke=False):
 # qwen2.5-3b (g = 8; K = 8 fills the kernel's 64 rows) and qwen3-0.6b
 SPEC_VERIFY = ((16, 2, 5, "bfloat16"), (16, 2, 8, "bfloat16"),
                (16, 8, 5, "bfloat16"), (16, 8, 5, "float32"))
-# spec_arch: qwen2.5-3b FULL in bf16, 16 requests over 8 slots, prompts
-# 128/256/512, 64 new tokens, greedy, 4 draft tokens a round
-SPEC_ARCH_TRAFFIC = dict(n_req=16, prompt_lens=[128, 256, 512], max_new=64,
-                         slots=8)
+# spec_arch: qwen2.5-3b FULL in bf16, 16 requests over 8 slots (two
+# waves: the second decodes in the rows and pages the first freed), the
+# first 8 admitted in one step (``admit``, the scheduler's
+# ``max_prefills_per_step``; 1 where not given) so that the profiled round
+# has every slot busy, prompts 128/256/512, 16 new tokens (64 before the
+# fifteenth slice cut them for time), greedy, 4 draft tokens a round
+SPEC_ARCH_TRAFFIC = dict(n_req=16, prompt_lens=[128, 256, 512], max_new=16,
+                         slots=8, admit=8)
 # spec_pop: qwen3-0.6b FULL in f32 (TF32 off) from the LM tournament's
-# winners, 8 requests over 4 slots, prompts 128/256, 32 new tokens
-SPEC_POP_TRAFFIC = dict(n_req=8, prompt_lens=[128, 256], max_new=32, slots=4)
+# winners, 8 requests over 4 slots (two waves), prompts 128/256, 8 new
+# tokens (32 before the fifteenth slice cut them for time)
+SPEC_POP_TRAFFIC = dict(n_req=8, prompt_lens=[128, 256], max_new=8, slots=4)
 # spec_recurrent: xlstm-125m FULL in f32, 4 requests over 4 slots, prompts
-# 100/300; jamba NOEXP_8L in bf16, 8 requests over 8 slots, prompts
-# 100/300/500; 32 new tokens
+# 100/300; jamba NOEXP_8L in bf16, 8 requests over 8 slots admitted in one
+# step (its self-drafter round is profiled), prompts 100/300/500; 32 new
+# tokens
 SPEC_XLSTM_TRAFFIC = dict(n_req=4, prompt_lens=[100, 300], max_new=32,
                           slots=4)
 SPEC_HYBRID_TRAFFIC = dict(n_req=8, prompt_lens=[100, 300, 500], max_new=32,
-                           slots=8)
+                           slots=8, admit=8)
 SPEC_K = 4
 # token identity: in f32 (TF32 off) a speculative stream may part from the
 # target-only one only where the target-only sampling objective (the
@@ -3728,8 +3782,10 @@ SPEC_K = 4
 # ulp, and 36 layers of bf16 rounding move it by a few.  After the first
 # parting the two streams are no longer comparable
 SPEC_TIE = {"float32": 1e-4, "bfloat16": 0.25}
-# the profiled round: the steady batch, every slot busy
-SPEC_PROFILE_ROUND = 10
+# the profiled round: the steady batch, every slot busy (a run that
+# profiles admits a whole batch in its first step, and a request lasts
+# more than two rounds; ``_spec_run`` checks the round's rows)
+SPEC_PROFILE_ROUND = 2
 
 
 def _count_calls(sched) -> dict:
@@ -3774,7 +3830,7 @@ def _record_gaps(sched, gaps: dict) -> None:
         obj = np.asarray(row, np.float64)
         if req.temperature > 0:
             obj = obj / req.temperature + np.random.default_rng(
-                [req.seed, ntok]).gumbel(size=obj.shape[-1])
+                [req.seed, req.ntok_base + ntok]).gumbel(size=obj.shape[-1])
         top2 = np.partition(obj, -2)[-2:]
         gaps[(req.rid, ntok)] = float(top2[1] - top2[0])
         return tok
@@ -3836,8 +3892,18 @@ def _spec_run(torch, what, cfg, model, traffic, device, draft=None, k=0,
     sched = Scheduler(cfg, model, num_slots=slots, block_size=16,
                       max_len=max(lens) + max_new, draft_params=draft,
                       spec_tokens=k, draft_cfg=draft_cfg, spec_fused=fused,
-                      spec_adapt=adapt, device=device)
+                      spec_adapt=adapt, device=device,
+                      max_prefills_per_step=traffic.get("admit", 1))
     calls = _count_calls(sched)
+    # admissions made after a request finished: into a freed slot (the
+    # target's and the drafter's rows and pages, a new spec_adapt depth)
+    reused = [0]
+    admit = sched._admit
+
+    def admitted(req):
+        reused[0] += sched.stats.completed > 0
+        return admit(req)
+    sched._admit = admitted
     rows = [0]
     _check_finite(torch, sched.session, rows)
     if gaps is not None:
@@ -3860,6 +3926,12 @@ def _spec_run(torch, what, cfg, model, traffic, device, draft=None, k=0,
     check(st["completed"] == n_req and all(
         len(v) == max_new for v in results.values()),
         f"{what}: {st['completed']} of {n_req} requests completed in full")
+    check(reused[0] >= n_req - slots,
+          f"{what}: {reused[0]} admissions into a freed slot, "
+          f"{n_req - slots} requests over the {slots} slots")
+    check(not profile or prof.get("rows") == slots,
+          f"{what}: the profiled round {SPEC_PROFILE_ROUND} ran with "
+          f"{prof.get('rows')} of {slots} rows")
     dcfg = draft_cfg or cfg
 
     def per(c, kinds):
@@ -3911,6 +3983,7 @@ def _spec_run(torch, what, cfg, model, traffic, device, draft=None, k=0,
                                  "spec_draft_proposed", "spec_draft_accepted",
                                  "spec_accept_rate", "spec_replays",
                                  "spec_k_mean")},
+           "admitted_into_freed_slot": reused[0],
            "model_calls": dict(c), "launches": {n: got[n] for n in on_path},
            "logit_rows_checked": rows[0], "peak_mem_gib":
            _peak_gib(torch, device)}
@@ -4461,6 +4534,580 @@ def phase_train_remat(torch, device="cuda", smoke=False):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the fifteenth slice: the request lifecycle, the journal, fault injection
+# and the HTTP gateway
+# ---------------------------------------------------------------------------
+
+# serve_lifecycle: qwen3-0.6b FULL in f32 (TF32 off), 8 requests over 4
+# slots, prompts 128/256/512, 32 new tokens, the even rids greedy and the
+# odd ones at temperature 0.8 with a seed each
+LIFECYCLE_TRAFFIC = dict(n_req=8, prompt_lens=[128, 256, 512], max_new=32,
+                         slots=4)
+LIFECYCLE_SMOKE_TRAFFIC = dict(n_req=8, prompt_lens=[8, 16, 24],
+                               max_new=16, slots=4)
+# the lifecycle script's faults (its docstring says where each lands)
+LIFECYCLE_FAULTS = "stall@3:secs=0.05,oom@6:hold=3,disconnect@14:rid=4"
+# the serve CLI's SIGKILL drill: 4 requests over 4 slots, prompts 128/256,
+# 16 new tokens at temperature 0.8
+LIFECYCLE_CLI = ["--arch", "qwen3-0.6b", "--dtype", "float32", "--requests",
+                 "4", "--slots", "4", "--prompt-lens", "128,256",
+                 "--max-new", "16", "--temperature", "0.8"]
+LIFECYCLE_CLI_SMOKE = ["--prompt-lens", "8,16", "--max-new", "8"]
+
+
+def _mid_decode(max_new: int) -> int:
+    """A fault step inside the first wave's decode: its slots fill at
+    steps 1-4 (one admission a step) and its first request ends near step
+    ``max_new + 1``; 5/8 of the way there (20 at 32 new tokens)."""
+    return max(4, max_new * 5 // 8)
+
+
+def _lifecycle_requests(cfg, traffic):
+    """The phase's trace: ``build_requests``' prompts, the odd rids at
+    temperature 0.8 with seed 1000 + rid."""
+    from repro_torch.launch.serve import build_requests
+
+    reqs = build_requests(cfg, traffic["n_req"], traffic["prompt_lens"],
+                          traffic["max_new"], seed=0)
+    for r in reqs:
+        if r.rid % 2:
+            r.temperature, r.seed = 0.8, 1000 + r.rid
+    return reqs
+
+
+def _clone_request(r, **kw):
+    """A fresh Request with ``r``'s fields (``kw`` overriding)."""
+    from repro_torch.serve.scheduler import Request
+
+    fields = dict(rid=r.rid, prompt=r.prompt, max_new=r.max_new,
+                  eos_id=r.eos_id, temperature=r.temperature, seed=r.seed)
+    fields.update(kw)
+    return Request(**fields)
+
+
+def _pool_free(sched):
+    """(free slots, pages an admission may budget, pages in use)."""
+    b = sched.pool.blocks
+    return [sched.pool.free_slots, b.available_blocks, b.used_blocks]
+
+
+def _lifecycle_sched(torch, cfg, model, traffic, device, calls, rows,
+                     gaps=None, **kw):
+    """A paged scheduler over ``model`` whose model calls are counted into
+    ``calls`` and logit rows checked finite; with ``gaps`` every sampled
+    token's top-2 gap is recorded."""
+    from repro_torch.serve.scheduler import Scheduler
+
+    sched = Scheduler(cfg, model, num_slots=traffic["slots"],
+                      block_size=16, max_len=max(traffic["prompt_lens"])
+                      + traffic["max_new"], device=device, **kw)
+    _check_finite(torch, sched.session, rows)
+    counted = _count_calls(sched)
+    if gaps is not None:
+        _record_gaps(sched, gaps)
+    calls.append(counted)
+    return sched
+
+
+def _lifecycle_expected(cfg, calls) -> dict:
+    """The launches of the counted model calls: one paged launch per
+    attention layer and decode step, the RMSNorm launches of every
+    prefill chunk and step (attention-only paged stacks prefill in
+    chunks)."""
+    from repro_torch.models.lm import layer_specs
+
+    attn = sum(s.kind == "a" for s in layer_specs(cfg))
+    steps = sum(c["t_step"] for c in calls)
+    chunks = sum(c["t_chunk"] + c["t_prefill"] for c in calls)
+    return {"paged_attention": attn * steps,
+            "rmsnorm": _norms_per_forward(cfg) * (steps + chunks)}
+
+
+def _tokens(results) -> dict:
+    return {rid: [int(t) for t in v] for rid, v in results.items()}
+
+
+def _crash_drill(torch, cfg, model, traffic, device, work, calls, rows):
+    """Part 1: the trace uninterrupted with a journal on, then again with
+    ``crash@N``; the journal replayed into a fresh scheduler resumes every
+    unfinished request, and the stitched streams must equal the
+    uninterrupted ones (partings only at a top-2 gap below 1e-4)."""
+    from repro_torch.serve import faults as fl
+    from repro_torch.serve import journal as jr
+
+    reqs = _lifecycle_requests(cfg, traffic)
+    gaps = {}
+    base_path = os.path.join(work, "base.jsonl")
+    base = _lifecycle_sched(torch, cfg, model, traffic, device, calls, rows,
+                            gaps=gaps,
+                            journal=jr.RequestJournal(base_path))
+    # the journal's own cost: every record it writes, timed on the host
+    cost = {"submit_s": 0.0, "commit_s": 0.0, "commits": 0}
+    for name, key in (("record_submit", "submit_s"),
+                      ("step_commit", "commit_s")):
+        fn = getattr(base.journal, name)
+
+        def timed(*a, _fn=fn, _key=key, **k):
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            cost[_key] += time.perf_counter() - t0
+            cost["commits"] += _key == "commit_s"
+            return out
+        setattr(base.journal, name, timed)
+    for r in reqs:
+        base.submit(_clone_request(r))
+    want = _tokens(base.run())
+    base.journal.close()
+    st = base.stats.as_dict()
+    check(st["completed"] == traffic["n_req"] and all(
+        len(v) == traffic["max_new"] for v in want.values()),
+        f"serve_lifecycle: the uninterrupted run completed {st['completed']}")
+    path = os.path.join(work, "crash.jsonl")
+    crash_step = _mid_decode(traffic["max_new"])
+    crashed = _lifecycle_sched(
+        torch, cfg, model, traffic, device, calls, rows,
+        journal=jr.RequestJournal(path),
+        faults=fl.FaultInjector(f"crash@{crash_step}"))
+    for r in reqs:
+        crashed.submit(_clone_request(r))
+    try:
+        crashed.run()
+        raised = False
+    except fl.InjectedFault:
+        raised = True
+    check(raised and crashed.stats.fault_injected == 1,
+          "serve_lifecycle: crash@N did not stop the run")
+    crashed.journal.close()
+    entries = jr.replay(path)
+    unfinished = jr.unfinished(entries)
+    fresh = _lifecycle_sched(torch, cfg, model, traffic, device, calls, rows,
+                             journal=jr.RequestJournal(path))
+    free0 = _pool_free(fresh)
+    prefixes = jr.resume_scheduler(fresh, entries)
+    got = _tokens(jr.stitched_results(fresh.run(), prefixes))
+    fresh.journal.close()
+    parts = _partings(want, got, gaps, SPEC_TIE["float32"])
+    check(all(p["tie"] for p in parts),
+          f"serve_lifecycle: a resumed stream parts away from a tie: {parts}")
+    check(_pool_free(fresh) == free0 and free0[2] == 0,
+          f"serve_lifecycle: resumed pool {_pool_free(fresh)} != {free0}")
+    mid = sum(1 for p in prefixes.values() if p)
+    check(fresh.stats.journal_replayed == len(prefixes) == len(unfinished)
+          > 0 and mid > 0, f"serve_lifecycle: resumed {len(prefixes)} of "
+          f"{len(unfinished)} unfinished, mid-stream {mid}")
+    steps = max(base.stats.steps, 1)
+    return reqs, want, gaps, base, {
+        "crash_step": crash_step,
+        "tokens_at_crash": sum(len(e.tokens) for e in entries.values()),
+        "resumed": len(prefixes), "resumed_mid_stream": mid,
+        "journal_replayed": fresh.stats.journal_replayed,
+        "partings": parts, "parting_count": len(parts),
+        "identical_requests": len(want) - len(parts),
+        "journal_lines": len(open(base_path, "rb").read().splitlines()),
+        "journal_bytes": os.path.getsize(base_path),
+        "journal_commit_ms_per_step": 1e3 * cost["commit_s"] / steps,
+        "journal_submit_ms": 1e3 * cost["submit_s"] / len(reqs),
+        "journal_commits": cost["commits"], "steps": base.stats.steps,
+        "step_ms": 1e3 * st["wall_s"] / steps,
+        "tokens_per_s": st["tokens_per_s"], "wall_s": st["wall_s"],
+        "resumed_wall_s": fresh.stats.as_dict()["wall_s"]}
+
+
+def _lifecycle_script(torch, cfg, model, traffic, device, reqs, want, gaps,
+                      calls, rows):
+    """Part 2: the trace's requests through a bounded queue
+    (``max_queue=4``) with ``prefill_chunk=64`` (half the shortest
+    prompt) and the faults of
+    ``LIFECYCLE_FAULTS``: r4 is refused (Overloaded) while r0-r3 fill the
+    queue, r3's expired TTFT deadline sheds it, r1 is cancelled after its
+    first of four chunks (step 3, which the stall slows), oom holds
+    admission shut at steps 6-8, r0 is cancelled in decode (step 10),
+    the disconnect cancels r4 (step 14); r5 completes late (a TTFT miss),
+    r6 over its TPOT budget.  Every counter must read as written here, the
+    pool's free pages must come back, and the completed streams must
+    equal part 1's."""
+    from repro_torch.serve import faults as fl
+    from repro_torch.serve.scheduler import Overloaded
+
+    sched = _lifecycle_sched(torch, cfg, model, traffic, device, calls, rows,
+                             prefill_chunk=traffic["prompt_lens"][0] // 2,
+                             max_queue=4,
+                             faults=fl.FaultInjector(LIFECYCLE_FAULTS))
+    free0 = _pool_free(sched)
+    r = {q.rid: q for q in reqs}
+    for rid in (0, 1, 2):
+        sched.submit(_clone_request(r[rid]))
+    sched.submit(_clone_request(r[3], ttft_deadline_ms=1e-6))
+    try:
+        sched.submit(_clone_request(r[4]))
+        overloaded = False
+    except Overloaded:
+        overloaded = True
+    shed = sched.shed_expired()
+    sched.submit(_clone_request(r[4]))
+    for _ in range(3):
+        sched.step()
+    act = sched.prefilling.get(1)
+    in_prefill = act is not None and 0 < act.pf_pos < act.req.prompt_len
+    cancel_prefill = sched.cancel(1)
+    for _ in range(2):
+        sched.step()
+    sched.submit(_clone_request(r[5], ttft_deadline_ms=1e-6))
+    sched.submit(_clone_request(r[6], tpot_deadline_ms=1e-9))
+    sched.submit(_clone_request(r[7]))
+    for _ in range(5):
+        sched.step()
+    in_decode = 0 in sched.active
+    cancel_decode = sched.cancel(0)
+    got = _tokens(sched.run())
+    st = sched.stats
+    counters = {k: getattr(st, k) for k in (
+        "submitted", "completed", "rejected", "shed_overload",
+        "shed_deadline", "cancelled", "ttft_deadline_misses",
+        "tpot_deadline_misses", "fault_injected")}
+    expected = {"submitted": 8, "completed": 4, "rejected": 0,
+                "shed_overload": 1, "shed_deadline": 1, "cancelled": 3,
+                "ttft_deadline_misses": 1, "tpot_deadline_misses": 1,
+                "fault_injected": 3}
+    check(overloaded and shed == [3] and in_prefill and cancel_prefill
+          and in_decode and cancel_decode,
+          f"serve_lifecycle: script overloaded={overloaded} shed={shed} "
+          f"in_prefill={in_prefill} in_decode={in_decode}")
+    check(counters == expected,
+          f"serve_lifecycle: counters {counters} != {expected}")
+    check(sorted(got) == [2, 5, 6, 7],
+          f"serve_lifecycle: completed {sorted(got)}")
+    parts = _partings({k: want[k] for k in got}, got, gaps,
+                      SPEC_TIE["float32"])
+    check(all(p["tie"] for p in parts),
+          f"serve_lifecycle: a stream parts from part 1's: {parts}")
+    free1 = _pool_free(sched)
+    check(free1 == free0 and free0[2] == 0,
+          f"serve_lifecycle: pool {free1} != {free0}")
+    return {"counters": counters, "pool_free_before": free0,
+            "pool_free_after": free1, "partings": parts,
+            "parting_count": len(parts), "prefill_chunks": st.prefill_chunks,
+            "decode_steps": st.decode_steps, "steps": st.steps}
+
+
+async def _gw_http(port, method, path, body=None, headers=None):
+    """One HTTP/1.1 exchange with the gateway: (status, headers, body)."""
+    import asyncio
+
+    r, w = await asyncio.open_connection("127.0.0.1", port)
+    payload = json.dumps(body).encode() if body is not None else b""
+    extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
+    w.write((f"{method} {path} HTTP/1.1\r\nHost: t\r\n{extra}"
+             f"Content-Length: {len(payload)}\r\n\r\n").encode() + payload)
+    await w.drain()
+    data = (await r.read()).decode()
+    w.close()
+    head, _, rest = data.partition("\r\n\r\n")
+    lines = head.split("\r\n")
+    hdrs = {k.strip().lower(): v.strip() for k, _, v in
+            (ln.partition(":") for ln in lines[1:])}
+    return int(lines[0].split()[1]), hdrs, rest
+
+
+def _gw_tokens(hdrs, rest):
+    """A generate response's tokens: the NDJSON chunks of a stream (its
+    last record must be ``done``), or the JSON body's ``tokens``."""
+    if hdrs.get("transfer-encoding") != "chunked":
+        return json.loads(rest)["tokens"]
+    recs = []
+    while rest:
+        size, _, rest = rest.partition("\r\n")
+        n = int(size, 16)
+        if n == 0:
+            break
+        recs.append(json.loads(rest[:n]))
+        rest = rest[n + 2:]
+    check(bool(recs) and recs[-1].get("done"),
+          f"serve_lifecycle: a stream ended without done: {recs[-1:]}")
+    return [x["token"] for x in recs if "token" in x]
+
+
+def _gateway_drill(torch, cfg, model, traffic, device, reqs, want, gaps,
+                   calls, rows):
+    """Part 3: first the trace's 8 requests straight through a scheduler
+    (the direct twin: its wall is the gateway's yardstick), then the
+    gateway on port 0 over a scheduler with ``max_queue=8``: the same 8
+    requests at once (4 streamed, 4 not; r3 with an Idempotency-Key),
+    their tokens equal to part 1's; then
+    admission held shut while 8 short requests fill the queue, so a
+    ninth is a 429; a request past its TTFT deadline, a 429; r3's key
+    again, a replay; ``/metrics`` as text and JSON; a drain, after which
+    ``/v1/generate`` and ``/readyz`` answer 503."""
+    import asyncio
+    import threading
+
+    from repro_torch.serve.gateway import Gateway
+
+    twin = _lifecycle_sched(torch, cfg, model, traffic, device, calls, rows,
+                            max_queue=8)
+    for q in reqs:
+        twin.submit(_clone_request(q))
+    t0 = time.perf_counter()
+    direct = _tokens(twin.run())
+    _sync(torch, device)
+    direct_wall = time.perf_counter() - t0
+    direct_parts = _partings(want, direct, gaps, SPEC_TIE["float32"])
+    check(all(p["tie"] for p in direct_parts),
+          f"serve_lifecycle: the direct twin parts: {direct_parts}")
+    twin_st = twin.stats.as_dict()
+    sched = _lifecycle_sched(torch, cfg, model, traffic, device, calls, rows,
+                             max_queue=8)
+    admit, submit = sched._admission_phase, sched.submit
+    hold, queued = threading.Event(), threading.Semaphore(0)
+    hold.set()
+    sched._admission_phase = lambda: admit() if hold.is_set() else 0
+
+    def counted(req):
+        submit(req)
+        queued.release()
+    sched.submit = counted
+    gw = Gateway(sched, host="127.0.0.1", port=0)
+    key = {"Idempotency-Key": "k3"}
+
+    def body(q, **kw):
+        return {"rid": q.rid, "prompt": q.prompt.tolist(),
+                "max_new": q.max_new, "temperature": q.temperature,
+                "seed": q.seed, **kw}
+
+    async def go():
+        await gw.start()
+        loop = asyncio.get_running_loop()
+        try:
+            ready = await _gw_http(gw.port, "GET", "/readyz")
+            t0 = time.perf_counter()
+            resps = await asyncio.gather(*[_gw_http(
+                gw.port, "POST", "/v1/generate",
+                body(q, stream=bool(q.rid % 2 == 0)),
+                headers=key if q.rid == 3 else None) for q in reqs])
+            wall = time.perf_counter() - t0
+            for _ in reqs:
+                queued.acquire(timeout=0)
+            hold.clear()
+            filler = reqs[0].prompt[:traffic["prompt_lens"][0]].tolist()
+            fill = [asyncio.ensure_future(_gw_http(
+                gw.port, "POST", "/v1/generate",
+                {"rid": f"f{i}", "prompt": filler, "max_new": 2,
+                 "stream": False})) for i in range(8)]
+            for _ in range(8):
+                check(await loop.run_in_executor(None, queued.acquire,
+                                                 True, 120),
+                      "serve_lifecycle: the gateway queued no filler")
+            over = await _gw_http(gw.port, "POST", "/v1/generate",
+                                  {"rid": "over", "prompt": filler,
+                                   "max_new": 2})
+            hold.set()
+            fills = await asyncio.gather(*fill)
+            late = await _gw_http(gw.port, "POST", "/v1/generate",
+                                  {"rid": "late", "prompt": filler,
+                                   "max_new": 2, "ttft_deadline_ms": 1e-6})
+            replay = await _gw_http(gw.port, "POST", "/v1/generate",
+                                    body(reqs[3]), headers=key)
+            text = await _gw_http(gw.port, "GET", "/metrics")
+            js = await _gw_http(gw.port, "GET", "/metrics",
+                                headers={"Accept": "application/json"})
+            gw.begin_drain()
+            refused = await _gw_http(gw.port, "POST", "/v1/generate",
+                                     {"prompt": filler, "max_new": 2})
+            not_ready = await _gw_http(gw.port, "GET", "/readyz")
+        finally:
+            await gw.stop()
+        return (ready, resps, wall, over, fills, late, replay, text, js,
+                refused, not_ready)
+
+    (ready, resps, wall, over, fills, late, replay, text, js, refused,
+     not_ready) = asyncio.new_event_loop().run_until_complete(
+        asyncio.wait_for(go(), 600))
+    check(gw.driver_error is None,
+          f"serve_lifecycle: the gateway's driver failed: {gw.driver_error}")
+    got = {q.rid: _gw_tokens(h, b) for q, (_, h, b) in zip(reqs, resps)}
+    parts = _partings(want, got, gaps, SPEC_TIE["float32"])
+    check(all(p["tie"] for p in parts),
+          f"serve_lifecycle: a gateway stream parts from part 1's: {parts}")
+    rb = json.loads(replay[2])
+    exposition = text[2]
+    metrics = json.loads(js[2])
+    statuses = {"readyz": ready[0], "generate": [s for s, _, _ in resps],
+                "fillers": [s for s, _, _ in fills], "overload": over[0],
+                "deadline": late[0], "replay": replay[0],
+                "metrics_text": text[0], "metrics_json": js[0],
+                "drain_generate": refused[0], "drain_readyz": not_ready[0]}
+    want_status = {"readyz": 200, "generate": [200] * len(reqs),
+                   "fillers": [200] * 8, "overload": 429, "deadline": 429,
+                   "replay": 200, "metrics_text": 200, "metrics_json": 200,
+                   "drain_generate": 503, "drain_readyz": 503}
+    check(statuses == want_status,
+          f"serve_lifecycle: gateway statuses {statuses}")
+    check(all("retry-after" in r[1] for r in (over, late, refused,
+                                              not_ready)),
+          "serve_lifecycle: a 429/503 lacks Retry-After")
+    check(rb.get("idempotent_replay") and rb["tokens"] == got[3],
+          f"serve_lifecycle: the replay {rb}")
+    lifecycle = {k: metrics[k] for k in ("shed_overload", "shed_deadline",
+                                         "completed", "submitted")}
+    check(lifecycle == {"shed_overload": 1, "shed_deadline": 1,
+                        "completed": len(reqs) + 8,
+                        "submitted": len(reqs) + 9}
+          and "repro_serve_shed_overload_total 1\n" in exposition
+          and "repro_serve_shed_deadline_total 1\n" in exposition,
+          f"serve_lifecycle: /metrics {lifecycle}")
+    check(gw.drained(), "serve_lifecycle: the gateway did not drain")
+    n_tok = sum(len(v) for v in got.values())
+    return {"statuses": statuses, "partings": parts,
+            "parting_count": len(parts), "metrics": lifecycle,
+            "tokens_per_s": n_tok / wall, "wall_s": wall,
+            "direct_tokens_per_s": n_tok / direct_wall,
+            "direct_wall_s": direct_wall,
+            "gateway_over_direct": direct_wall / wall,
+            "direct_step_ms": 1e3 * twin_st["wall_s"]
+            / max(twin.stats.steps, 1),
+            "direct_partings": direct_parts}
+
+
+def _cli_drill(torch, cfg, model, device, smoke, work, calls, rows):
+    """Part 4: ``python -m repro_torch.launch.serve --dtype float32
+    --journal J --fault-spec kill@K`` in a subprocess ends with -9; the
+    same with ``--resume-journal J --out-json R`` finishes, loading the
+    kernels already built (the library is not rebuilt); R's streams must
+    equal an in-process run of the same ``build_requests`` trace."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import build_requests
+
+    argv = [*LIFECYCLE_CLI, *(LIFECYCLE_CLI_SMOKE if smoke else []),
+            "--device", str(device).split(":")[0]]
+    opt = dict(zip(argv[::2], argv[1::2]))
+    argv += ["--smoke"] if smoke else []
+    lens = [int(x) for x in opt["--prompt-lens"].split(",")]
+    traffic = dict(n_req=int(opt["--requests"]), prompt_lens=lens,
+                   max_new=int(opt["--max-new"]), slots=int(opt["--slots"]))
+    kill_step = _mid_decode(traffic["max_new"])
+    gaps = {}
+    ref = _lifecycle_sched(torch, cfg, model, traffic, device, calls, rows,
+                           gaps=gaps)
+    for r in build_requests(cfg, traffic["n_req"], lens, traffic["max_new"],
+                            temperature=float(opt["--temperature"]), seed=0):
+        ref.submit(r)
+    want = _tokens(ref.run())
+    journal = os.path.join(work, "cli.jsonl")
+    out = os.path.join(work, "cli.json")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *argv]
+    lib = build.LIBRARY
+    lib_mtime = lib.stat().st_mtime_ns if lib.exists() else None
+    triton_dir = Path(build.triton_cache_dir())
+
+    def triton_files():
+        return sorted(str(p) for p in triton_dir.rglob("*")) \
+            if triton_dir.is_dir() else []
+    triton0 = triton_files()
+    t0 = time.perf_counter()
+    killed = subprocess.run(
+        cmd + ["--journal", journal, "--fault-spec",
+               f"kill@{kill_step}"], cwd=str(ROOT), env=env,
+        capture_output=True, text=True, timeout=600)
+    t1 = time.perf_counter()
+    resumed = subprocess.run(
+        cmd + ["--resume-journal", journal, "--out-json", out],
+        cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=600)
+    t2 = time.perf_counter()
+    check(killed.returncode == -9,
+          f"serve_lifecycle: the killed CLI returned {killed.returncode}: "
+          f"{killed.stderr[-2000:]}")
+    check(resumed.returncode == 0,
+          f"serve_lifecycle: the resumed CLI returned {resumed.returncode}: "
+          f"{resumed.stderr[-2000:]}")
+    got = {int(k): v for k, v in json.load(open(out))["results"].items()}
+    parts = _partings(want, got, gaps, SPEC_TIE["float32"])
+    check(all(p["tie"] for p in parts) and len(got) == len(want),
+          f"serve_lifecycle: the resumed CLI's streams part: {parts}")
+    rebuilt = lib.stat().st_mtime_ns != lib_mtime if lib_mtime else None
+    triton_new = len(set(triton_files()) - set(triton0))
+    if str(device).startswith("cuda"):
+        check(rebuilt is False and triton_new == 0,
+              f"serve_lifecycle: the CLI rebuilt kernels (library "
+              f"{rebuilt}, {triton_new} new Triton files)")
+    lines = [ln for ln in resumed.stdout.splitlines()
+             if ln.startswith("[serve] journal:")]
+    return {"argv": argv, "kill_step": kill_step,
+            "rc_killed": killed.returncode, "rc_resumed": resumed.returncode,
+            "killed_s": t1 - t0, "resumed_s": t2 - t1,
+            "journal_lines": len(open(journal, "rb").read().splitlines()),
+            "replayed_line": lines[-1] if lines else None,
+            "partings": parts, "parting_count": len(parts),
+            "library_rebuilt": rebuilt, "triton_new_files": triton_new}
+
+
+@exact_f32
+def phase_serve_lifecycle(torch, device="cuda", smoke=False):
+    """serve_lifecycle: the request lifecycle, the journal, fault injection
+    and the gateway on qwen3-0.6b FULL in f32 (``smoke``: the SMOKE
+    config, for a CPU rehearsal).  Returns the launches of its in-process
+    parts, the counters set to 0 just before the first and read just
+    after the last."""
+    from repro_torch.configs.base import replace
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.lm import init_lm
+
+    cfg = replace(get_config("qwen3-0.6b", smoke=smoke), dtype="float32")
+    traffic = LIFECYCLE_SMOKE_TRAFFIC if smoke else LIFECYCLE_TRAFFIC
+    t_start = time.perf_counter()
+    model = init_lm(cfg, seed=0, device=device)
+    _sync(torch, device)
+    work = tempfile.mkdtemp(prefix="chip_smoke_lifecycle_")
+    counters = _all_counters()
+    calls, rows, secs = [], [0], {}
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        reqs, want, gaps, base, crash = _crash_drill(
+            torch, cfg, model, traffic, device, work, calls, rows)
+        secs["crash_drill"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        script = _lifecycle_script(torch, cfg, model, traffic, device, reqs,
+                                   want, gaps, calls, rows)
+        secs["lifecycle"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gateway = _gateway_drill(torch, cfg, model, traffic, device, reqs,
+                                 want, gaps, calls, rows)
+        secs["gateway"] = time.perf_counter() - t0
+        _sync(torch, device)
+        got = {n: fn.launches for n, fn in counters.items()}
+        # the CLI reference run is in-process too, but counted apart: the
+        # subprocesses' launches are their own
+        cli_calls = []
+        t0 = time.perf_counter()
+        cli = _cli_drill(torch, cfg, model, device, smoke, work, cli_calls,
+                         rows)
+        secs["cli_drill"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    expected = _lifecycle_expected(cfg, calls)
+    _launch_check(torch, device, {n: got[n] for n in expected}, expected,
+                  "serve_lifecycle")
+    check(not any(got[n] for n in got if n not in expected)
+          or not str(device).startswith("cuda"),
+          f"serve_lifecycle: a kernel off the path launched: {got}")
+    secs["total"] = time.perf_counter() - t_start
+    emit({"phase": "serve_lifecycle", "arch": cfg.name, "dtype": cfg.dtype,
+          "allow_tf32": False, **traffic, "temperatures": [0.0, 0.8],
+          "crash": crash, "lifecycle": script, "gateway": gateway,
+          "cli": cli, "journal_share_of_step":
+          crash["journal_commit_ms_per_step"] / gateway["direct_step_ms"],
+          "tie_tolerance": SPEC_TIE["float32"],
+          "logit_rows_checked": rows[0],
+          "model_calls": {k: sum(c[k] for c in calls) for k in calls[0]},
+          "launches": {n: got[n] for n in expected}, "seconds": secs})
+    del model, base
+    _release(torch, device)
+    return {n: got[n] for n in expected}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repo (src/repro_torch "
@@ -4482,14 +5129,17 @@ def main() -> int:
     smi_line = phase_card(torch)
     phase_build(torch)
     timer = Timer(torch)
+    # the plain flash references and scans take 10 ms-0.6 s a call: a
+    # median of 5
+    plain_timer = Timer(torch, reps=5, warmup=1)
     cases = phase_kernels(torch, timer)
-    for more in (phase_train_kernels(torch, timer),
-                 phase_recurrent_kernels(torch, timer),
-                 phase_arch_kernels(torch, timer),
-                 phase_recurrent_bwd_kernels(torch, timer)):
+    for more in (phase_train_kernels(torch, timer, plain_timer),
+                 phase_recurrent_kernels(torch, timer, plain_timer),
+                 phase_arch_kernels(torch, timer, plain_timer),
+                 phase_recurrent_bwd_kernels(torch, timer, plain_timer)):
         for name, rows in more.items():
             cases.setdefault(name, []).extend(rows)
-    del timer
+    del timer, plain_timer
     release(torch)
     serve_launches, serve_figures = phase_serve(torch)
     release(torch)
@@ -4498,6 +5148,8 @@ def main() -> int:
     dense_launches = phase_serve_dense(torch, serve_figures)
     release(torch)
     phase_recompute_dense(torch)
+    release(torch)
+    lifecycle_launches = phase_serve_lifecycle(torch)
     release(torch)
     train_launches, _ = phase_train(torch)
     release(torch)
@@ -4565,6 +5217,7 @@ def main() -> int:
         "mamba_scan_bwd": lambda c: (c["B"], c["S"]) == (2, 4096),
         "slstm_scan_bwd": lambda c: (c["B"], c["S"]) == (4, 4096)}
     by_path = {"serve": serve_launches, "serve_dense": dense_launches,
+               "serve_lifecycle": lifecycle_launches,
                "train": train_launches, "train_remat": remat_launches,
                **recurrent_launches, "ltfb_lm": lm_launches,
                "serve_swap": swap_launches, "serve_spec": spec_launches,

@@ -27,7 +27,21 @@ spans and keeps the counters): ``--trace-out`` writes every request's
 span chain as a Chrome trace, ``--profile-steps N`` records the first N
 scheduler steps with ``torch.profiler`` into a Chrome trace under
 ``--profile-dir``, and ``--log-json`` adds a JSON record for the
-``[serve]`` report, hot swaps and profiler windows.
+``[serve]`` report, hot swaps, sheds, cancels and profiler windows.
+
+With ``--gateway`` the trace is replaced by the HTTP front door
+(:mod:`repro_torch.serve.gateway`) on ``--host:--port``: requests arrive
+over ``POST /v1/generate``, admission is bounded by ``--max-queue`` (429
+on overload), tokens stream back as NDJSON chunks, and SIGTERM drains
+in-flight work for up to ``--drain-grace`` seconds before exiting.
+``--journal`` appends every admitted request and every decoded token to
+a write-ahead journal (:mod:`repro_torch.serve.journal`); after a crash,
+or a SIGTERM restart of the gateway, the next generation passes
+``--resume-journal`` and resumes every unfinished request
+token-identically (``--out-json`` then holds the stitched full streams).
+``--fault-spec`` arms the deterministic fault harness
+(:mod:`repro_torch.serve.faults`) for crash drills.  Only ``--arena``
+still refuses (ROADMAP.md queue A5 e).
 
   python -m repro_torch.launch.serve --arch qwen3-0.6b
   python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke --device cpu
@@ -37,12 +51,18 @@ scheduler steps with ``torch.profiler`` into a Chrome trace under
       --watch-every 2 --swap-mode drain
   python -m repro_torch.launch.serve --arch qwen3-0.6b --ckpt-dir POP \
       --draft-ckpt POP --spec-tokens 3 --spec-adapt
+  python -m repro_torch.launch.serve --arch qwen3-0.6b --gateway \
+      --port 8000 --max-queue 32
+  python -m repro_torch.launch.serve --arch qwen3-0.6b --journal J \
+      --fault-spec kill@12; python -m repro_torch.launch.serve \
+      --arch qwen3-0.6b --resume-journal J --out-json R
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import signal
 import sys
 import tempfile
 from typing import Dict, List, Optional
@@ -59,6 +79,8 @@ from repro_torch.data import jag
 from repro_torch.data.tokens import token_stream
 from repro_torch.models.icf_cyclegan import init_cyclegan
 from repro_torch.models.lm import init_lm
+from repro_torch.serve import journal as journal_mod
+from repro_torch.serve.faults import FaultInjector
 from repro_torch.serve.registry import (ModelRegistry, check_draft_compat,
                                         load_draft)
 from repro_torch.serve.scheduler import Request, Scheduler
@@ -153,8 +175,10 @@ def _maybe_write_trace(args, sched) -> None:
 
 def run_lm(args) -> Dict[str, object]:
     """Serve the trace the flags describe (from ``--ckpt-dir``'s winner
-    when given); returns stats, pool and results (and writes them with
-    ``--out-json``)."""
+    when given), or the gateway with ``--gateway``; returns stats, pool
+    and results (and writes them with ``--out-json``).  With
+    ``--resume-journal`` the journal's unfinished requests are requeued
+    first and the results are the stitched full streams."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.dtype:
@@ -169,6 +193,15 @@ def run_lm(args) -> Dict[str, object]:
         model.load_state_dict(registry.load())
         _print_winner(registry)
     draft_model, draft_cfg = load_drafter(args, cfg, device)
+    journal = None
+    if args.journal:
+        journal = journal_mod.RequestJournal(args.journal)
+        print(f"[serve] journal: {args.journal} (write-ahead, fsync "
+              f"per step)")
+    faults = None
+    if args.fault_spec:
+        faults = FaultInjector(args.fault_spec)
+        print(f"[serve] fault harness armed: {args.fault_spec}")
     max_len = args.max_len or max(parse_lens(args.prompt_lens)) \
         + args.max_new
     sched = Scheduler(
@@ -182,12 +215,27 @@ def run_lm(args) -> Dict[str, object]:
         watch_every=args.watch_every, swap_mode=args.swap_mode,
         draft_params=draft_model, spec_tokens=args.spec_tokens,
         draft_cfg=draft_cfg, spec_fused=not args.no_spec_fused,
-        spec_adapt=args.spec_adapt, telemetry=not args.no_telemetry,
+        spec_adapt=args.spec_adapt, max_queue=args.max_queue,
+        telemetry=not args.no_telemetry, journal=journal, faults=faults,
         device=device)
     if args.profile_steps > 0:
         sched.profile_steps(args.profile_steps, args.profile_dir)
         print(f"[serve] profiler armed: steps={args.profile_steps} "
               f"dir={args.profile_dir}")
+    prefixes: Dict = {}
+    entries = None
+    if args.resume_journal:
+        entries = journal_mod.replay(args.resume_journal)
+        prefixes = journal_mod.resume_scheduler(sched, entries)
+        print(f"[serve] journal: replayed {len(entries)} request(s) from "
+              f"{args.resume_journal} (requeued "
+              f"{sched.stats.journal_replayed} unfinished)")
+    if args.gateway:
+        out = run_gateway(args, sched, journal_entries=entries)
+        _maybe_write_trace(args, sched)
+        if journal is not None:
+            journal.close()
+        return out
     reqs = build_requests(cfg, args.requests, parse_lens(args.prompt_lens),
                           args.max_new, eos_id=args.eos_id,
                           temperature=args.temperature, seed=args.seed)
@@ -199,11 +247,15 @@ def run_lm(args) -> Dict[str, object]:
           f"swap_mode={args.swap_mode} requests={len(reqs)} "
           f"max_new={args.max_new} spec_tokens={sched.spec_tokens}")
     for r in reqs:
+        if entries is not None and r.rid in entries:
+            continue                # the journal already owns this rid
         try:
             sched.submit(r)
         except ValueError as e:     # counted in the rejected stat
             print(f"[serve] rejected request {r.rid}: {e}")
     results = sched.run()
+    if prefixes:
+        results = journal_mod.stitched_results(results, prefixes)
     sched.stats.report()
     pd = sched.pool.as_dict()
     print(f"[serve] pool: slots={pd['num_slots']} "
@@ -228,6 +280,8 @@ def run_lm(args) -> Dict[str, object]:
         print(f"[serve] profile: taken={tel.profiles_taken} "
               f"files={tel.profile_files} error={tel.profile_error}")
     _maybe_write_trace(args, sched)
+    if journal is not None:
+        journal.close()
     out = {"stats": sched.stats.as_dict(), "pool": pd,
            "device": str(device), "results": results,
            "registry_step": registry.step if registry else None}
@@ -239,6 +293,65 @@ def run_lm(args) -> Dict[str, object]:
             json.dump(payload, f)
         print(f"[serve] wrote {args.out_json}")
     return out
+
+
+def run_gateway(args, sched, journal_entries=None) -> Dict[str, object]:
+    """Serve HTTP on ``--host:--port`` until interrupted.
+
+    Ctrl-C prints the ``[serve]`` report and returns.  SIGTERM drains:
+    admission stops (:meth:`Gateway.begin_drain`), in-flight requests get
+    up to ``--drain-grace`` seconds to finish, a ``shutdown`` note goes
+    into the journal, and the call returns (the next generation resumes
+    with ``--resume-journal``).  A replayed journal seeds the gateway's
+    Idempotency-Key map."""
+    import asyncio
+
+    from repro_torch.serve.gateway import Gateway
+
+    gw = Gateway(sched, host=args.host, port=args.port,
+                 stream_buffer=args.stream_buffer)
+    if journal_entries:
+        gw.seed_idempotency(journal_mod.idempotency_map(journal_entries))
+
+    async def _serve():
+        await gw.start()
+        print(f"[serve] gateway: http://{gw.host}:{gw.port} "
+              f"max_queue={sched.max_queue} "
+              f"stream_buffer={gw.stream_buffer} "
+              f"(POST /v1/generate, GET /healthz, GET /readyz, "
+              f"GET /metrics, GET /debug/trace, POST /debug/profile)",
+              flush=True)
+        loop = asyncio.get_running_loop()
+        stop = asyncio.Event()
+
+        def _on_sigterm():
+            print(f"[serve] SIGTERM: draining "
+                  f"(grace={args.drain_grace:.1f}s, journal="
+                  f"{'on' if sched.journal is not None else 'off'})",
+                  flush=True)
+            gw.begin_drain()
+            stop.set()
+
+        try:
+            loop.add_signal_handler(signal.SIGTERM, _on_sigterm)
+        except (NotImplementedError, ValueError, RuntimeError):
+            pass                      # not the main thread
+        await stop.wait()
+        # with a journal the queue is already durable; either way give
+        # in-flight requests up to --drain-grace to finish streaming
+        deadline = loop.time() + args.drain_grace
+        while not gw.drained() and loop.time() < deadline:
+            await asyncio.sleep(0.05)
+        if sched.journal is not None:
+            sched.journal.record_note("shutdown", drained=gw.drained())
+        await gw.stop()
+
+    try:
+        asyncio.run(_serve())
+    except KeyboardInterrupt:
+        pass
+    sched.stats.report()
+    return {"stats": sched.stats.as_dict()}
 
 
 def run_surrogate(args) -> Dict[str, object]:
@@ -326,7 +439,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "[1, --spec-tokens] from its accept history")
     ap.add_argument("--arena", default=None,
                     help="the online LTFB arena of the JAX package: not "
-                         "ported (ROADMAP.md queue A5)")
+                         "ported (ROADMAP.md queue A5 e); raises")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where weights, KV pools and kernels run; cuda "
                          "raises when no card is visible")
@@ -372,9 +485,49 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--query-batch", type=int, default=8,
                     help="JAG input rows a surrogate query")
     ap.add_argument("--seed", type=int, default=0)
+    # gateway (HTTP front door)
+    ap.add_argument("--gateway", action="store_true",
+                    help="serve HTTP (POST /v1/generate, GET /healthz, "
+                         "GET /metrics) instead of the synthetic trace "
+                         "(lm workload)")
+    ap.add_argument("--host", default="127.0.0.1",
+                    help="gateway bind address")
+    ap.add_argument("--port", type=int, default=8000,
+                    help="gateway bind port (0 = ephemeral)")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="bound the request queue; submits beyond it "
+                         "are shed with HTTP 429 (default: unbounded)")
+    ap.add_argument("--stream-buffer", type=int, default=64,
+                    help="per-response token buffer; a consumer that "
+                         "falls further behind is cancelled "
+                         "(backpressure)")
+    # fault tolerance (journal / crash recovery / fault injection)
+    ap.add_argument("--journal", default=None,
+                    help="write-ahead request journal (JSONL): every "
+                         "admitted request and decoded token, fsync'd "
+                         "per scheduler step — a crashed or restarted "
+                         "server resumes from it token-identically "
+                         "(lm workload)")
+    ap.add_argument("--resume-journal", default=None,
+                    help="replay a previous generation's --journal on "
+                         "startup: finished requests return their "
+                         "recorded tokens, unfinished ones are "
+                         "requeued and resume token-identically")
+    ap.add_argument("--fault-spec", default=None,
+                    help="deterministic fault injection: comma list of "
+                         "kind@step[:key=val...], kinds kill|crash|"
+                         "stall|corrupt|oom|disconnect (e.g. "
+                         "'kill@12,stall@4:secs=0.2') — crash drills "
+                         "for the journal/recovery path")
     ap.add_argument("--out-json", default=None,
-                    help="write final stats + per-request token streams "
-                         "as JSON")
+                    help="write final stats + per-request token "
+                         "streams as JSON (stitched across a "
+                         "--resume-journal)")
+    ap.add_argument("--drain-grace", type=float, default=5.0,
+                    help="seconds SIGTERM waits for in-flight gateway "
+                         "requests to finish before exiting (admission "
+                         "stops immediately; the journal preserves "
+                         "whatever does not finish)")
     # telemetry (tracing / profiler / JSON logs)
     ap.add_argument("--no-telemetry", action="store_true",
                     help="disable per-request trace spans and phase "
@@ -393,8 +546,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="output dir of --profile-steps' Chrome trace")
     ap.add_argument("--log-json", action="store_true",
                     help="emit the [serve] report and lifecycle events "
-                         "(hot swap, profiler window) as one-line JSON "
-                         "records on stdout too")
+                         "(shed, cancel, hot swap, profiler window) as "
+                         "one-line JSON records on stdout too")
     return ap
 
 
@@ -406,7 +559,7 @@ def main(argv=None) -> int:
     if args.arena is not None:
         raise NotImplementedError(
             "--arena (the online LTFB arena, where challengers draft) is "
-            "not ported to repro_torch yet; see ROADMAP.md queue A5")
+            "not ported to repro_torch yet; see ROADMAP.md queue A5 (e)")
     if args.draft_ckpt and args.spec_tokens <= 0:
         args.spec_tokens = 4            # a drafter implies speculation
     workload = args.workload or \

@@ -2,10 +2,13 @@
 
 ``percentile``, ``Histogram`` and ``BoundedSeries`` are copies of
 ``repro.serve.metrics``; :class:`ServeStats` keeps the counters the
-port's scheduler updates, population speculative decoding's ``spec_*``
-included, under the same names (the request lifecycle, faults, the
-journal, the gateway and the arena are not ported yet: the Prometheus
-export reads their counters as 0).  Under ``--log-json``
+port's scheduler updates under the JAX package's names: population
+speculative decoding's ``spec_*``, the request lifecycle's sheds,
+cancellations and deadline misses, the faults fired and the requests a
+journal requeued.  It keeps no counter of a path the port does not run:
+the mesh's ``plan_retries`` (ROADMAP.md queue A6) and the arena's
+matches and promotions (A5 e), which the Prometheus export reads as 0.
+Under ``--log-json``
 :meth:`ServeStats.report` also emits the summary as one ``serve_report``
 record.
 """
@@ -144,6 +147,12 @@ class ServeStats:
     submitted: int = 0
     completed: int = 0
     rejected: int = 0
+    # SLO-aware admission (the gateway's front door)
+    shed_overload: int = 0         # submits refused: queue at max_queue
+    shed_deadline: int = 0         # queued requests dropped: TTFT deadline
+    cancelled: int = 0             # in-flight requests cancelled by caller
+    ttft_deadline_misses: int = 0  # completed, but first token was late
+    tpot_deadline_misses: int = 0  # completed, but mean TPOT was over
     prefills: int = 0
     prefill_chunks: int = 0        # chunked-prefill slices processed
     prefill_tokens: int = 0        # true prompt tokens processed
@@ -161,7 +170,10 @@ class ServeStats:
     spec_k_rows: int = 0           # row-rounds that offered proposals
     ragged_splits: int = 0         # width-split subset decode dispatches
     hot_swaps: int = 0             # weight swaps applied between steps
+    # fault tolerance (serve/journal.py, serve/faults.py, the registry)
+    fault_injected: int = 0        # harness faults fired (--fault-spec)
     swap_rejected_corrupt: int = 0  # hot swaps refused: corrupt checkpoint
+    journal_replayed: int = 0      # requests requeued from a journal
     steps: int = 0
     queue_depth_sum: int = 0
     queue_depth_max: int = 0
@@ -208,6 +220,11 @@ class ServeStats:
             "submitted": self.submitted,
             "completed": self.completed,
             "rejected": self.rejected,
+            "shed_overload": self.shed_overload,
+            "shed_deadline": self.shed_deadline,
+            "cancelled": self.cancelled,
+            "ttft_deadline_misses": self.ttft_deadline_misses,
+            "tpot_deadline_misses": self.tpot_deadline_misses,
             "prefills": self.prefills,
             "prefill_chunks": self.prefill_chunks,
             "prefill_tokens": self.prefill_tokens,
@@ -225,7 +242,9 @@ class ServeStats:
             "spec_k_mean": self.spec_k_sum / max(self.spec_k_rows, 1),
             "ragged_splits": self.ragged_splits,
             "hot_swaps": self.hot_swaps,
+            "fault_injected": self.fault_injected,
             "swap_rejected_corrupt": self.swap_rejected_corrupt,
+            "journal_replayed": self.journal_replayed,
             "wall_s": wall,
             "requests_per_s": self.completed / max(wall, 1e-9),
             "tokens_per_s": self.decode_tokens / max(wall, 1e-9),
@@ -251,6 +270,13 @@ class ServeStats:
         log(f"{prefix} requests: submitted={d['submitted']} "
             f"completed={d['completed']} rejected={d['rejected']} "
             f"hot_swaps={d['hot_swaps']}")
+        if self.shed_overload or self.shed_deadline or self.cancelled \
+                or self.ttft_deadline_misses or self.tpot_deadline_misses:
+            log(f"{prefix} admission: shed_overload={d['shed_overload']} "
+                f"shed_deadline={d['shed_deadline']} "
+                f"cancelled={d['cancelled']} "
+                f"ttft_misses={d['ttft_deadline_misses']} "
+                f"tpot_misses={d['tpot_deadline_misses']}")
         log(f"{prefix} throughput: {d['requests_per_s']:.2f} req/s "
             f"{d['tokens_per_s']:.1f} tok/s "
             f"(decode_steps={d['decode_steps']} "
@@ -265,9 +291,11 @@ class ServeStats:
             f"busy={d['slot_occupancy'] * 100:.0f}% "
             f"queue_mean={d['queue_depth_mean']:.1f} "
             f"queue_max={d['queue_depth_max']}")
-        if self.swap_rejected_corrupt:
-            log(f"{prefix} robustness: "
-                f"swap_rejected_corrupt={d['swap_rejected_corrupt']}")
+        if self.fault_injected or self.swap_rejected_corrupt \
+                or self.journal_replayed:
+            log(f"{prefix} robustness: fault_injected={d['fault_injected']} "
+                f"swap_rejected_corrupt={d['swap_rejected_corrupt']} "
+                f"journal_replayed={d['journal_replayed']}")
         if self.spec_rounds:
             log(f"{prefix} speculative: rounds={d['spec_rounds']} "
                 f"accept_rate={d['spec_accept_rate'] * 100:.0f}% "

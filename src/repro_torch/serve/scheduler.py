@@ -68,8 +68,23 @@ speculative round), a hot swap is an event and a JSON-log record, and
 :meth:`Scheduler.profile_steps` arms ``torch.profiler`` around a window
 of steps (:class:`~repro_torch.serve.telemetry.ServeTelemetry`).
 ``telemetry=False`` keeps the counters and phase times and drops the
-spans.  The bounded queue, the journal, fault injection and the arena
-are not ported yet: the constructor raises on their arguments.
+spans.
+
+The request lifecycle, as in JAX: ``max_queue`` bounds the queue (an
+over-bound :meth:`Scheduler.submit` raises :class:`Overloaded`, the
+gateway's HTTP 429), a request may declare TTFT / TPOT deadlines
+(:meth:`Scheduler.shed_expired` drops a queued request whose TTFT
+deadline has passed; a completion that missed one is counted), and
+:meth:`Scheduler.cancel` drops a request wherever it is, freeing its
+slot, its pages (a shared prefix page loses one reference) and its
+drafter rows.  An optional ``journal``
+(:class:`repro_torch.serve.journal.RequestJournal`) records every
+submit, token, completion and cancel (one write a step), from which a
+fresh scheduler resumes every unfinished request token-identically
+(``ntok_base`` offsets the sampler's rng stream), and optional
+``faults`` (:class:`repro_torch.serve.faults.FaultInjector`) fire
+scripted faults at exact steps.  The online LTFB arena is not ported:
+the constructor raises on its argument.
 """
 from __future__ import annotations
 
@@ -93,13 +108,19 @@ from repro_torch.serve.session import DecodeSession
 from repro_torch.serve.telemetry import ServeTelemetry, log_event
 
 # constructor arguments of the JAX scheduler this port does not serve yet
-# (ROADMAP queue A5: the request lifecycle, the journal, fault injection
-# and the arena); passing any of them raises rather than being ignored
-UNPORTED_ARGS = ("max_queue", "journal", "faults", "arena")
+# (ROADMAP queue A5 e: the online LTFB arena); passing one raises rather
+# than being ignored
+UNPORTED_ARGS = ("arena",)
 # profiler ranges of a speculative round: a profile splits its device time
 # between the drafter, the target's verify and the rollback (snapshots,
 # restores and replays)
 SPEC_RANGES = ("draft", "verify", "rollback")
+
+
+class Overloaded(RuntimeError):
+    """Raised by :meth:`Scheduler.submit` when the request queue is at
+    its ``max_queue`` bound — the load-shedding signal the gateway maps
+    to HTTP 429 instead of queueing without bound."""
 
 
 @dataclass
@@ -108,7 +129,15 @@ class Request:
 
     ``prompt`` is a (P,) int32 token-id array; ``max_new`` bounds the
     generated tokens; ``temperature > 0`` requires ``seed`` (sampling is
-    host-side and deterministic in ``(seed, ntok)``).
+    host-side and deterministic in ``(seed, ntok)``).  The optional
+    deadlines are SLOs in milliseconds: a queued request whose
+    ``ttft_deadline_ms`` has passed is shed by
+    :meth:`Scheduler.shed_expired`, and a completion that missed its TTFT
+    or TPOT deadline is counted.  ``ntok_base`` offsets the sampler's rng
+    stream: a journal resume submits a request with ``k`` emitted tokens
+    folded into its prompt and ``ntok_base=k``, so its first sample draws
+    ``rng([seed, k])``, as the uninterrupted run did.  ``idem_key``
+    carries the gateway's ``Idempotency-Key`` into the journal.
     """
 
     rid: Any
@@ -117,6 +146,10 @@ class Request:
     eos_id: Optional[int] = None
     temperature: float = 0.0
     seed: Optional[int] = None
+    ttft_deadline_ms: Optional[float] = None   # first token due (ms)
+    tpot_deadline_ms: Optional[float] = None   # mean ms/token budget
+    ntok_base: int = 0              # rng-stream offset (journal resume)
+    idem_key: Optional[str] = None  # gateway Idempotency-Key, journaled
 
     @property
     def prompt_len(self) -> int:
@@ -166,6 +199,12 @@ class Scheduler:
 
     ``telemetry`` turns the trace spans on (the default) or off;
     ``trace_capacity`` bounds the trace's ring of events.
+
+    ``max_queue`` bounds the request queue (None: unbounded);
+    ``journal`` is a :class:`~repro_torch.serve.journal.RequestJournal`
+    to record the lifecycle in, ``faults`` a
+    :class:`~repro_torch.serve.faults.FaultInjector` fired at the top of
+    every step.
     """
 
     _SPLIT_RATIO = 4
@@ -186,14 +225,16 @@ class Scheduler:
                  draft_params=None, spec_tokens: int = 0,
                  draft_cfg: Optional[ModelConfig] = None,
                  spec_fused: bool = True, spec_adapt: bool = False,
+                 max_queue: Optional[int] = None,
                  telemetry: bool = True, trace_capacity: int = 8192,
+                 journal=None, faults=None,
                  device="cuda", **unported):
         self.device = resolve_device(device)
         bad = sorted(set(unported) & set(UNPORTED_ARGS))
         if bad:
             raise NotImplementedError(
                 f"Scheduler arguments {bad} are not ported to repro_torch "
-                "yet; see ROADMAP.md queue A5")
+                "yet; see ROADMAP.md queue A5 (e)")
         if unported:
             raise TypeError(f"unexpected arguments {sorted(unported)}")
         if layout not in ("paged", "dense"):
@@ -214,6 +255,9 @@ class Scheduler:
             else 0
         self.spec_fused = bool(spec_fused)
         self.spec_adapt = bool(spec_adapt)
+        self.max_queue = max_queue if max_queue is None else int(max_queue)
+        if self.max_queue is not None and self.max_queue < 1:
+            raise ValueError("max_queue must be >= 1 (or None)")
         # the drafter may be another (smaller) arch: its token ids index
         # the target's embedding, so the vocabs must agree
         self.draft_cfg = draft_cfg if draft_cfg is not None else cfg
@@ -298,6 +342,13 @@ class Scheduler:
         # telemetry=False keeps the counters but drops the spans
         self.telemetry = ServeTelemetry(enabled=telemetry,
                                         trace_capacity=trace_capacity)
+        # fault tolerance: the write-ahead journal (one write a step, the
+        # step's tokens and completions buffered below) and the injector
+        # fired at the top of each step
+        self.journal = journal
+        self.faults = faults
+        self._journal_tokens: Dict[Any, List[int]] = {}
+        self._journal_finished: List[Any] = []
         self._pending_params = None
         self._head_share = None
         self._step_count = 0
@@ -327,10 +378,18 @@ class Scheduler:
     def submit(self, req: Request) -> None:
         """Validate + enqueue a request (host-side only, non-blocking).
 
-        Raises ``ValueError`` for malformed requests (duplicate rid,
+        Raises :class:`Overloaded` when the queue is at ``max_queue``
+        (counted as ``shed_overload``; the caller should shed or back
+        off) and ``ValueError`` for malformed requests (duplicate rid,
         empty prompt, budget over the pool ceiling, missing seed),
-        counted as ``rejected``.  Admission happens inside :meth:`step`.
+        counted as ``rejected``.  An accepted submit is journaled at
+        once.  Admission happens inside :meth:`step`.
         """
+        if self.max_queue is not None and len(self.queue) >= self.max_queue:
+            self.stats.shed_overload += 1
+            raise Overloaded(
+                f"request queue is at max_queue={self.max_queue}; "
+                f"request {req.rid!r} shed (retry with backoff)")
         total = req.prompt_len + req.max_new
         if req.rid in self.active or req.rid in self.prefilling or \
                 req.rid in self.results or \
@@ -352,6 +411,8 @@ class Scheduler:
                 f"request {req.rid!r}: temperature > 0 requires a seed "
                 "(refusing to silently fall back to greedy)")
         self.stats.submitted += 1
+        if self.journal is not None:
+            self.journal.record_submit(req)
         req._submit_t = time.perf_counter()   # TTFT includes queueing delay
         self.queue.append(req)
         self.telemetry.req_instant(req.rid, "enqueue", t=req._submit_t,
@@ -520,11 +581,13 @@ class Scheduler:
     @staticmethod
     def _sample(logits_row: np.ndarray, req: Request, ntok: int) -> int:
         """logits_row: (V,) host array.  Greedy at temperature 0, else the
-        Gumbel trick with ``default_rng([seed, ntok])`` — deterministic,
-        and the same draw the JAX package makes."""
+        Gumbel trick with ``default_rng([seed, ntok_base + ntok])`` —
+        deterministic, and the same draw the JAX package makes; a
+        journal-resumed request's ``ntok_base`` continues the stream where
+        the interrupted run left it."""
         if req.temperature <= 0.0:
             return int(np.argmax(logits_row))
-        rng = np.random.default_rng([req.seed, ntok])
+        rng = np.random.default_rng([req.seed, req.ntok_base + ntok])
         g = rng.gumbel(size=logits_row.shape[-1])
         return int(np.argmax(
             np.asarray(logits_row, np.float64) / req.temperature + g))
@@ -533,6 +596,8 @@ class Scheduler:
         act.tokens.append(tok)
         act.ntok += 1
         self.stats.decode_tokens += 1
+        if self.journal is not None:
+            self._journal_tokens.setdefault(act.req.rid, []).append(tok)
         # write position of `tok`'s KV on the NEXT decode step
         self._index[act.slot] = act.req.prompt_len + act.ntok - 1
         self._next_token[act.slot] = tok
@@ -543,14 +608,24 @@ class Scheduler:
     def _finish(self, act: _Active) -> None:
         rid = act.req.rid
         self.results[rid] = np.asarray(act.tokens, np.int32)
+        if self.journal is not None:
+            self._journal_finished.append(rid)
         if self.spec_adapt:
             self.spec_k_by_rid[rid] = int(self._spec_k[act.slot])
         self.stats.completed += 1
         now = time.perf_counter()
         self.stats.latency.append(now - act.submit_t)
+        ttft = (act.first_token_t or now) - act.submit_t
+        tpot = None
         if act.ntok > 1 and act.first_token_t is not None:
-            self.stats.tpot.append(
-                (now - act.first_token_t) / (act.ntok - 1))
+            tpot = (now - act.first_token_t) / (act.ntok - 1)
+            self.stats.tpot.append(tpot)
+        if act.req.ttft_deadline_ms is not None \
+                and ttft * 1e3 > act.req.ttft_deadline_ms:
+            self.stats.ttft_deadline_misses += 1
+        if act.req.tpot_deadline_ms is not None and tpot is not None \
+                and tpot * 1e3 > act.req.tpot_deadline_ms:
+            self.stats.tpot_deadline_misses += 1
         self.telemetry.terminal(rid, "finish", t=now, ntok=act.ntok,
                                 latency_s=now - act.submit_t)
         slot = self.pool.release(rid)
@@ -560,6 +635,82 @@ class Scheduler:
         del self._by_slot[slot]
         self._next_token[slot] = 0
         self._index[slot] = self._idle_index
+
+    # -- cancellation / load shedding ---------------------------------------
+    def cancel(self, rid) -> bool:
+        """Drop a request wherever it is in its lifecycle.
+
+        A queued request leaves the queue; an admitted one (waiting for
+        its one-shot prefill, prefilling in chunks or decoding) releases
+        its slot, its pages (a prefix page it shares loses one reference
+        and stays) and its drafter rows at once, and its deferred prefills
+        never run.  Its partial tokens are not recorded in ``results``: a
+        streaming caller already has them.  Returns True if the rid was
+        found, False if it is unknown or already completed; counted as
+        ``cancelled``.
+        """
+        return self._cancel_now(rid, "cancel")
+
+    def shed_expired(self) -> List[Any]:
+        """Shed queued requests whose TTFT deadline has already passed.
+
+        Such a request can no longer meet its SLO, so admitting it would
+        waste a slot: it is dropped and counted as ``shed_deadline``.
+        Returns the shed rids (the gateway answers each with a 429).
+        In-flight requests are never shed: their misses are counted at
+        completion.
+        """
+        now = time.perf_counter()
+        shed = [q.rid for q in self.queue
+                if q.ttft_deadline_ms is not None
+                and (now - getattr(q, "_submit_t", now)) * 1e3
+                > q.ttft_deadline_ms]
+        for rid in shed:
+            self._cancel_now(rid, "deadline")
+        return shed
+
+    def _cancel_now(self, rid, reason: str) -> bool:
+        """Remove ``rid`` now; ``reason`` picks the counter ("cancel" ->
+        cancelled, "deadline" -> shed_deadline), the journal record and
+        the request's terminal trace instant."""
+        found = False
+        for i, q in enumerate(self.queue):
+            if q.rid == rid:
+                del self.queue[i]
+                found = True
+                break
+        if not found:
+            act = self.active.get(rid) or self.prefilling.get(rid) or next(
+                (a for a in self._pending_onepass if a.req.rid == rid),
+                None)
+            if act is None:
+                return False
+            # deferred device work for this rid must not run
+            self._pending_onepass = [a for a in self._pending_onepass
+                                     if a.req.rid != rid]
+            self._pending_draft = [r for r in self._pending_draft
+                                   if r.rid != rid]
+            slot = self.pool.release(rid)
+            if self.draft is not None:
+                self.draft.layout.release(rid)
+            self.active.pop(rid, None)
+            self.prefilling.pop(rid, None)
+            self._by_slot.pop(slot, None)
+            self._next_token[slot] = 0
+            self._index[slot] = self._idle_index
+        if self._head_share is not None and self._head_share[0] == rid:
+            self._head_share = None
+        kind = "shed" if reason == "deadline" else "cancel"
+        if self.journal is not None:
+            self.journal.record_cancel(rid, reason)
+            self._journal_tokens.pop(rid, None)
+        self.telemetry.terminal(rid, kind, reason=reason)
+        log_event(kind, rid=rid, reason=reason)
+        if reason == "deadline":
+            self.stats.shed_deadline += 1
+        else:
+            self.stats.cancelled += 1
+        return True
 
     # -- hot swap -------------------------------------------------------------
     def set_params(self, params) -> None:
@@ -620,6 +771,9 @@ class Scheduler:
         """Admit what fits; returns the number of requests admitted."""
         if self.draining:
             return 0
+        if self.faults is not None \
+                and self.faults.admission_blocked(self._step_count):
+            return 0            # injected pool exhaustion (oom@step)
         admitted = 0
         if self.policy == "static":
             if not (self.active or self.prefilling):
@@ -669,17 +823,31 @@ class Scheduler:
         ``telemetry.profile_error``."""
         self.telemetry.arm_profile(steps, outdir)
 
+    def _journal_step(self) -> None:
+        """Commit this step's tokens and completions to the journal: one
+        batched write + flush (see :mod:`repro_torch.serve.journal`)."""
+        if self.journal is None:
+            return
+        self.journal.step_commit(self._journal_tokens,
+                                 self._journal_finished)
+        self._journal_tokens = {}
+        self._journal_finished = []
+
     def step(self) -> None:
-        """One scheduler iteration: the hot-swap check, admission, the
-        one-shot prefills and one round of chunked prefill, one batched
-        decode round, completion."""
+        """One scheduler iteration: the scripted faults of this step, the
+        hot-swap check, admission, the one-shot prefills and one round of
+        chunked prefill, one batched decode round, completion, and the
+        journal's commit of the step."""
         self.stats.start()
         self.telemetry.step_begin(self._step_count + 1)
+        if self.faults is not None:
+            self.faults.on_step(self, self._step_count + 1)
         self._apply_swap(self._poll_registry())
         self._step_count += 1
         self._timed_phases()
         self.stats.sample_step(len(self.queue),
                                len(self.active) + len(self.prefilling))
+        self._journal_step()
         self.telemetry.step_end()
 
     # -- decode --------------------------------------------------------------

@@ -4,7 +4,8 @@ tracing, Prometheus export, the profiler window.
 * :class:`ServeTelemetry` — the per-scheduler façade: owns a
   :class:`~repro_torch.telemetry.Tracer` that takes one span chain per
   request (``enqueue`` → ``queued`` → ``admit`` → ``prefill`` /
-  ``prefill_chunk`` → ``first_token`` → ``finish``) plus per-step phase
+  ``prefill_chunk`` → ``first_token`` → ``finish``, or a terminal
+  ``shed`` / ``cancel`` wherever the request was dropped) plus per-step phase
   spans, accumulates per-phase host wall time (``admit`` / ``prefill`` /
   ``decode`` / ``draft`` / ``verify``), and arms ``torch.profiler``
   around a window of scheduler steps (``--profile-steps``), which writes
@@ -98,7 +99,7 @@ class ServeTelemetry:
 
     def terminal(self, rid: Any, kind: str, t: Optional[float] = None,
                  **args: Any) -> None:
-        """Emit the request's terminal instant (``finish``)."""
+        """Emit the request's terminal instant: finish / shed / cancel."""
         if self.enabled:
             self.tracer.req_instant(kind, rid, t, terminal=True, **args)
 
@@ -198,7 +199,8 @@ class ServeTelemetry:
 # ---- mesh stats snapshot --------------------------------------------------
 
 # every [serve] counter a follower ships to host 0 (and prometheus
-# exports); the port keeps some of them only, the rest read 0
+# exports); the port keeps all but the mesh's plan_retries (A6) and the
+# arena's matches and promotions (A5 e), which read 0
 _SNAPSHOT_COUNTERS = (
     "submitted",
     "completed",

@@ -168,6 +168,31 @@ def test_serving_and_lm_tournament_entry_points_default_to_cuda(
     assert not list(tmp_path.iterdir())        # nothing written first
 
 
+def test_gateway_and_journal_entry_points_default_to_cuda(monkeypatch,
+                                                         tmp_path):
+    """The serve CLI's gateway, journal and resume paths raise without a
+    card before they bind a port or write a journal; asked for the CPU,
+    the gateway's scheduler runs there."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serve.gateway import Gateway
+    from repro_torch.serve.scheduler import Scheduler
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    journal = tmp_path / "j.jsonl"
+    for extra in (["--gateway", "--port", "0"],
+                  ["--resume-journal", str(journal)],
+                  ["--fault-spec", "kill@1"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve.main(["--arch", "qwen3-0.6b", "--smoke", "--journal",
+                        str(journal), *extra])
+    assert not journal.exists()
+    cfg = get_config("qwen3-0.6b", smoke=True)
+    gw = Gateway(Scheduler(cfg, init_lm(cfg, device="cpu"), device="cpu"))
+    assert gw.sched.device.type == "cpu"
+
+
 def test_train_cli_module_raises_without_a_card():
     """``python -m repro_torch.launch.train`` with its default ``--device
     cuda`` exits non-zero, naming the missing card, and trains nothing."""
@@ -201,19 +226,25 @@ def test_scheduler_raises_on_unported_arguments():
     from repro_torch.models.lm import init_lm
     from repro_torch.serve.scheduler import Scheduler
 
+    from repro_torch.serve.faults import FaultInjector
+    from repro_torch.serve.scheduler import UNPORTED_ARGS
+
     cfg = get_config("qwen3-0.6b", smoke=True)
     model = init_lm(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="arena"):
+    # the arena alone still raises, naming its queue
+    assert UNPORTED_ARGS == ("arena",)
+    with pytest.raises(NotImplementedError, match=r"arena.*A5 \(e\)"):
         Scheduler(cfg, model, device="cpu", arena=object())
-    # the bounded queue, the journal and fault injection still raise,
-    # naming their queue; telemetry and trace_capacity are ported
-    for arg in ("max_queue", "journal", "faults"):
-        with pytest.raises(NotImplementedError, match=f"{arg}.*A5"):
-            Scheduler(cfg, model, device="cpu", **{arg: object()})
+    # telemetry, the bounded queue, the journal and fault injection are
+    # ported
     sched = Scheduler(cfg, model, device="cpu", telemetry=False,
-                      trace_capacity=16)
+                      trace_capacity=16, max_queue=2, journal=None,
+                      faults=FaultInjector("stall@1:secs=0"))
     assert not sched.telemetry.enabled
     assert sched.telemetry.tracer.capacity == 16
+    assert sched.max_queue == 2 and sched.faults.events[0].kind == "stall"
+    with pytest.raises(ValueError, match="max_queue"):
+        Scheduler(cfg, model, device="cpu", max_queue=0)
     with pytest.raises(ValueError, match="layout"):
         Scheduler(cfg, model, device="cpu", layout="bogus")
     with pytest.raises(TypeError):
