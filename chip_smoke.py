@@ -111,9 +111,10 @@ and never prints the final ``ok`` line):
 15. ltfb_lm: LTFB over two qwen3-0.6b trainers at full width in bf16
     through ``repro_torch.launch.ltfb``'s functions (B = 2, S = 4096,
     Adam, 2 rounds x 3 steps, scope full; 64 rows of 4,097 tokens in 4
-    shards), a population checkpoint after each round (round 1's winner
-    exported and its trainer files deleted before round 2 saves, so the
-    disk holds at most one population of ~12 GB and two winners); every
+    shards), round 1's winner file written from the trainers in memory
+    (as ``export_winner`` picks it; until the sixteenth slice round 1
+    saved a population checkpoint to export it from) and a population
+    checkpoint of ~12 GB after round 2, its winner exported; every
     loss and metric finite, the flash and RMSNorm counters equal to the
     steps times the train phase's per-step launches plus the metric
     forwards' (28 flash forward and 113 RMSNorm launches each), the
@@ -145,13 +146,15 @@ and never prints the final ``ok`` line):
 18. the CLIs as a user calls them, each printing finite values: the serve
     CLI for ``--arch icf-cyclegan --ckpt-dir`` (phase 14's winners) and for
     ``--arch qwen3-0.6b --ckpt-dir --requests 4`` (phase 15's population:
-    the winner exported on the way), the ltfb CLI resuming phase 15's
-    population for one more round without saving, and the train CLI with
-    ``--batch 1 --seq 1024 --steps 3 --ckpt-every 2`` and a rerun that
-    resumes at step 2; since the thirteenth slice also the serve CLI with
-    ``--layout dense`` on phase 15's population and the train CLI with
-    ``--optimizer adafactor`` (checkpoints in JAX's layout) and its
-    resuming rerun;
+    the winner exported on the way), the LM ltfb CLI for one round without
+    saving under ``--log-json`` (from scratch since the sixteenth slice;
+    it resumed phase 15's population before), and the train CLI with
+    ``--batch 1 --seq 1024 --steps 3`` (until the sixteenth slice also
+    ``--ckpt-every 2`` and a rerun that resumed at step 2); since the
+    thirteenth slice also the serve CLI with ``--layout dense`` on phase
+    15's population and the train CLI with ``--optimizer adafactor
+    --ckpt-every 2`` (checkpoints in JAX's layout) and its rerun that
+    resumes at step 2;
 19. arch_kernels (in the kernel phases, after phase 9): each kernel at
     the shapes the seven archs of the ninth slice give it, against its
     plain version and timed as in phase 3: paged attention in bf16 at
@@ -256,10 +259,11 @@ and never prints the final ``ok`` line):
     ``RECURRENT_PARITY``);
 28. ltfb_recurrent: ``repro_torch.launch.ltfb.main`` over xlstm-125m at
     full width in bf16 as a user calls it: 2 trainers, 1 round x 2 steps,
-    B = 2, S = 1024, Adam, ``--ckpt-dir``, then a rerun that resumes for a
-    second round; finite values, the sLSTM scan, its
-    backward and RMSNorm launched; prints the tournament lines, the step
-    ms and the checkpoint seconds;
+    B = 2, S = 1024, Adam, ``--ckpt-dir``, then a rerun under
+    ``--log-json`` that resumes for a second round (its ``ltfb_resumed``
+    record at round 1, one ``ltfb_round``); finite values, the sLSTM scan,
+    its backward and RMSNorm launched; prints the tournament lines, the
+    step ms and the checkpoint seconds;
 29. a ``kernels`` line (``launches_by_path`` with one entry per new
     path and arch), the ``nvidia-smi`` line, and the ``ok`` line.
 30. serve_dense (run after phase 6): phase 5's trace (qwen3-0.6b FULL
@@ -305,6 +309,34 @@ and never prints the final ``ok`` line):
     --out-json R`` finishes without rebuilding a kernel, R's streams equal
     an in-process run of the same trace; prints the journal's lines,
     bytes and cost a step, the gateway's tokens/s beside the scheduler's.
+34. serve_arena (after phase 16, before phase 17): the online LTFB arena
+    on phase 15's round-2 population, each part on hard links of its
+    files so phase 18 reads it untouched: 8 requests over 4 slots,
+    prompts 128/256, 32 new tokens, 4 draft tokens a round.  (a) twins
+    (both trainers link trainer 0's file) in f32, TF32 off, policy
+    shadow, window 64, min_samples 8, margin 0.3, hysteresis 1, a match
+    every 2 steps, ``swap_mode="drain"``, a journal and write-back (rows
+    of 65 tokens, 4 a shard): exactly one rule-driven promotion to
+    trainer_1 with both archives' sidecars verified, the journal's matches
+    and one promotion, streams identical to target-only decoding (save
+    top-2 ties within 1e-4), two (4, 65) shards whose rows are prompt +
+    generated tokens, the lineage CLI ending at the promotion; then the
+    trace again with ``crash@N`` 3 steps after its promotion, a fresh
+    ``Arena.from_population`` restored from ``replay_arena`` equal to the
+    journaled snapshot, the resumed streams stitched equal to the
+    uninterrupted ones and the write-back's rows the same.  (c) the real
+    roster in bf16 behind an in-process gateway on port 0:
+    ``/population``, ``/arena/promote`` of an unknown member, the
+    champion and the challenger (400, 400, 200 queued), 4 requests, the
+    override promoting in step 1 through verified archives, ``/population``
+    naming the new champion, ``/metrics`` the arena's families; the paged
+    and RMSNorm launches of (a) and (c) exact.  (b) the serve CLI's
+    ``--arena`` on the real roster (``--arena-policy epsilon``): rc 0,
+    finite ``[arena]`` rates, the members' offered and accepted summing to
+    the run's ``spec_draft_proposed`` / ``spec_draft_accepted``.  Prints
+    the seconds of ``prepare_promotion`` (two archives and their sha256
+    inside one scheduler step), of a drafter's ``set_params`` and of the
+    rosters' loads.
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and ``triton``; exits 1
 without a card and 2 when run outside a checkout of the repo.
@@ -2328,8 +2360,8 @@ def _bytes_of(directory, prefix) -> int:
 
 def phase_ltfb_lm(torch, workdir, device="cuda", extra=()):
     """LTFB over two full-width qwen3-0.6b trainers in bf16 through
-    ``repro_torch.launch.ltfb``'s functions, a population checkpoint after
-    each round (round 1's winner exported, then its trainer files pruned),
+    ``repro_torch.launch.ltfb``'s functions: round 1's winner written from
+    memory, a population checkpoint after round 2 (its winner exported),
     the round-2 population restored into a fresh orchestrator.  Returns
     the kernel launches and the directories the next phases read."""
     import numpy as np
@@ -2400,21 +2432,22 @@ def phase_ltfb_lm(torch, workdir, device="cuda", extra=()):
         _sync(torch, device)
         _reset_peak(torch, device)
         t0 = time.perf_counter()
-        trace = orch.run(1, args.steps_per_round, ckpt_every=1)
-        save_s = [orch.checkpoint_seconds]
-        ckpt_bytes = _bytes_of(pop, "step_1_trainer_")
+        # round 1 saves no population checkpoint (the sixteenth slice's
+        # cut, ~30 s): its winner file is written from memory; round 2's
+        # checkpoint and export run that path
+        trace = orch.run(1, args.steps_per_round)
         t1 = time.perf_counter()
-        _, winner1 = reg.export_winner(pop, like, step=1)
+        winner1 = _winner_from_memory(pop, 1, trainers, cfg)
         export_s = time.perf_counter() - t1
-        _prune_members(pop, [1])
         trace += orch.run(1, args.steps_per_round, ckpt_every=1)
+        ckpt_bytes = _bytes_of(pop, "step_2_trainer_")
         _sync(torch, device)
         run_s = time.perf_counter() - t0
         launches = {n: fn.launches - before[n] for n, fn in counters.items()}
         n_forwards = forwards[0]
         steps_taken = sum(t.steps for t in trainers)
         peak = _peak_gib(torch, device)
-        save_s.append(orch.checkpoint_seconds - save_s[0])
+        save_s = orch.checkpoint_seconds
         st = orch.stats()
         written = [f"{i}.{n}" for i, (ref, copy) in held.items()
                    for n in ref if not torch.equal(ref[n], copy[n])]
@@ -2512,6 +2545,26 @@ def phase_ltfb_lm(torch, workdir, device="cuda", extra=()):
     check(winner1["step"] == 1 and winner2["step"] == 2,
           f"ltfb_lm: winners {winner1} {winner2}")
     return launches, {"pop": pop, "data": data}
+
+
+def _winner_from_memory(pop_dir, step, trainers, cfg) -> dict:
+    """Write round ``step``'s winner file from the trainers in memory as
+    ``export_winner`` writes it from a population checkpoint: the trainer
+    with the most wins (the first on a tie), its params in the
+    checkpoint's layout, its metadata and sha256 sidecar."""
+    from repro_torch import bridge
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.serve import registry as reg
+
+    idx = max(range(len(trainers)), key=lambda i: (trainers[i].wins, -i))
+    t = trainers[idx]
+    info = {"step": step, "trainer": idx, "steps": int(t.steps),
+            "wins": int(t.wins), "selected_by": "wins"}
+    path = reg.winner_path(pop_dir, step)
+    ckpt.save(path, {"params": bridge.params_to_jax_layout(t.params, cfg)},
+              metadata=info)
+    reg.write_checksum(path)
+    return info
 
 
 def _lm_tracer(sched, registry, land):
@@ -2922,12 +2975,17 @@ def phase_clis(torch, workdir, surrogate_dir, lm, device="cuda",
         "[serve]", re.compile(r"([\d.]+) tok/s"))
     # under --log-json every report line is one JSON record; the switch
     # is global, so it goes off again before the next CLI reports
+    # the LM ltfb CLI trains a round from scratch: the sixteenth slice cut
+    # its resume of phase 15's ~12 GB population (41-62 s; phase 15
+    # restores it bit-equal, and ltfb_recurrent's CLI rerun resumes an LM
+    # population under --log-json)
     try:
         runs["ltfb_lm"] = _run_cli(
             torch, lt.main, [*LM_LTFB_ARGS, *(LM_SMOKE if smoke else ()),
                              "--rounds", "1", "--ckpt-every", "0",
                              "--device", device, "--data-dir", lm["data"],
-                             "--ckpt-dir", lm["pop"], "--log-json"],
+                             "--ckpt-dir", f"{workdir}/ltfb_lm_cli",
+                             "--log-json"],
             "", re.compile(r'"(?:best_val|speedup)": ([^\s,}]+)'))
     finally:
         enable_json_logs(False)
@@ -2935,13 +2993,16 @@ def phase_clis(torch, workdir, surrogate_dir, lm, device="cuda",
     shutil.rmtree(lm["pop"], ignore_errors=True)
     shutil.rmtree(lm["data"], ignore_errors=True)
     train = ["--arch", "qwen3-0.6b", "--batch", "1", "--seq", "1024",
-             "--steps", "3", "--ckpt-every", "2", "--ckpt-dir", train_dir,
-             "--log-every", "1", "--device", device, *size]
+             "--steps", "3", "--ckpt-dir", train_dir, "--log-every", "1",
+             "--device", device, *size]
     number = re.compile(r"\b(?:loss|val)=([^\s,]+)")
-    runs["train_lm"] = _run_cli(torch, tl.main, train, "", number)
-    runs["train_lm_resumed"] = _run_cli(torch, tl.main, train, "", number)
-    shutil.rmtree(train_dir, ignore_errors=True)
-    adafactor = [*train, "--optimizer", "adafactor"]
+    # Adam's run takes no checkpoint: the Adafactor pair below drives the
+    # CLI's checkpoint and resume, and ltfb_lm writes Adam's moments in
+    # the checkpoint's layout and restores them bit-equal (the sixteenth
+    # slice cut Adam's step-2 checkpoint and its resuming rerun, ~65 s)
+    runs["train_lm"] = _run_cli(torch, tl.main, [*train, "--ckpt-every",
+                                                 "0"], "", number)
+    adafactor = [*train, "--ckpt-every", "2", "--optimizer", "adafactor"]
     runs["train_adafactor"] = _run_cli(torch, tl.main, adafactor, "",
                                        number)
     runs["train_adafactor_resumed"] = _run_cli(torch, tl.main, adafactor,
@@ -2950,8 +3011,7 @@ def phase_clis(torch, workdir, surrogate_dir, lm, device="cuda",
     flags = {"serve_surrogate": "[serve] winner: step=",
              "serve_lm": "[serve] winner: step=2",
              "serve_lm_dense": "layout=dense",
-             "ltfb_lm": '"event": "ltfb_resumed"',
-             "train_lm_resumed": "[train] resumed from",
+             "ltfb_lm": '"event": "ltfb_round"',
              "train_adafactor_resumed": "[train] resumed from"}
     for name, tag in flags.items():
         runs[name]["flag"] = any(tag in ln for ln in runs[name]["lines"])
@@ -3679,11 +3739,13 @@ def _recurrent_parity(torch, phase, arch, layers, witness, device="cuda",
 
 def phase_ltfb_recurrent(torch, workdir, device="cuda", smoke=False):
     """ltfb_recurrent: the ltfb CLI over xlstm-125m as a user calls it,
-    with ``--ckpt-dir``, then a rerun that resumes (each step timed by
-    wrapping the CLI's trainer step).  Returns the launches."""
+    with ``--ckpt-dir``, then a rerun that resumes under ``--log-json``
+    (each step timed by wrapping the CLI's trainer step).  Returns the
+    launches."""
     import re
 
     from repro_torch.launch import ltfb as lt
+    from repro_torch.telemetry import enable_json_logs
 
     step_ms = []
     build_fns = lt.build_fns
@@ -3711,11 +3773,15 @@ def phase_ltfb_recurrent(torch, workdir, device="cuda", smoke=False):
     try:
         first = _run_cli(torch, lt.main, argv, "[ltfb]", number)
         steps_first = len(step_ms)
-        # the rerun resumes and trains a round without saving it
-        rerun = _run_cli(torch, lt.main, argv + ["--ckpt-every", "0"],
-                         "[ltfb]", number)
+        # the rerun resumes and trains a round without saving it, under
+        # --log-json: one JSON record a line (the switch is global, so it
+        # goes off again after)
+        rerun = _run_cli(torch, lt.main, argv + ["--ckpt-every", "0",
+                                                 "--log-json"], "",
+                         re.compile(r'"(?:best_val|speedup)": ([^\s,}]+)'))
     finally:
         lt.build_fns = build_fns
+        enable_json_logs(False)
     cuda = str(device).startswith("cuda")
     runs = {"first": first, "rerun": rerun}
     for what, run in runs.items():
@@ -3725,9 +3791,13 @@ def phase_ltfb_recurrent(torch, workdir, device="cuda", smoke=False):
         on = ("slstm_scan", "slstm_scan_bwd", "rmsnorm", "rmsnorm_bwd")
         check(all(bool(run["launches"][n]) == cuda for n in on),
               f"ltfb_recurrent {what}: launches {run['launches']}")
-    check(any(ln.startswith("[ltfb] resumed at round 1")
-              for ln in rerun["lines"]),
-          f"ltfb_recurrent: the rerun did not resume: {rerun['lines'][:3]}")
+    events = _json_events(rerun["lines"])
+    resumed = [json.loads(ln) for ln in rerun["lines"]
+               if '"event": "ltfb_resumed"' in ln]
+    check(events is not None and events.count("ltfb_round") == 1
+          and [r.get("round") for r in resumed] == [1],
+          f"ltfb_recurrent: the rerun did not resume under --log-json: "
+          f"{events}")
     ckpt_s = [float(m) for run in runs.values() for ln in run["lines"]
               if ln.startswith("[ltfb] tournament:")
               for m in re.findall(r"ckpt_s=([0-9.]+)", ln)]
@@ -3872,6 +3942,30 @@ def _partings(base: dict, spec: dict, gaps: dict, tol: float) -> list:
     return out
 
 
+def _call_launches(cfg, dcfg, c, drafted: bool) -> dict:
+    """The kernel launches of the model calls ``c`` (:func:`_count_calls`)
+    of a target of ``cfg`` and, when ``drafted``, a drafter of ``dcfg``:
+    per verify, replay or plain step one paged launch per attention layer
+    of that session, per fused round ``Kv`` per drafter attention layer,
+    the RMSNorm launches of every forward, a scan per recurrent layer and
+    prefill."""
+    from repro_torch.models.lm import layer_specs
+
+    def per(cf, kinds):
+        return sum(s.kind in kinds for s in layer_specs(cf))
+
+    d_fwd = c["d_step"] + c["d_block_steps"]
+    return {"paged_attention": per(cfg, "a") * c["t_step"]
+            + per(dcfg, "a") * d_fwd * drafted,
+            "rmsnorm": _norms_per_forward(cfg) * (
+                c["t_prefill"] + c["t_chunk"] + c["t_step"])
+            + _norms_per_forward(dcfg) * (c["d_prefill"] + d_fwd) * drafted,
+            "mamba_scan": per(cfg, "M") * c["t_prefill"]
+            + per(dcfg, "M") * c["d_prefill"] * drafted,
+            "slstm_scan": per(cfg, "s") * c["t_prefill"]
+            + per(dcfg, "s") * c["d_prefill"] * drafted}
+
+
 def _spec_run(torch, what, cfg, model, traffic, device, draft=None, k=0,
               draft_cfg=None, fused=True, adapt=False, temperature=0.0,
               gaps=None, profile=False):
@@ -3938,17 +4032,7 @@ def _spec_run(torch, what, cfg, model, traffic, device, draft=None, k=0,
         return sum(s.kind in kinds for s in layer_specs(c))
 
     c = calls
-    d_fwd = c["d_step"] + c["d_block_steps"]
-    want = {"paged_attention": per(cfg, "a") * c["t_step"]
-            + per(dcfg, "a") * d_fwd * (draft is not None),
-            "rmsnorm": _norms_per_forward(cfg) * (
-                c["t_prefill"] + c["t_chunk"] + c["t_step"])
-            + _norms_per_forward(dcfg) * (c["d_prefill"] + d_fwd)
-            * (draft is not None),
-            "mamba_scan": per(cfg, "M") * c["t_prefill"]
-            + per(dcfg, "M") * c["d_prefill"] * (draft is not None),
-            "slstm_scan": per(cfg, "s") * c["t_prefill"]
-            + per(dcfg, "s") * c["d_prefill"] * (draft is not None)}
+    want = _call_launches(cfg, dcfg, c, draft is not None)
     on_path = {n for n, kinds in (("paged_attention", "a"),
                                   ("rmsnorm", "aMms"), ("mamba_scan", "M"),
                                   ("slstm_scan", "s"))
@@ -4102,21 +4186,18 @@ def _spec_pop(torch, pop, device, smoke):
     decoding; then the serve CLI with ``--draft-ckpt``."""
     import re
 
-    from repro_torch import bridge
     from repro_torch.configs.base import replace
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import serve
     from repro_torch.models.lm import init_lm
     from repro_torch.serve import registry as reg
-    from repro_torch.train.steps import params_from_ckpt
 
     cfg = replace(get_config("qwen3-0.6b", smoke=smoke), dtype="float32")
     model = init_lm(cfg, seed=0, device=device)
-    like = bridge.params_to_jax_layout(model, cfg)
-
-    def from_ckpt(tree):
-        return params_from_ckpt(cfg, tree, model.device, torch.float32)
-
+    # the template on the card in the population's dtype: each restored
+    # leaf goes straight there (the sixteenth slice's cut: 7-8 s a load
+    # through a host f32 template)
+    like, from_ckpt, _ = _pop_hooks(torch, cfg, smoke, device)
     registry = reg.ModelRegistry(pop, like, from_ckpt=from_ckpt)
     model.load_state_dict(registry.load())
     # round 1's winner: the earliest (its trainer files were pruned, so
@@ -5108,6 +5189,474 @@ def phase_serve_lifecycle(torch, device="cuda", smoke=False):
     return {n: got[n] for n in expected}
 
 
+# ---------------------------------------------------------------------------
+# the online LTFB arena: challengers draft for the champion
+# ---------------------------------------------------------------------------
+
+# serve_arena: ltfb_lm's round-2 population (qwen3-0.6b FULL), 8 requests
+# over 4 slots, prompts 128/256, 32 new tokens, 4 draft tokens a round.
+# (a) twins (both trainers link trainer 0's file) in f32: the challenger
+# accepts nearly every proposal, so it crosses a margin of 0.3 once its
+# window holds 8 proposals, and the streams must be target-only decoding's
+ARENA_TRAFFIC = dict(n_req=8, prompt_lens=SWAP_PROMPTS, max_new=SWAP_MAX_NEW,
+                     slots=4)
+ARENA_SMOKE_TRAFFIC = dict(n_req=8, prompt_lens=[8, 16], max_new=8, slots=4)
+ARENA_TWIN = dict(policy="shadow", window=64, min_samples=8, margin=0.3,
+                  hysteresis=1, check_every=2, seq_len=64, samples_per_file=4)
+# the crash drill's fault lands this many steps after the promotion
+ARENA_CRASH_AFTER = 3
+# (c) the real roster behind the gateway: only the admin override can
+# promote; its requests are the trace's first 4 at 8 new tokens
+ARENA_GATEWAY = dict(policy="shadow", min_samples=10 ** 6, hysteresis=1)
+ARENA_GATEWAY_NEW = 8
+
+
+def _arena_roster(pop_dir, dst, twin=False) -> str:
+    """A population directory of hard links to ``pop_dir``'s newest step
+    (its trainer files and manifest; with ``twin`` every trainer links
+    trainer 0's file, so the recorded wins tie and trainer 0 serves) and
+    a copy of its genealogy, if any: an arena archives and appends there
+    and ``pop_dir`` stays as the later phases read it."""
+    from repro_torch.serve import registry as reg
+
+    step = reg.population_steps(pop_dir)[-1]
+    os.makedirs(dst)
+    manifest = f"step_{step}.manifest"
+    with open(os.path.join(pop_dir, manifest)) as f:
+        n = json.load(f)["num_trainers"]
+    for i in range(n):
+        os.link(os.path.join(pop_dir,
+                             f"step_{step}_trainer_{0 if twin else i}.ckpt"),
+                os.path.join(dst, f"step_{step}_trainer_{i}.ckpt"))
+    os.link(os.path.join(pop_dir, manifest), os.path.join(dst, manifest))
+    genealogy = os.path.join(pop_dir, "genealogy.jsonl")
+    if os.path.exists(genealogy):
+        shutil.copy(genealogy, dst)
+    return dst
+
+
+def _on_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _on_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_on_device(v, device) for v in tree)
+    return tree.to(device)
+
+
+def _pop_hooks(torch, cfg, smoke, device):
+    """(template, from_ckpt, to_ckpt) for serving ``cfg`` from ltfb_lm's
+    checkpoints: the template in the population's dtype on ``device``
+    (``ckpt.restore`` puts each leaf straight on the card), the weights
+    cast to ``cfg``'s dtype there, and back to the checkpoint's layout for
+    an arena's archives."""
+    from repro_torch import bridge
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.lm import init_lm
+    from repro_torch.train.steps import params_from_ckpt
+
+    pop_cfg = get_config("qwen3-0.6b", smoke=smoke)
+    like = _on_device(bridge.params_to_jax_layout(
+        init_lm(pop_cfg, seed=0, device=device), pop_cfg), device)
+    dtype = getattr(torch, cfg.dtype)
+    return (like,
+            lambda tree: params_from_ckpt(cfg, tree, device, dtype),
+            lambda params: bridge.params_to_jax_layout(params, cfg))
+
+
+def _timed(obj, name, sink, torch, device):
+    """Wrap ``obj.name`` so that each call's seconds (the card synced
+    after it) go into ``sink``."""
+    fn = getattr(obj, name)
+
+    def run(*a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        _sync(torch, device)
+        sink.append(time.perf_counter() - t0)
+        return out
+    setattr(obj, name, run)
+
+
+def _arena_sched(torch, cfg, models, arena, traffic, device, calls, rows,
+                 **kw):
+    """A speculative scheduler over ``arena`` (``models``: the target and
+    the drafter, into which it loads the champion and the active
+    challenger), its model calls counted into ``calls`` and every logit
+    row checked finite."""
+    from repro_torch.serve.scheduler import Scheduler
+
+    sched = Scheduler(cfg, models[0], num_slots=traffic["slots"],
+                      block_size=16, max_len=max(traffic["prompt_lens"])
+                      + traffic["max_new"], draft_params=models[1],
+                      spec_tokens=SPEC_K, swap_mode="drain", arena=arena,
+                      device=device, **kw)
+    _check_finite(torch, sched.session, rows)
+    calls.append((cfg, _count_calls(sched)))
+    return sched
+
+
+def _shard_rows(root):
+    """Every write-back shard's shape and its rows, in shard order."""
+    from repro_torch.data.tokens import list_token_shards, read_token_shard
+
+    shards = [read_token_shard(p)["tokens"] for p in list_token_shards(root)]
+    return [list(s.shape) for s in shards], sorted(
+        r for s in shards for r in s.tolist())
+
+
+def _arena_twins(torch, cfg, hooks, models, pop_dir, work, traffic, device,
+                 calls, rows):
+    """Part (a): the twin roster with a journal and write-back, against
+    target-only decoding; then the crash drill."""
+    from repro_torch.launch.serve import build_requests
+    from repro_torch.serve import faults as fl
+    from repro_torch.serve import journal as jr
+    from repro_torch.serve import registry as reg
+    from repro_torch.serve.arena import Arena, ArenaConfig, TokenWriteback
+    from repro_torch.serve.scheduler import Scheduler
+
+    like, from_ckpt, to_ckpt = hooks
+    acfg = ArenaConfig(**ARENA_TWIN)
+    reqs = build_requests(cfg, traffic["n_req"], traffic["prompt_lens"],
+                          traffic["max_new"], seed=0)
+    roster = _arena_roster(pop_dir, f"{work}/twin", twin=True)
+    wb, jpath = f"{work}/wb", f"{work}/journal.jsonl"
+    t0 = time.perf_counter()
+    arena = Arena.from_population(roster, like, acfg, writeback_dir=wb,
+                                  vocab=cfg.vocab_size, from_ckpt=from_ckpt,
+                                  to_ckpt=to_ckpt)
+    _sync(torch, device)
+    load_s = time.perf_counter() - t0
+    prepare_s, rotate_s = [], []
+    _timed(arena, "prepare_promotion", prepare_s, torch, device)
+    sched = _arena_sched(torch, cfg, models, arena, traffic, device, calls,
+                         rows, journal=jr.RequestJournal(jpath))
+    _timed(sched.draft, "set_params", rotate_s, torch, device)
+    for r in reqs:
+        sched.submit(_clone_request(r))
+    t0 = time.perf_counter()
+    got = _tokens(sched.run())
+    _sync(torch, device)
+    wall = time.perf_counter() - t0
+    sched.journal.close()
+    arena.close()
+    st = sched.stats.as_dict()
+    snap = arena.snapshot()
+    recs = [json.loads(ln) for ln in open(jpath) if ln.strip()]
+    promos = [r for r in recs if r["t"] == "promotion"]
+    check(st["completed"] == len(reqs) and all(
+        len(v) == traffic["max_new"] for v in got.values()),
+        f"serve_arena: the twins completed {st['completed']}")
+    check(len(promos) == 1 and not promos[0]["forced"]
+          and promos[0]["winner"] == "trainer_1"
+          and snap["champion"] == "trainer_1" and snap["promotions"] == 1
+          and st["arena_promotions"] == 1 and st["hot_swaps"] == 1,
+          f"serve_arena: twins promoted {promos} ({snap['champion']})")
+    check(sum(r["t"] == "match" for r in recs) == st["arena_matches"]
+          == snap["matches"] > 0,
+          f"serve_arena: {st['arena_matches']} matches journaled?")
+    archives = sorted(os.listdir(f"{roster}/arena"))
+    ckpts = [f for f in archives if f.endswith(".ckpt")]
+    for f in ckpts:
+        reg.verify_checkpoint(f"{roster}/arena/{f}")
+    check(len(archives) == 4 and any("_retired_trainer_0." in f
+                                     for f in ckpts)
+          and any("_champion_trainer_1." in f for f in ckpts),
+          f"serve_arena: archives {archives}")
+    # target-only decoding of the same prompts on the same weights
+    models[0].load_state_dict(arena.params["trainer_0"])
+    base = Scheduler(cfg, models[0], num_slots=traffic["slots"],
+                     block_size=16, max_len=max(traffic["prompt_lens"])
+                     + traffic["max_new"], device=device)
+    _check_finite(torch, base.session, rows)
+    calls.append((cfg, _count_calls(base)))
+    gaps = {}
+    _record_gaps(base, gaps)
+    for r in reqs:
+        base.submit(_clone_request(r))
+    want = _tokens(base.run())
+    parts = _partings(want, got, gaps, SPEC_TIE["float32"])
+    check(all(p["tie"] for p in parts), f"serve_arena: a twin stream parts "
+          f"from target-only decoding away from a tie: {parts}")
+    width = acfg.seq_len + 1
+    shapes, rows_wb = _shard_rows(wb)
+    expect_rows = sorted((list(map(int, r.prompt)) + got[r.rid]
+                          + [0] * width)[:width] for r in reqs)
+    check(shapes == [[acfg.samples_per_file, width]] * 2
+          and rows_wb == expect_rows,
+          f"serve_arena: write-back shards {shapes}")
+    # the crash drill: the same trace crashes a few steps after its
+    # promotion; a fresh roster restored from the journal resumes it
+    step = promos[0]["step"]
+    crash_roster = _arena_roster(pop_dir, f"{work}/twin_crash", twin=True)
+    cwb, cpath = f"{work}/wb_crash", f"{work}/crash.jsonl"
+    # the crashed run reuses the roster's weights and archives nothing
+    # (no registry directory): the first run timed and verified that
+    crashed_arena = Arena(dict(arena.params), "trainer_0", acfg,
+                          writeback=TokenWriteback(
+                              cwb, acfg.seq_len, cfg.vocab_size,
+                              acfg.samples_per_file), to_ckpt=to_ckpt)
+    crashed = _arena_sched(
+        torch, cfg, models, crashed_arena, traffic, device, calls, rows,
+        journal=jr.RequestJournal(cpath),
+        faults=fl.FaultInjector(f"crash@{step + ARENA_CRASH_AFTER}"))
+    for r in reqs:
+        crashed.submit(_clone_request(r))
+    try:
+        crashed.run()
+        raised = False
+    except fl.InjectedFault:
+        raised = True
+    crashed.journal.close()
+    entries = jr.replay(cpath)
+    state = jr.replay_arena(cpath)
+    check(raised and state is not None and state["promotions"] == 1
+          and jr.unfinished(entries),
+          f"serve_arena: crash@{step + ARENA_CRASH_AFTER} (raised={raised})"
+          f" left {state and state['promotions']} promotions journaled")
+    t0 = time.perf_counter()
+    fresh = Arena.from_population(crash_roster, like, acfg,
+                                  writeback_dir=cwb, vocab=cfg.vocab_size,
+                                  from_ckpt=from_ckpt, to_ckpt=to_ckpt)
+    fresh.restore(state)
+    _sync(torch, device)
+    reload_s = time.perf_counter() - t0
+    restored = fresh.snapshot()
+    check({**restored, "writeback": None} == {**state, "writeback": None}
+          and fresh.champion == "trainer_1" and fresh.generation == 1,
+          "serve_arena: the restored arena is not the journaled one")
+    resumed = _arena_sched(torch, cfg, models, fresh, traffic, device,
+                           calls, rows, journal=jr.RequestJournal(cpath))
+    prefixes = jr.resume_scheduler(resumed, entries)
+    stitched = _tokens(jr.stitched_results(resumed.run(), prefixes))
+    resumed.journal.close()
+    fresh.close()
+    resumed_parts = _partings(got, stitched, gaps, SPEC_TIE["float32"])
+    check(all(p["tie"] for p in resumed_parts),
+          f"serve_arena: a resumed stream parts: {resumed_parts}")
+    check(_shard_rows(cwb)[1] == rows_wb,
+          "serve_arena: the crash drill's write-back differs")
+    lineage = _lineage_of(roster)
+    return {"load_s": load_s, "prepare_promotion_s": prepare_s,
+            "drafter_set_params_s": rotate_s, "wall_s": wall,
+            "tokens_per_s": st["tokens_per_s"],
+            "promotion_step": step, "matches": snap["matches"],
+            "baseline": snap["baseline"],
+            "members": {n: {k: m[k] for k in ("offered", "accepted",
+                                              "served_tokens")}
+                        for n, m in snap["members"].items()},
+            "spec_accept_rate": st["spec_accept_rate"],
+            "journal_kinds": {k: sum(r["t"] == k for r in recs)
+                              for k in ("match", "promotion")},
+            "archives": archives, "partings": parts,
+            "writeback_shards": shapes, "crash_step": step
+            + ARENA_CRASH_AFTER, "resumed": len(prefixes),
+            "resumed_mid_stream": sum(1 for p in prefixes.values() if p),
+            "resumed_partings": resumed_parts, "reload_s": reload_s,
+            "lineage": lineage}
+
+
+def _lineage_of(roster) -> list:
+    """The lineage CLI's ancestry of the roster's latest champion: the
+    record kinds, oldest first (the arena's promotion the last)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import lineage
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = lineage.main(["--genealogy", f"{roster}/genealogy.jsonl",
+                           "--json"])
+    rep = json.loads(out.getvalue())
+    kinds = [r["t"] for r in rep["ancestry"]]
+    check(rc == 0 and rep["champion"] == "trainer_1"
+          and kinds[-1] == "promotion",
+          f"serve_arena: lineage {rep['champion']} {kinds}")
+    return kinds
+
+
+def _arena_gateway(torch, cfg, hooks, models, roster, traffic, device,
+                   calls, rows):
+    """Part (c): the real roster behind an in-process gateway on port 0:
+    ``/population``, then ``/arena/promote`` of an unknown member, the
+    champion and the challenger (400, 400, 200), then 4 requests; the
+    override lands in step 1 through the archives, ``/population`` names
+    the new champion and ``/metrics`` carries the arena's families."""
+    import asyncio
+
+    from repro_torch.launch.serve import build_requests
+    from repro_torch.serve import registry as reg
+    from repro_torch.serve.arena import Arena, ArenaConfig
+    from repro_torch.serve.gateway import Gateway
+
+    like, from_ckpt, to_ckpt = hooks
+    t0 = time.perf_counter()
+    arena = Arena.from_population(roster, like, ArenaConfig(**ARENA_GATEWAY),
+                                  from_ckpt=from_ckpt, to_ckpt=to_ckpt)
+    _sync(torch, device)
+    load_s = time.perf_counter() - t0
+    prepare_s = []
+    _timed(arena, "prepare_promotion", prepare_s, torch, device)
+    champion = arena.champion
+    (challenger,) = arena.challengers
+    sched = _arena_sched(torch, cfg, models, arena, traffic, device, calls,
+                         rows)
+    reqs = build_requests(cfg, 4, traffic["prompt_lens"], ARENA_GATEWAY_NEW,
+                          seed=0)
+    gw = Gateway(sched, host="127.0.0.1", port=0)
+
+    async def go():
+        await gw.start()
+        try:
+            out = {"population": await _gw_http(gw.port, "GET",
+                                                "/population")}
+            for who in ("nope", champion, challenger):
+                out[who] = await _gw_http(gw.port, "POST", "/arena/promote",
+                                          {"member": who})
+            out["generate"] = await asyncio.gather(*[_gw_http(
+                gw.port, "POST", "/v1/generate",
+                {"rid": r.rid, "prompt": r.prompt.tolist(),
+                 "max_new": r.max_new, "stream": False}) for r in reqs])
+            out["after"] = await _gw_http(gw.port, "GET", "/population")
+            out["metrics"] = await _gw_http(gw.port, "GET", "/metrics")
+        finally:
+            await gw.stop()
+        return out
+
+    out = asyncio.new_event_loop().run_until_complete(
+        asyncio.wait_for(go(), 600))
+    check(gw.driver_error is None,
+          f"serve_arena: the gateway's driver failed: {gw.driver_error}")
+    before, after = (json.loads(out[k][2]) for k in ("population", "after"))
+    statuses = {"population": out["population"][0], "unknown": out["nope"][0],
+                "champion": out[champion][0], "challenger": out[challenger][0],
+                "generate": [s for s, _, _ in out["generate"]],
+                "after": out["after"][0], "metrics": out["metrics"][0]}
+    check(statuses == {"population": 200, "unknown": 400, "champion": 400,
+                       "challenger": 200, "generate": [200] * len(reqs),
+                       "after": 200, "metrics": 200},
+          f"serve_arena: gateway statuses {statuses}")
+    check(json.loads(out[challenger][2]) == {
+        "queued": True, "member": challenger, "champion": champion},
+        f"serve_arena: /arena/promote answered {out[challenger][2]}")
+    check(before["champion"] == champion and before["promotions"] == 0
+          and after["champion"] == challenger and after["promotions"] == 1
+          and arena.last_promotion["step"] == 1,
+          f"serve_arena: the override {arena.last_promotion} ({after})")
+    ckpts = sorted(f for f in os.listdir(f"{roster}/arena")
+                   if f.endswith(".ckpt"))
+    for f in ckpts:
+        reg.verify_checkpoint(f"{roster}/arena/{f}")
+    check(len(ckpts) == 2, f"serve_arena: gateway archives {ckpts}")
+    text = out["metrics"][2]
+    check(f'repro_serve_arena_accept_rate{{member="{challenger}"}}' in text
+          and f'repro_serve_arena_served_tokens{{member="{champion}"}}'
+          in text and "repro_serve_arena_promotions_total 1\n" in text,
+          "serve_arena: /metrics lacks the arena's families")
+    return {"load_s": load_s, "prepare_promotion_s": prepare_s,
+            "statuses": statuses, "champion_before": champion,
+            "champion_after": after["champion"], "archives": ckpts,
+            "tokens": sum(len(json.loads(b)["tokens"])
+                          for _, _, b in out["generate"])}
+
+
+@exact_f32
+def phase_serve_arena(torch, pop_dir, workdir, device="cuda", smoke=False):
+    """serve_arena: the online LTFB arena on ltfb_lm's round-2 population
+    (qwen3-0.6b FULL; ``smoke``: SMOKE, for a CPU rehearsal).  (a) twins
+    in f32 (TF32 off): one rule-driven promotion through verified
+    archives, streams identical to target-only decoding, journaled
+    matches and the promotion, write-back shards, a crash drill resumed
+    from the journal; (c) the real roster in bf16 behind the gateway, its
+    admin override; (b) the serve CLI's ``--arena`` on the real roster.
+    Returns the launches of (a) and (c), the counters set to 0 just
+    before the first and read just after the last."""
+    import re
+
+    from repro_torch.configs.base import replace
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import init_lm
+
+    traffic = ARENA_SMOKE_TRAFFIC if smoke else ARENA_TRAFFIC
+    t_start = time.perf_counter()
+    work = f"{workdir}/serve_arena"
+    counters = _all_counters()
+    calls, rows, secs = [], [0], {}
+    try:
+        cfg = replace(get_config("qwen3-0.6b", smoke=smoke), dtype="float32")
+        hooks = _pop_hooks(torch, cfg, smoke, device)
+        models = [init_lm(cfg, seed=s, device=device) for s in (0, 1)]
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        twins = _arena_twins(torch, cfg, hooks, models, pop_dir, work,
+                             traffic, device, calls, rows)
+        secs["twins"] = time.perf_counter() - t0
+        del models
+        _release(torch, device)
+        real = _arena_roster(pop_dir, f"{work}/real")
+        gcfg = get_config("qwen3-0.6b", smoke=smoke)
+        models = [init_lm(gcfg, seed=s, device=device) for s in (0, 1)]
+        t0 = time.perf_counter()
+        gateway = _arena_gateway(torch, gcfg, _pop_hooks(
+            torch, gcfg, smoke, device), models, real, traffic, device,
+            calls, rows)
+        secs["gateway"] = time.perf_counter() - t0
+        _sync(torch, device)
+        got = {n: fn.launches for n, fn in counters.items()}
+        del models
+        _release(torch, device)
+        t0 = time.perf_counter()
+        out_json = f"{work}/cli.json"
+        cli = _run_cli(torch, serve.main, [
+            "--arch", "qwen3-0.6b", "--arena", real, "--arena-policy",
+            "epsilon", "--requests", "4", "--device", device, "--out-json",
+            out_json, *(["--smoke"] if smoke else [])], "[arena]",
+            re.compile(r"\brate=([^\s]+)"))
+        secs["cli"] = time.perf_counter() - t0
+        result = json.load(open(out_json))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    expected = {}
+    for c, n in calls:
+        _add(expected, _call_launches(c, c, n, True))
+    expected = {n: expected[n] for n in ("paged_attention", "rmsnorm")}
+    _launch_check(torch, device, {n: got[n] for n in expected}, expected,
+                  "serve_arena")
+    check(not any(got[n] for n in got if n not in expected)
+          or not str(device).startswith("cuda"),
+          f"serve_arena: a kernel off the path launched: {got}")
+    members = result["arena"]["members"].values()
+    stats = result["stats"]
+    accounting = {"offered": sum(m["offered"] for m in members),
+                  "accepted": sum(m["accepted"] for m in members),
+                  "spec_draft_proposed": stats["spec_draft_proposed"],
+                  "spec_draft_accepted": stats["spec_draft_accepted"]}
+    cuda = str(device).startswith("cuda")
+    check(cli["rc"] == 0 and len(cli["values"]) == len(members)
+          and all(map(math.isfinite, cli["values"]))
+          and any(cli["launches"].values()) == cuda,
+          f"serve_arena: the CLI: rc={cli['rc']} rates={cli['values']} "
+          f"launches={cli['launches']}")
+    check(accounting["offered"] == accounting["spec_draft_proposed"] > 0
+          and accounting["accepted"] == accounting["spec_draft_accepted"],
+          f"serve_arena: the CLI's arena accounting {accounting}")
+    secs["total"] = time.perf_counter() - t_start
+    emit({"phase": "serve_arena", "arch": cfg.name, **traffic,
+          "spec_tokens": SPEC_K, "twin_config": ARENA_TWIN,
+          "twins": twins, "gateway": gateway,
+          "cli": {k: v for k, v in cli.items() if k != "lines"}
+          | {"lines": cli["lines"][-4:], "accounting": accounting,
+             "champion": result["arena"]["champion"],
+             "promotions": result["arena"]["promotions"]},
+          "logit_rows_checked": rows[0],
+          "model_calls": [n for _, n in calls],
+          "launches": {n: got[n] for n in expected}, "seconds": secs})
+    return {n: got[n] for n in expected}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repo (src/repro_torch "
@@ -5173,6 +5722,8 @@ def main() -> int:
         release(torch)
         swap_launches = phase_serve_swap(torch, lm["pop"], work)
         release(torch)
+        arena_launches = phase_serve_arena(torch, lm["pop"], work)
+        release(torch)
         phase_surrogate(torch, *surrogate_dirs)
         release(torch)
         phase_clis(torch, work, surrogate_dirs[0], lm)
@@ -5221,6 +5772,7 @@ def main() -> int:
                "train": train_launches, "train_remat": remat_launches,
                **recurrent_launches, "ltfb_lm": lm_launches,
                "serve_swap": swap_launches, "serve_spec": spec_launches,
+               "serve_arena": arena_launches,
                **arch_launches}
     kernels = []
     for name, rows in cases.items():

@@ -3,11 +3,11 @@
 
 Reconstructs a champion's ancestry from the ``genealogy.jsonl`` that LTFB
 training appends to (``repro_torch.launch.ltfb --ckpt-dir`` /
-``--genealogy``; the JAX package's file reads the same, its serving
-arena's ``promotion`` records included): which trainer the champion
-descends from, every tournament match where its model was adopted from a
-partner, rescale clones and failure recoveries.  It reads the file only
-and touches no device.
+``--genealogy``; the JAX package's file reads the same) and the serving
+arena of either package appends its ``promotion`` records to: which
+trainer the champion descends from, every arena promotion and tournament
+match where its model was adopted from a partner, rescale clones and
+failure recoveries.  It reads the file only and touches no device.
 
   python -m repro_torch.launch.lineage --genealogy ckpts/genealogy.jsonl
   python -m repro_torch.launch.lineage --genealogy ckpts/genealogy.jsonl \

@@ -40,8 +40,18 @@ or a SIGTERM restart of the gateway, the next generation passes
 ``--resume-journal`` and resumes every unfinished request
 token-identically (``--out-json`` then holds the stitched full streams).
 ``--fault-spec`` arms the deterministic fault harness
-(:mod:`repro_torch.serve.faults`) for crash drills.  Only ``--arena``
-still refuses (ROADMAP.md queue A5 e).
+(:mod:`repro_torch.serve.faults`) for crash drills.
+
+``--arena POP`` serves an LTFB population as an online tournament
+(:mod:`repro_torch.serve.arena`): every trainer of the newest population
+step is resident on the card, the one with the most recorded wins serves,
+the challengers draft for it in turn (``--arena-policy``), their
+speculative accept rates score the matches, and a challenger that beats
+the champion's rate by ``--arena-margin`` over ``--arena-hysteresis``
+matches is archived, journaled and hot-swapped in.  It replaces both
+``--ckpt-dir`` and ``--draft-ckpt`` and implies ``--spec-tokens 4``;
+``--arena-writeback`` writes the served streams back as token shards,
+and ``--resume-journal`` restores the arena's state from the journal.
 
   python -m repro_torch.launch.serve --arch qwen3-0.6b
   python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke --device cpu
@@ -56,6 +66,8 @@ still refuses (ROADMAP.md queue A5 e).
   python -m repro_torch.launch.serve --arch qwen3-0.6b --journal J \
       --fault-spec kill@12; python -m repro_torch.launch.serve \
       --arch qwen3-0.6b --resume-journal J --out-json R
+  python -m repro_torch.launch.serve --arch qwen3-0.6b --arena POP \
+      --arena-policy shadow --arena-writeback WB --swap-mode drain
 """
 from __future__ import annotations
 
@@ -80,6 +92,7 @@ from repro_torch.data.tokens import token_stream
 from repro_torch.models.icf_cyclegan import init_cyclegan
 from repro_torch.models.lm import init_lm
 from repro_torch.serve import journal as journal_mod
+from repro_torch.serve.arena import Arena, ArenaConfig
 from repro_torch.serve.faults import FaultInjector
 from repro_torch.serve.registry import (ModelRegistry, check_draft_compat,
                                         load_draft)
@@ -163,6 +176,43 @@ def load_drafter(args, cfg, device):
     return dmodel, draft_cfg
 
 
+def make_arena(args, cfg, model, device) -> Optional[Arena]:
+    """The online arena ``--arena`` names (None without the flag), its
+    members in the port's layout on ``device`` in ``model``'s dtype.
+    With ``--resume-journal`` its state (champion, windows, generation)
+    is restored from the journal before the scheduler is built, so the
+    resumed server serves the journaled champion from its first step."""
+    if not args.arena:
+        return None
+    acfg = ArenaConfig(policy=args.arena_policy,
+                       window=args.arena_window,
+                       min_samples=args.arena_min_samples,
+                       margin=args.arena_margin,
+                       hysteresis=args.arena_hysteresis,
+                       check_every=args.arena_check_every,
+                       seq_len=args.arena_seq)
+    dtype = model.embed.weight.dtype
+    arena = Arena.from_population(
+        args.arena, bridge.params_to_jax_layout(model, cfg), acfg,
+        writeback_dir=args.arena_writeback, vocab=cfg.vocab_size,
+        from_ckpt=lambda tree: params_from_ckpt(cfg, tree, device, dtype),
+        to_ckpt=lambda params: bridge.params_to_jax_layout(params, cfg))
+    if args.resume_journal:
+        state = journal_mod.replay_arena(args.resume_journal)
+        if state:
+            arena.restore(state)
+            print(f"[serve] arena: restored from journal — champion="
+                  f"{arena.champion} generation={arena.generation} "
+                  f"promotions={arena.promotions}")
+    print(f"[serve] arena: {args.arena} policy={acfg.policy} "
+          f"members={len(arena.members)} champion={arena.champion} "
+          f"drafter={arena.active_drafter} window={acfg.window} "
+          f"margin={acfg.margin} min_samples={acfg.min_samples} "
+          f"hysteresis={acfg.hysteresis} "
+          f"writeback={args.arena_writeback}")
+    return arena
+
+
 def _maybe_write_trace(args, sched) -> None:
     """Export the Chrome-trace ring buffer if --trace-out was given."""
     if not args.trace_out:
@@ -175,10 +225,16 @@ def _maybe_write_trace(args, sched) -> None:
 
 def run_lm(args) -> Dict[str, object]:
     """Serve the trace the flags describe (from ``--ckpt-dir``'s winner
-    when given), or the gateway with ``--gateway``; returns stats, pool
-    and results (and writes them with ``--out-json``).  With
+    when given, or ``--arena``'s population as an online tournament), or
+    the gateway with ``--gateway``; returns stats, pool and results (and
+    the arena's snapshot; all written with ``--out-json``).  With
     ``--resume-journal`` the journal's unfinished requests are requeued
     first and the results are the stitched full streams."""
+    if args.arena and (args.ckpt_dir or args.draft_ckpt):
+        raise SystemExit(
+            "--arena replaces both --ckpt-dir (promotions ARE the hot "
+            "swap) and --draft-ckpt (challengers ARE the drafters); "
+            "drop those flags")
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.dtype:
@@ -193,6 +249,11 @@ def run_lm(args) -> Dict[str, object]:
         model.load_state_dict(registry.load())
         _print_winner(registry)
     draft_model, draft_cfg = load_drafter(args, cfg, device)
+    arena = make_arena(args, cfg, model, device)
+    if arena is not None:
+        # the scheduler loads the champion and the active challenger
+        # into these two models
+        draft_model = init_lm(cfg, seed=args.seed, device=device)
     journal = None
     if args.journal:
         journal = journal_mod.RequestJournal(args.journal)
@@ -217,7 +278,7 @@ def run_lm(args) -> Dict[str, object]:
         draft_cfg=draft_cfg, spec_fused=not args.no_spec_fused,
         spec_adapt=args.spec_adapt, max_queue=args.max_queue,
         telemetry=not args.no_telemetry, journal=journal, faults=faults,
-        device=device)
+        arena=arena, device=device)
     if args.profile_steps > 0:
         sched.profile_steps(args.profile_steps, args.profile_dir)
         print(f"[serve] profiler armed: steps={args.profile_steps} "
@@ -233,6 +294,10 @@ def run_lm(args) -> Dict[str, object]:
     if args.gateway:
         out = run_gateway(args, sched, journal_entries=entries)
         _maybe_write_trace(args, sched)
+        if arena is not None:
+            arena.report()
+            arena.close()
+            out["arena"] = arena.snapshot()
         if journal is not None:
             journal.close()
         return out
@@ -275,6 +340,9 @@ def run_lm(args) -> Dict[str, object]:
     if registry is not None:
         print(f"[serve] registry: serving_step={registry.step} "
               f"hot_swaps={sched.stats.hot_swaps}")
+    if arena is not None:
+        arena.report()
+        arena.close()
     if args.profile_steps > 0:
         tel = sched.telemetry
         print(f"[serve] profile: taken={tel.profiles_taken} "
@@ -285,10 +353,14 @@ def run_lm(args) -> Dict[str, object]:
     out = {"stats": sched.stats.as_dict(), "pool": pd,
            "device": str(device), "results": results,
            "registry_step": registry.step if registry else None}
+    if arena is not None:
+        out["arena"] = arena.snapshot()
     if args.out_json:
         payload = {"stats": out["stats"], "pool": pd, "device": str(device),
                    "results": {str(k): [int(t) for t in v]
                                for k, v in results.items()}}
+        if arena is not None:
+            payload["arena"] = out["arena"]
         with open(args.out_json, "w") as f:
             json.dump(payload, f)
         print(f"[serve] wrote {args.out_json}")
@@ -437,9 +509,45 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--spec-adapt", action="store_true",
                     help="adapt each row's speculative depth within "
                          "[1, --spec-tokens] from its accept history")
+    # online LTFB arena (serve/arena.py: the live-traffic tournament)
     ap.add_argument("--arena", default=None,
-                    help="the online LTFB arena of the JAX package: not "
-                         "ported (ROADMAP.md queue A5 e); raises")
+                    help="serve an N-member population roster from this "
+                         "LTFB checkpoint dir as an ONLINE tournament: "
+                         "the champion serves, challengers draft "
+                         "speculatively, accept rate scores matches, "
+                         "and winners are hot-swapped in (replaces "
+                         "--ckpt-dir and --draft-ckpt; lm workload)")
+    ap.add_argument("--arena-policy", default="champion",
+                    choices=("champion", "epsilon", "shadow"),
+                    help="challenger routing: champion = best "
+                         "challenger drafts (exploit); epsilon = mostly "
+                         "best, periodically round-robin (explore/"
+                         "exploit); shadow = round-robin every stint "
+                         "(even sampling)")
+    ap.add_argument("--arena-window", type=int, default=128,
+                    help="sliding accept-rate window per member, in "
+                         "speculative row-rounds (the match metric)")
+    ap.add_argument("--arena-margin", type=float, default=0.02,
+                    help="a challenger must beat the champion's "
+                         "promotion-time accept rate by this margin to "
+                         "win a match")
+    ap.add_argument("--arena-min-samples", type=int, default=32,
+                    help="proposals a challenger's window must hold "
+                         "before it can qualify for promotion")
+    ap.add_argument("--arena-hysteresis", type=int, default=2,
+                    help="consecutive winning match evaluations before "
+                         "a promotion fires")
+    ap.add_argument("--arena-check-every", type=int, default=8,
+                    help="scheduler steps between match evaluations")
+    ap.add_argument("--arena-writeback", default=None,
+                    help="write finished request/response streams back "
+                         "as datastore token shards in this dir — the "
+                         "next repro_torch.launch.ltfb round ingests "
+                         "served traffic (train->serve->train)")
+    ap.add_argument("--arena-seq", type=int, default=64,
+                    help="write-back row width minus one: rows are "
+                         "(seq+1) tokens, matching the ltfb launcher's "
+                         "--seq so shards re-ingest directly")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where weights, KV pools and kernels run; cuda "
                          "raises when no card is visible")
@@ -556,11 +664,7 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.log_json:
         enable_json_logs()
-    if args.arena is not None:
-        raise NotImplementedError(
-            "--arena (the online LTFB arena, where challengers draft) is "
-            "not ported to repro_torch yet; see ROADMAP.md queue A5 (e)")
-    if args.draft_ckpt and args.spec_tokens <= 0:
+    if (args.draft_ckpt or args.arena) and args.spec_tokens <= 0:
         args.spec_tokens = 4            # a drafter implies speculation
     workload = args.workload or \
         ("surrogate" if args.arch == CYCLEGAN_ID else "lm")

@@ -53,10 +53,13 @@ the driver is up), ``GET /metrics`` (Prometheus text by default, the
 :meth:`ServeStats.as_dict` JSON summary under ``Accept:
 application/json``), ``GET /debug/trace`` (the Chrome-trace ring buffer),
 ``POST /debug/profile`` (arm ``torch.profiler`` around the next N
-scheduler steps; one Chrome trace lands under ``dir``), and ``GET
-/population`` / ``POST /arena/promote``, which answer 404 as JAX's do
-with no arena attached (the port's arena is ROADMAP.md queue A5 e).  The
-debug endpoints route through a control queue the driver drains,
+scheduler steps; one Chrome trace lands under ``dir``), ``GET
+/population`` (the online arena's :meth:`Arena.snapshot`) and ``POST
+/arena/promote`` (an admin override: ``{"member": name}`` promotes that
+challenger at the next match evaluation, through the archive and the
+drain-aware swap; 400 for an unknown member or the champion itself);
+both arena routes answer 404 with no arena attached.  The debug and
+arena endpoints route through a control queue the driver drains,
 preserving the single-scheduler-caller invariant.
 """
 from __future__ import annotations
@@ -81,8 +84,7 @@ from repro_torch.serve.telemetry import log_event
 # where POST /debug/profile writes its trace when the body names no dir
 DEFAULT_PROFILE_DIR = os.path.join(tempfile.gettempdir(),
                                    "repro_torch_profile")
-_NO_ARENA = {"error": "no arena attached (the online LTFB arena is not "
-                      "ported to repro_torch yet: ROADMAP.md queue A5 e)"}
+_NO_ARENA = {"error": "no arena attached (serve with --arena)"}
 
 
 @dataclass
@@ -276,6 +278,8 @@ class Gateway:
                 op = self._control.popleft()
                 if op[0] == "profile":
                     sched.profile_steps(op[1], op[2])
+                elif op[0] == "promote":
+                    sched.arena_force(op[1])
                 busy = True
             for rid in sched.shed_expired():
                 self._post_error(rid, "shed: TTFT deadline expired "
@@ -440,9 +444,14 @@ class Gateway:
                     writer, 200, telemetry_mod.scheduler_prometheus(sched),
                     content_type="text/plain; version=0.0.4; "
                                  "charset=utf-8")
-        elif (method, path) in (("GET", "/population"),
-                                ("POST", "/arena/promote")):
-            await _respond(writer, 404, _NO_ARENA)
+        elif method == "GET" and path == "/population":
+            arena = getattr(sched, "arena", None)
+            if arena is None:
+                await _respond(writer, 404, _NO_ARENA)
+            else:
+                await _respond(writer, 200, arena.snapshot())
+        elif method == "POST" and path == "/arena/promote":
+            await self._arena_promote(body, writer)
         elif method == "GET" and path == "/debug/trace":
             await _respond(writer, 200, sched.telemetry.tracer.export())
         elif method == "POST" and path == "/debug/profile":
@@ -471,6 +480,35 @@ class Gateway:
         self._control.append(("profile", steps, outdir))
         await _respond(writer, 200,
                        {"armed": True, "steps": steps, "dir": outdir})
+
+    async def _arena_promote(self, body: bytes,
+                             writer: asyncio.StreamWriter) -> None:
+        """``POST /arena/promote``: the admin override -- the named
+        challenger wins the next match evaluation (still through the
+        transactional archive and the drain-aware swap).  The override
+        rides the control queue, so the driver stays the scheduler's only
+        caller."""
+        arena = getattr(self.sched, "arena", None)
+        if arena is None:
+            await _respond(writer, 404, _NO_ARENA)
+            return
+        try:
+            d = json.loads(body.decode() or "{}")
+            member = d.get("member")
+            if not isinstance(member, str) or member not in arena.members:
+                raise ValueError(
+                    f"unknown arena member {member!r}; roster is "
+                    f"{sorted(arena.members)}")
+            if member == arena.champion:
+                raise ValueError(
+                    f"{member!r} is already the champion")
+        except (ValueError, TypeError, json.JSONDecodeError) as e:
+            await _respond(writer, 400, {"error": f"bad request: {e}"})
+            return
+        self._control.append(("promote", member))
+        await _respond(writer, 200,
+                       {"queued": True, "member": member,
+                        "champion": arena.champion})
 
     async def _generate(self, body: bytes,
                         writer: asyncio.StreamWriter,

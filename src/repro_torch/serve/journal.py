@@ -23,9 +23,9 @@ Record types (one JSON object per line):
   * ``note``     — a free-form operational marker (``shutdown``), so a
     replay can tell a clean drain from a crash.
   * ``match`` / ``promotion`` — an online-LTFB arena's match evaluation
-    and champion promotion with the arena's snapshot (part of the file
-    format; the port's arena, ROADMAP.md queue A5 e, is their writer to
-    come, and :func:`replay_arena` reads them back).
+    and champion promotion with the arena's snapshot, written by the
+    scheduler's arena (:mod:`repro_torch.serve.arena`) and read back by
+    :func:`replay_arena`.
 
 Replay ignores record types it does not know.
 

@@ -4,10 +4,11 @@
 ``repro.serve.metrics``; :class:`ServeStats` keeps the counters the
 port's scheduler updates under the JAX package's names: population
 speculative decoding's ``spec_*``, the request lifecycle's sheds,
-cancellations and deadline misses, the faults fired and the requests a
-journal requeued.  It keeps no counter of a path the port does not run:
-the mesh's ``plan_retries`` (ROADMAP.md queue A6) and the arena's
-matches and promotions (A5 e), which the Prometheus export reads as 0.
+cancellations and deadline misses, the faults fired, the requests a
+journal requeued and the online arena's matches and promotions.  It
+keeps no counter of a path the port does not run: the mesh's
+``plan_retries`` (ROADMAP.md queue A6), which the Prometheus export
+reads as 0.
 Under ``--log-json``
 :meth:`ServeStats.report` also emits the summary as one ``serve_report``
 record.
@@ -174,6 +175,9 @@ class ServeStats:
     fault_injected: int = 0        # harness faults fired (--fault-spec)
     swap_rejected_corrupt: int = 0  # hot swaps refused: corrupt checkpoint
     journal_replayed: int = 0      # requests requeued from a journal
+    # online LTFB arena (serve/arena.py)
+    arena_matches: int = 0         # match evaluations run
+    arena_promotions: int = 0      # champion promotions applied
     steps: int = 0
     queue_depth_sum: int = 0
     queue_depth_max: int = 0
@@ -245,6 +249,8 @@ class ServeStats:
             "fault_injected": self.fault_injected,
             "swap_rejected_corrupt": self.swap_rejected_corrupt,
             "journal_replayed": self.journal_replayed,
+            "arena_matches": self.arena_matches,
+            "arena_promotions": self.arena_promotions,
             "wall_s": wall,
             "requests_per_s": self.completed / max(wall, 1e-9),
             "tokens_per_s": self.decode_tokens / max(wall, 1e-9),
@@ -296,6 +302,9 @@ class ServeStats:
             log(f"{prefix} robustness: fault_injected={d['fault_injected']} "
                 f"swap_rejected_corrupt={d['swap_rejected_corrupt']} "
                 f"journal_replayed={d['journal_replayed']}")
+        if self.arena_matches or self.arena_promotions:
+            log(f"{prefix} arena: matches={d['arena_matches']} "
+                f"promotions={d['arena_promotions']}")
         if self.spec_rounds:
             log(f"{prefix} speculative: rounds={d['spec_rounds']} "
                 f"accept_rate={d['spec_accept_rate'] * 100:.0f}% "

@@ -32,9 +32,10 @@ The population is also a free source of draft models for speculative
 decoding: :func:`load_draft` loads an earlier (or smaller) checkpoint as
 the drafter, and :func:`check_draft_compat` refuses a drafter whose vocab
 differs from the target's.  A quarantined winner also goes out as a
-``swap_rejected_corrupt`` JSON-log record under ``--log-json``.  Not
-ported yet: ``archive_member``, which comes with the online arena
-(ROADMAP.md queue A5 e).
+``swap_rejected_corrupt`` JSON-log record under ``--log-json``.
+:func:`archive_member` writes the online arena's dated generations
+(:mod:`repro_torch.serve.arena`) in the same layout, with the same
+sidecars.
 """
 from __future__ import annotations
 
@@ -271,6 +272,32 @@ def export_winner(ckpt_dir: str, like_params: Params,
     ckpt.save(path, {"params": params[idx]}, metadata=info)
     write_checksum(path)
     return path, info
+
+
+def archive_member(ckpt_dir: str, name: str, params: Params,
+                   generation: int, tag: str = "retired") -> str:
+    """Archive an arena roster member as a dated registry generation.
+
+    A promotion of the online arena (:mod:`repro_torch.serve.arena`)
+    calls this twice -- once for the dethroned champion
+    (``tag="retired"``), once to export the winner (``tag="champion"``)
+    -- writing ``<ckpt_dir>/arena/gen_<NNNN>_<date>_<tag>_<name>.ckpt``
+    with a sha256 sidecar, so every promotion leaves a restorable trail.
+    ``params`` is in the checkpoint's layout (JAX's), so either package
+    restores the archive.  Returns the checkpoint path.
+    """
+    import datetime
+
+    adir = os.path.join(ckpt_dir, "arena")
+    os.makedirs(adir, exist_ok=True)
+    date = datetime.date.today().isoformat()
+    path = os.path.join(
+        adir, f"gen_{int(generation):04d}_{date}_{tag}_{name}.ckpt")
+    ckpt.save(path, {"params": params},
+              metadata={"member": name, "generation": int(generation),
+                        "tag": tag, "date": date})
+    write_checksum(path)
+    return path
 
 
 class ModelRegistry:

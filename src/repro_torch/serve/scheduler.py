@@ -83,8 +83,19 @@ submit, token, completion and cancel (one write a step), from which a
 fresh scheduler resumes every unfinished request token-identically
 (``ntok_base`` offsets the sampler's rng stream), and optional
 ``faults`` (:class:`repro_torch.serve.faults.FaultInjector`) fire
-scripted faults at exact steps.  The online LTFB arena is not ported:
-the constructor raises on its argument.
+scripted faults at exact steps.
+
+The online LTFB arena (``arena``, :class:`repro_torch.serve.arena.Arena`)
+runs the tournament on the serving traffic, as in JAX: the champion's
+weights serve in the target model, one challenger at a time drafts in
+the drafter model (rotated per the arena's policy at the top of each
+step), every speculative row-round scores the drafting challenger, and
+every ``check_every`` steps a match is evaluated, journaled and, when
+the promotion rule fires, archived through the registry and journaled
+again before the target swaps to the winner (drain-aware with
+``swap_mode="drain"``).  Rotations and promotions copy a member's state
+dict into the models (:meth:`DecodeSession.set_params`); the drafter
+never shares the target's model in an arena.
 """
 from __future__ import annotations
 
@@ -107,10 +118,6 @@ from repro_torch.serve.registry import check_draft_compat
 from repro_torch.serve.session import DecodeSession
 from repro_torch.serve.telemetry import ServeTelemetry, log_event
 
-# constructor arguments of the JAX scheduler this port does not serve yet
-# (ROADMAP queue A5 e: the online LTFB arena); passing one raises rather
-# than being ignored
-UNPORTED_ARGS = ("arena",)
 # profiler ranges of a speculative round: a profile splits its device time
 # between the drafter, the target's verify and the rollback (snapshots,
 # restores and replays)
@@ -205,6 +212,11 @@ class Scheduler:
     to record the lifecycle in, ``faults`` a
     :class:`~repro_torch.serve.faults.FaultInjector` fired at the top of
     every step.
+
+    ``arena`` (an :class:`~repro_torch.serve.arena.Arena`) needs a
+    drafter model other than ``model`` and ``spec_tokens > 0``; the
+    champion's and the active challenger's weights are loaded into the
+    two models here, whatever they held.
     """
 
     _SPLIT_RATIO = 4
@@ -227,16 +239,11 @@ class Scheduler:
                  spec_fused: bool = True, spec_adapt: bool = False,
                  max_queue: Optional[int] = None,
                  telemetry: bool = True, trace_capacity: int = 8192,
-                 journal=None, faults=None,
-                 device="cuda", **unported):
+                 journal=None, faults=None, arena=None,
+                 device="cuda", **unknown):
         self.device = resolve_device(device)
-        bad = sorted(set(unported) & set(UNPORTED_ARGS))
-        if bad:
-            raise NotImplementedError(
-                f"Scheduler arguments {bad} are not ported to repro_torch "
-                "yet; see ROADMAP.md queue A5 (e)")
-        if unported:
-            raise TypeError(f"unexpected arguments {sorted(unported)}")
+        if unknown:
+            raise TypeError(f"unexpected arguments {sorted(unknown)}")
         if layout not in ("paged", "dense"):
             raise ValueError(f"unknown layout {layout!r}")
         if policy not in ("continuous", "static"):
@@ -347,6 +354,23 @@ class Scheduler:
         # fired at the top of each step
         self.journal = journal
         self.faults = faults
+        # online LTFB: the resident population roster and its tournament
+        # (serve/arena.py); drives the drafter's rotation and the
+        # champion's promotions from inside step()
+        self.arena = arena
+        if arena is not None:
+            if self.draft is None or self.spec_tokens <= 0:
+                raise ValueError(
+                    "an online-LTFB arena scores challengers through the "
+                    "speculative path: pass draft_params (the active "
+                    "challenger's weights) and spec_tokens > 0")
+            if self.draft.model is self.session.model:
+                raise ValueError(
+                    "an arena's drafter must be a model of its own: "
+                    "rotations load challengers into it while the "
+                    "champion serves from the target model")
+            self.session.set_params(arena.champion_params)
+            self.draft.set_params(arena.drafter_params)
         self._journal_tokens: Dict[Any, List[int]] = {}
         self._journal_finished: List[Any] = []
         self._pending_params = None
@@ -608,6 +632,8 @@ class Scheduler:
     def _finish(self, act: _Active) -> None:
         rid = act.req.rid
         self.results[rid] = np.asarray(act.tokens, np.int32)
+        if self.arena is not None:
+            self.arena.record_finished(rid, act.req.prompt, act.tokens)
         if self.journal is not None:
             self._journal_finished.append(rid)
         if self.spec_adapt:
@@ -767,6 +793,79 @@ class Scheduler:
             self.set_params(self._pending_params)
             self._pending_params = None
 
+    # -- online LTFB arena (serve/arena.py) ----------------------------------
+    def _arena_rotate(self) -> None:
+        """Rotate the drafter to the policy's pick for this step (a pure
+        function of the step and the arena's state)."""
+        if self.arena is None:
+            return
+        want = self.arena.drafter_for_step(self._step_count)
+        if want != self.arena.active_drafter:
+            self.arena.set_drafter(want)
+            self.draft.set_params(self.arena.params[want])
+
+    def _arena_decide(self) -> Optional[str]:
+        """The deciding half of a promotion: run the match evaluation,
+        journal it and, when the rule fires, run the checksum-verified
+        registry archive before anything changes.  Returns the winner,
+        or None."""
+        if self.arena is None:
+            return None
+        a = self.arena
+        if a.forced is None and self._step_count % a.cfg.check_every != 0:
+            return None
+        winner = a.decide(self._step_count)
+        self.stats.arena_matches = a.matches
+        if self.journal is not None:
+            self.journal.record_match(self._step_count, a.snapshot())
+        if winner is None:
+            return None
+        prepared = a.prepare_promotion(winner)
+        if prepared is None:
+            # the archive failed verification: abort, keep serving
+            self.stats.swap_rejected_corrupt += 1
+            return None
+        return prepared
+
+    def _arena_apply(self, winner: Optional[str]) -> None:
+        """The applying half of a promotion: change the arena's state,
+        journal the promotion (synced before the weight swap, so a torn
+        record means no swap), then swap the target to the new champion
+        -- drain-aware: in-flight requests finish on the old weights."""
+        if self.arena is None or winner is None:
+            return
+        a = self.arena
+        loser = a.champion
+        new_params = a.promote(winner, self._step_count)
+        rec = a.last_promotion
+        self.stats.arena_promotions = a.promotions
+        if self.journal is not None:
+            self.journal.record_promotion(
+                self._step_count, winner, loser, rec["rate"],
+                a.last_forced, a.snapshot())
+        if self.swap_mode == "drain" and (self.active or self.prefilling):
+            self._pending_params = new_params
+        else:
+            self._pending_params = None
+            self.set_params(new_params)
+        # the promotion recomputed the rotation: resync the drafter
+        self.draft.set_params(a.params[a.active_drafter])
+        log_event("arena_promotion", step=self._step_count,
+                  winner=winner, loser=loser, rate=rec["rate"],
+                  generation=a.generation)
+
+    def arena_force(self, member: str) -> None:
+        """Queue an admin promotion (``POST /arena/promote``): the next
+        match evaluation promotes ``member`` unconditionally -- still
+        through the transactional archive and the drain-aware swap."""
+        if self.arena is None:
+            raise ValueError("no arena attached to this scheduler")
+        if member not in self.arena.members:
+            raise ValueError(
+                f"unknown arena member {member!r}; roster is "
+                f"{sorted(self.arena.members)}")
+        self.arena.forced = member
+
     def _admission_phase(self) -> int:
         """Admit what fits; returns the number of requests admitted."""
         if self.draining:
@@ -835,15 +934,18 @@ class Scheduler:
 
     def step(self) -> None:
         """One scheduler iteration: the scripted faults of this step, the
-        hot-swap check, admission, the one-shot prefills and one round of
-        chunked prefill, one batched decode round, completion, and the
-        journal's commit of the step."""
+        hot-swap check, the arena's drafter rotation and match, admission,
+        the one-shot prefills and one round of chunked prefill, one
+        batched decode round, completion, and the journal's commit of the
+        step."""
         self.stats.start()
         self.telemetry.step_begin(self._step_count + 1)
         if self.faults is not None:
             self.faults.on_step(self, self._step_count + 1)
         self._apply_swap(self._poll_registry())
         self._step_count += 1
+        self._arena_rotate()
+        self._arena_apply(self._arena_decide())
         self._timed_phases()
         self.stats.sample_step(len(self.queue),
                                len(self.active) + len(self.prefilling))
@@ -1048,6 +1150,8 @@ class Scheduler:
             accepted = max(0, appended - 1)
             self.stats.spec_draft_proposed += offered
             self.stats.spec_draft_accepted += accepted
+            if self.arena is not None:
+                self.arena.record_spec(offered, accepted)
             if offered:
                 self.stats.spec_k_sum += offered
                 self.stats.spec_k_rows += 1

@@ -14,18 +14,20 @@ tracing, Prometheus export, the profiler window.
   device work it waited for, but no phase adds a synchronize of its own.
 * :func:`prometheus_text` / :func:`scheduler_prometheus` — Prometheus
   text-format (0.0.4) exposition of every ``[serve]`` counter, the
-  bounded latency histograms, the page pool's occupancy and the phase
-  times, in the JAX package's text (counters the port does not keep yet
-  read 0, as they do in JAX for a scheduler without them).
+  bounded latency histograms, the page pool's occupancy, the phase
+  times and, with an online LTFB arena attached, its per-member accept
+  rate and served tokens and its promotions, in the JAX package's text
+  (counters the port does not keep yet read 0, as they do in JAX for a
+  scheduler without them).
 * :func:`stats_snapshot` — the compact JSON stats a mesh follower
-  ships to host 0.
+  ships to host 0 (the arena's counters included).
 
-The mesh's per-rank series (ROADMAP.md queue A6) and the online LTFB
-arena's (A5) are not ported: :func:`prometheus_text` raises on a
-non-empty ``remote_stats`` or ``arena`` rather than drop them.  The
-tracing and JSON-log primitives live in :mod:`repro_torch.telemetry`
-and are re-exported here; nothing imports the scheduler, so the
-scheduler and the metrics import this module freely.
+The mesh's per-rank series (ROADMAP.md queue A6, the arena's per-rank
+series with them) are not ported: :func:`prometheus_text` raises on a
+non-empty ``remote_stats`` rather than drop them.  The tracing and
+JSON-log primitives live in :mod:`repro_torch.telemetry` and are
+re-exported here; nothing imports the scheduler, so the scheduler and
+the metrics import this module freely.
 """
 
 from __future__ import annotations
@@ -199,8 +201,8 @@ class ServeTelemetry:
 # ---- mesh stats snapshot --------------------------------------------------
 
 # every [serve] counter a follower ships to host 0 (and prometheus
-# exports); the port keeps all but the mesh's plan_retries (A6) and the
-# arena's matches and promotions (A5 e), which read 0
+# exports); the port keeps all but the mesh's plan_retries (A6), which
+# reads 0
 _SNAPSHOT_COUNTERS = (
     "submitted",
     "completed",
@@ -246,22 +248,18 @@ def _pool_shards(sched: Any) -> List[dict]:
     return [blocks.as_dict()] if blocks is not None else []
 
 
-def _refuse_unported(remote_stats=None, arena=None) -> None:
+def _refuse_unported(remote_stats=None) -> None:
     if remote_stats:
         raise NotImplementedError(
             "per-rank mesh series are not ported to repro_torch yet; see "
             "ROADMAP.md queue A6")
-    if arena:
-        raise NotImplementedError(
-            "the online LTFB arena's series are not ported to repro_torch "
-            "yet; see ROADMAP.md queue A5")
 
 
 def stats_snapshot(sched: Any, rank: int = 0) -> dict:
     """Compact per-process stats: every ``[serve]`` counter (0 where the
-    scheduler keeps none), queue depth, busy slots and the pool's
-    block counters, as a JAX mesh follower ships them to host 0."""
-    _refuse_unported(arena=getattr(sched, "arena", None))
+    scheduler keeps none), queue depth, busy slots, the pool's block
+    counters and, with an arena attached, its :meth:`Arena.counters`, as
+    a JAX mesh follower ships them to host 0."""
     s = sched.stats
     snap: Dict[str, Any] = {"rank": int(rank)}
     for k in _SNAPSHOT_COUNTERS:
@@ -271,6 +269,9 @@ def stats_snapshot(sched: Any, rank: int = 0) -> dict:
         getattr(sched, "prefilling", ())
     )
     snap["shards"] = _pool_shards(sched)
+    arena = getattr(sched, "arena", None)
+    if arena is not None:
+        snap["arena"] = arena.counters()
     return snap
 
 
@@ -333,6 +334,32 @@ def _hist_lines(out: List[str], name: str, help_: str, series: Any) -> None:
     out.append(f"{name}_count {series.hist.total}")
 
 
+def _arena_lines(out: List[str], arena: dict) -> None:
+    """Append the online arena's families (per-member accept-rate and
+    served-token gauges, the promotion counter) from an
+    ``Arena.counters()`` dict."""
+    members = arena.get("members", {})
+    fams = (
+        ("accept_rate", "gauge",
+         "per-member sliding-window spec accept rate",
+         lambda m: m.get("accept_rate", 0.0)),
+        ("served_tokens", "gauge",
+         "tokens served while the member was champion",
+         lambda m: int(m.get("served_tokens", 0))),
+    )
+    for suffix, typ, help_, get in fams:
+        name = f"{_PREFIX}arena_{suffix}"
+        out.append(f"# HELP {name} {help_}")
+        out.append(f"# TYPE {name} {typ}")
+        for member in sorted(members):
+            out.append(f'{name}{{member="{member}"}} '
+                       f"{_fmt(get(members[member]))}")
+    name = f"{_PREFIX}arena_promotions_total"
+    out.append(f"# HELP {name} arena champion promotions")
+    out.append(f"# TYPE {name} counter")
+    out.append(f"{name} {int(arena.get('promotions', 0))}")
+
+
 def prometheus_text(
     stats: Any,
     pool_shards: Optional[List[dict]] = None,
@@ -347,11 +374,12 @@ def prometheus_text(
     Exposition format 0.0.4: ``# HELP`` / ``# TYPE`` per family,
     counters suffixed ``_total``, latency histograms with cumulative
     ``_bucket{le=...}`` + ``_sum`` + ``_count``, per-shard pool gauges
-    labelled ``{shard=...}`` and per-phase seconds ``{phase=...}``.  A
-    non-empty ``remote_stats`` (the mesh's per-rank series, A6) or
-    ``arena`` (A5) raises ``NotImplementedError``.
+    labelled ``{shard=...}``, per-phase seconds ``{phase=...}`` and the
+    arena's per-member series ``{member=...}`` from ``arena`` (an
+    ``Arena.counters()`` dict).  A non-empty ``remote_stats`` (the mesh's
+    per-rank series, A6) raises ``NotImplementedError``.
     """
-    _refuse_unported(remote_stats, arena)
+    _refuse_unported(remote_stats)
     out: List[str] = []
     for k, help_ in _COUNTER_HELP.items():
         name = f"{_PREFIX}{k}_total"
@@ -403,11 +431,15 @@ def prometheus_text(
             out.append(f"# TYPE {name} gauge")
             for i, sh in enumerate(pool_shards):
                 out.append(f'{name}{{shard="{i}"}} {int(sh.get(k, 0))}')
+
+    if arena:
+        _arena_lines(out, arena)
     return "\n".join(out) + "\n"
 
 
 def scheduler_prometheus(sched: Any) -> str:
-    """Prometheus text for a live scheduler (stats + pool + phases)."""
+    """Prometheus text for a live scheduler (stats + pool + phases + the
+    online arena when one is attached)."""
     tel = getattr(sched, "telemetry", None)
     arena = getattr(sched, "arena", None)
     return prometheus_text(

@@ -132,8 +132,9 @@ class GenealogyLog:
     values, winner, whether the model was adopted, the pairing seed),
     ``round`` (per round: best metric, timings, efficiency),
     ``rescale`` / ``fail`` / ``recover`` (ancestry-relevant topology
-    changes) and ``checkpoint`` / ``resume``; the JAX package's arena
-    appends ``promotion`` records to the same file.  Records are flushed
+    changes) and ``checkpoint`` / ``resume``; the serving arena of either
+    package (:mod:`repro_torch.serve.arena`) appends ``promotion``
+    records to the same file.  Records are flushed
     per append and fsynced on :meth:`sync`/:meth:`close`; a torn final
     line is tolerated on replay.
     """

@@ -21,7 +21,7 @@ hopes; the gateway itself carries no hook for this.
   driver left unfinished instead of waiting on its connection;
 * ``/metrics`` as Prometheus text and as JSON, ``/debug/trace``,
   ``/debug/profile``, and 404 from ``/population`` and
-  ``/arena/promote``;
+  ``/arena/promote`` with no arena attached;
 * the serve CLI's ``--gateway`` drains on SIGTERM and leaves a
   ``shutdown`` note in its ``--journal``.
 """
@@ -577,7 +577,8 @@ def test_metrics_trace_profile_and_unrouted_endpoints(served, tmp_path):
     assert rows["a"][0] == "enqueue" and rows["a"][-1] == "finish"
     assert rows["b"] == ["enqueue", "shed"]
     assert [_status(o) for o in others] == [404, 404, 404]
-    assert "A5 e" in _body(others[0])["error"]
+    assert "--arena" in _body(others[0])["error"]
+    assert "--arena" in _body(others[1])["error"]
     tel = sched.telemetry
     assert tel.profiles_taken == 1 and tel.profile_error is None
     assert os.listdir(prof_dir) == ["profile_step1.json"]

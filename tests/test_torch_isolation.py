@@ -226,15 +226,28 @@ def test_scheduler_raises_on_unported_arguments():
     from repro_torch.models.lm import init_lm
     from repro_torch.serve.scheduler import Scheduler
 
+    from repro_torch.serve.arena import Arena
     from repro_torch.serve.faults import FaultInjector
-    from repro_torch.serve.scheduler import UNPORTED_ARGS
 
     cfg = get_config("qwen3-0.6b", smoke=True)
     model = init_lm(cfg, device="cpu")
-    # the arena alone still raises, naming its queue
-    assert UNPORTED_ARGS == ("arena",)
-    with pytest.raises(NotImplementedError, match=r"arena.*A5 \(e\)"):
-        Scheduler(cfg, model, device="cpu", arena=object())
+    # every argument of the JAX scheduler is taken now: the arena loads
+    # its champion into the target and its challenger into the drafter,
+    # and refuses to run without a drafter model of its own
+    weights = {n: t.detach().clone()
+               for n, t in model.state_dict().items()}
+    challenger = {n: t + 1 for n, t in weights.items()}
+    drafter = init_lm(cfg, seed=1, device="cpu")
+    arena = Arena({"a": weights, "b": challenger}, "a")
+    sched = Scheduler(cfg, model, device="cpu", draft_params=drafter,
+                      spec_tokens=2, arena=arena)
+    assert sched.arena is arena
+    assert torch.equal(drafter.embed.weight, challenger["embed.weight"])
+    with pytest.raises(ValueError, match="speculative path"):
+        Scheduler(cfg, model, device="cpu", arena=arena)
+    with pytest.raises(ValueError, match="model of its own"):
+        Scheduler(cfg, model, device="cpu", draft_params=model,
+                  spec_tokens=2, arena=arena)
     # telemetry, the bounded queue, the journal and fault injection are
     # ported
     sched = Scheduler(cfg, model, device="cpu", telemetry=False,

@@ -471,23 +471,24 @@ def test_serve_cli_with_a_drafter_matches_the_jax_cli(tmp_path, monkeypatch,
 
 def test_serve_cli_refuses_the_arena_and_implies_four_spec_tokens(
         tmp_path, monkeypatch):
-    """``--arena`` raises naming queue A5; ``--draft-ckpt`` without
-    ``--spec-tokens`` speculates four tokens a round, as in JAX."""
+    """``--arena`` and ``--draft-ckpt`` without ``--spec-tokens`` each
+    speculate four tokens a round, as in JAX, and an explicit
+    ``--spec-tokens`` stands."""
     from repro_torch.launch import serve as tserve
 
-    with pytest.raises(NotImplementedError, match="A5"):
-        tserve.main(["--arch", "qwen3-0.6b", "--smoke", "--device", "cpu",
-                     "--arena", str(tmp_path)])
-    seen = {}
+    seen = []
 
     def fake_run_lm(args):
-        seen["spec_tokens"] = args.spec_tokens
+        seen.append(args.spec_tokens)
         return {}
 
     monkeypatch.setattr(tserve, "run_lm", fake_run_lm)
-    assert tserve.main(["--arch", "qwen3-0.6b", "--smoke", "--device",
-                        "cpu", "--draft-ckpt", str(tmp_path)]) == 0
-    assert seen["spec_tokens"] == 4
+    for flags in (["--draft-ckpt", str(tmp_path)],
+                  ["--arena", str(tmp_path)],
+                  ["--arena", str(tmp_path), "--spec-tokens", "2"]):
+        assert tserve.main(["--arch", "qwen3-0.6b", "--smoke", "--device",
+                            "cpu", *flags]) == 0
+    assert seen == [4, 4, 2]
 
 
 def test_scheduler_refuses_a_verify_wider_than_the_kernel(monkeypatch):

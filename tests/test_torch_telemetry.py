@@ -166,8 +166,15 @@ def test_unported_exposition_parts_raise_naming_their_queue():
     s = tmetrics.ServeStats()
     with pytest.raises(NotImplementedError, match="A6"):
         tserve_tel.prometheus_text(s, remote_stats={1: {"rank": 1}})
-    with pytest.raises(NotImplementedError, match="A5"):
-        tserve_tel.prometheus_text(s, arena={"members": {}})
+    # the arena's families render, as JAX's
+    counters = {"promotions": 2, "members": {
+        "b": {"accept_rate": 0.5, "served_tokens": 7},
+        "a": {"accept_rate": 0.0, "served_tokens": 0}}}
+    got = tserve_tel.prometheus_text(s, arena=counters)
+    assert got == jserve_tel.prometheus_text(jmetrics.ServeStats(),
+                                             arena=counters)
+    assert 'repro_serve_arena_accept_rate{member="b"} 0.5\n' in got
+    assert "repro_serve_arena_promotions_total 2\n" in got
     # empty ones are no series at all, as in JAX
     assert tserve_tel.prometheus_text(s, remote_stats={}, arena={}) == \
         tserve_tel.prometheus_text(s)
