@@ -337,6 +337,27 @@ and never prints the final ``ok`` line):
     the seconds of ``prepare_promotion`` (two archives and their sha256
     inside one scheduler step), of a drafter's ``set_params`` and of the
     rosters' loads.
+35. ltfb_mesh (after phase 14): LTFB across process ranks, every rank a
+    process on the one card over gloo (NCCL refuses two ranks on one
+    device), all parts started together.  (a) four ranks of the
+    full-width CycleGAN in f32, generator scope, ``--backend mesh``,
+    2 rounds x 5 steps through ``TournamentOrchestrator.run``: every
+    rank's decision equals a replay of both candidates' metrics from the
+    pair's pre-tournament states (swapped again in full precision for
+    the check), an adopted generator is bit-equal to the partner's, the
+    discriminator and the pre-tournament weights untouched, wins and
+    adoptions the same on every rank; (b) the same under the int8
+    exchange, every adopted tensor within half a quantization step of
+    the partner's; (c) ``repro_torch.launch.ltfb.main --backend mesh
+    --quantize-exchange`` in torchrun's form over qwen3-0.6b at full
+    width cut to 2 layers, bf16, K = 2, B = 1, S = 4096, 1 round x 2
+    steps: rc 0, rank 0's records JAX's (``backend=mesh``), each rank's
+    flash and RMSNorm launches exact; (d) the ltfb CLI's two ranks, rank
+    1 SIGKILLed after rank 0's first round: rank 0 fails on its own
+    within ``--dist-timeout``; (e) ``init_ranks("nccl", "cuda")`` with two
+    ranks on the card raises the port's ``RankLayoutError`` before any
+    process group.  Prints the dist backend, the ranks, each exchange's
+    ms and bytes on the wire.
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and ``triton``; exits 1
 without a card and 2 when run outside a checkout of the repo.
@@ -504,6 +525,37 @@ LTFB_ARGS = ["--arch", "icf-cyclegan", "--trainers", "4", "--rounds", "3",
              "--steps-per-round", "25", "--batch", "32", "--samples",
              "4096", "--samples-per-file", "512", "--store-mode", "preload",
              "--scope", "generator", "--seed", "0"]
+
+
+# ltfb_mesh: LTFB across process ranks sharing the card over gloo.  (a)
+# and (b): the CycleGAN at full width, K = 4, 2 rounds x 5 steps over
+# 1,024 JAG samples in 8 bundles (7 for training, 1 held out); (c) the
+# ltfb CLI over qwen3-0.6b cut to MESH_LM_LAYERS layers at S = 4096 (the
+# attention dispatch runs flash from S = 4096, dense below, as JAX's
+# "auto"); (d) the CLI's two SMOKE ranks, rank 1 killed after rank 0's
+# first round
+MESH_ARGS = ["--arch", "icf-cyclegan", "--trainers", "4", "--rounds", "2",
+             "--steps-per-round", "5", "--batch", "32", "--samples", "1024",
+             "--samples-per-file", "128", "--scope", "generator", "--seed",
+             "0", "--backend", "mesh", "--dist-backend", "gloo"]
+MESH_LM_ARGS = ["--arch", "qwen3-0.6b", "--trainers", "2", "--rounds", "1",
+                "--steps-per-round", "2", "--batch", "1", "--seq", "4096",
+                "--samples", "64", "--samples-per-file", "8", "--scope",
+                "full", "--seed", "0", "--backend", "mesh",
+                "--quantize-exchange", "--dist-backend", "gloo",
+                "--log-json"]
+MESH_LM_LAYERS = 2
+MESH_KILL_ARGS = ["--arch", "icf-cyclegan", "--smoke", "--trainers", "2",
+                  "--rounds", "1000", "--steps-per-round", "20", "--batch",
+                  "8", "--samples", "256", "--samples-per-file", "32",
+                  "--backend", "mesh", "--dist-backend", "gloo"]
+MESH_TIMEOUT_S = 120          # --dist-timeout of (a)-(c)
+MESH_KILL_TIMEOUT_S = 20      # --dist-timeout of (d)
+MESH_JOB_S = 300              # the longest any part may take
+# a rank's process: chip_smoke's function ``argv[2]`` with the rest
+_RANK_MAIN = ("import sys; sys.path[:0] = [sys.argv[1], sys.argv[1] + "
+              "'/src']; import chip_smoke; "
+              "sys.exit(getattr(chip_smoke, sys.argv[2])(*sys.argv[3:]))")
 
 
 _T0 = time.perf_counter()
@@ -5657,6 +5709,363 @@ def phase_serve_arena(torch, pop_dir, workdir, device="cuda", smoke=False):
     return {n: got[n] for n in expected}
 
 
+# ---------------------------------------------------------------------------
+# LTFB across process ranks
+# ---------------------------------------------------------------------------
+
+
+def _rank_argv(fn: str, *args) -> list:
+    """A rank process running chip_smoke's ``fn(*args)``."""
+    return [sys.executable, "-c", _RANK_MAIN, str(ROOT), fn,
+            *map(str, args)]
+
+
+def _start_ranks(mesh, argv, n, logs, name, env=None):
+    """``n`` ranks of ``argv`` (torchrun's environment), each rank's
+    output to ``logs/<name>.<rank>.log``."""
+    def log(r):
+        return open(f"{logs}/{name}.{r}.log", "w")
+
+    return mesh.start(argv, n, env, stdout=log, stderr=log)
+
+
+def _tail(logs, name, n) -> str:
+    out = []
+    for r in range(n):
+        with open(f"{logs}/{name}.{r}.log") as f:
+            out.append(f"[{name} rank {r}] " + f.read()[-3000:])
+    return "\n".join(out)
+
+
+def _tree_equal(torch, a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _mesh_replay(torch, orch, pre, pre_copy, log, quant) -> dict:
+    """Hold this rank's round against a replay from the pair's
+    pre-tournament states: the partner's is swapped again in full
+    precision (a check, not the exchange), both candidates' metrics are
+    recomputed on this rank's tournament batch and must equal the logged
+    ones bit for bit, and so must the decision; an adopted generator is
+    the partner's (int8: within half a step of it), a kept one and the
+    discriminator untouched, the pre-tournament weights never written."""
+    from repro_torch.core import ltfb
+    from repro_torch.optim.compression import (dequantize_int8,
+                                               quantize_int8)
+
+    r, group, scope = orch._rank, orch._group, orch.cfg.scope
+    j = log["partner"][r]
+    leaves = ltfb.tree_leaves(pre)
+    got = ltfb.swap_buffers(ltfb.pack(leaves), ltfb.global_rank(group, j),
+                            group)
+    other = ltfb.tree_unflatten(pre, ltfb.unpack(got, leaves))
+    theirs, _ = ltfb.split_scope(other, scope)
+    if quant:
+        theirs = {n: dequantize_int8(*quantize_int8(t)).to(t.dtype)
+                  for n, t in theirs.items()}
+    _, mine_local = ltfb.split_scope(pre, scope)
+    cand = ltfb.merge_scope(theirs, mine_local, scope)
+    m_local = float(orch.fns.metric(pre, orch._mesh_batch))
+    m_other = float(orch.fns.metric(cand, orch._mesh_batch))
+    i, jj, ml, mo = log["metrics"][r]
+    check((i, jj) == (r, j), f"ltfb_mesh: rank {r} logged pair {(i, jj)}")
+    check((m_local, m_other) == (ml, mo),
+          f"ltfb_mesh: rank {r} replayed {(m_local, m_other)} != logged "
+          f"{(ml, mo)}")
+    adopted = mo < ml
+    post = orch.population.trainers[r].params
+    check(_tree_equal(torch, post["disc"], pre_copy["disc"]),
+          "ltfb_mesh: the discriminator changed in the tournament")
+    check(all(_tree_equal(torch, pre[h], pre_copy[h]) for h in pre),
+          "ltfb_mesh: the pre-tournament weights were written through")
+    dev = 0.0
+    if not adopted:
+        check(_tree_equal(torch, post["gen"], pre_copy["gen"]),
+              "ltfb_mesh: a kept generator changed")
+    elif not quant:
+        check(_tree_equal(torch, post["gen"], ltfb.split_scope(
+            other, scope)[0]), "ltfb_mesh: an adopted generator is not "
+              "bit-equal to the partner's")
+    else:
+        orig = ltfb.split_scope(other, scope)[0]
+        for n, t in orig.items():
+            # half a step, and the f32 roundings of x / s and q * s: two
+            # ulps of the tensor's largest value
+            step = float(quantize_int8(t)[1])
+            slack = 2 * torch.finfo(torch.float32).eps * float(
+                t.abs().max())
+            d = float((post["gen"][n] - t).abs().max())
+            check(d <= step / 2 + slack, f"ltfb_mesh: adopted {n} {d} "
+                  f"from the partner's, half a step {step / 2}")
+            dev = max(dev, d / step)
+    return {"round": orch.population.round - 1,
+            "partner": j, "adopted": adopted, "m_local": ml,
+            "m_other": mo, "exchange_ms": log["exchange_seconds"] * 1e3,
+            "wire_bytes": log["wire_bytes"],
+            "exchange_bytes": log["exchange_bytes"],
+            "max_dev_steps": dev}
+
+
+def mesh_gan_rank(out_dir: str, device: str, *argv) -> int:
+    """One rank of ltfb_mesh (a) and (b): join the job, run the
+    CycleGAN's mesh tournament with the full and then the int8 exchange,
+    replay every round (:func:`_mesh_replay`), write the rank's record."""
+    import torch
+
+    from repro_torch.core.tournament import TournamentOrchestrator
+    from repro_torch.launch import ltfb as lt
+    from repro_torch.launch import mesh
+
+    ranks = mesh.init_ranks("gloo", device, MESH_TIMEOUT_S)
+    args = lt.finish_args(lt.build_parser().parse_args(
+        [*argv, "--device", device]))
+    args.device = str(ranks.device)
+    plan = lt.build_plan(args)            # the parent wrote the bundles
+    fns = lt.build_fns(args)
+    out = {"rank": ranks.rank, "world": ranks.world,
+           "backend": ranks.backend, "device": str(ranks.device)}
+    for name, quant in (("full", False), ("int8", True)):
+        cfg = dataclasses.replace(lt.build_config(args),
+                                  quantize_exchange=quant)
+        orch = TournamentOrchestrator(fns, plan, cfg)
+        rounds, tournament = [], orch.tournament
+
+        def replayed():
+            me = orch.population.trainers[ranks.rank]
+            pre = me.params
+            copy = {h: {n: t.clone() for n, t in d.items()}
+                    for h, d in pre.items()}
+            log = tournament()
+            rounds.append(_mesh_replay(torch, orch, pre, copy, log, quant))
+            return log
+
+        orch.tournament = replayed
+        t0 = time.perf_counter()
+        trace = orch.run(args.rounds, args.steps_per_round)
+        run_s = time.perf_counter() - t0
+        st = orch.stats()
+        orch.close()
+        out[name] = {"rounds": rounds, "run_s": run_s,
+                     "best_val": trace,
+                     "wins": [d["wins"] for d in st["per_trainer"]],
+                     "adoptions": [d["adoptions"] for d in st["per_trainer"]],
+                     "steps": [d["steps"] for d in st["per_trainer"]]}
+    with open(f"{out_dir}/gan.{ranks.rank}.json", "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def mesh_lm_rank(out_dir: str, layers: str, *argv) -> int:
+    """One rank of ltfb_mesh (c): ``repro_torch.launch.ltfb.main`` as
+    torchrun starts it, over the arch cut to ``layers`` layers; writes
+    the rank's exit code and kernel launches (every counter set to 0
+    just before)."""
+    from repro_torch.configs.base import replace
+    from repro_torch.launch import ltfb as lt
+
+    full = lt.get_config
+    lt.get_config = lambda arch, smoke=False: replace(
+        full(arch, smoke=smoke), num_layers=int(layers))
+    counters = _all_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    rc = lt.main(list(argv))
+    with open(f"{out_dir}/lm.{os.environ['RANK']}.json", "w") as f:
+        json.dump({"rc": rc, "launches": {n: fn.launches
+                                          for n, fn in counters.items()}}, f)
+    return rc
+
+
+def _nccl_refusal(device) -> str:
+    """(e): ``init_ranks("nccl", ...)`` for rank 0 of two on this host's
+    one card (on the CPU: nccl at all) raises ``RankLayoutError`` before
+    any process group exists."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh
+
+    env = {"RANK": "0", "WORLD_SIZE": "2", "LOCAL_RANK": "0",
+           "LOCAL_WORLD_SIZE": "2", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(mesh.find_free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        mesh.init_ranks("nccl", device, 10)
+        msg = None
+    except mesh.RankLayoutError as e:
+        msg = str(e)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(msg is not None and not dist.is_initialized(),
+          f"ltfb_mesh: nccl with two ranks on one card did not raise: {msg}")
+    return msg
+
+
+def _kill_drill(mesh, work, logs, device) -> dict:
+    """(d): the ltfb CLI's two ranks as torchrun starts them; once rank 0
+    has printed its first round, rank 1 is SIGKILLed, and rank 0 must
+    exit nonzero on its own within ``--dist-timeout``."""
+    import signal
+
+    argv = [sys.executable, "-m", "repro_torch.launch.ltfb",
+            *MESH_KILL_ARGS, "--device", device, "--dist-timeout",
+            str(MESH_KILL_TIMEOUT_S), "--data-dir", f"{work}/kill_data"]
+    procs = _start_ranks(mesh, argv, 2, logs, "kill")
+    try:
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < MESH_JOB_S:
+            with open(f"{logs}/kill.0.log") as f:
+                if "[ltfb] round=" in f.read():
+                    break
+            check(all(p.poll() is None for p in procs),
+                  "ltfb_mesh: a kill-drill rank ended early:\n"
+                  + _tail(logs, "kill", 2))
+            time.sleep(0.05)
+        os.kill(procs[1].pid, signal.SIGKILL)
+        killed = time.monotonic()
+        try:
+            rc0 = procs[0].wait(timeout=MESH_KILL_TIMEOUT_S + 30)
+        except subprocess.TimeoutExpired:
+            rc0 = None
+        failed_s = time.monotonic() - killed
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    check(rc0 not in (None, 0) and failed_s <= MESH_KILL_TIMEOUT_S + 5,
+          f"ltfb_mesh: rank 0 after its peer's SIGKILL: rc {rc0} after "
+          f"{failed_s:.1f} s (timeout {MESH_KILL_TIMEOUT_S} s)\n"
+          + _tail(logs, "kill", 2))
+    return {"rank0_rc": rc0, "rank1_rc": procs[1].returncode,
+            "failed_after_s": round(failed_s, 3),
+            "dist_timeout_s": MESH_KILL_TIMEOUT_S}
+
+
+def _lm_mesh_launches(layers: int, steps: int, forwards: int) -> dict:
+    """One rank's launches in (c): ``steps`` train steps (remat full:
+    every block's forward twice, 4 norms a block and the final one) and
+    ``forwards`` metric forwards (the tournament's two candidates and the
+    round's validation)."""
+    per_step = {"flash_attention_fwd": 2 * layers,
+                "flash_attention_bwd": layers,
+                "rmsnorm": 8 * layers + 1, "rmsnorm_bwd": 4 * layers + 1}
+    per_fwd = {"flash_attention_fwd": layers, "flash_attention_bwd": 0,
+               "rmsnorm": 4 * layers + 1, "rmsnorm_bwd": 0}
+    return {n: steps * per_step[n] + forwards * per_fwd[n]
+            for n in per_step}
+
+
+def phase_ltfb_mesh(torch, workdir, device="cuda", smoke=False):
+    """LTFB across process ranks on the one card (phase 35): (a)-(d) run
+    side by side in subprocesses, (e) in this process.  Returns the
+    kernel launches of (c), summed over its ranks."""
+    from repro_torch.launch import ltfb as lt
+    from repro_torch.launch import mesh
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_", dir=workdir)
+    logs = f"{work}/logs"
+    os.makedirs(logs)
+    refusal = _nccl_refusal(device)
+    gan_argv = MESH_ARGS + (["--smoke", "--samples", "256",
+                             "--samples-per-file", "32"] if smoke else [])
+    gan_argv += ["--data-dir", f"{work}/gan_data"]
+    args = lt.finish_args(lt.build_parser().parse_args(
+        gan_argv + ["--device", device]))
+    k = args.trainers
+    lt.build_plan(args)                     # the bundles, before the ranks
+    gan = _start_ranks(mesh, _rank_argv("mesh_gan_rank", work, device,
+                                        *gan_argv), k, logs, "gan")
+    lm_argv = MESH_LM_ARGS + (["--smoke", "--seq", "64"] if smoke else [])
+    lm_argv += ["--device", device, "--dist-timeout", str(MESH_TIMEOUT_S),
+                "--data-dir", f"{work}/lm_data"]
+    lm_k = int(lm_argv[lm_argv.index("--trainers") + 1])
+    lm = _start_ranks(mesh, _rank_argv("mesh_lm_rank", work, MESH_LM_LAYERS,
+                                       *lm_argv), lm_k, logs, "lm")
+    kill = _kill_drill(mesh, work, logs, device)
+    for procs, name in ((gan, "gan"), (lm, "lm")):
+        rc = mesh.supervise(procs, MESH_JOB_S)
+        check(rc == 0, f"ltfb_mesh: the {name} ranks exited {rc}:\n"
+              + _tail(logs, name, len(procs)))
+    wall_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(k):
+        with open(f"{work}/gan.{r}.json") as f:
+            ranks.append(json.load(f))
+    parts = {}
+    for name in ("full", "int8"):
+        runs = [rk[name] for rk in ranks]
+        for key in ("wins", "adoptions", "steps"):
+            check(all(run[key] == runs[0][key] for run in runs),
+                  f"ltfb_mesh: {name} {key} differ between ranks")
+        check(runs[0]["steps"] == [args.rounds * args.steps_per_round] * k,
+              f"ltfb_mesh: {name} steps {runs[0]['steps']}")
+        check(sum(runs[0]["wins"]) == args.rounds * k,
+              f"ltfb_mesh: {name} wins {runs[0]['wins']}")
+        check(all(math.isfinite(v) for run in runs for v in run["best_val"]),
+              f"ltfb_mesh: {name} best_val not finite")
+        rounds = [rd for run in runs for rd in run["rounds"]]
+        parts[name] = {
+            "adopted": sum(rd["adopted"] for rd in rounds),
+            "decisions": len(rounds),
+            "wins": runs[0]["wins"], "adoptions": runs[0]["adoptions"],
+            "best_val": runs[0]["best_val"],
+            "exchange_ms": [round(rd["exchange_ms"], 3) for rd in rounds],
+            "wire_bytes_per_rank": rounds[0]["wire_bytes"],
+            "exchange_bytes_logged": rounds[0]["exchange_bytes"],
+            "max_dev_steps": max(rd["max_dev_steps"] for rd in rounds),
+            "run_s": [round(run["run_s"], 3) for run in runs]}
+    check(parts["int8"]["wire_bytes_per_rank"] * 3
+          < parts["full"]["wire_bytes_per_rank"],
+          "ltfb_mesh: the int8 exchange is not ~4x smaller on the wire")
+    lm_out = []
+    for r in range(lm_k):
+        with open(f"{work}/lm.{r}.json") as f:
+            lm_out.append(json.load(f))
+    with open(f"{logs}/lm.0.log") as f:
+        records = [json.loads(ln) for ln in f if ln.startswith("{")]
+    events = [rec["event"] for rec in records]
+    start = next(rec for rec in records if rec["event"] == "ltfb_start")
+    check(start["backend"] == "mesh" and start["trainers"] == lm_k,
+          f"ltfb_mesh: the CLI's start record {start}")
+    check(events.count("ltfb_round") == 1
+          and events.count("ltfb_trainer_stats") == lm_k,
+          f"ltfb_mesh: the CLI's records {events}")
+    with open(f"{logs}/lm.1.log") as f:
+        check(not any(ln.startswith("{") for ln in f),
+              "ltfb_mesh: rank 1 of the CLI printed records")
+    want = _lm_mesh_launches(MESH_LM_LAYERS, 2, 3)
+    lm_launches = {n: 0 for n in want}
+    for r, out in enumerate(lm_out):
+        check(out["rc"] == 0, f"ltfb_mesh: CLI rank {r} rc {out['rc']}")
+        got = {n: out["launches"][n] for n in want}
+        _launch_check(torch, device, got, want, f"ltfb_mesh CLI rank {r}")
+        for n in want:
+            lm_launches[n] += got[n]
+    others = {n: v for out in lm_out for n, v in out["launches"].items()
+              if n not in want and v}
+    check(not others, f"ltfb_mesh: unexpected launches {others}")
+    rnd = next(rec for rec in records if rec["event"] == "ltfb_round")
+    emit({"phase": "ltfb_mesh", "dist_backend": ranks[0]["backend"],
+          "ranks": k, "devices": sorted({rk["device"] for rk in ranks}),
+          "gan": {"arch": "icf-cyclegan", "smoke": smoke, **parts},
+          "lm": {"arch": "qwen3-0.6b", "layers": MESH_LM_LAYERS,
+                 "ranks": lm_k, "events": sorted(set(events)),
+                 "exchange_bytes": rnd["exchange_bytes"],
+                 "tournament_s": rnd["tournament_seconds"],
+                 "best_val": rnd["best_val"],
+                 "launches_per_rank": [out["launches"] for out in lm_out]},
+          "kill": kill, "nccl_refusal": refusal[:120],
+          "wall_s": round(wall_s, 1)})
+    return lm_launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repo (src/repro_torch "
@@ -5714,6 +6123,8 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         surrogate_dirs = phase_ltfb(torch, workdir=work)
+        release(torch)
+        mesh_launches = phase_ltfb_mesh(torch, work)
         release(torch)
         lm_launches, lm = phase_ltfb_lm(torch, work)
         release(torch)
@@ -5773,6 +6184,7 @@ def main() -> int:
                **recurrent_launches, "ltfb_lm": lm_launches,
                "serve_swap": swap_launches, "serve_spec": spec_launches,
                "serve_arena": arena_launches,
+               "ltfb_mesh": mesh_launches,
                **arch_launches}
     kernels = []
     for name, rows in cases.items():

@@ -176,29 +176,47 @@ def _each(fn, items) -> list:
         return list(ex.map(fn, range(len(items)), items))
 
 
+def member_path(ckpt_dir: str, step: int, i: int) -> str:
+    """Trainer ``i``'s file of the population checkpoint at ``step``."""
+    return os.path.join(ckpt_dir, f"step_{step}_trainer_{i}.ckpt")
+
+
+def save_member(ckpt_dir: str, step: int, i: int, tr: dict) -> None:
+    """Write trainer ``i``'s member of a population checkpoint (its
+    ``params`` and ``opt_state``, its counters as metadata); a process
+    rank that holds one trainer writes its own."""
+    save(member_path(ckpt_dir, step, i),
+         {"params": tr["params"], "opt_state": tr["opt_state"]},
+         {"hparams": tr["hparams"], "steps": tr["steps"],
+          "alive": tr["alive"], "wins": tr.get("wins", 0),
+          "adoptions": tr.get("adoptions", 0)})
+
+
+def write_manifest(ckpt_dir: str, step: int, num_trainers: int,
+                   round_: int, seed: int = 0, scope: str = "full") -> None:
+    """Publish the population checkpoint at ``step`` once every member
+    is written: the manifest is what :func:`latest_population_step`
+    finds, written to a temporary name and renamed."""
+    manifest = {"step": step, "num_trainers": num_trainers,
+                "round": round_, "time": time.time(), "seed": seed,
+                "scope": scope}
+    tmp = os.path.join(ckpt_dir, f"step_{step}.manifest.tmp")
+    with open(tmp, "w") as f:
+        json.dump(manifest, f)
+    os.replace(tmp, os.path.join(ckpt_dir, f"step_{step}.manifest"))
+
+
 def save_population(ckpt_dir: str, step: int, pop_state: Dict[str, Any]):
     """Population checkpoint: one file per trainer + a manifest, so
     trainers can checkpoint independently (no global barrier)."""
     os.makedirs(ckpt_dir, exist_ok=True)
-    manifest = {"step": step, "num_trainers": len(pop_state["trainers"]),
-                "round": pop_state["round"], "time": time.time(),
-                "seed": pop_state.get("seed", 0),
-                "scope": pop_state.get("scope", "full")}
-
-    def member(i: int, tr: dict) -> None:
-        save(os.path.join(ckpt_dir, f"step_{step}_trainer_{i}.ckpt"),
-             {"params": tr["params"], "opt_state": tr["opt_state"]},
-             {"hparams": tr["hparams"], "steps": tr["steps"],
-              "alive": tr["alive"], "wins": tr.get("wins", 0),
-              "adoptions": tr.get("adoptions", 0)})
-
     # members are written side by side: a file's CRC, its writes and its
     # fsync run outside the GIL
-    _each(member, pop_state["trainers"])
-    with open(os.path.join(ckpt_dir, f"step_{step}.manifest.tmp"), "w") as f:
-        json.dump(manifest, f)
-    os.replace(os.path.join(ckpt_dir, f"step_{step}.manifest.tmp"),
-               os.path.join(ckpt_dir, f"step_{step}.manifest"))
+    _each(lambda i, tr: save_member(ckpt_dir, step, i, tr),
+          pop_state["trainers"])
+    write_manifest(ckpt_dir, step, len(pop_state["trainers"]),
+                   pop_state["round"], pop_state.get("seed", 0),
+                   pop_state.get("scope", "full"))
 
 
 def latest_population_step(ckpt_dir: str) -> Optional[int]:
@@ -211,27 +229,45 @@ def latest_population_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def read_manifest(ckpt_dir: str, step: int) -> dict:
+    """The manifest of the population checkpoint at ``step``."""
+    with open(os.path.join(ckpt_dir, f"step_{step}.manifest")) as f:
+        return json.load(f)
+
+
+def _member(tree, meta) -> dict:
+    return {"params": tree["params"], "opt_state": tree["opt_state"],
+            "hparams": meta["hparams"], "steps": meta["steps"],
+            "alive": meta["alive"], "wins": meta.get("wins", 0),
+            "adoptions": meta.get("adoptions", 0)}
+
+
+def restore_member(ckpt_dir: str, step: int, i: int,
+                   like_trainer: Optional[dict] = None) -> dict:
+    """Trainer ``i``'s member of the checkpoint at ``step``: its state
+    restored into ``like_trainer``'s structure, or (``None``) its
+    counters alone with ``params``/``opt_state`` ``None``, read without
+    its weights."""
+    path = member_path(ckpt_dir, step, i)
+    if like_trainer is None:
+        with np.load(path, allow_pickle=False) as z:
+            meta = json.loads(str(z["__meta__"]))
+        return _member({"params": None, "opt_state": None}, meta)
+    tree, meta = restore(path, like_trainer)
+    return _member(tree, meta)
+
+
 def restore_population(ckpt_dir: str, step: int, like_trainer: dict,
                        num_trainers: Optional[int] = None
                        ) -> Dict[str, Any]:
     """Elastic restore: load <= stored trainers, cloning cyclically if
     the new population is larger."""
-    with open(os.path.join(ckpt_dir, f"step_{step}.manifest")) as f:
-        manifest = json.load(f)
+    manifest = read_manifest(ckpt_dir, step)
     k_stored = manifest["num_trainers"]
     k = num_trainers or k_stored
-
-    def member(i: int, _) -> dict:
-        src = i % k_stored
-        tree, meta = restore(
-            os.path.join(ckpt_dir, f"step_{step}_trainer_{src}.ckpt"),
-            like_trainer)
-        return {"params": tree["params"], "opt_state": tree["opt_state"],
-                "hparams": meta["hparams"], "steps": meta["steps"],
-                "alive": meta["alive"], "wins": meta.get("wins", 0),
-                "adoptions": meta.get("adoptions", 0)}
-
-    trainers = _each(member, [None] * k)
+    trainers = _each(lambda i, _: restore_member(ckpt_dir, step,
+                                                 i % k_stored, like_trainer),
+                     [None] * k)
     return {"round": manifest["round"],
             "seed": manifest.get("seed", 0),
             "scope": manifest.get("scope", "full"),

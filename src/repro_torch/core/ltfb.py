@@ -1,17 +1,24 @@
-"""LTFB, "Let a Thousand Flowers Bloom" tournament training (paper §III-C):
-the host half of ``repro.core.ltfb``.
+"""LTFB, "Let a Thousand Flowers Bloom" tournament training (paper §III-C;
+``repro.core.ltfb``).
 
 Pairing schedules (the paper's random pairing and the hypercube
 butterfly), the exchange scope (a GAN exchanges its generator and keeps
-its discriminator local) and the host tournament over an explicit
-population.  A candidate is built by reference: trainer i's candidate
-holds its partner's generator tensors themselves, not a copy, which is
-safe because no train step writes into a weight tensor
-(:mod:`repro_torch.train.steps`).
+its discriminator local), and two realizations of a tournament round:
 
-The mesh-native tournament (``make_ltfb_step``, ``tournament_shard``:
-the exchange as a collective over a trainer axis, optionally in int8) is
-not ported yet (ROADMAP.md queue A6).
+1. **Across process ranks** (:func:`tournament_shard`,
+   :func:`make_ltfb_step`): one rank a trainer, the exchange a
+   point-to-point swap with the butterfly partner over the trainer
+   process group, as the paper's MPI sendrecv (JAX's
+   ``collective-permute``).  The exchanged tensors travel packed, one
+   contiguous buffer a dtype, or with ``quantize`` one int8 buffer and
+   one f32 vector of per-tensor scales, in a single
+   ``batch_isend_irecv``; they are unpacked into new tensors, so that
+   both candidates can be evaluated.  Under ``gloo`` on a card the
+   buffers are staged through pinned host memory.
+2. **Host tournament** over an explicit population.  A candidate is built
+   by reference: trainer i's candidate holds its partner's generator
+   tensors themselves, not a copy, which is safe because no train step
+   writes into a weight tensor (:mod:`repro_torch.train.steps`).
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 Params = Any
 
@@ -79,6 +87,261 @@ def merge_scope(exchanged: Params, local: Params, scope: str) -> Params:
     if scope == "full":
         return exchanged
     return {**local, "gen": exchanged}
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a nested dict/list/tuple tree in JAX's flatten order
+    (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def tree_unflatten(like, leaves: Sequence[torch.Tensor]):
+    """A tree shaped as ``like`` holding ``leaves`` in
+    :func:`tree_leaves` order."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: v for k, v in ((k, build(node[k]))
+                                      for k in sorted(node))}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        return None if node is None else next(it)
+
+    return build(like)
+
+
+
+# ---------------------------------------------------------------------------
+# Point-to-point exchange between process ranks
+# ---------------------------------------------------------------------------
+
+# every packed tensor starts on a 16-byte boundary of its buffer, so that
+# an unpacked view is as aligned as a fresh allocation's start would be
+_ALIGN_BYTES = 16
+
+
+def global_rank(group, rank: int) -> int:
+    """The global rank of ``group``'s rank ``rank`` (``group=None``: the
+    default group)."""
+    return rank if group is None else dist.get_global_rank(group, rank)
+
+
+def comm_device(group=None) -> torch.device:
+    """Where ``group``'s point-to-point ops take their tensors: the
+    current card under ``nccl``, the host under ``gloo``."""
+    if dist.get_backend(group) == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def _staged(buf: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    if buf.device == dev:
+        return buf
+    host = torch.empty(buf.shape, dtype=buf.dtype,
+                       pin_memory=buf.device.type == "cuda")
+    return host.copy_(buf)
+
+
+def post_swap(bufs: Sequence[torch.Tensor], peer: int, group=None):
+    """Post the swap of ``bufs`` with global rank ``peer`` (each side
+    sends its buffers and receives the partner's, same shapes and dtypes,
+    in one ``batch_isend_irecv``).  Returns a handle for
+    :func:`finish_swap`; the caller may compute while it is in flight."""
+    dev = comm_device(group)
+    send = [_staged(b.contiguous(), dev) for b in bufs]
+    recv = [torch.empty(b.shape, dtype=b.dtype, device=dev,
+                        pin_memory=dev.type == "cpu"
+                        and b.device.type == "cuda") for b in send]
+    ops = [op for s, r in zip(send, recv)
+           for op in (dist.P2POp(dist.isend, s, peer, group),
+                      dist.P2POp(dist.irecv, r, peer, group))]
+    return dist.batch_isend_irecv(ops), send, recv, [b.device for b in bufs]
+
+
+def finish_swap(handle) -> List[torch.Tensor]:
+    """Wait for a :func:`post_swap` and return the partner's buffers on
+    the devices the sent ones came from (raises when the partner died or
+    the group's timeout passed)."""
+    works, _, recv, devices = handle
+    for w in works:
+        w.wait()
+    return [r.to(d) for r, d in zip(recv, devices)]
+
+
+def swap_buffers(bufs: Sequence[torch.Tensor], peer: int, group=None
+                 ) -> List[torch.Tensor]:
+    """Swap ``bufs`` with global rank ``peer``; returns the partner's."""
+    return finish_swap(post_swap(bufs, peer, group))
+
+
+def _aligned(n: int, itemsize: int) -> int:
+    step = max(1, _ALIGN_BYTES // itemsize)
+    return -(-n // step) * step
+
+
+def pack(leaves: Sequence[torch.Tensor], quantize: bool = False
+         ) -> List[torch.Tensor]:
+    """The buffers that carry ``leaves``: one contiguous buffer a dtype
+    (in the order the dtypes first appear), or with ``quantize`` one int8
+    buffer of every leaf's values and one f32 vector of their scales."""
+    if quantize:
+        from repro_torch.optim.compression import quantize_int8
+
+        qs, ss = zip(*(quantize_int8(t) for t in leaves))
+        return [concat(qs), torch.stack([s.reshape(()) for s in ss])]
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for t in leaves:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    return [concat(ts) for ts in by_dtype.values()]
+
+
+def concat(ts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """One buffer holding ``ts`` (one dtype) flattened, each from a
+    16-byte boundary; :func:`split` takes it apart."""
+    isz = ts[0].element_size()
+    total = sum(_aligned(t.numel(), isz) for t in ts)
+    buf = torch.zeros(total, dtype=ts[0].dtype, device=ts[0].device)
+    off = 0
+    for t in ts:
+        buf[off:off + t.numel()].copy_(t.reshape(-1))
+        off += _aligned(t.numel(), isz)
+    return buf
+
+
+def unpack(bufs: Sequence[torch.Tensor], like: Sequence[torch.Tensor],
+           quantize: bool = False) -> List[torch.Tensor]:
+    """Tensors shaped and typed as ``like`` from buffers made by
+    :func:`pack`: views into the received buffers, or with ``quantize``
+    the dequantized values cast back to each leaf's dtype."""
+    if quantize:
+        from repro_torch.optim.compression import dequantize_int8
+
+        qs = split(bufs[0], like)
+        return [dequantize_int8(q, s).to(t.dtype)
+                for q, s, t in zip(qs, bufs[1], like)]
+    dtypes = list(dict.fromkeys(t.dtype for t in like))
+    parts = {d: iter(split(b, [t for t in like if t.dtype == d]))
+             for d, b in zip(dtypes, bufs)}
+    return [next(parts[t.dtype]) for t in like]
+
+
+def split(buf: torch.Tensor, like: Sequence[torch.Tensor]
+          ) -> List[torch.Tensor]:
+    """Views into ``buf`` shaped as ``like``, as :func:`concat` laid them
+    out."""
+    out, off = [], 0
+    for t in like:
+        out.append(buf[off:off + t.numel()].view(t.shape))
+        off += _aligned(t.numel(), buf.element_size())
+    return out
+
+
+def tournament_shard(params: Params, batch: Dict[str, torch.Tensor],
+                     metric_fn: Callable, partner: int, group=None,
+                     scope: str = "full", quantize: bool = False,
+                     info: Optional[Dict[str, float]] = None):
+    """One rank's tournament round (JAX's body inside ``shard_map``).
+
+    Swaps the exchanged part of ``params`` with ``partner`` (a rank of
+    ``group``), evaluates this rank's model and the candidate (the
+    partner's exchanged part merged with this rank's local part) on this
+    rank's ``batch``, and keeps the candidate iff its metric is lower.
+    The local model is evaluated while the exchange is in flight.
+    Returns ``(new_params, m_local, m_other)``.
+
+    ``quantize=True``: the model crosses the wire as int8 + per-tensor
+    scales (4x less than f32, 2x less than bf16), and the candidate holds
+    the dequantized values cast back to the local dtypes.  ``info``, when
+    given, receives ``wire_bytes`` (this rank's bytes sent) and
+    ``exchange_s`` (host seconds from packing to the received tensors,
+    the local evaluation included).
+    """
+    exch, local = split_scope(params, scope)
+    leaves = tree_leaves(exch)
+    x0 = time.perf_counter()
+    bufs = pack(leaves, quantize)
+    handle = post_swap(bufs, global_rank(group, partner), group)
+    m_local = metric_fn(params, batch)
+    received = tree_unflatten(exch, unpack(finish_swap(handle), leaves,
+                                           quantize))
+    if info is not None:
+        info["wire_bytes"] = sum(b.numel() * b.element_size() for b in bufs)
+        info["exchange_s"] = time.perf_counter() - x0
+    cand_other = merge_scope(received, local, scope)
+    m_other = metric_fn(cand_other, batch)
+    take_other = bool(m_other < m_local)
+    return (cand_other if take_other else params), m_local, m_other
+
+
+class LTFBStep:
+    """A trainer rank's tournament step over a trainer process group
+    (:func:`make_ltfb_step`).
+
+    ``step(params, batch, round_idx) -> (params, m_local, m_other)``
+    pairs this rank with its butterfly partner
+    ``butterfly_pairing(K, round_idx % log2 K)``.  ``last`` holds the
+    last call's ``wire_bytes`` and ``exchange_s``
+    (:func:`tournament_shard`).
+    """
+
+    def __init__(self, metric_fn: Callable, num_trainers: int, group=None,
+                 scope: str = "full", quantize: bool = False):
+        k = num_trainers
+        if k < 2 or k & (k - 1):
+            raise ValueError(f"the butterfly needs a power-of-two number "
+                             f"of trainers >= 2, got {k}")
+        if dist.get_world_size(group) != k:
+            raise ValueError(f"the trainer group has "
+                             f"{dist.get_world_size(group)} ranks, not {k}")
+        self.metric_fn, self.k, self.group = metric_fn, k, group
+        self.scope, self.quantize = scope, quantize
+        self.n_bits = max(1, k.bit_length() - 1)
+        self.last: Dict[str, float] = {}
+
+    def partner(self, round_idx: int) -> int:
+        """This rank's partner (a rank of the group) in round
+        ``round_idx``."""
+        pairing = butterfly_pairing(self.k, round_idx % self.n_bits)
+        return int(pairing[dist.get_rank(self.group)])
+
+    def __call__(self, params: Params, batch: Dict[str, torch.Tensor],
+                 round_idx: int):
+        return tournament_shard(params, batch, self.metric_fn,
+                                self.partner(round_idx), self.group,
+                                self.scope, self.quantize, info=self.last)
+
+
+def make_ltfb_step(metric_fn: Callable, num_trainers: int, group=None,
+                   scope: str = "full", quantize: bool = False) -> LTFBStep:
+    """This rank's LTFB tournament step over the trainer process group
+    ``group`` (the default group when ``None``) of ``num_trainers``
+    ranks; every rank of the group calls it in the same round."""
+    return LTFBStep(metric_fn, num_trainers, group, scope, quantize)
+
+
+def send_tree(tree: Params, dst: int, group=None) -> None:
+    """Send every tensor of ``tree`` to global rank ``dst`` (one buffer a
+    dtype); :func:`recv_tree` there receives it."""
+    for buf in pack(tree_leaves(tree)):
+        dist.send(_staged(buf, comm_device(group)), dst, group)
+
+
+def recv_tree(like: Params, src: int, group=None) -> Params:
+    """A new tree shaped and typed as ``like``, received from global rank
+    ``src``'s :func:`send_tree`."""
+    leaves = tree_leaves(like)
+    dev = comm_device(group)
+    got = []
+    for buf in pack(leaves):
+        r = torch.empty(buf.shape, dtype=buf.dtype, device=dev)
+        dist.recv(r, src, group)
+        got.append(r.to(buf.device))
+    return tree_unflatten(like, unpack(got, leaves))
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,11 @@ separately).
 An adopted generator is the partner's tensors themselves (see
 :mod:`repro_torch.core.ltfb`); each trainer keeps its own optimizer state,
 which is never exchanged.
+
+On the mesh backend each process rank holds one trainer
+(``Population(..., local=r)``): the other trainers are *remote* stubs
+whose counters the orchestrator keeps in step with their ranks, and whose
+weights, optimizer state and data live on those ranks only.
 """
 from __future__ import annotations
 
@@ -72,6 +77,9 @@ class TrainerState:
     # last train-step metrics and last tournament metric
     last_metrics: Dict[str, float] = field(default_factory=dict)
     tournament_metric: Optional[float] = None
+    # held by another process rank (mesh backend): no weights, state or
+    # data here, only the counters
+    remote: bool = False
 
 
 class Population:
@@ -81,7 +89,8 @@ class Population:
                  tournament_batches: Sequence[List[dict]],
                  scope: str = "full", seed: int = 0,
                  perturb_factor: float = 1.2,
-                 perturb_hparams: bool = True):
+                 perturb_hparams: bool = True,
+                 local: Optional[int] = None):
         self.fns = fns
         self.scope = scope
         self.seed = seed
@@ -94,13 +103,18 @@ class Population:
         self.telemetry = None
         self.trainers: List[TrainerState] = []
         for i, (loader, tb) in enumerate(zip(loaders, tournament_batches)):
+            if local is not None and i != local:
+                self.trainers.append(TrainerState(None, None, {}, None, [],
+                                                  remote=True))
+                continue
             params, opt_state, hparams = fns.init(seed + 1000 * i + 1)
             self.trainers.append(TrainerState(params, opt_state, hparams,
                                               loader, list(tb)))
 
     # -- independent training ------------------------------------------------
     def train_round(self, steps: int) -> Dict[str, Any]:
-        """Each alive trainer runs `steps` mini-batch steps independently.
+        """Each alive trainer held here runs `steps` mini-batch steps
+        independently.
 
         Wall time is attributed per trainer: ``data_wait_seconds`` is the
         slice of ``train_seconds`` spent blocked in ``loader()``, the rest
@@ -115,7 +129,7 @@ class Population:
         metrics = []
         tel = self.telemetry
         for i, t in enumerate(self.trainers):
-            if not t.alive:
+            if not t.alive or t.remote:
                 continue
             t0 = time.perf_counter()
             wait = 0.0

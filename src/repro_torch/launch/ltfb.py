@@ -15,6 +15,22 @@ CycleGAN and ``full`` for an LM, LM rows of ``--seq`` 64 tokens.
   python -m repro_torch.launch.ltfb --arch qwen3-0.6b --seq 4096 --batch 2
   python -m repro_torch.launch.ltfb --arch qwen3-0.6b --smoke --device cpu
   python -m repro_torch.launch.ltfb --arch xlstm-125m --seq 1024 --batch 2
+  python -m repro_torch.launch.ltfb --backend mesh --trainers 4 \
+      --smoke --device cpu                 # 4 ranks over gloo
+  torchrun --nproc-per-node 4 -m repro_torch.launch.ltfb --backend mesh
+
+``--backend mesh`` runs one process rank a trainer (SPMD over
+``torch.distributed``), the tournament a point-to-point butterfly
+exchange between the ranks (``--quantize-exchange``: int8 on the wire).
+Started without torchrun's environment the CLI spawns ``--trainers``
+ranks of itself on this host (:func:`repro_torch.launch.mesh.spawn`);
+under torchrun it joins as a rank.  ``--dist-backend`` is ``nccl`` on
+``cuda`` (one card a rank) and ``gloo`` on ``cpu``; ranks that share a
+card must ask for ``gloo``.  ``--dist-timeout`` bounds every collective,
+so a dead rank fails the run.  Rank 0 prints the records; the others are
+silent.  Rank 0 writes the manifest, the genealogy, the trace and the
+Prometheus snapshot; every rank writes its own checkpoint member, in the
+host backend's layout.
 
 Resumes from --ckpt-dir automatically unless --no-resume.  Checkpoints
 hold the JAX package's layout, so either package resumes the other's.
@@ -27,17 +43,21 @@ serves it over HTTP (0 = an ephemeral port), and ``--genealogy``
 (default ``<ckpt-dir>/genealogy.jsonl`` with ``--ckpt-dir``) logs the
 tournament's ancestry for ``python -m repro_torch.launch.lineage``.
 Not ported yet: LM tournaments over qwen2-vl-7b, whose token shards hold
-no embeddings (A15; the JAX launcher fails on them too), ``--backend
-mesh`` and ``--quantize-exchange`` (A6).  ``--optimizer adafactor`` trains
-and checkpoints every LM arch; the CycleGAN's checkpoint layout carries
-Adam and SGD state only, so it refuses Adafactor there.
+no embeddings (A15; the JAX launcher fails on them too), and
+``--rescale-to`` on the mesh backend (A17).  ``--optimizer adafactor``
+trains and checkpoints every LM arch; the CycleGAN's checkpoint layout
+carries Adam and SGD state only, so it refuses Adafactor there.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import tempfile
+
+import torch
+import torch.distributed as dist
 
 from repro_torch import bridge, resolve_device
 from repro_torch.configs.base import OptimizerConfig
@@ -50,15 +70,12 @@ from repro_torch.core.tournament import (
     TournamentOrchestrator,
 )
 from repro_torch.data import jag, tokens
+from repro_torch.launch import mesh
 from repro_torch.telemetry import (enable_json_logs, json_logs_enabled,
                                    log_event, write_trace)
 from repro_torch.train import telemetry as train_tel
 from repro_torch.train.steps import (make_gan_steps,
                                      make_lm_population_fns, tree_to)
-
-# flags of the JAX launcher the port refuses, and the queue that ports them
-_UNPORTED_FLAGS = (("quantize_exchange", "--quantize-exchange", "A6"),)
-
 
 def say(human: str, event: str, **fields):
     """Report line: one-line JSON under --log-json, human text otherwise
@@ -85,15 +102,26 @@ def check_ported(args) -> None:
             "--optimizer adafactor with --arch icf-cyclegan: the CycleGAN "
             "checkpoint layout carries Adam and SGD state only (JAX keys "
             "Adafactor's factors there by leaf, not by weight)")
-    if args.backend == "mesh":
+    if args.backend == "mesh" and args.rescale_to:
         raise NotImplementedError(
-            "--backend mesh is not ported to repro_torch yet; see "
-            "ROADMAP.md queue A6")
-    for dest, flag, queue in _UNPORTED_FLAGS:
-        if getattr(args, dest):
-            raise NotImplementedError(
-                f"{flag} is not ported to repro_torch yet; see ROADMAP.md "
-                f"queue {queue}")
+            "--rescale-to with --backend mesh (a new number of process "
+            "ranks mid-run) is not ported to repro_torch yet; see "
+            "ROADMAP.md queue A17")
+
+
+def check_mesh(args) -> None:
+    """Refuse, in the launching process and before any rank starts, a
+    mesh the ranks could not lay out: a trainer count that is not a power
+    of two, no card for ``--device cuda``, or ``nccl`` with the CPU or
+    with more ranks than cards."""
+    k = args.trainers
+    if k < 2 or k & (k - 1):
+        raise ValueError(
+            f"--backend mesh needs power-of-two --trainers >= 2, got {k}")
+    dev = resolve_device(args.device)
+    mesh.choose_backend(args.dist_backend, dev.type, k,
+                        torch.cuda.device_count() if dev.type == "cuda"
+                        else 0)
 
 
 def build_plan(args) -> DataPlan:
@@ -224,7 +252,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--steps-per-round", type=int, default=25)
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--backend", default="host", choices=("host", "mesh"),
-                    help="mesh: not ported (ROADMAP A6)")
+                    help="mesh: one process rank a trainer, the exchange "
+                         "point to point between ranks (spawns --trainers "
+                         "ranks unless started by torchrun)")
+    ap.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                    help="process-group backend of --backend mesh (default: "
+                         "nccl on cuda, gloo on cpu; ranks sharing a card "
+                         "need gloo)")
+    ap.add_argument("--dist-timeout", type=float,
+                    default=mesh.DEFAULT_TIMEOUT_S,
+                    help="seconds a collective waits for its peers under "
+                         "--backend mesh (a dead rank fails the run)")
     ap.add_argument("--scope", default=None,
                     help="exchange scope (default: generator for the "
                          "CycleGAN, full otherwise)")
@@ -235,8 +273,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--partition", default="stride",
                     choices=("stride", "block"))
     ap.add_argument("--quantize-exchange", action="store_true",
-                    help="int8 model exchange on the mesh backend "
-                         "(not ported: ROADMAP A6)")
+                    help="int8 model exchange on the mesh backend")
     ap.add_argument("--no-async-eval", action="store_true")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config + dataset (CPU-runnable)")
@@ -305,16 +342,18 @@ def build_config(args) -> TournamentConfig:
         ckpt_dir=args.ckpt_dir, seed=args.seed, device=args.device)
 
 
-def _on_round(args, tel, server):
+def _on_round(args, tel, server, write: bool = True):
     """The per-round hook writing ``--prom-out`` and updating the
-    ``--metrics-port`` endpoint (None when neither is asked for)."""
-    if not args.prom_out and server is None:
+    ``--metrics-port`` endpoint (None when neither is asked for).  Under
+    ``--backend mesh`` every rank runs it (``stats()`` is a collective)
+    and rank 0 alone writes (``write``)."""
+    if not args.prom_out and args.metrics_port is None:
         return None
 
     def on_round(o: TournamentOrchestrator):
         text = train_tel.train_prometheus(
             o.stats(), tel.phase_seconds if tel else None)
-        if args.prom_out:
+        if args.prom_out and write:
             train_tel.write_prom(text, args.prom_out)
         if server is not None:
             server.update(text)
@@ -322,15 +361,53 @@ def _on_round(args, tel, server):
     return on_round
 
 
+def _mesh_plan(args, ranks: mesh.Ranks) -> DataPlan:
+    """Rank 0 writes (or reuses) the manifest, in a fresh temp dir unless
+    ``--data-dir``; the other ranks read the directory it names."""
+    root = [None]
+    if ranks.rank == 0:
+        args.data_dir = args.data_dir or tempfile.mkdtemp(
+            prefix="repro_torch_ltfb_")
+        plan = build_plan(args)
+        root = [args.data_dir]
+    dist.broadcast_object_list(root, src=0)
+    if ranks.rank != 0:
+        args.data_dir = root[0]
+        plan = build_plan(args)
+    return plan
+
+
 def main(argv=None) -> int:
-    """CLI entry point: parse args, run the LTFB tournament."""
+    """CLI entry point: parse args, run the LTFB tournament (under
+    ``--backend mesh``, spawn the ranks or run as one)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     if args.log_json:
         enable_json_logs()
+    if args.backend == "mesh" and not mesh.launched():
+        check_ported(args)
+        check_mesh(args)                   # raises first without a card
+        return mesh.spawn([sys.executable, "-m", "repro_torch.launch.ltfb",
+                           *argv], args.trainers)
     args = finish_args(args)
     check_ported(args)
+    if args.backend != "mesh":
+        return _run(args, None)
+    ranks = mesh.init_ranks(args.dist_backend, args.device,
+                            args.dist_timeout)
+    args.device = str(ranks.device)
+    # rank 0 prints the records; the other ranks run silent
+    with open(os.devnull, "w") as devnull, contextlib.redirect_stdout(
+            devnull if ranks.rank else sys.stdout):
+        rc = _run(args, ranks)
+    dist.destroy_process_group()
+    return rc
+
+
+def _run(args, ranks) -> int:
+    writer = ranks is None or ranks.rank == 0
     fns = build_fns(args)                  # raises first without a card
-    plan = build_plan(args)
+    plan = _mesh_plan(args, ranks) if ranks else build_plan(args)
     cfg = build_config(args)
     tel = train_tel.TrainTelemetry() \
         if (args.trace_out or args.prom_out
@@ -338,9 +415,9 @@ def main(argv=None) -> int:
     gen_path = args.genealogy or (
         os.path.join(args.ckpt_dir, "genealogy.jsonl")
         if args.ckpt_dir else None)
-    gen = train_tel.GenealogyLog(gen_path) if gen_path else None
+    gen = train_tel.GenealogyLog(gen_path) if gen_path and writer else None
     server = train_tel.MetricsServer(args.metrics_port) \
-        if args.metrics_port is not None else None
+        if args.metrics_port is not None and writer else None
     if server is not None:
         say(f"[ltfb] metrics endpoint: "
             f"http://127.0.0.1:{server.port}/metrics",
@@ -349,7 +426,7 @@ def main(argv=None) -> int:
     try:
         orch = TournamentOrchestrator(fns, plan, cfg, telemetry=tel,
                                       genealogy=gen)
-        orch.on_round = _on_round(args, tel, server)
+        orch.on_round = _on_round(args, tel, server, write=writer)
         log_line = None if args.log_json else print
         if not args.no_resume and orch.maybe_resume():
             say(f"[ltfb] resumed at round {orch.population.round}",
@@ -374,7 +451,9 @@ def main(argv=None) -> int:
                      ckpt_every=args.ckpt_every, log=log_line)
         report(orch)
         if args.trace_out and tel is not None:
-            write_trace(tel.tracer, args.trace_out)
+            orch.gather_trace()
+            if writer:
+                write_trace(tel.tracer, args.trace_out)
             say(f"[ltfb] wrote {args.trace_out} "
                 f"(Perfetto/chrome://tracing)",
                 "ltfb_trace_written", path=args.trace_out,

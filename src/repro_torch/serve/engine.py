@@ -36,7 +36,7 @@ class Engine:
         if mesh is not None:
             raise NotImplementedError(
                 "Engine(mesh=...): sharded decode is not ported to "
-                "repro_torch yet; see ROADMAP.md queue A6")
+                "repro_torch yet; see ROADMAP.md queue A6 (b)")
         self.cfg = cfg
         self.model = model
         self.max_len = max_len

@@ -252,7 +252,7 @@ def _refuse_unported(remote_stats=None) -> None:
     if remote_stats:
         raise NotImplementedError(
             "per-rank mesh series are not ported to repro_torch yet; see "
-            "ROADMAP.md queue A6")
+            "ROADMAP.md queue A6 (b)")
 
 
 def stats_snapshot(sched: Any, rank: int = 0) -> dict:

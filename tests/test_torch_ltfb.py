@@ -532,10 +532,18 @@ def test_orchestrator_checkpoint_resumes_bit_equal(fns, bundle_files,
 
 
 def test_orchestrator_refuses_what_is_not_ported(fns, bundle_files):
-    with pytest.raises(NotImplementedError, match="A6"):
+    # the mesh backend is ported: without process ranks it refuses as
+    # JAX's does without devices (ValueError); its int8 exchange is a
+    # mesh option, which the host backend ignores, as JAX's does
+    with pytest.raises(ValueError, match="process ranks"):
         _orch(fns, bundle_files, backend="mesh")
-    with pytest.raises(NotImplementedError, match="A6"):
-        _orch(fns, bundle_files, quantize_exchange=True)
+    with pytest.raises(ValueError, match="power-of-two"):
+        _orch(fns, bundle_files, k=3, backend="mesh")
+    with pytest.raises(ValueError, match="unknown backend"):
+        _orch(fns, bundle_files, backend="ring")
+    with _orch(fns, bundle_files, k=2, quantize_exchange=True) as orch:
+        log = orch.tournament()
+        assert "wire_bytes" not in log and log["exchange_bytes"] > 0
     # telemetry and the genealogy (A5) are ported: the orchestrator
     # takes both
     cfg = TournamentConfig(trainers=2, device="cpu")
@@ -577,11 +585,39 @@ def test_ltfb_cli_on_cpu_prints_its_lines(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,queue", [
-    (["--backend", "mesh"], "A6"), (["--quantize-exchange"], "A6"),
+    (["--backend", "mesh", "--rescale-to", "8"], "A17"),
+    (["--arch", "qwen2-vl-7b"], "A15"),
     (["--optimizer", "adafactor"], "CycleGAN checkpoint layout")])
 def test_ltfb_cli_refuses_unported_flags(flags, queue):
     with pytest.raises(NotImplementedError, match=queue):
         tlaunch.main(["--smoke", "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("flags,error", [
+    (["--backend", "mesh", "--trainers", "3"], "power-of-two"),
+    (["--backend", "mesh", "--dist-backend", "nccl"], "needs --device cuda")])
+def test_ltfb_cli_refuses_a_mesh_it_cannot_lay_out(flags, error):
+    """``--backend mesh`` is ported; what cannot be laid out raises in
+    the launching process, before any rank is spawned."""
+    with pytest.raises((ValueError, RuntimeError), match=error):
+        tlaunch.main(["--smoke", "--device", "cpu", *flags])
+
+
+def test_ltfb_cli_quantize_exchange_on_the_host_backend(tmp_path, capsys):
+    """``--quantize-exchange`` is ported; on the host backend, as in
+    JAX, it changes nothing: the run equals one without it."""
+    argv = ["--arch", "icf-cyclegan", "--smoke", "--device", "cpu",
+            "--trainers", "2", "--rounds", "1", "--steps-per-round", "1",
+            "--samples", "192", "--samples-per-file", "32",
+            "--data-dir", str(tmp_path / "data")]
+    outs = []
+    for extra in ([], ["--quantize-exchange"]):
+        assert tlaunch.main(argv + extra) == 0
+        outs.append([ln for ln in capsys.readouterr().out.splitlines()
+                     if ln.startswith("[ltfb] round=")])
+    assert len(outs[0]) == 1
+    strip = [ln.split(" speedup=")[0] for ln in outs[0]]
+    assert strip == [ln.split(" speedup=")[0] for ln in outs[1]]
 
 
 # ---------------------------------------------------------------------------
