@@ -104,11 +104,15 @@ and never prints the final ``ok`` line):
     one profiled GAN step (device time by group) and its bound; then both
     CLIs as a user calls them: ``repro_torch.launch.ltfb.main`` resuming
     from that checkpoint for a fourth round and ``repro_torch.launch.
-    train.main`` with ``--arch icf-cyclegan`` for 20 steps, each printing
+    train.main`` with ``--arch icf-cyclegan`` for 20 steps (on 1,024 JAG
+    samples since the eighteenth slice; the CLI's default 8,000 before),
+    each printing
     finite values; no kernel of the port may launch (the nets are f32
     MLPs); the ltfb CLI's round is saved, both population steps' winners
     are exported for phase 17 and the trainer files deleted;
-15. ltfb_lm: LTFB over two qwen3-0.6b trainers at full width in bf16
+15. ltfb_lm: LTFB over two qwen3-0.6b trainers at full width, cut to
+    ``LM_POP_LAYERS`` = 8 of its 28 layers (``--num-layers``; all 28
+    until the eighteenth slice, which cut it for room), in bf16
     through ``repro_torch.launch.ltfb``'s functions (B = 2, S = 4096,
     Adam, 2 rounds x 3 steps, scope full; 64 rows of 4,097 tokens in 4
     shards), round 1's winner file written from the trainers in memory
@@ -124,8 +128,8 @@ and never prints the final ``ok`` line):
     steps), and the round-2 population restoring bit-equal into a fresh
     orchestrator; prints step ms, tokens/s per trainer, tournament
     seconds, the checkpoint's bytes and save/restore seconds, peak memory;
-16. serve_swap: qwen3-0.6b FULL in f32, TF32 off, served from phase 15's
-    winners through ``Scheduler(registry=..., watch_every=2,
+16. serve_swap: qwen3-0.6b at phase 15's depth in f32, TF32 off, served
+    from phase 15's winners through ``Scheduler(registry=..., watch_every=2,
     swap_mode="drain")`` with pinned prefix pages: 8 requests over 4
     slots, prompts 128/256 (requests 4-7 repeat 0-3's prompts), 32 new
     tokens, greedy; round 2's winner lands in the directory before step 6;
@@ -145,7 +149,8 @@ and never prints the final ``ok`` line):
     and its copy to the host, and the batch's bound;
 18. the CLIs as a user calls them, each printing finite values: the serve
     CLI for ``--arch icf-cyclegan --ckpt-dir`` (phase 14's winners) and for
-    ``--arch qwen3-0.6b --ckpt-dir --requests 4`` (phase 15's population:
+    ``--arch qwen3-0.6b --ckpt-dir --num-layers 8 --requests 4`` (phase
+    15's population:
     the winner exported on the way), the LM ltfb CLI for one round without
     saving under ``--log-json`` (from scratch since the sixteenth slice;
     it resumed phase 15's population before), and the train CLI with
@@ -252,7 +257,8 @@ and never prints the final ``ok`` line):
     both scans and their backwards (each scan forward twice a step, its
     backward once), flash (jamba) and RMSNorm both ways exact; prints
     step ms, tokens/s, peak memory, mfu and one profiled step by kernel
-    group; then a 4-layer xlstm and a 2-layer jamba at full width in f32
+    group; then a 4-layer xlstm and a 1-layer jamba (its Mamba layer; 2
+    layers until the eighteenth slice) at full width in f32
     (TF32 off), B = 1, S = 256: the card's loss and every gradient
     against the CPU's (``PARITY_TOL``'s loss and gradient tolerances;
     xlstm's gradients within twice a measured f32 floor,
@@ -358,6 +364,28 @@ and never prints the final ``ok`` line):
     ranks on the card raises the port's ``RankLayoutError`` before any
     process group.  Prints the dist backend, the ranks, each exchange's
     ms and bytes on the wire.
+36. serve_mesh (after phase 5, on its model and traffic): mesh serving.
+    (b) the sharded paged dispatch at qwen3's serve shape (B = 8, H = 16
+    over 8 KV heads, D = 128, K = 1 and 5, bf16 and f32, data 2 and 4,
+    the last row of every shard idle on its shard's null page) against
+    its plain version and one unsharded launch over the global tables,
+    within phase 3's tolerances, each timed; (a) phase 5's trace through
+    ``MeshScheduler`` at data 2 and 4 in bf16 (every logit finite, data x
+    28 paged launches a decode step and the RMSNorm launches of every
+    model call exact; tokens/s and TPOT beside phase 5's), then the model
+    in f32 (TF32 off) through the single-device scheduler and the mesh at
+    data 2 and 4: every stream equal to the single-device one, save
+    partings at a top-2 gap below 1e-4 (counted); (c)
+    ``repro_torch.launch.distributed`` with qwen3-0.6b FULL bf16 replicas
+    on a 2,1 mesh over gloo, as 1 and 2 torchrun ranks: both ranks'
+    streams bit-identical to each other, to the 1-rank run and to the
+    same trace through this process's mesh, rank 0's Prometheus text with
+    rank 1's series, every rank's launches exact; and the spawner's drill
+    (``--procs 2 --journal --fault-spec kill@12:rank=1
+    --restart-on-failure 1``): the job restarts once and its stitched
+    streams equal the uninterrupted ones, save partings at a bf16 top-2
+    gap below 0.25 (counted); prints the seconds rank 0 took to fail after
+    its peer's SIGKILL.
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and ``triton``; exits 1
 without a card and 2 when run outside a checkout of the repo.
@@ -441,8 +469,10 @@ TRAIN_RECURRENT_STEPS = 4
 # largest entry on a CPU, and in a run on the card, where the forward's
 # loss matched the CPU's to the bit, blocks.1.mixer.wv read 3.1e-4 from
 # the CPU's while the floor there read 6.4e-4.  jamba's stack has no mLSTM
-# (its parity holds at 1.5e-5) and takes no witness
-RECURRENT_PARITY = {"xlstm": (4, True), "jamba": (2, False)}
+# (its parity held at 1.5e-5) and takes no witness; its Mamba layer alone
+# since the eighteenth slice (its second layer was one more of the same
+# kind, ~17 s of the CPU's copies and products)
+RECURRENT_PARITY = {"xlstm": (4, True), "jamba": (1, False)}
 RECURRENT_PARITY_S = 256
 FLOOR_EPS, FLOOR_X = 1e-7, 2.0
 # ltfb_recurrent: the ltfb CLI over xlstm-125m FULL, bf16 (its dtype); one
@@ -502,16 +532,36 @@ GAN_PARITY_TOL = {"loss_rel": 1e-5, "update_rel": 1e-3,
 # ltfb_lm: LTFB over qwen3-0.6b FULL in bf16, K = 2 trainers time-sharing
 # the card, B = 2, S = 4096, Adam (the CLI's default), 2 rounds x 3 steps,
 # scope full, over 64 rows of 4,097 tokens in 4 shards (3 for training, 1
-# held out).  LM_SMOKE rehearses it on the CPU
+# held out).  LM_SMOKE rehearses it on the CPU.  Since the eighteenth
+# slice the population is qwen3-0.6b at full width cut to LM_POP_LAYERS of
+# its 28 layers (``--num-layers``): its ~12 GB checkpoint's save, restore
+# and exports, and every phase that serves from it (serve_spec's spec_pop
+# and CLI, serve_swap, serve_arena, the serve CLIs of clis), took ~5.6 GB
+# a member at 28 layers
+LM_POP_LAYERS = 8
 LM_LTFB_ARGS = ["--arch", "qwen3-0.6b", "--trainers", "2", "--rounds", "2",
                 "--steps-per-round", "3", "--batch", "2", "--seq", "4096",
                 "--samples", "64", "--samples-per-file", "16", "--scope",
                 "full", "--seed", "0"]
 LM_SMOKE = ["--smoke", "--seq", "64"]
-# kernel launches of one forward without gradients (a tournament metric):
-# 28 attention layers at S = 4096, 4 norms a block and the final one
-LM_FORWARD = {"flash_attention_fwd": 28, "flash_attention_bwd": 0,
-              "rmsnorm": 113, "rmsnorm_bwd": 0}
+
+
+def _pop_flags(smoke: bool) -> list:
+    """The CLI flags of ltfb_lm's population depth (none on SMOKE)."""
+    return [] if smoke else ["--num-layers", str(LM_POP_LAYERS)]
+
+
+def _pop_cfg(smoke: bool, **kw):
+    """qwen3-0.6b as ltfb_lm trains it (FULL cut to ``LM_POP_LAYERS``
+    layers; SMOKE as it is), with ``kw`` replaced."""
+    from repro_torch.configs.base import replace
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config("qwen3-0.6b", smoke=smoke)
+    if not smoke:
+        cfg = replace(cfg, num_layers=LM_POP_LAYERS)
+    return replace(cfg, **kw) if kw else cfg
+
 # serve_swap: 8 requests over 4 slots, prompts 128/256, 32 new tokens
 SWAP_PROMPTS, SWAP_MAX_NEW = [128, 256], 32
 # surrogate: 256 queries of 8 rows in batches of 128 (8 slots x 16);
@@ -521,6 +571,9 @@ SURROGATE_QUERIES, SURROGATE_BATCH, SURROGATE_TOL = (256, 8), 128, 1e-5
 PCIE_BYTES_PER_S = 64e9
 # the ltfb phase: the CLI's defaults at the FULL widths, cut to 4,096
 # samples (8 bundles of 512) and 3 rounds of 25 steps
+# the train CLI's CycleGAN run in the ltfb phase: JAG training samples
+# (the CLI's default is 8,000; the eighteenth slice's cut, ~11 s)
+GAN_CLI_SAMPLES = 1024
 LTFB_ARGS = ["--arch", "icf-cyclegan", "--trainers", "4", "--rounds", "3",
              "--steps-per-round", "25", "--batch", "32", "--samples",
              "4096", "--samples-per-file", "512", "--store-mode", "preload",
@@ -538,13 +591,14 @@ MESH_ARGS = ["--arch", "icf-cyclegan", "--trainers", "4", "--rounds", "2",
              "--steps-per-round", "5", "--batch", "32", "--samples", "1024",
              "--samples-per-file", "128", "--scope", "generator", "--seed",
              "0", "--backend", "mesh", "--dist-backend", "gloo"]
-MESH_LM_ARGS = ["--arch", "qwen3-0.6b", "--trainers", "2", "--rounds", "1",
+MESH_LM_LAYERS = 2
+MESH_LM_ARGS = ["--arch", "qwen3-0.6b", "--num-layers", str(MESH_LM_LAYERS),
+                "--trainers", "2", "--rounds", "1",
                 "--steps-per-round", "2", "--batch", "1", "--seq", "4096",
                 "--samples", "64", "--samples-per-file", "8", "--scope",
                 "full", "--seed", "0", "--backend", "mesh",
                 "--quantize-exchange", "--dist-backend", "gloo",
                 "--log-json"]
-MESH_LM_LAYERS = 2
 MESH_KILL_ARGS = ["--arch", "icf-cyclegan", "--smoke", "--trainers", "2",
                   "--rounds", "1000", "--steps-per-round", "20", "--batch",
                   "8", "--samples", "256", "--samples-per-file", "32",
@@ -1001,7 +1055,7 @@ def phase_serve(torch):
           "sample": results[0][:8].tolist(), "telemetry": telemetry,
           "profiled_decode_step": _profile_decode(
               torch, sched, [r.prompt for r in reqs[:8]])})
-    return launches, {k: st[k] for k in SERVE_FIGURES}
+    return launches, {k: st[k] for k in SERVE_FIGURES}, model
 
 
 # the span chain every request served from a paged pool by an
@@ -2271,7 +2325,8 @@ def _ltfb_clis(torch, device, ltfb_argv):
     """Both CycleGAN entry points as a user calls them, on the card: the
     ltfb CLI resuming from the phase's checkpoint for one more round (its
     ``--metrics-port`` endpoint scraped over HTTP just before the CLI
-    closes it), and the train CLI's CycleGAN path for 20 steps
+    closes it), and the train CLI's CycleGAN path for 20 steps on
+    ``GAN_CLI_SAMPLES`` JAG samples
     (:func:`_run_cli`)."""
     import re
     import urllib.request
@@ -2299,6 +2354,7 @@ def _ltfb_clis(torch, device, ltfb_argv):
     runs = {"ltfb": ltfb_run,
             "train": _run_cli(torch, tlaunch.main,
                               ["--arch", "icf-cyclegan", "--steps", "20",
+                               "--samples", str(GAN_CLI_SAMPLES),
                                "--device", device], "", number)}
     runs["ltfb"]["resumed"] = any("[ltfb] resumed at round 3" in ln
                                   for ln in runs["ltfb"]["lines"])
@@ -2411,7 +2467,8 @@ def _bytes_of(directory, prefix) -> int:
 
 
 def phase_ltfb_lm(torch, workdir, device="cuda", extra=()):
-    """LTFB over two full-width qwen3-0.6b trainers in bf16 through
+    """LTFB over two qwen3-0.6b trainers at full width cut to
+    ``LM_POP_LAYERS`` layers, in bf16, through
     ``repro_torch.launch.ltfb``'s functions: round 1's winner written from
     memory, a population checkpoint after round 2 (its winner exported),
     the round-2 population restored into a fresh orchestrator.  Returns
@@ -2421,18 +2478,18 @@ def phase_ltfb_lm(torch, workdir, device="cuda", extra=()):
     import threading
 
     from repro_torch import bridge
-    from repro_torch.configs.registry import get_config
     from repro_torch.core import ltfb as core_ltfb
     from repro_torch.core.tournament import TournamentOrchestrator
     from repro_torch.launch import ltfb as lt
     from repro_torch.serve import registry as reg
 
     data, pop = f"{workdir}/lm_data", f"{workdir}/lm_pop"
+    smoke = "--smoke" in extra
     args = lt.finish_args(lt.build_parser().parse_args(
-        [*LM_LTFB_ARGS, *extra, "--device", device, "--data-dir", data,
-         "--ckpt-dir", pop]))
+        [*LM_LTFB_ARGS, *_pop_flags(smoke), *extra, "--device", device,
+         "--data-dir", data, "--ckpt-dir", pop]))
     lt.check_ported(args)
-    cfg = get_config(args.arch, smoke=args.smoke)
+    cfg = lt.lm_config(args)
     t0 = time.perf_counter()
     plan = lt.build_plan(args)
     data_s = time.perf_counter() - t0
@@ -2556,9 +2613,8 @@ def phase_ltfb_lm(torch, workdir, device="cuda", extra=()):
     pairs = sum(int((core_ltfb.random_pairing(k, r, tcfg.seed)
                      != np.arange(k)).sum()) for r in range(args.rounds))
     cuda = str(device).startswith("cuda")
-    expect = {n: (steps_taken * TRAIN_PER_STEP[n]
-                  + n_forwards * LM_FORWARD[n]) if cuda else 0
-              for n in counters}
+    expect = {n: v if cuda else 0 for n, v in _lm_launches(
+        cfg.num_layers, steps_taken, n_forwards).items()}
     metrics = [v for r in rounds for m in r["metrics"] for v in m] \
         + list(trace)
     emit({"phase": "ltfb_lm", "arch": cfg.name, "dtype": cfg.dtype,
@@ -2674,14 +2730,13 @@ def _lm_tracer(sched, registry, land):
 
 @exact_f32
 def phase_serve_swap(torch, pop_dir, workdir, device="cuda", smoke=False):
-    """Serve qwen3-0.6b FULL in f32 from the LM tournament's winners with
+    """Serve qwen3-0.6b at the LM tournament's depth in f32 from its
+    winners, with
     a drain-mode hot swap from round 1's winner to round 2's, then
     quarantine a torn winner while round 2's keeps serving."""
     import numpy as np
 
     from repro_torch import bridge
-    from repro_torch.configs.base import replace
-    from repro_torch.configs.registry import get_config
     from repro_torch.data.tokens import token_stream
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import rmsnorm as rn
@@ -2690,7 +2745,7 @@ def phase_serve_swap(torch, pop_dir, workdir, device="cuda", smoke=False):
     from repro_torch.serve.scheduler import Request, Scheduler
     from repro_torch.train.steps import params_from_ckpt
 
-    cfg = replace(get_config("qwen3-0.6b", smoke=smoke), dtype="float32")
+    cfg = _pop_cfg(smoke, dtype="float32")
     serve_dir = f"{workdir}/serve_lm"
     _move_winner(pop_dir, serve_dir, 1)
     model = init_lm(cfg, seed=0, device=device)
@@ -3016,14 +3071,15 @@ def phase_clis(torch, workdir, surrogate_dir, lm, device="cuda",
         torch, serve.main, ["--arch", "qwen3-0.6b", "--ckpt-dir", lm["pop"],
                             "--requests", "4", "--device", device,
                             "--trace-out", serve_trace, "--profile-steps",
-                            "4", "--profile-dir", profile_dir, *size],
+                            "4", "--profile-dir", profile_dir, *size,
+                            *_pop_flags(smoke)],
         "[serve]", re.compile(r"([\d.]+) tok/s"))
     runs["serve_lm"]["telemetry"] = _serve_cli_telemetry(
         runs["serve_lm"], serve_trace, profile_dir)
     runs["serve_lm_dense"] = _run_cli(
         torch, serve.main, ["--arch", "qwen3-0.6b", "--ckpt-dir", lm["pop"],
                             "--requests", "4", "--layout", "dense",
-                            "--device", device, *size],
+                            "--device", device, *size, *_pop_flags(smoke)],
         "[serve]", re.compile(r"([\d.]+) tok/s"))
     # under --log-json every report line is one JSON record; the switch
     # is global, so it goes off again before the next CLI reports
@@ -4238,13 +4294,11 @@ def _spec_pop(torch, pop, device, smoke):
     decoding; then the serve CLI with ``--draft-ckpt``."""
     import re
 
-    from repro_torch.configs.base import replace
-    from repro_torch.configs.registry import get_config
     from repro_torch.launch import serve
     from repro_torch.models.lm import init_lm
     from repro_torch.serve import registry as reg
 
-    cfg = replace(get_config("qwen3-0.6b", smoke=smoke), dtype="float32")
+    cfg = _pop_cfg(smoke, dtype="float32")
     model = init_lm(cfg, seed=0, device=device)
     # the template on the card in the population's dtype: each restored
     # leaf goes straight there (the sixteenth slice's cut: 7-8 s a load
@@ -4290,7 +4344,8 @@ def _spec_pop(torch, pop, device, smoke):
     cli = _run_cli(torch, serve.main, [
         "--arch", "qwen3-0.6b", "--ckpt-dir", pop, "--draft-ckpt", pop,
         "--spec-tokens", "3", "--spec-adapt", "--requests", "4", "--device",
-        device, *size], "[serve]", re.compile(r"([\d.]+) tok/s"))
+        device, *size, *_pop_flags(smoke)], "[serve]",
+        re.compile(r"([\d.]+) tok/s"))
     return total, cli
 
 
@@ -5302,11 +5357,10 @@ def _pop_hooks(torch, cfg, smoke, device):
     cast to ``cfg``'s dtype there, and back to the checkpoint's layout for
     an arena's archives."""
     from repro_torch import bridge
-    from repro_torch.configs.registry import get_config
     from repro_torch.models.lm import init_lm
     from repro_torch.train.steps import params_from_ckpt
 
-    pop_cfg = get_config("qwen3-0.6b", smoke=smoke)
+    pop_cfg = _pop_cfg(smoke)
     like = _on_device(bridge.params_to_jax_layout(
         init_lm(pop_cfg, seed=0, device=device), pop_cfg), device)
     dtype = getattr(torch, cfg.dtype)
@@ -5626,8 +5680,6 @@ def phase_serve_arena(torch, pop_dir, workdir, device="cuda", smoke=False):
     before the first and read just after the last."""
     import re
 
-    from repro_torch.configs.base import replace
-    from repro_torch.configs.registry import get_config
     from repro_torch.launch import serve
     from repro_torch.models.lm import init_lm
 
@@ -5637,7 +5689,7 @@ def phase_serve_arena(torch, pop_dir, workdir, device="cuda", smoke=False):
     counters = _all_counters()
     calls, rows, secs = [], [0], {}
     try:
-        cfg = replace(get_config("qwen3-0.6b", smoke=smoke), dtype="float32")
+        cfg = _pop_cfg(smoke, dtype="float32")
         hooks = _pop_hooks(torch, cfg, smoke, device)
         models = [init_lm(cfg, seed=s, device=device) for s in (0, 1)]
         for fn in counters.values():
@@ -5649,7 +5701,7 @@ def phase_serve_arena(torch, pop_dir, workdir, device="cuda", smoke=False):
         del models
         _release(torch, device)
         real = _arena_roster(pop_dir, f"{work}/real")
-        gcfg = get_config("qwen3-0.6b", smoke=smoke)
+        gcfg = _pop_cfg(smoke)
         models = [init_lm(gcfg, seed=s, device=device) for s in (0, 1)]
         t0 = time.perf_counter()
         gateway = _arena_gateway(torch, gcfg, _pop_hooks(
@@ -5665,7 +5717,8 @@ def phase_serve_arena(torch, pop_dir, workdir, device="cuda", smoke=False):
         cli = _run_cli(torch, serve.main, [
             "--arch", "qwen3-0.6b", "--arena", real, "--arena-policy",
             "epsilon", "--requests", "4", "--device", device, "--out-json",
-            out_json, *(["--smoke"] if smoke else [])], "[arena]",
+            out_json, *(["--smoke"] if smoke else []), *_pop_flags(smoke)],
+            "[arena]",
             re.compile(r"\brate=([^\s]+)"))
         secs["cli"] = time.perf_counter() - t0
         result = json.load(open(out_json))
@@ -5856,17 +5909,12 @@ def mesh_gan_rank(out_dir: str, device: str, *argv) -> int:
     return 0
 
 
-def mesh_lm_rank(out_dir: str, layers: str, *argv) -> int:
+def mesh_lm_rank(out_dir: str, *argv) -> int:
     """One rank of ltfb_mesh (c): ``repro_torch.launch.ltfb.main`` as
-    torchrun starts it, over the arch cut to ``layers`` layers; writes
-    the rank's exit code and kernel launches (every counter set to 0
-    just before)."""
-    from repro_torch.configs.base import replace
+    torchrun starts it; writes the rank's exit code and kernel launches
+    (every counter set to 0 just before)."""
     from repro_torch.launch import ltfb as lt
 
-    full = lt.get_config
-    lt.get_config = lambda arch, smoke=False: replace(
-        full(arch, smoke=smoke), num_layers=int(layers))
     counters = _all_counters()
     for fn in counters.values():
         fn.launches = 0
@@ -5947,11 +5995,12 @@ def _kill_drill(mesh, work, logs, device) -> dict:
             "dist_timeout_s": MESH_KILL_TIMEOUT_S}
 
 
-def _lm_mesh_launches(layers: int, steps: int, forwards: int) -> dict:
-    """One rank's launches in (c): ``steps`` train steps (remat full:
-    every block's forward twice, 4 norms a block and the final one) and
-    ``forwards`` metric forwards (the tournament's two candidates and the
-    round's validation)."""
+def _lm_launches(layers: int, steps: int, forwards: int) -> dict:
+    """The launches of an LM tournament over qwen3 cut to ``layers``
+    layers at S = 4096: ``steps`` train steps (remat full: every block's
+    forward twice, 4 norms a block and the final one) and ``forwards``
+    metric forwards (ltfb_lm's; in ltfb_mesh (c) one rank's, the
+    tournament's two candidates and the round's validation)."""
     per_step = {"flash_attention_fwd": 2 * layers,
                 "flash_attention_bwd": layers,
                 "rmsnorm": 8 * layers + 1, "rmsnorm_bwd": 4 * layers + 1}
@@ -5986,8 +6035,8 @@ def phase_ltfb_mesh(torch, workdir, device="cuda", smoke=False):
     lm_argv += ["--device", device, "--dist-timeout", str(MESH_TIMEOUT_S),
                 "--data-dir", f"{work}/lm_data"]
     lm_k = int(lm_argv[lm_argv.index("--trainers") + 1])
-    lm = _start_ranks(mesh, _rank_argv("mesh_lm_rank", work, MESH_LM_LAYERS,
-                                       *lm_argv), lm_k, logs, "lm")
+    lm = _start_ranks(mesh, _rank_argv("mesh_lm_rank", work, *lm_argv),
+                      lm_k, logs, "lm")
     kill = _kill_drill(mesh, work, logs, device)
     for procs, name in ((gan, "gan"), (lm, "lm")):
         rc = mesh.supervise(procs, MESH_JOB_S)
@@ -6040,7 +6089,7 @@ def phase_ltfb_mesh(torch, workdir, device="cuda", smoke=False):
     with open(f"{logs}/lm.1.log") as f:
         check(not any(ln.startswith("{") for ln in f),
               "ltfb_mesh: rank 1 of the CLI printed records")
-    want = _lm_mesh_launches(MESH_LM_LAYERS, 2, 3)
+    want = _lm_launches(MESH_LM_LAYERS, 2, 3)
     lm_launches = {n: 0 for n in want}
     for r, out in enumerate(lm_out):
         check(out["rc"] == 0, f"ltfb_mesh: CLI rank {r} rc {out['rc']}")
@@ -6064,6 +6113,382 @@ def phase_ltfb_mesh(torch, workdir, device="cuda", smoke=False):
           "kill": kill, "nccl_refusal": refusal[:120],
           "wall_s": round(wall_s, 1)})
     return lm_launches
+
+
+# ---------------------------------------------------------------------------
+# serve_mesh: data-sharded page pools, the step plan, the distributed CLI
+# ---------------------------------------------------------------------------
+
+# (a) phase 5's traffic over in-process meshes of these data shards; (b)
+# the sharded dispatch at qwen3's serve shape; (c) the distributed CLI's
+# ranks on a 2,1 mesh, sharing the card over gloo
+MESH_SERVE_DATA = (2, 4)
+MESH_SERVE_TRAFFIC = dict(n_req=16, prompt_lens=[128, 256, 512], max_new=64,
+                          slots=8)
+MESH_SERVE_SMOKE_TRAFFIC = dict(n_req=6, prompt_lens=[8, 16, 24], max_new=6,
+                                slots=4)
+MESH_CLI = ["--arch", "qwen3-0.6b", "--requests", "8", "--slots", "8",
+            "--prompt-lens", "128,256", "--max-new", "16", "--mesh", "2,1",
+            "--dist-backend", "gloo", "--step-timeout", "120"]
+MESH_CLI_SMOKE = ["--smoke", "--prompt-lens", "8,16", "--max-new", "8"]
+# the drill's SIGKILL of rank 1: every request admitted (one a step), none
+# finished (16 new tokens each)
+MESH_CLI_KILL_STEP = {False: 12, True: 6}
+
+
+def _mesh_serve_run(torch, cfg, model, traffic, device, data=None,
+                    gaps=None, requests=None):
+    """One serve run of ``traffic`` (or ``requests``) through the
+    single-device scheduler (``data=None``) or the mesh scheduler at
+    ``data`` shards: every logit row finite, the launches exact (per
+    decode step one paged launch a shard and attention layer, the norms of
+    every model call; counters set to 0 just before the run).  Returns
+    (figures, tokens, launches)."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.launch.serve import build_requests
+    from repro_torch.models.lm import layer_specs
+    from repro_torch.serve.mesh import MeshScheduler
+    from repro_torch.serve.scheduler import Scheduler
+
+    kw = dict(num_slots=traffic["slots"], block_size=16, device=device,
+              max_len=max(traffic["prompt_lens"]) + traffic["max_new"])
+    sched = Scheduler(cfg, model, **kw) if data is None else \
+        MeshScheduler(cfg, model, mesh_shape=(data, 1), **kw)
+    rows = [0]
+    _check_finite(torch, sched.session, rows)
+    if gaps is not None:
+        _record_gaps(sched, gaps)
+    reqs = requests or build_requests(cfg, traffic["n_req"],
+                                      traffic["prompt_lens"],
+                                      traffic["max_new"], seed=0)
+    for r in reqs:
+        sched.submit(r)
+    _sync(torch, device)
+    pa.paged_attention.launches = 0
+    rn.rmsnorm.launches = 0
+    results = sched.run()
+    launches = {"paged_attention": pa.paged_attention.launches,
+                "rmsnorm": rn.rmsnorm.launches}
+    st = sched.stats.as_dict()
+    what = f"serve_mesh {cfg.dtype} data={data}"
+    check(st["completed"] == len(reqs) and len(results) == len(reqs),
+          f"{what}: {st['completed']} of {len(reqs)} requests completed")
+    attn = sum(s.kind == "a" for s in layer_specs(cfg))
+    shards = data or 1
+    _launch_check(torch, device, launches, {
+        "paged_attention": shards * attn * st["decode_steps"],
+        "rmsnorm": _norms_per_forward(cfg)
+        * (st["decode_steps"] + st["prefill_chunks"])}, what)
+    figures = {k: st[k] for k in SERVE_FIGURES}
+    figures.update(data=data, logit_rows_checked=rows[0],
+                   launches=launches,
+                   paged_attention_per_decode_step=shards * attn,
+                   prefill_chunks=st["prefill_chunks"])
+    if data is not None:
+        figures["pool"] = sched.pool.as_dict()
+    del sched
+    return figures, _tokens(results), launches
+
+
+def _mesh_dispatch_case(torch, timer, gen, data, K, dtype):
+    """(b) one case: the sharded dispatch at qwen3's serve shape (B = 8, H
+    = 16 over 8 KV heads, D = 128, 16-token pages, rows of 100-600 tokens,
+    the last row of every shard idle on its shard's null page) against
+    its plain version and one unsharded launch over the global tables."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    B, H, Hkv, D, bs = 8, 16, 8, 128, 16
+    rows = B // data
+    lengths = torch.randint(100, 601, (B,), generator=gen,
+                            device="cuda").tolist()
+    for s in range(data):
+        lengths[(s + 1) * rows - 1] = 1             # idle
+    W = -(-(max(lengths) + K - 1) // bs)
+    pps = rows * W                                  # usable pages a shard
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, K, H, D), generator=gen, device="cuda").to(dt)
+    kp = torch.randn((data * (pps + 1), bs, Hkv, D), generator=gen,
+                     device="cuda").to(dt)
+    vp = torch.randn(kp.shape, generator=gen, device="cuda").to(dt)
+    tables = torch.empty((B, W), dtype=torch.int32, device="cuda")
+    for s in range(data):
+        base = s * (pps + 1)
+        perm = torch.randperm(pps, generator=gen, device="cuda")
+        tables[s * rows:(s + 1) * rows] = (base + perm).reshape(rows, W)
+        for b in range(s * rows, (s + 1) * rows):
+            used = -(-(lengths[b] + K - 1) // bs)
+            tables[b, used:] = base + pps           # the shard's null page
+            if lengths[b] == 1:
+                tables[b] = base + pps
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    args = (q, kp, vp, tables, lens)
+    got = ops.paged_attention_sharded(data, *args)
+    want = ref.paged_attention_ref(*args)
+    whole = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    err = (got.float() - want.float()).abs()
+    err_whole = (got.float() - whole.float()).abs()
+    check(bool((err <= tol + tol * want.float().abs()).all()),
+          f"serve_mesh dispatch data={data} K={K} {dtype}: max |err| "
+          f"{err.max().item()} over {tol}")
+    check(bool((err_whole <= tol + tol * whole.float().abs()).all()),
+          f"serve_mesh dispatch data={data} K={K} {dtype}: against one "
+          f"unsharded launch max |err| {err_whole.max().item()}")
+    return {"data": data, "K": K, "dtype": dtype, "W": W,
+            "lengths": lengths, "max_abs_err": err.max().item(),
+            "max_abs_err_vs_unsharded": err_whole.max().item(), "tol": tol,
+            "sharded_ms": timer.ms(
+                lambda: ops.paged_attention_sharded(data, *args)),
+            "unsharded_ms": timer.ms(lambda: pa.paged_attention(*args)),
+            "plain_ms": timer.ms(lambda: ref.paged_attention_ref(*args))}
+
+
+def mesh_serve_rank(out_dir: str, name: str, *argv) -> int:
+    """One rank of serve_mesh (c): ``repro_torch.launch.distributed.main``
+    as torchrun starts it; writes the rank's exit code and kernel launches
+    (the counters set to 0 just before)."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.launch import distributed
+
+    counters = {"paged_attention": pa.paged_attention, "rmsnorm": rn.rmsnorm}
+    for fn in counters.values():
+        fn.launches = 0
+    rc = distributed.main(list(argv))
+    with open(f"{out_dir}/{name}.launches.{os.environ['RANK']}.json",
+              "w") as f:
+        json.dump({"rc": rc, "launches": {n: fn.launches
+                                          for n, fn in counters.items()}}, f)
+    return rc
+
+
+def _stamped(proc, lines) -> None:
+    """Read ``proc``'s merged output into ``lines`` as (monotonic time of
+    arrival, line)."""
+    for line in proc.stdout:
+        lines.append((time.monotonic(), line.rstrip("\n")))
+
+
+def _mesh_cli_start(work, device, smoke):
+    """(c)'s jobs, all started together: the CLI's worker as 1 and as 2
+    torchrun ranks, and its spawner's kill drill (rank 1 SIGKILLed at a
+    step, the job restarted from rank 0's journal)."""
+    import threading
+
+    from repro_torch.launch import mesh
+
+    logs = f"{work}/logs"
+    os.makedirs(logs)
+    base = MESH_CLI + (MESH_CLI_SMOKE if smoke else []) + ["--device", device]
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    jobs = {"logs": logs, "base": base}
+    for name, n in (("one", 1), ("two", 2)):
+        argv = base + ["--out-json", f"{work}/{name}.json"]
+        jobs[name] = _start_ranks(mesh, _rank_argv("mesh_serve_rank", work,
+                                                   name, *argv),
+                                  n, logs, name, env)
+    step = MESH_CLI_KILL_STEP[smoke]
+    drill = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.distributed", *base,
+         "--procs", "2", "--journal", f"{work}/drill.jsonl",
+         "--fault-spec", f"kill@{step}:rank=1", "--restart-on-failure", "1",
+         "--out-json", f"{work}/drill.json"],
+        env=dict(env, PYTHONPATH=str(ROOT / "src")), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    lines = []
+    reader = threading.Thread(target=_stamped, args=(drill, lines),
+                              daemon=True)
+    reader.start()
+    jobs["drill"] = (drill, lines, reader, step)
+    return jobs
+
+
+def _mesh_cli_finish(torch, cfg, work, jobs, ref_tokens, gaps,
+                     device) -> tuple:
+    """(c)'s checks: the 1- and 2-rank runs' streams bit-identical to each
+    other and to the in-process reference, rank 0's Prometheus text with
+    both ranks' series, every rank's launches exact; the drill restarted
+    once and its stitched streams equal to the reference's, save partings
+    at a top-2 gap below the bf16 rule (counted).  Returns the part's
+    figures and launches."""
+    from repro_torch.launch import mesh
+    from repro_torch.models.lm import layer_specs
+
+    logs = jobs["logs"]
+    for name, n in (("one", 1), ("two", 2)):
+        rc = mesh.supervise(jobs[name], MESH_JOB_S)
+        check(rc == 0, f"serve_mesh: the {name}-rank CLI exited {rc}:\n"
+              + _tail(logs, name, n))
+    drill, lines, reader, step = jobs["drill"]
+    try:
+        drill_rc = drill.wait(timeout=MESH_JOB_S)
+    finally:
+        if drill.poll() is None:
+            drill.kill()
+            drill.wait()
+    reader.join(timeout=10)
+    text = "\n".join(ln for _, ln in lines)
+    check(drill_rc == 0, f"serve_mesh: the drill exited {drill_rc}:\n"
+          + text[-4000:])
+    outs = {}
+    for name, path in (("one", "one.json"), ("two", "two.json"),
+                       ("two.p1", "two.json.p1"), ("drill", "drill.json")):
+        with open(f"{work}/{path}") as f:
+            outs[name] = json.load(f)
+    want = {str(k): v for k, v in ref_tokens.items()}
+    for name in ("one", "two", "two.p1"):
+        check(outs[name]["results"] == want,
+              f"serve_mesh: the {name} run's streams differ from the "
+              "in-process reference")
+    with open(f"{work}/two.json.prom") as f:
+        prom = f.read()
+    follower = outs["two.p1"]["stats"]
+    check(f'repro_serve_mesh_completed_total{{rank="1"}} '
+          f'{follower["completed"]}' in prom
+          and 'repro_serve_mesh_pool_high_water_blocks{rank="1",shard="1"}'
+          in prom, "serve_mesh: rank 0's .prom lacks rank 1's series")
+    launches = {"paged_attention": 0, "rmsnorm": 0}
+    per_rank = []
+    attn = sum(s.kind == "a" for s in layer_specs(cfg))
+    for name, n in (("one", 1), ("two", 2)):
+        for r in range(n):
+            with open(f"{work}/{name}.launches.{r}.json") as f:
+                got = json.load(f)
+            st = outs[name if r == 0 else f"{name}.p{r}"]["stats"]
+            check(got["rc"] == 0, f"serve_mesh: {name} rank {r} rc "
+                  f"{got['rc']}")
+            # a 2,1 mesh: two paged launches an attention layer a step
+            _launch_check(torch, device, got["launches"], {
+                "paged_attention": 2 * attn * st["decode_steps"],
+                "rmsnorm": _norms_per_forward(cfg)
+                * (st["decode_steps"] + st["prefill_chunks"])},
+                f"serve_mesh {name} rank {r}")
+            per_rank.append(got["launches"])
+            for k in launches:
+                launches[k] += got["launches"][k]
+    killed = next((t for t, ln in lines
+                   if f"SIGKILL self at step {step} (rank 1)" in ln), None)
+    failed = next((t for t, ln in lines
+                   if "peer process likely died" in ln
+                   or "[dist] worker failure" in ln), None)
+    check(killed is not None and failed is not None
+          and "resuming from the generation-0 journal" in text
+          and "[dist] rank=0 journal: replayed" in text,
+          "serve_mesh: the drill did not kill, fail and resume:\n"
+          + text[-4000:])
+    partings = _partings(want, outs["drill"]["results"],
+                         {(str(r), i): g for (r, i), g in gaps.items()},
+                         SPEC_TIE["bfloat16"])
+    check(all(p["tie"] for p in partings),
+          f"serve_mesh: the resumed streams part from the uninterrupted "
+          f"ones away from a tie: {partings}")
+    return {"results_identical": True,
+            "requests": len(want), "decode_steps": follower["decode_steps"],
+            "launches_per_rank": per_rank, "plan_retries":
+                outs["two"]["stats"]["plan_retries"],
+            "tokens_per_s": {"one": outs["one"]["stats"]["tokens_per_s"],
+                             "two": outs["two"]["stats"]["tokens_per_s"]},
+            "channel": {name: outs[name]["channel"]
+                        for name in ("two", "two.p1")},
+            "plan_ms_per_step": 1e3 * outs["two"]["channel"]["broadcast_s"]
+            / max(outs["two"]["channel"]["broadcasts"], 1),
+            "stats_gather_ms_per_step": 1e3
+            * outs["two"]["channel"]["gather_s"]
+            / max(outs["two"]["channel"]["gathers"], 1),
+            "drill": {"kill_step": step, "rank0_failed_after_s":
+                      round(failed - killed, 3), "partings": partings,
+                      "parting_count": len(partings)}}, launches
+
+
+@exact_f32
+def _mesh_f32(torch, cfg, model, traffic, device) -> tuple:
+    """(a) in f32, TF32 off: the single-device scheduler's streams (top-2
+    gaps recorded) against the mesh at each data shard count; a stream
+    may part only at a gap below 1e-4 (counted)."""
+    from repro_torch.configs.base import replace
+
+    cfg32 = replace(cfg, dtype="float32")
+    model.float()
+    gaps = {}
+    base, base_tokens, launches = _mesh_serve_run(
+        torch, cfg32, model, traffic, device, gaps=gaps)
+    runs = []
+    for data in MESH_SERVE_DATA:
+        fig, tokens, got = _mesh_serve_run(torch, cfg32, model, traffic,
+                                           device, data=data)
+        _add(launches, got)
+        partings = _partings(base_tokens, tokens, gaps, SPEC_TIE["float32"])
+        check(all(p["tie"] for p in partings),
+              f"serve_mesh f32 data={data}: streams part from the "
+              f"single-device ones away from a tie: {partings}")
+        runs.append({**fig, "partings": partings,
+                     "parting_count": len(partings)})
+    return {"single_device": base, "mesh": runs}, launches
+
+
+def phase_serve_mesh(torch, model, serve_figures, device="cuda",
+                     smoke=False):
+    """Mesh serving (phase 36, after phase 5, on its model and traffic):
+    (b) the sharded dispatch on the card, (a) the in-process mesh at
+    ``MESH_SERVE_DATA`` in bf16 and then in f32, (c) the distributed CLI's
+    ranks, started before (a)'s f32 runs and checked after them.  Returns
+    the launches of (a) and (c)."""
+    cfg = model.cfg
+    traffic = MESH_SERVE_SMOKE_TRAFFIC if smoke else MESH_SERVE_TRAFFIC
+    launches = {"paged_attention": 0, "rmsnorm": 0}
+    cuda = str(device).startswith("cuda")
+    if cuda:
+        timer = Timer(torch)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(1)
+        dispatch = [_mesh_dispatch_case(torch, timer, gen, data, K, dtype)
+                    for data in MESH_SERVE_DATA for K in (1, 5)
+                    for dtype in ("bfloat16", "float32")]
+        del timer
+        emit({"phase": "serve_mesh", "part": "dispatch", "cases": dispatch})
+    runs = []
+    for data in MESH_SERVE_DATA:
+        fig, _, got = _mesh_serve_run(torch, cfg, model, traffic, device,
+                                      data=data)
+        _add(launches, got)
+        runs.append(fig)
+    emit({"phase": "serve_mesh", "part": "inprocess", "arch": cfg.name,
+          "dtype": cfg.dtype, **{k: traffic[k] for k in traffic},
+          "single_device": serve_figures, "mesh": runs})
+    # (c)'s reference: the CLI's trace through this process's mesh
+    from repro_torch.launch.distributed import build_parser
+    from repro_torch.launch.serve import build_requests, parse_lens
+
+    argv = MESH_CLI + (MESH_CLI_SMOKE if smoke else [])
+    args = build_parser().parse_args(argv)
+    cli_traffic = dict(n_req=args.requests, slots=args.slots,
+                       prompt_lens=parse_lens(args.prompt_lens),
+                       max_new=args.max_new)
+    gaps = {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_serve_mesh_")
+    try:
+        _, ref_tokens, got = _mesh_serve_run(
+            torch, cfg, model, cli_traffic, device, data=2, gaps=gaps,
+            requests=build_requests(cfg, args.requests,
+                                    cli_traffic["prompt_lens"],
+                                    args.max_new, seed=args.seed))
+        _add(launches, got)
+        jobs = _mesh_cli_start(work, device, smoke)
+        f32, got = _mesh_f32(torch, cfg, model, traffic, device)
+        _add(launches, got)
+        emit({"phase": "serve_mesh", "part": "f32", **f32})
+        cli, got = _mesh_cli_finish(torch, cfg, work, jobs, ref_tokens,
+                                    gaps, device)
+        _add(launches, got)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "serve_mesh", "part": "distributed", **cli,
+          "launches": launches})
+    return launches
 
 
 def main() -> int:
@@ -6099,7 +6524,10 @@ def main() -> int:
             cases.setdefault(name, []).extend(rows)
     del timer, plain_timer
     release(torch)
-    serve_launches, serve_figures = phase_serve(torch)
+    serve_launches, serve_figures, serve_model = phase_serve(torch)
+    release(torch)
+    mesh_serve_launches = phase_serve_mesh(torch, serve_model, serve_figures)
+    del serve_model
     release(torch)
     phase_recompute(torch)
     release(torch)
@@ -6184,7 +6612,7 @@ def main() -> int:
                **recurrent_launches, "ltfb_lm": lm_launches,
                "serve_swap": swap_launches, "serve_spec": spec_launches,
                "serve_arena": arena_launches,
-               "ltfb_mesh": mesh_launches,
+               "ltfb_mesh": mesh_launches, "serve_mesh": mesh_serve_launches,
                **arch_launches}
     kernels = []
     for name, rows in cases.items():

@@ -36,6 +36,39 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     return pa.paged_attention(q, k_pages, v_pages, tables, lengths)
 
 
+def paged_attention_sharded(shards: int, q: torch.Tensor,
+                            k_pages: torch.Tensor, v_pages: torch.Tensor,
+                            tables: torch.Tensor,
+                            lengths: torch.Tensor) -> torch.Tensor:
+    """Paged attention over a pool split into ``shards`` private sub-pools
+    (the serving mesh's ``data`` axis; JAX's ``paged_attention_sharded``,
+    ``src/repro/kernels/ops.py:62``, without its ``model`` head split).
+
+    The pool's pages are ``shards`` contiguous groups of ``pps + 1`` (each
+    ending with its null page) and the batch ``shards`` contiguous groups
+    of rows; every row's pages lie in its group's sub-pool, and ``tables``
+    holds global page ids.  Shard ``i`` takes its rows, the view of its
+    sub-pool (no copy) and its tables rebased to local ids, ``clip(t - i *
+    (pps + 1), 0, pps)``, and runs :func:`paged_attention` on them: one
+    kernel launch a shard on the card, the plain version on the CPU.  The
+    outputs come back in row order.  A dispatch, not a kernel.
+    """
+    B, P = q.shape[0], k_pages.shape[0]
+    if B % shards or P % shards:
+        raise ValueError(
+            f"paged_attention_sharded: batch {B} and pool pages {P} must "
+            f"be divisible by the data shards ({shards})")
+    rows, pages = B // shards, P // shards
+    outs = []
+    for i in range(shards):
+        r = slice(i * rows, (i + 1) * rows)
+        p = slice(i * pages, (i + 1) * pages)
+        local = (tables[r] - i * pages).clamp(0, pages - 1)
+        outs.append(paged_attention(q[r], k_pages[p], v_pages[p],
+                                    local.to(torch.int32), lengths[r]))
+    return torch.cat(outs, dim=0)
+
+
 class _RMSNorm(torch.autograd.Function):
     """RMSNorm with the Triton forward and backward kernels on the card."""
 

@@ -60,7 +60,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import bridge, resolve_device
-from repro_torch.configs.base import OptimizerConfig
+from repro_torch.configs.base import OptimizerConfig, replace
 from repro_torch.configs.icf_cyclegan import ARCH_ID, FULL, SMOKE
 from repro_torch.configs.registry import ARCHS, get_config
 from repro_torch.core.population import TrainerFns
@@ -167,6 +167,14 @@ def _token_plan(args, root: str) -> DataPlan:
     return DataPlan.lm_tokens(files)
 
 
+def lm_config(args):
+    """The LM arch's config, cut to its first ``--num-layers`` layers at
+    full width when that is given."""
+    cfg = get_config(args.arch, smoke=args.smoke)
+    return replace(cfg, num_layers=args.num_layers) if args.num_layers \
+        else cfg
+
+
 def build_fns(args) -> TrainerFns:
     """The trainer functions (FULL or SMOKE) on ``--device``, with the
     checkpoint layout of the JAX package: the CycleGAN's, or an LM's
@@ -174,8 +182,8 @@ def build_fns(args) -> TrainerFns:
     device = resolve_device(args.device)
     opt = OptimizerConfig(name=args.optimizer, lr=args.lr, warmup_steps=1)
     if args.arch != ARCH_ID:
-        return TrainerFns(*make_lm_population_fns(
-            get_config(args.arch, smoke=args.smoke), opt, device=device))
+        return TrainerFns(*make_lm_population_fns(lm_config(args), opt,
+                                                  device=device))
     init, step, metric = make_gan_steps(SMOKE if args.smoke else FULL, opt,
                                         device)
 
@@ -244,6 +252,10 @@ def build_parser() -> argparse.ArgumentParser:
                     "datastore (PyTorch port)")
     ap.add_argument("--arch", default=ARCH_ID,
                     choices=sorted(ARCHS))
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="train an LM arch cut to its first N layers, at "
+                         "full width (serve its population with "
+                         "repro_torch.launch.serve --num-layers N)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where weights, optimizer state and batches live; "
                          "cuda raises when no card is visible")

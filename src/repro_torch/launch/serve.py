@@ -53,6 +53,13 @@ matches is archived, journaled and hot-swapped in.  It replaces both
 ``--arena-writeback`` writes the served streams back as token shards,
 and ``--resume-journal`` restores the arena's state from the journal.
 
+``--mesh DATA,MODEL`` serves through the serving mesh's scheduler
+(:mod:`repro_torch.serve.mesh`): the slots and every page pool split into
+DATA private shards on the one device, paged attention read once a
+shard, every step's decisions round-tripping the step plan's wire format.
+Several processes serve one mesh through
+``python -m repro_torch.launch.distributed``.
+
   python -m repro_torch.launch.serve --arch qwen3-0.6b
   python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke --device cpu
   python -m repro_torch.launch.serve --arch qwen3-0.6b --layout dense
@@ -68,6 +75,7 @@ and ``--resume-journal`` restores the arena's state from the journal.
       --arch qwen3-0.6b --resume-journal J --out-json R
   python -m repro_torch.launch.serve --arch qwen3-0.6b --arena POP \
       --arena-policy shadow --arena-writeback WB --swap-mode drain
+  python -m repro_torch.launch.serve --arch qwen3-0.6b --mesh 2,1
 """
 from __future__ import annotations
 
@@ -94,6 +102,7 @@ from repro_torch.models.lm import init_lm
 from repro_torch.serve import journal as journal_mod
 from repro_torch.serve.arena import Arena, ArenaConfig
 from repro_torch.serve.faults import FaultInjector
+from repro_torch.serve.mesh import MeshScheduler, parse_mesh
 from repro_torch.serve.registry import (ModelRegistry, check_draft_compat,
                                         load_draft)
 from repro_torch.serve.scheduler import Request, Scheduler
@@ -176,12 +185,14 @@ def load_drafter(args, cfg, device):
     return dmodel, draft_cfg
 
 
-def make_arena(args, cfg, model, device) -> Optional[Arena]:
+def make_arena(args, cfg, model, device, rank: int = 0) -> Optional[Arena]:
     """The online arena ``--arena`` names (None without the flag), its
     members in the port's layout on ``device`` in ``model``'s dtype.
     With ``--resume-journal`` its state (champion, windows, generation)
     is restored from the journal before the scheduler is built, so the
-    resumed server serves the journaled champion from its first step."""
+    resumed server serves the journaled champion from its first step.
+    ``rank``: this process's mesh rank (only rank 0 archives, writes back
+    and appends to the genealogy)."""
     if not args.arena:
         return None
     acfg = ArenaConfig(policy=args.arena_policy,
@@ -195,6 +206,7 @@ def make_arena(args, cfg, model, device) -> Optional[Arena]:
     arena = Arena.from_population(
         args.arena, bridge.params_to_jax_layout(model, cfg), acfg,
         writeback_dir=args.arena_writeback, vocab=cfg.vocab_size,
+        rank=rank,
         from_ckpt=lambda tree: params_from_ckpt(cfg, tree, device, dtype),
         to_ckpt=lambda params: bridge.params_to_jax_layout(params, cfg))
     if args.resume_journal:
@@ -239,6 +251,8 @@ def run_lm(args) -> Dict[str, object]:
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.dtype:
         cfg = replace(cfg, dtype=args.dtype)
+    if args.num_layers:
+        cfg = replace(cfg, num_layers=args.num_layers)
     model = init_lm(cfg, seed=args.seed, device=device)
     dtype = model.embed.weight.dtype
     registry = make_registry(
@@ -265,7 +279,10 @@ def run_lm(args) -> Dict[str, object]:
         print(f"[serve] fault harness armed: {args.fault_spec}")
     max_len = args.max_len or max(parse_lens(args.prompt_lens)) \
         + args.max_new
-    sched = Scheduler(
+    mesh_kw = {}
+    if args.mesh:
+        mesh_kw = dict(mesh_shape=parse_mesh(args.mesh))
+    sched = (MeshScheduler if args.mesh else Scheduler)(
         cfg, model, num_slots=args.slots, max_len=max_len,
         block_size=args.block_size, num_blocks=args.num_blocks,
         max_seq=args.max_seq, layout=args.layout, policy=args.policy,
@@ -278,7 +295,12 @@ def run_lm(args) -> Dict[str, object]:
         draft_cfg=draft_cfg, spec_fused=not args.no_spec_fused,
         spec_adapt=args.spec_adapt, max_queue=args.max_queue,
         telemetry=not args.no_telemetry, journal=journal, faults=faults,
-        arena=arena, device=device)
+        arena=arena, device=device, **mesh_kw)
+    if args.mesh:
+        data, mdl = mesh_kw["mesh_shape"]
+        print(f"[serve] mesh: data={data} model={mdl} "
+              f"devices={data * mdl} slots={sched.pool.num_slots} "
+              f"(host-0 scheduler, per-shard page pools)")
     if args.profile_steps > 0:
         sched.profile_steps(args.profile_steps, args.profile_dir)
         print(f"[serve] profiler armed: steps={args.profile_steps} "
@@ -484,6 +506,14 @@ def build_parser() -> argparse.ArgumentParser:
                          "tournament winner from")
     ap.add_argument("--watch-every", type=int, default=0,
                     help="poll for newer winners every N steps (0 = off)")
+    ap.add_argument("--mesh", default=None,
+                    help="serve over a serving mesh: 'DATA,MODEL' (e.g. "
+                         "'4,1') or 'data=4,model=1' — the decode batch "
+                         "and every page pool split into DATA private "
+                         "shards on the one device, paged attention read "
+                         "once a shard, admission decided on host 0 and "
+                         "broadcast as a step plan (lm workload; MODEL > "
+                         "1 is ROADMAP.md queue A6 (c))")
     ap.add_argument("--swap-mode", default="immediate",
                     choices=("immediate", "drain"),
                     help="hot-swap policy: immediate applies new weights "
@@ -554,6 +584,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dtype", default=None,
                     choices=("bfloat16", "float32"),
                     help="override the config's dtype")
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="cut the LM arch to its first N layers, at full "
+                         "width: serves a population trained at that depth "
+                         "(repro_torch.launch.ltfb --num-layers N)")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=0,
                     help="default per-request cap + pool sizing unit "

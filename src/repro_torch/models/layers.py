@@ -228,6 +228,9 @@ class PagedWrite(NamedTuple):
     pool coordinates ``(page, off)`` (flattened, long), the block tables
     ``(B, W)`` int32, and either the kernel's ``lengths`` (B,) int32
     (decode) or the chunk's causal ``mask`` (C, W*bs) (chunked prefill).
+    ``shards`` > 1 says the pool is split into that many private sub-pools
+    (the serving mesh's ``data`` axis), so the decode reads go through the
+    sharded dispatch; the caller chooses it, no global context does.
     Computed once per model call and shared by every layer."""
 
     page: torch.Tensor
@@ -235,16 +238,22 @@ class PagedWrite(NamedTuple):
     tables: torch.Tensor
     lengths: torch.Tensor = None
     mask: torch.Tensor = None
+    shards: int = 1
 
 
 def decode_write(index: torch.Tensor, tables: torch.Tensor, block_size: int,
-                 null_page: int, K: int, valid=None) -> PagedWrite:
+                 null_page: int, K: int, valid=None,
+                 shards: int = 1) -> PagedWrite:
     """Targets of a K-token decode/verify step (``attention_decode_paged``).
 
     index: (B,) write position of each row's first token, -1 for an idle
     row; valid: optional (B,) real-token counts.  Token t of row b lands
     at ``index[b] + t``; idle rows and tokens ``t >= valid[b]`` go to the
     null page.  Query 0 of row b sees ``max(index[b], 0) + 1`` tokens.
+    ``shards``: the pool's data shards (:class:`PagedWrite`).  The writes
+    use global page ids; an idle row's dead writes land on the pool's
+    last page (the last shard's null page, as JAX's mesh writes them),
+    whose contents no live row reads.
     """
     W = tables.shape[1]
     ar = torch.arange(K, device=index.device)
@@ -256,7 +265,8 @@ def decode_write(index: torch.Tensor, tables: torch.Tensor, block_size: int,
     page = tables.long().gather(1, (wpos // block_size).clamp(max=W - 1))
     page = torch.where(active, page, torch.full_like(page, null_page))
     return PagedWrite(page.reshape(-1), (wpos % block_size).reshape(-1),
-                      tables, lengths=(widx + 1).to(torch.int32))
+                      tables, lengths=(widx + 1).to(torch.int32),
+                      shards=shards)
 
 
 def decode_scan(step_fn: Callable, x: torch.Tensor, state: Cache,
@@ -446,12 +456,19 @@ def attention_decode_paged(attn: Attention, x: torch.Tensor, cache: Cache,
 
     x: (B, K, d).  The new K/V are written into the pool first (so query
     t sees its own token), then the paged-attention kernel reads each
-    row's reach.  Returns the attention output (B, K, d).
+    row's reach: once over the whole pool, or with ``w.shards`` > 1 once a
+    data shard over its sub-pool (:func:`ops.paged_attention_sharded`).
+    Returns the attention output (B, K, d).
     """
     B, K, _ = x.shape
     q, k_new, v_new = attn.project_qkv(x, cos, sin)
     _write_pages(cache, k_new, v_new, w)
-    out = ops.paged_attention(q, cache["k"], cache["v"], w.tables, w.lengths)
+    if w.shards > 1:
+        out = ops.paged_attention_sharded(w.shards, q, cache["k"],
+                                          cache["v"], w.tables, w.lengths)
+    else:
+        out = ops.paged_attention(q, cache["k"], cache["v"], w.tables,
+                                  w.lengths)
     return attn.wo(out.reshape(B, K, attn.cfg.q_dim))
 
 
@@ -485,6 +502,10 @@ def attention_chunk_paged(attn: Attention, x: torch.Tensor, cache: Cache,
     chunk queries attend over the gathered pages of the request's table
     (history, prefix-shared pages and the chunk itself) under one
     absolute causal mask — plain PyTorch, as the JAX package does it.
+    The gather reads the whole pool with global page ids, which holds on
+    one device whatever the pool's data shards: this is the place where a
+    card a shard would need the tables rebased too, as the decode's
+    sharded dispatch rebases them.
     """
     _, C, _ = x.shape
     cfg = attn.cfg

@@ -610,7 +610,8 @@ def _dense_len(cache: List[L.Cache]) -> Optional[int]:
 @torch.no_grad()
 def lm_decode(model: LM, tokens: torch.Tensor, cache: List[L.Cache],
               index: torch.Tensor, tables: Optional[torch.Tensor] = None,
-              valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+              valid: Optional[torch.Tensor] = None,
+              shards: int = 1) -> torch.Tensor:
     """One decode/verify step over K >= 1 tokens per row.
 
     tokens: (B, K); index: (B,) write position of each row's first token
@@ -626,7 +627,10 @@ def lm_decode(model: LM, tokens: torch.Tensor, cache: List[L.Cache],
     slot: every row's state steps through the K tokens in order and, with
     ``valid``, stops after row b's first ``valid[b]`` (an idle row without
     ``valid`` steps too: it is garbage until an admission overwrites it,
-    as in JAX).  Returns logits (B, K, V).
+    as in JAX).  ``shards`` > 1: the paged pools are split into that many
+    data shards, each row's pages in its shard's sub-pool (a sharded
+    :class:`~repro_torch.serve.kv_cache.PagedLayout`), and attention reads
+    them shard by shard.  Returns logits (B, K, V).
     """
     K = tokens.shape[1]
     if tables is None:
@@ -636,7 +640,8 @@ def lm_decode(model: LM, tokens: torch.Tensor, cache: List[L.Cache],
     else:
         geometry = _pool_geometry(cache)
         write = None if geometry is None else \
-            L.decode_write(index, tables, geometry[1], geometry[0], K, valid)
+            L.decode_write(index, tables, geometry[1], geometry[0], K, valid,
+                           shards)
     positions = index.clamp(min=0)[:, None] \
         + torch.arange(K, device=tokens.device)[None]
     cos, sin = _text_rope(model, positions)

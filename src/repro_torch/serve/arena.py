@@ -60,8 +60,10 @@ Routing policies (``--arena-policy``) pick which challenger drafts:
 * ``shadow`` — round-robin every stint, so every challenger gathers
   samples evenly (pure explore).
 
-Only rank 0 archives, writes back and appends to the genealogy; ``rank``
-stays a parameter for the multi-process serving of ROADMAP.md queue A6.
+Only rank 0 archives, writes back and appends to the genealogy.  On a
+serving mesh (:mod:`repro_torch.serve.mesh`) every rank mirrors the
+roster: the rotation is a pure function of the replicated state, and a
+follower applies rank 0's promotion from the step plan's ``promote``.
 """
 from __future__ import annotations
 

@@ -9,6 +9,11 @@ prefilled into every slot row at once, then decoded a token a step.  For
 request-level serving (queueing, continuous batching, slot reuse, hot swap,
 speculative decoding) use :class:`repro_torch.serve.scheduler.Scheduler`.
 
+With ``mesh`` (a :class:`~repro_torch.serve.mesh.ServeMesh`) the batch's
+session is the serving mesh's (:func:`repro_torch.serve.mesh.
+make_engine_session`): dense slot rows whose batch divides into the
+``data`` shards, as JAX's ``Engine(mesh=...)``.
+
 Sampling runs on the device: greedy argmax, or at temperature > 0 a draw
 from ``softmax(logits / temperature)`` through an explicit
 ``torch.Generator``.  JAX's ``jax.random.categorical`` stream cannot be
@@ -24,28 +29,30 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
 from repro_torch.serve.kv_cache import SlotLayout
+from repro_torch.serve.mesh import make_engine_session
 from repro_torch.serve.session import DecodeSession
 
 
 class Engine:
     """Batched decode executor over one model on its device (the card
-    unless the model was built on the CPU)."""
+    unless the model was built on the CPU), on a serving ``mesh`` when
+    one is given."""
 
     def __init__(self, cfg: ModelConfig, model: lm.LM, max_len: int = 1024,
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Engine(mesh=...): sharded decode is not ported to "
-                "repro_torch yet; see ROADMAP.md queue A6 (b)")
         self.cfg = cfg
         self.model = model
         self.max_len = max_len
+        self.mesh = mesh
         # one session per batch size, made on first use and kept: its
         # slot rows are allocated once
         self._sessions: Dict[int, DecodeSession] = {}
 
     def _session(self, batch: int) -> DecodeSession:
-        if batch not in self._sessions:
+        if batch not in self._sessions and self.mesh is not None:
+            self._sessions[batch] = make_engine_session(
+                self.cfg, self.model, self.mesh, batch, self.max_len)
+        elif batch not in self._sessions:
             self._sessions[batch] = DecodeSession(
                 self.cfg, self.model,
                 SlotLayout(self.cfg, batch, self.max_len,

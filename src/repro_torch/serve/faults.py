@@ -19,8 +19,7 @@ Spec syntax: comma-separated events, each ``kind@step[:key=val...]``::
 
 Each event fires on exactly ONE process: ``rank`` defaults to 0, is
 parsed as the JAX package parses it, and names the mesh rank whose
-scheduler fires it (the port serves on one process, rank 0, until
-ROADMAP.md queue A6).  The injector is invoked at the top of every
+scheduler fires it (``repro_torch.launch.distributed``).  The injector is invoked at the top of every
 scheduler step (before the hot-swap poll, so ``corrupt@N`` lands before
 step N's registry refresh) and counts each firing into
 ``stats.fault_injected``.

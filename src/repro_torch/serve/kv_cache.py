@@ -5,9 +5,10 @@ lazy page materialization, refcounts, pinning) and :class:`PageShard`
 (the prefix cache: copy-on-admit sharing of fully filled prompt pages) —
 is a copy of ``repro.serve.kv_cache``, the weight epoch that a hot swap
 bumps (:meth:`PageShard.invalidate_prefix`) included.
-:class:`PagedLayout` is the single-shard layout:
-one ``(num_pages + 1, block_size, Hkv, D)`` pool per attention layer on the
-device (the last page is the null page), ``num_slots`` dense state rows per
+:class:`PagedLayout` is the paged layout: one ``(num_pages + 1,
+block_size, Hkv, D)`` pool per attention layer on the device (the last page
+is the null page; split into ``data_shards`` sub-pools, each with its own
+null page, on the serving mesh), ``num_slots`` dense state rows per
 recurrent (Mamba / xLSTM) layer, and host-side numpy block tables,
 uploaded to the device for each step.  Decode and prefill write the pools
 and rows in place.  :meth:`PagedLayout.snapshot` and
@@ -250,15 +251,21 @@ class BlockManager:
 
 
 class PageShard:
-    """Host-side accounting of one page pool: a :class:`BlockManager` plus
-    the prefix cache (copy-on-admit sharing of fully filled prompt pages,
-    optional pinning)."""
+    """Host-side accounting of one page pool: a :class:`BlockManager` over
+    shard-local page ids plus the prefix cache (copy-on-admit sharing of
+    fully filled prompt pages, optional pinning).  The single-shard
+    :class:`PagedLayout` holds one; a sharded one (the serving mesh's
+    ``data`` axis) holds one per shard, each the private accountant of its
+    slice of the pool.  ``offset`` is the shard's base in the global page
+    ids block tables hold: local page ``p`` is global ``offset + p`` and
+    the shard's null page is ``offset + num_pages``."""
 
     def __init__(self, num_pages: int, block_size: int,
-                 pin_prefix: bool = False):
+                 pin_prefix: bool = False, offset: int = 0):
         self.blocks = BlockManager(num_pages, block_size)
         self.blocks.on_reclaim = self._evict
-        self.null_page = num_pages
+        self.null_page = num_pages              # local id
+        self.offset = offset
         self.pin_prefix = bool(pin_prefix)
         # prefix cache: chained token-chunk key -> canonical physical
         # page, plus every live page known to hold that content (a
@@ -292,9 +299,21 @@ class PageShard:
             keys.append(prev)
         return keys
 
+    def probe_prefix(self, key_at, max_pages: int) -> List[int]:
+        """Longest live prefix run in this shard, from chain keys derived
+        outside (``key_at(i)``: the key of page i), so a sharded layout
+        hashes a prompt once for every shard's probe."""
+        pages = []
+        for i in range(max_pages):
+            page = self._prefix.get(key_at(i))
+            if page is None or self.blocks.refcount(page) == 0:
+                break
+            pages.append(page)
+        return pages
+
     def find_shared_prefix(self, prompt: np.ndarray
                            ) -> Tuple[List[int], int]:
-        """Longest registered prefix of `prompt` in live pages.
+        """Longest registered prefix of `prompt` in live local pages.
 
         Returns (page ids, shared token count).  Capped at
         ``len(prompt) - 1`` so at least one suffix token is always
@@ -303,13 +322,8 @@ class PageShard:
         one chunk hash — this runs on every admission check.
         """
         bs = self.blocks.block_size
-        key_at = _prefix_key_memo(prompt, bs)
-        pages = []
-        for i in range((len(prompt) - 1) // bs):
-            page = self._prefix.get(key_at(i))
-            if page is None or self.blocks.refcount(page) == 0:
-                break
-            pages.append(page)
+        pages = self.probe_prefix(_prefix_key_memo(prompt, bs),
+                                  (len(prompt) - 1) // bs)
         return pages, len(pages) * bs
 
     def admit(self, rid, n_tokens: int,
@@ -507,52 +521,149 @@ class PagedLayout(CacheLayout):
     ``snapshot`` / ``restore`` roll the recurrent rows back per slot
     (attention K/V needs no rollback: a stale tail position is causally
     masked until it is overwritten).
+
+    **Sharded mode** (``data_shards > 1``, the serving mesh's ``data``
+    axis; ``repro.serve.kv_cache.PagedLayout`` with ``data_shards``):
+    slots and pages split into ``data_shards`` equal groups; group i's
+    slots map only group i's pages, each group is accounted by its own
+    :class:`PageShard` (admission, prefix cache, pinning, reclaim), and
+    each group ends with its own null page.  The pool is one ``(
+    data_shards * (pps + 1), block_size, Hkv, D)`` tensor a layer in
+    global id order, so shard i's sub-pool is the view ``[i * (pps + 1),
+    (i + 1) * (pps + 1))``; block tables hold global ids ``offset +
+    local``, which the sharded paged dispatch
+    (:func:`repro_torch.kernels.ops.paged_attention_sharded`) rebases per
+    shard, so no row reads another shard's pages.  A request's cap is its
+    shard's capacity.
     """
 
     def __init__(self, cfg: ModelConfig, num_slots: int, num_pages: int,
                  block_size: int = 16, max_seq: Optional[int] = None,
-                 pin_prefix: bool = False, device="cuda"):
+                 pin_prefix: bool = False, data_shards: int = 1,
+                 device="cuda"):
         dev = resolve_device(device)
         self.block_size = block_size
-        pool_tokens = num_pages * block_size
-        self.max_seq = min(max_seq or pool_tokens, pool_tokens)
+        self.data_shards = int(data_shards)
+        if num_slots % self.data_shards or num_pages % self.data_shards:
+            raise ValueError(
+                f"num_slots ({num_slots}) and num_pages ({num_pages}) "
+                f"must be divisible by data_shards ({data_shards})")
+        pps = num_pages // self.data_shards     # usable pages per shard
+        self._slots_per_shard = num_slots // self.data_shards
+        shard_tokens = pps * block_size
+        self.max_seq = min(max_seq or shard_tokens, shard_tokens)
         self.max_blocks_per_seq = blocks_for(self.max_seq, block_size)
-        self.shard = PageShard(num_pages, block_size, pin_prefix=pin_prefix)
-        self.null_page = num_pages
+        self.shards = tuple(
+            PageShard(pps, block_size, pin_prefix=pin_prefix,
+                      offset=i * (pps + 1))
+            for i in range(self.data_shards))
+        # shard 0's null page: THE null page of the single-shard layout
+        # (== num_pages); a sharded caller asks null_page_of(slot)
+        self.null_page = pps
+        total = self.data_shards * (pps + 1)
         self._init_layout(cfg, num_slots, lm.init_cache(
-            cfg, pages=(num_pages, block_size), num_slots=num_slots,
+            cfg, pages=(total - 1, block_size), num_slots=num_slots,
             device=dev), dev)
-        self.tables = np.full((num_slots, self.max_blocks_per_seq),
-                              self.null_page, np.int32)
+        self.tables = np.empty((num_slots, self.max_blocks_per_seq),
+                               np.int32)
+        for s in range(num_slots):
+            self.tables[s, :] = self.null_page_of(s)
+        self._shard_of_rid: Dict[Any, int] = {}
+        self._share_shard: Optional[int] = None
+        # the pool-wide concurrent page peak (sharded mode): the sum of the
+        # shards' high waters overstates it when they peak apart
+        self._hw_total = 0
+
+    # -- shard routing -----------------------------------------------------
+    def shard_of_slot(self, slot: int) -> int:
+        """The data shard whose sub-pool holds this slot's pages."""
+        return slot // self._slots_per_shard
+
+    def null_page_of(self, slot: int) -> int:
+        """The global id of the slot's shard's null page, where its idle
+        row points."""
+        shard = self.shards[self.shard_of_slot(slot)]
+        return shard.offset + shard.null_page
 
     @property
     def blocks(self) -> BlockManager:
-        """The pool's page accountant."""
-        return self.shard.blocks
+        """Shard 0's page accountant: the pool's in the single-shard
+        layout; in a sharded one the per-shard geometry (every shard has
+        the same)."""
+        return self.shards[0].blocks
 
     @property
     def prefix_hits(self) -> int:
-        """Admissions that mapped shared prefix pages."""
-        return self.shard.prefix_hits
+        """Admissions that mapped shared prefix pages, over all shards."""
+        return sum(s.prefix_hits for s in self.shards)
 
     @property
     def prefix_shared_tokens(self) -> int:
-        """Prompt tokens served from shared prefix pages."""
-        return self.shard.prefix_shared_tokens
+        """Prompt tokens served from shared prefix pages, all shards."""
+        return sum(s.prefix_shared_tokens for s in self.shards)
+
+    def _free_slots_in(self, shard_i: int) -> List[int]:
+        lo = shard_i * self._slots_per_shard
+        hi = lo + self._slots_per_shard
+        return [s for s in self._free_slots if lo <= s < hi]
+
+    def _choose_shard(self, n_tokens: int,
+                      shared_pages: Sequence[int] = (),
+                      hint: Optional[int] = None) -> Optional[int]:
+        """The admission's shard: the prefix-hinted one when it still
+        fits, else the free-slot shard with the most available pages
+        (lowest index on ties); None when none fits."""
+        if hint is not None and self._free_slots_in(hint) and \
+                self.shards[hint].blocks.can_allocate(
+                    n_tokens, shared=shared_pages):
+            return hint
+        best, best_avail = None, -1
+        for i, shard in enumerate(self.shards):
+            if not self._free_slots_in(i):
+                continue
+            if not shard.blocks.can_allocate(n_tokens):
+                continue
+            if shard.blocks.available_blocks > best_avail:
+                best, best_avail = i, shard.blocks.available_blocks
+        return best
+
+    def peek_shard(self, n_tokens: int,
+                   shared_pages: Sequence[int] = ()) -> Optional[int]:
+        """The shard :meth:`admit` would pick now, with no change: the
+        mesh scheduler checks the drafter's mirror pool in that shard
+        before it admits."""
+        hint = self._share_shard if shared_pages else None
+        return self._choose_shard(n_tokens, shared_pages, hint)
 
     def find_shared_prefix(self, prompt: np.ndarray
                            ) -> Tuple[List[int], int]:
-        """Longest registered prefix of ``prompt`` (page ids, tokens)."""
-        return self.shard.find_shared_prefix(prompt)
+        """Longest registered prefix of ``prompt`` over the shards an
+        admission could land in: (local page ids of the best shard,
+        tokens); the shard is kept for the admit that follows.  The chain
+        keys are derived once for every shard's probe."""
+        bs = self.block_size
+        max_pages = (len(prompt) - 1) // bs
+        key_at = _prefix_key_memo(prompt, bs)
+        best, best_shard = ([], 0), None
+        for i, shard in enumerate(self.shards):
+            if self.data_shards > 1 and not self._free_slots_in(i):
+                continue        # a match in a slot-full shard is unusable
+            pages = shard.probe_prefix(key_at, max_pages)
+            if len(pages) * bs > best[1]:
+                best, best_shard = (pages, len(pages) * bs), i
+        self._share_shard = best_shard if best[0] else None
+        return best
 
     def register_prefix(self, rid, prompt: np.ndarray) -> None:
-        """Publish ``rid``'s fully filled prompt pages to the prefix cache."""
-        self.shard.register_prefix(rid, prompt)
+        """Publish ``rid``'s fully filled prompt pages to its shard's
+        prefix cache."""
+        self.shards[self._shard_of_rid[rid]].register_prefix(rid, prompt)
 
     def invalidate_prefix(self) -> None:
-        """Flush the prefix cache and its pins (hot swap; see
+        """Flush every shard's prefix cache and pins (hot swap; see
         :meth:`PageShard.invalidate_prefix`)."""
-        self.shard.invalidate_prefix()
+        for shard in self.shards:
+            shard.invalidate_prefix()
 
     def step_tables(self, width: int) -> torch.Tensor:
         """The first ``width`` block-table columns of every slot, uploaded
@@ -562,13 +673,12 @@ class PagedLayout(CacheLayout):
 
     def can_admit(self, n_tokens: int,
                   shared_pages: Sequence[int] = ()) -> bool:
-        """Is there a free slot and room for ``n_tokens`` (given
-        ``shared_pages`` already mapped)?"""
+        """Can some shard hold ``n_tokens`` (given ``shared_pages``
+        already mapped) with a free slot to go with it?"""
         if not self._free_slots or n_tokens > self.max_seq:
             return False
-        blocks = self.shard.blocks
-        return blocks.can_allocate(n_tokens, shared=shared_pages) \
-            or blocks.can_allocate(n_tokens)
+        hint = self._share_shard if shared_pages else None
+        return self._choose_shard(n_tokens, shared_pages, hint) is not None
 
     def admit(self, rid, n_tokens: int,
               prompt: Optional[np.ndarray] = None,
@@ -579,10 +689,13 @@ class PagedLayout(CacheLayout):
         With `prompt` given, maps any prefix-cached pages into the new
         table (copy-on-admit sharing); pass ``shared`` to reuse a
         :meth:`find_shared_prefix` result the admission check already
-        computed.  ``slot`` claims that free slot (a drafter's pool
-        mirrors the target's rows).  Returns (slot, shared_len).
+        computed.  ``slot`` claims that free slot, and so its shard (a
+        drafter's pool mirrors the target's rows); else the slot is the
+        last free one of the shard :meth:`_choose_shard` picks.  Returns
+        (slot, shared_len).
         """
-        slot = self._pick_slot(slot)
+        if not self._free_slots:
+            raise RuntimeError("no free cache slots")
         if n_tokens > self.max_seq:
             raise ValueError(
                 f"request needs {n_tokens} tokens > pool max_seq "
@@ -591,27 +704,52 @@ class PagedLayout(CacheLayout):
             shared = ([], 0) if prompt is None else \
                 self.find_shared_prefix(prompt)
         shared_pages, shared_len = shared
-        self.shard.admit(rid, n_tokens, (shared_pages, shared_len))
+        hint = self._share_shard if shared_pages else None
+        if slot is None:
+            shard_i = self._choose_shard(n_tokens, shared_pages, hint)
+            if shard_i is None:
+                shard_i = self.shard_of_slot(self._free_slots[-1])
+            slot = self._free_slots_in(shard_i)[-1]
+        else:
+            if slot not in self._free_slots:
+                raise RuntimeError(f"cache slot {slot} is not free")
+            shard_i = self.shard_of_slot(slot)
+        if hint is not None and hint != shard_i:
+            # the prefix lives in another shard's pool: unusable here
+            shared_pages, shared_len = [], 0
+        shard = self.shards[shard_i]
+        shard.admit(rid, n_tokens, (shared_pages, shared_len))
         self._bind_slot(rid, slot)
-        self.tables[slot, :] = self.null_page
+        self._shard_of_rid[rid] = shard_i
+        self.tables[slot, :] = self.null_page_of(slot)
         if shared_pages:
-            self.tables[slot, :len(shared_pages)] = shared_pages
+            self.tables[slot, :len(shared_pages)] = \
+                shard.offset + np.asarray(shared_pages, np.int32)
+        self._note_usage()
         return slot, shared_len
 
     def ensure(self, rid, n_tokens: int) -> None:
         """Materialize pages so `rid` can hold `n_tokens`; updates the
-        slot's block table in place."""
+        slot's block table in place (global ids)."""
         slot = self._slot_of[rid]
-        have = len(self.shard.blocks.table(rid))
-        new = self.shard.blocks.ensure(rid, n_tokens)
+        shard = self.shards[self._shard_of_rid[rid]]
+        have = len(shard.blocks.table(rid))
+        new = shard.blocks.ensure(rid, n_tokens)
         if new:
-            self.tables[slot, have:have + len(new)] = new
+            self.tables[slot, have:have + len(new)] = \
+                shard.offset + np.asarray(new, np.int32)
+            self._note_usage()
+
+    def _note_usage(self) -> None:
+        if self.data_shards > 1:
+            used = sum(s.blocks.used_blocks for s in self.shards)
+            self._hw_total = max(self._hw_total, used)
 
     def release(self, rid) -> int:
         """Free `rid`'s slot + page refs; returns the freed slot."""
         slot = self._unbind_slot(rid)
-        self.tables[slot, :] = self.null_page
-        self.shard.release(rid)
+        self.tables[slot, :] = self.null_page_of(slot)
+        self.shards[self._shard_of_rid.pop(rid)].release(rid)
         return slot
 
     def table_width_for(self, max_tokens: int) -> int:
@@ -620,13 +758,28 @@ class PagedLayout(CacheLayout):
                    blocks_for(max(max_tokens, 1), self.block_size))
 
     def as_dict(self) -> Dict[str, int]:
-        """Pool summary: slot/prefix counters + block accounting (the
-        same keys as ``repro.serve.kv_cache.PagedLayout.as_dict``)."""
-        return {"num_slots": self.num_slots, "max_seq": self.max_seq,
-                "free_slots": self.free_slots,
-                "prefix_hits": self.prefix_hits,
-                "prefix_shared_tokens": self.prefix_shared_tokens,
-                "data_shards": 1, **self.shard.blocks.as_dict()}
+        """Pool summary: slot/prefix counters + the block accounting summed
+        over shards, the high water the pool-wide concurrent peak (the
+        keys and values of ``repro.serve.kv_cache.PagedLayout.as_dict``);
+        :meth:`shard_dicts` has each shard's own."""
+        d = {"num_slots": self.num_slots, "max_seq": self.max_seq,
+             "free_slots": self.free_slots,
+             "prefix_hits": self.prefix_hits,
+             "prefix_shared_tokens": self.prefix_shared_tokens,
+             "data_shards": self.data_shards}
+        agg = self.shards[0].blocks.as_dict()
+        for shard in self.shards[1:]:
+            for k, v in shard.blocks.as_dict().items():
+                if k != "block_size":
+                    agg[k] += v
+        if self.data_shards > 1:
+            agg["high_water_blocks"] = self._hw_total
+        return {**d, **agg}
+
+    def shard_dicts(self) -> List[Dict[str, int]]:
+        """Each shard's block accounting (``BlockManager.as_dict``), in
+        shard order: the per-shard pool gauges of the Prometheus export."""
+        return [shard.blocks.as_dict() for shard in self.shards]
 
 
 class SlotLayout(CacheLayout):

@@ -5,11 +5,8 @@
 port's scheduler updates under the JAX package's names: population
 speculative decoding's ``spec_*``, the request lifecycle's sheds,
 cancellations and deadline misses, the faults fired, the requests a
-journal requeued and the online arena's matches and promotions.  It
-keeps no counter of a path the port does not run: the mesh's
-``plan_retries`` (ROADMAP.md queue A6), which the Prometheus export
-reads as 0.
-Under ``--log-json``
+journal requeued, the serving mesh's plan-channel ``plan_retries`` and
+the online arena's matches and promotions.  Under ``--log-json``
 :meth:`ServeStats.report` also emits the summary as one ``serve_report``
 record.
 """
@@ -174,6 +171,7 @@ class ServeStats:
     # fault tolerance (serve/journal.py, serve/faults.py, the registry)
     fault_injected: int = 0        # harness faults fired (--fault-spec)
     swap_rejected_corrupt: int = 0  # hot swaps refused: corrupt checkpoint
+    plan_retries: int = 0          # mesh plan-channel fetch retries
     journal_replayed: int = 0      # requests requeued from a journal
     # online LTFB arena (serve/arena.py)
     arena_matches: int = 0         # match evaluations run
@@ -248,6 +246,7 @@ class ServeStats:
             "hot_swaps": self.hot_swaps,
             "fault_injected": self.fault_injected,
             "swap_rejected_corrupt": self.swap_rejected_corrupt,
+            "plan_retries": self.plan_retries,
             "journal_replayed": self.journal_replayed,
             "arena_matches": self.arena_matches,
             "arena_promotions": self.arena_promotions,
@@ -298,9 +297,10 @@ class ServeStats:
             f"queue_mean={d['queue_depth_mean']:.1f} "
             f"queue_max={d['queue_depth_max']}")
         if self.fault_injected or self.swap_rejected_corrupt \
-                or self.journal_replayed:
+                or self.plan_retries or self.journal_replayed:
             log(f"{prefix} robustness: fault_injected={d['fault_injected']} "
                 f"swap_rejected_corrupt={d['swap_rejected_corrupt']} "
+                f"plan_retries={d['plan_retries']} "
                 f"journal_replayed={d['journal_replayed']}")
         if self.arena_matches or self.arena_promotions:
             log(f"{prefix} arena: matches={d['arena_matches']} "

@@ -287,21 +287,15 @@ class Scheduler:
         self.swap_mode = swap_mode
         n_blocks = num_blocks if num_blocks is not None \
             else num_slots * blocks_for(max_len, block_size)
-
-        def make_layout(c: ModelConfig):
-            """A pool of this geometry for ``c``: the target's, or the
-            drafter's mirror at the same slots."""
-            if self.paged:
-                return PagedLayout(c, num_slots, n_blocks,
-                                   block_size=block_size,
-                                   max_seq=max_seq or max_len,
-                                   pin_prefix=pin_prefix, device=self.device)
-            return SlotLayout(c, num_slots, max_len, block_size=block_size,
-                              num_blocks=n_blocks, device=self.device)
-
-        self.pool = make_layout(cfg)
+        # the geometry the layout hook reads (the mesh scheduler's sharded
+        # pools reuse it)
+        self._geom = {"num_slots": num_slots, "max_len": max_len,
+                      "block_size": block_size, "n_blocks": n_blocks,
+                      "max_seq": max_seq or max_len,
+                      "pin_prefix": pin_prefix}
+        self.pool = self._make_layout(cfg)
         self.max_seq = self.pool.max_seq if self.paged else max_len
-        self.session = DecodeSession(cfg, model, self.pool)
+        self.session = self._make_session(cfg, model, self.pool)
         # the drafter: a second session over its own pool of the same
         # geometry, admitted at the same slots (the batches stay aligned)
         self.draft: Optional[DecodeSession] = None
@@ -309,9 +303,9 @@ class Scheduler:
             if not isinstance(draft_params, lm.LM):
                 raise TypeError("draft_params must be the drafter's LM "
                                 f"(got {type(draft_params).__name__})")
-            self.draft = DecodeSession(
+            self.draft = self._make_session(
                 self.draft_cfg, draft_params,
-                make_layout(self.draft_cfg))
+                self._make_layout(self.draft_cfg))
         # right-padding and chunking prompts is only sound for
         # attention-only stacks: recurrent layers prefill one-shot at the
         # exact prompt length, with no prefix sharing (as in JAX);
@@ -349,6 +343,9 @@ class Scheduler:
         # telemetry=False keeps the counters but drops the spans
         self.telemetry = ServeTelemetry(enabled=telemetry,
                                         trace_capacity=trace_capacity)
+        # rank -> the latest stats snapshot of every mesh rank (rank 0's
+        # mesh scheduler gathers them); {} on a single process
+        self.remote_stats: Dict[int, dict] = {}
         # fault tolerance: the write-ahead journal (one write a step, the
         # step's tokens and completions buffered below) and the injector
         # fired at the top of each step
@@ -376,6 +373,26 @@ class Scheduler:
         self._pending_params = None
         self._head_share = None
         self._step_count = 0
+
+    # -- construction hooks (the mesh scheduler overrides them) -------------
+    def _make_layout(self, cfg: ModelConfig):
+        """A pool of this scheduler's geometry for ``cfg``: the target's,
+        or the drafter's mirror at the same slots."""
+        g = self._geom
+        if self.paged:
+            return PagedLayout(cfg, g["num_slots"], g["n_blocks"],
+                               block_size=g["block_size"],
+                               max_seq=g["max_seq"],
+                               pin_prefix=g["pin_prefix"],
+                               device=self.device)
+        return SlotLayout(cfg, g["num_slots"], g["max_len"],
+                          block_size=g["block_size"],
+                          num_blocks=g["n_blocks"], device=self.device)
+
+    def _make_session(self, cfg: ModelConfig, model: lm.LM,
+                      layout) -> DecodeSession:
+        """The session over ``layout`` (the target's or the drafter's)."""
+        return DecodeSession(cfg, model, layout)
 
     def _check_verify_rows(self, cfg: ModelConfig) -> None:
         """On the card a verify (and a replay, on either model) runs the
@@ -866,24 +883,25 @@ class Scheduler:
                 f"{sorted(self.arena.members)}")
         self.arena.forced = member
 
-    def _admission_phase(self) -> int:
-        """Admit what fits; returns the number of requests admitted."""
+    def _admission_phase(self) -> List[Any]:
+        """Admit what fits; returns the admitted rids in order (the
+        decision record a mesh's step plan carries)."""
+        admitted: List[Any] = []
         if self.draining:
-            return 0
+            return admitted
         if self.faults is not None \
                 and self.faults.admission_blocked(self._step_count):
-            return 0            # injected pool exhaustion (oom@step)
-        admitted = 0
+            return admitted     # injected pool exhaustion (oom@step)
         if self.policy == "static":
             if not (self.active or self.prefilling):
                 while self.queue and self._can_admit_head():
+                    admitted.append(self.queue[0].rid)
                     self._admit(self.queue.popleft())
-                    admitted += 1
             return admitted
-        while (admitted < self.max_prefills_per_step and self.queue
+        while (len(admitted) < self.max_prefills_per_step and self.queue
                and self._can_admit_head()):
+            admitted.append(self.queue[0].rid)
             self._admit(self.queue.popleft())
-            admitted += 1
         return admitted
 
     def _decode_phase(self) -> None:

@@ -27,6 +27,11 @@ device, runs :func:`repro_torch.models.lm.lm_prefill_exact` /
 in place (a dense prefill's cache is copied into its rows by the layout),
 and hands back logits.  The JAX session instead donates the cache pytree
 to a jitted step and rebinds the returned one.
+
+:class:`MeshDecodeSession` is the serving mesh's session (JAX's
+``repro.serve.mesh.MeshDecodeSession``): over a pool split into data
+shards, its decode and verify steps read attention once a shard over that
+shard's sub-pool, and it refuses the explicit-tables subset step.
 """
 from __future__ import annotations
 
@@ -48,6 +53,10 @@ class DecodeSession:
     """Model weights + a cache layout (:class:`PagedLayout` or
     :class:`~repro_torch.serve.kv_cache.SlotLayout`), driven through one
     API; ``paged`` says which."""
+
+    # data shards the decode attention reads the pool in (the mesh
+    # session's are its layout's)
+    shards = 1
 
     def __init__(self, cfg: ModelConfig, model: lm.LM, layout: CacheLayout):
         if model.device != layout.device:
@@ -166,7 +175,8 @@ class DecodeSession:
         v = None if valid is None else _upload(valid, np.int64, dev)
         return lm.lm_decode(self.model, _upload(tokens, np.int64, dev),
                             self.layout.cache,
-                            _upload(index, np.int64, dev), t, valid=v)
+                            _upload(index, np.int64, dev), t, valid=v,
+                            shards=self.shards)
 
     def draft_block(self, tok0: np.ndarray, index: np.ndarray, steps: int,
                     valid: Optional[np.ndarray] = None,
@@ -201,7 +211,7 @@ class DecodeSession:
             valid_t = (v - t).clamp(0, 1)
             idx_t = torch.where(idx >= 0, idx + t, idx)
             logits = lm.lm_decode(self.model, tok, self.layout.cache, idx_t,
-                                  tables, valid=valid_t)
+                                  tables, valid=valid_t, shards=self.shards)
             fed.append(tok[:, 0])
             logits_all.append(logits[:, 0])
             # greedy device feed; the host resamples from the logits
@@ -218,3 +228,34 @@ class DecodeSession:
         with a ``valid``-masked replay :meth:`step` to rebuild the
         accepted prefix."""
         self.layout.restore(snap, rows)
+
+
+class MeshDecodeSession(DecodeSession):
+    """A :class:`DecodeSession` of the serving mesh
+    (:mod:`repro_torch.serve.mesh`).
+
+    Inside one process every data shard lives on the session's device:
+    over a paged pool of ``data_shards`` sub-pools each decode and verify
+    step reads attention once a shard, over that shard's sub-pool with its
+    tables rebased (:func:`repro_torch.kernels.ops.paged_attention_sharded`),
+    so no row reads another shard's pages.  Dense rows (the engine's
+    :class:`~repro_torch.serve.kv_cache.SlotLayout`) are each their own
+    and need no dispatch.  The row-subset step with explicit ``tables`` is
+    refused, as in JAX: a subset of rows would leave its shards.
+    """
+
+    def __init__(self, cfg: ModelConfig, model: lm.LM, layout: CacheLayout):
+        super().__init__(cfg, model, layout)
+        self.shards = getattr(layout, "data_shards", 1)
+
+    def step(self, tokens: np.ndarray, index: np.ndarray,
+             valid: Optional[np.ndarray] = None,
+             width: Optional[int] = None,
+             tables: Optional[np.ndarray] = None) -> torch.Tensor:
+        """One full-batch decode/verify step (see :meth:`DecodeSession.step`);
+        explicit ``tables`` raise."""
+        if tables is not None:
+            raise ValueError(
+                "row-subset / explicit-table steps cannot run on the mesh "
+                "(rows must stay in their data shard)")
+        return super().step(tokens, index, valid=valid, width=width)

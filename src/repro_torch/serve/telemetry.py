@@ -15,17 +15,15 @@ tracing, Prometheus export, the profiler window.
 * :func:`prometheus_text` / :func:`scheduler_prometheus` — Prometheus
   text-format (0.0.4) exposition of every ``[serve]`` counter, the
   bounded latency histograms, the page pool's occupancy, the phase
-  times and, with an online LTFB arena attached, its per-member accept
-  rate and served tokens and its promotions, in the JAX package's text
-  (counters the port does not keep yet read 0, as they do in JAX for a
-  scheduler without them).
+  times, with an online LTFB arena attached its per-member accept rate
+  and served tokens and its promotions, and on rank 0 of a serving mesh
+  every rank's counters, page high waters and arena series
+  (``{rank=...}``, from the gathered ``remote_stats``), in the JAX
+  package's text.
 * :func:`stats_snapshot` — the compact JSON stats a mesh follower
   ships to host 0 (the arena's counters included).
 
-The mesh's per-rank series (ROADMAP.md queue A6, the arena's per-rank
-series with them) are not ported: :func:`prometheus_text` raises on a
-non-empty ``remote_stats`` rather than drop them.  The tracing and
-JSON-log primitives live in :mod:`repro_torch.telemetry` and are
+The tracing and JSON-log primitives live in :mod:`repro_torch.telemetry` and are
 re-exported here; nothing imports the scheduler, so the scheduler and
 the metrics import this module freely.
 """
@@ -201,8 +199,7 @@ class ServeTelemetry:
 # ---- mesh stats snapshot --------------------------------------------------
 
 # every [serve] counter a follower ships to host 0 (and prometheus
-# exports); the port keeps all but the mesh's plan_retries (A6), which
-# reads 0
+# exports)
 _SNAPSHOT_COUNTERS = (
     "submitted",
     "completed",
@@ -241,18 +238,10 @@ def _pool_shards(sched: Any) -> List[dict]:
     pool = getattr(sched, "pool", None)
     if pool is None:
         return []
-    shards = getattr(pool, "shards", None)
-    if shards:
-        return [sh.blocks.as_dict() for sh in shards]
+    if hasattr(pool, "shard_dicts"):
+        return pool.shard_dicts()
     blocks = getattr(pool, "blocks", None)
     return [blocks.as_dict()] if blocks is not None else []
-
-
-def _refuse_unported(remote_stats=None) -> None:
-    if remote_stats:
-        raise NotImplementedError(
-            "per-rank mesh series are not ported to repro_torch yet; see "
-            "ROADMAP.md queue A6 (b)")
 
 
 def stats_snapshot(sched: Any, rank: int = 0) -> dict:
@@ -360,6 +349,62 @@ def _arena_lines(out: List[str], arena: dict) -> None:
     out.append(f"{name} {int(arena.get('promotions', 0))}")
 
 
+def _mesh_arena_lines(out: List[str], ranked: List[tuple]) -> None:
+    """Append the per-rank arena member series (``{rank=,member=}``): one
+    HELP/TYPE header a family, every rank's samples under it."""
+    fams = (
+        ("accept_rate", "gauge",
+         "per-rank per-member spec accept rate",
+         lambda m: m.get("accept_rate", 0.0)),
+        ("served_tokens", "gauge",
+         "per-rank tokens served while the member was champion",
+         lambda m: int(m.get("served_tokens", 0))),
+    )
+    for suffix, typ, help_, get in fams:
+        name = f"{_PREFIX}mesh_arena_{suffix}"
+        out.append(f"# HELP {name} {help_}")
+        out.append(f"# TYPE {name} {typ}")
+        for rank, arena in ranked:
+            for member in sorted(arena.get("members", {})):
+                out.append(
+                    f'{name}{{rank="{rank}",member="{member}"}} '
+                    f"{_fmt(get(arena['members'][member]))}")
+    name = f"{_PREFIX}mesh_arena_promotions_total"
+    out.append(f"# HELP {name} per-rank arena champion promotions")
+    out.append(f"# TYPE {name} counter")
+    for rank, arena in ranked:
+        out.append(f'{name}{{rank="{rank}"}} '
+                   f"{int(arena.get('promotions', 0))}")
+
+
+def _mesh_lines(out: List[str], remote_stats: Dict[int, dict]) -> None:
+    """Append the serving mesh's per-rank families from the gathered
+    :func:`stats_snapshot` dicts: every counter, each rank's page high
+    water per data shard and, where ranks carry an arena, its series."""
+    name = f"{_PREFIX}mesh"
+    out.append(f"# HELP {name}_counters per-rank mesh counters")
+    for k in _SNAPSHOT_COUNTERS:
+        fam = f"{name}_{k}_total"
+        out.append(f"# TYPE {fam} counter")
+        for rank in sorted(remote_stats):
+            snap = remote_stats[rank]
+            out.append(f'{fam}{{rank="{rank}"}} {int(snap.get(k, 0))}')
+    fam = f"{name}_pool_high_water_blocks"
+    out.append(f"# HELP {fam} peak KV pages per rank and data shard")
+    out.append(f"# TYPE {fam} gauge")
+    for rank in sorted(remote_stats):
+        for i, sh in enumerate(remote_stats[rank].get("shards", [])):
+            out.append(
+                f'{fam}{{rank="{rank}",shard="{i}"}} '
+                f"{int(sh.get('high_water_blocks', 0))}"
+            )
+    ranked = [(r, remote_stats[r]["arena"])
+              for r in sorted(remote_stats)
+              if remote_stats[r].get("arena")]
+    if ranked:
+        _mesh_arena_lines(out, ranked)
+
+
 def prometheus_text(
     stats: Any,
     pool_shards: Optional[List[dict]] = None,
@@ -374,12 +419,11 @@ def prometheus_text(
     Exposition format 0.0.4: ``# HELP`` / ``# TYPE`` per family,
     counters suffixed ``_total``, latency histograms with cumulative
     ``_bucket{le=...}`` + ``_sum`` + ``_count``, per-shard pool gauges
-    labelled ``{shard=...}``, per-phase seconds ``{phase=...}`` and the
+    labelled ``{shard=...}``, per-phase seconds ``{phase=...}``, the
     arena's per-member series ``{member=...}`` from ``arena`` (an
-    ``Arena.counters()`` dict).  A non-empty ``remote_stats`` (the mesh's
-    per-rank series, A6) raises ``NotImplementedError``.
+    ``Arena.counters()`` dict) and the serving mesh's per-rank series
+    ``{rank=...}`` from ``remote_stats`` (rank -> :func:`stats_snapshot`).
     """
-    _refuse_unported(remote_stats)
     out: List[str] = []
     for k, help_ in _COUNTER_HELP.items():
         name = f"{_PREFIX}{k}_total"
@@ -434,12 +478,15 @@ def prometheus_text(
 
     if arena:
         _arena_lines(out, arena)
+    if remote_stats:
+        _mesh_lines(out, remote_stats)
     return "\n".join(out) + "\n"
 
 
 def scheduler_prometheus(sched: Any) -> str:
     """Prometheus text for a live scheduler (stats + pool + phases + the
-    online arena when one is attached)."""
+    online arena when one is attached + every mesh rank's series on rank
+    0 of a serving mesh)."""
     tel = getattr(sched, "telemetry", None)
     arena = getattr(sched, "arena", None)
     return prometheus_text(

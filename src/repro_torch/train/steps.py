@@ -277,7 +277,10 @@ def make_lm_population_fns(cfg: ModelConfig, opt_cfg: OptimizerConfig,
                 bridge.opt_state_to_jax_layout(opt_state, cfg))
 
     def from_ckpt(params, opt_state):
-        opt = tree_to(bridge.opt_state_from_jax(opt_state, cfg), dev)
+        # the layout conversion (stack splits, transposes) runs on the
+        # trainers' device: one upload a leaf, no strided copy on the host
+        opt = tree_to(bridge.opt_state_from_jax(
+            tensors_to(opt_state, dev), cfg), dev)
         # per-weight moments in parameter order, Adafactor's factors in
         # the optimizer's group order
         groups = list(lm.param_groups(cfg, skeleton.names))
@@ -292,9 +295,11 @@ def make_lm_population_fns(cfg: ModelConfig, opt_cfg: OptimizerConfig,
 def params_from_ckpt(cfg: ModelConfig, tree, device,
                      dtype: torch.dtype = None) -> Dict[str, torch.Tensor]:
     """An LM's ``{name: tensor}`` weights on ``device`` (cast to ``dtype``
-    when given) from a checkpoint's params tree in JAX's layout."""
+    when given) from a checkpoint's params tree in JAX's layout; the
+    layout conversion runs on ``device``."""
     return {n: t.to(device=device, dtype=dtype or t.dtype)
-            for n, t in bridge.params_from_jax(tree, cfg).items()}
+            for n, t in bridge.params_from_jax(
+                tensors_to(tree, device), cfg).items()}
 
 
 def tree_to(tree, device):
@@ -302,6 +307,16 @@ def tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: tree_to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def tensors_to(tree, device):
+    """``tree`` (nested dicts, lists and tuples) with its tensor leaves
+    moved to ``device`` and its other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: tensors_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tensors_to(v, device) for v in tree)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
 # ---------------------------------------------------------------------------

@@ -163,8 +163,13 @@ def test_engine_refuses_sampling_without_a_generator_and_a_mesh():
     gen = torch.Generator().manual_seed(0)
     out = eng.generate(toks, 3, temperature=0.7, generator=gen)
     assert out.shape == (1, 7) and bool((out[:, :4] == 0).all())
-    with pytest.raises(NotImplementedError, match="A6"):
-        Engine(model.cfg, model, mesh=object())
+    # a serving mesh: its data axis serves (the same tokens), its model
+    # axis is refused naming its queue
+    from repro_torch.serve.mesh import ServeMesh
+    on_mesh = Engine(model.cfg, model, max_len=16, mesh=ServeMesh(1))
+    assert torch.equal(on_mesh.generate(toks, 3), eng.generate(toks, 3))
+    with pytest.raises(NotImplementedError, match=r"A6 \(c\)"):
+        Engine(model.cfg, model, mesh=ServeMesh(1, 2))
     with pytest.raises(ValueError, match="max_len"):
         eng.generate(toks, 13)
 

@@ -164,8 +164,14 @@ def test_serve_prometheus_text_is_byte_equal_to_jax():
 
 def test_unported_exposition_parts_raise_naming_their_queue():
     s = tmetrics.ServeStats()
-    with pytest.raises(NotImplementedError, match="A6"):
-        tserve_tel.prometheus_text(s, remote_stats={1: {"rank": 1}})
+    # the mesh's per-rank series render (ported since the mesh-serving
+    # slice), as JAX's
+    remote = {1: {"rank": 1, "completed": 3, "shards": [
+        {"high_water_blocks": 5}]}}
+    got = tserve_tel.prometheus_text(s, remote_stats=remote)
+    assert got == jserve_tel.prometheus_text(jmetrics.ServeStats(),
+                                             remote_stats=remote)
+    assert 'repro_serve_mesh_completed_total{rank="1"} 3\n' in got
     # the arena's families render, as JAX's
     counters = {"promotions": 2, "members": {
         "b": {"accept_rate": 0.5, "served_tokens": 7},
