@@ -294,7 +294,8 @@ and never prints the final ``ok`` line):
     from the same weights: first-step losses bit-equal, each step's
     launches the train phase's, step ms (median of the last 3) and peak
     memory per policy;
-33. serve_lifecycle (after phase 31): qwen3-0.6b FULL in f32, TF32 off,
+33. serve_lifecycle (after phase 31): qwen3-0.6b at full width and 8 of
+    its 28 layers (since PR 30) in f32, TF32 off,
     8 requests over 4 slots, prompts 128/256/512, 32 new tokens, the even
     rids greedy and the odd ones at temperature 0.8: (1) the crash drill
     -- the trace with a write-ahead journal, then again with ``crash@20``,
@@ -309,8 +310,9 @@ and never prints the final ``ok`` line):
     the 8 requests at once (4 streamed), tokens equal to (1)'s, a 429 at
     ``max_queue`` and on a missed deadline, an idempotent replay,
     ``/metrics`` as text and JSON, a drain with 503s; the paged and
-    RMSNorm launches of (1)-(3) exact (28 per decode step, 113 per model
-    call); (4) the serve CLI's SIGKILL drill in subprocesses --
+    RMSNorm launches of (1)-(3) exact (8 per decode step, 33 per model
+    call); (4) the serve CLI's SIGKILL drill in subprocesses (at
+    ``--num-layers 8``) --
     ``--journal J --fault-spec kill@10`` returns -9, ``--resume-journal J
     --out-json R`` finishes without rebuilding a kernel, R's streams equal
     an in-process run of the same trace; prints the journal's lines,
@@ -386,6 +388,27 @@ and never prints the final ``ok`` line):
     streams equal the uninterrupted ones, save partings at a bf16 top-2
     gap below 0.25 (counted); prints the seconds rank 0 took to fail after
     its peer's SIGKILL.
+37. serve_tp (after phase 36, its ranks started inside phase 36's window
+    of ranks): the serving mesh's ``model`` axis. (a) the paged kernel at
+    a model rank's shape (qwen3 at model 2: bf16 B = 8, H = 8 over 4 KV
+    heads, D = 128, 16-token pages, K = 1, rows of 170-569 tokens)
+    against its plain version, timed beside its bound and SDPA, and
+    RMSNorm at the rank's k-norm rows (8 x 4 x 128); (b)
+    ``repro_torch.launch.distributed --procs 2 --mesh 1,2 --dist-backend
+    gloo``: two model ranks of qwen3-0.6b FULL sharing the card, 8
+    requests over 8 slots, prompts 128/256/512, 16 new tokens, in bf16
+    and (``--dtype float32``) in f32, each against the single-device
+    scheduler in this process on the same weights and trace: the two
+    ranks' streams identical, a stream parting from the single-device
+    one only at a top-2 gap below 1e-4 (f32) or 0.25 (bf16), counted;
+    each rank's launches exact (28 paged a decode step over its 8 q
+    heads, 113 RMSNorm a model call); 58 model-group collectives a
+    decode step; prints tokens/s and TPOT beside phase 5's and the
+    single-device runs', the model group's ms and bytes a decode step;
+    (c) rank 1 of a bf16 job SIGKILLs itself at step 6 and rank 0 fails
+    on its own, naming the dead peer, within its step timeout.  One pair
+    of rank processes runs (b) in bf16, (b) in f32 and (c), one after
+    the other.
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and ``triton``; exits 1
 without a card and 2 when run outside a checkout of the repo.
@@ -393,6 +416,7 @@ without a card and 2 when run outside a checkout of the repo.
 import dataclasses
 import functools
 import gc
+import io
 import json
 import math
 import os
@@ -4727,7 +4751,8 @@ def phase_train_remat(torch, device="cuda", smoke=False):
 # and the HTTP gateway
 # ---------------------------------------------------------------------------
 
-# serve_lifecycle: qwen3-0.6b FULL in f32 (TF32 off), 8 requests over 4
+# serve_lifecycle: qwen3-0.6b at full width, LIFECYCLE_LAYERS layers, in
+# f32 (TF32 off), 8 requests over 4
 # slots, prompts 128/256/512, 32 new tokens, the even rids greedy and the
 # odd ones at temperature 0.8 with a seed each
 LIFECYCLE_TRAFFIC = dict(n_req=8, prompt_lens=[128, 256, 512], max_new=32,
@@ -4742,6 +4767,10 @@ LIFECYCLE_CLI = ["--arch", "qwen3-0.6b", "--dtype", "float32", "--requests",
                  "4", "--slots", "4", "--prompt-lens", "128,256",
                  "--max-new", "16", "--temperature", "0.8"]
 LIFECYCLE_CLI_SMOKE = ["--prompt-lens", "8,16", "--max-new", "8"]
+# qwen3-0.6b at full width cut to this depth (as ltfb_lm's population):
+# every part of the phase and its CLI drill run it (PR 30 cut the phase
+# from 28 layers to make room for serve_tp; every path and check kept)
+LIFECYCLE_LAYERS = 8
 
 
 def _mid_decode(max_new: int) -> int:
@@ -5166,7 +5195,8 @@ def _cli_drill(torch, cfg, model, device, smoke, work, calls, rows):
     from repro_torch.kernels import build
     from repro_torch.launch.serve import build_requests
 
-    argv = [*LIFECYCLE_CLI, *(LIFECYCLE_CLI_SMOKE if smoke else []),
+    argv = [*LIFECYCLE_CLI, *(LIFECYCLE_CLI_SMOKE if smoke else
+                              ["--num-layers", str(LIFECYCLE_LAYERS)]),
             "--device", str(device).split(":")[0]]
     opt = dict(zip(argv[::2], argv[1::2]))
     argv += ["--smoke"] if smoke else []
@@ -5233,15 +5263,17 @@ def _cli_drill(torch, cfg, model, device, smoke, work, calls, rows):
 @exact_f32
 def phase_serve_lifecycle(torch, device="cuda", smoke=False):
     """serve_lifecycle: the request lifecycle, the journal, fault injection
-    and the gateway on qwen3-0.6b FULL in f32 (``smoke``: the SMOKE
-    config, for a CPU rehearsal).  Returns the launches of its in-process
-    parts, the counters set to 0 just before the first and read just
-    after the last."""
+    and the gateway on qwen3-0.6b at full width and ``LIFECYCLE_LAYERS``
+    layers in f32 (``smoke``: the SMOKE config, for a CPU rehearsal).
+    Returns the launches of its in-process parts, the counters set to 0
+    just before the first and read just after the last."""
     from repro_torch.configs.base import replace
     from repro_torch.configs.registry import get_config
     from repro_torch.models.lm import init_lm
 
     cfg = replace(get_config("qwen3-0.6b", smoke=smoke), dtype="float32")
+    if not smoke:
+        cfg = replace(cfg, num_layers=LIFECYCLE_LAYERS)
     traffic = LIFECYCLE_SMOKE_TRAFFIC if smoke else LIFECYCLE_TRAFFIC
     t_start = time.perf_counter()
     model = init_lm(cfg, seed=0, device=device)
@@ -6431,12 +6463,15 @@ def _mesh_f32(torch, cfg, model, traffic, device) -> tuple:
 
 
 def phase_serve_mesh(torch, model, serve_figures, device="cuda",
-                     smoke=False):
+                     smoke=False, start_with=None):
     """Mesh serving (phase 36, after phase 5, on its model and traffic):
     (b) the sharded dispatch on the card, (a) the in-process mesh at
     ``MESH_SERVE_DATA`` in bf16 and then in f32, (c) the distributed CLI's
-    ranks, started before (a)'s f32 runs and checked after them.  Returns
-    the launches of (a) and (c)."""
+    ranks, started before (a)'s f32 runs and checked after them.
+    ``start_with``: called right after (c)'s ranks start (the next phase
+    starts its own ranks there, so that both sets start and serve while
+    this process runs the f32 references).  Returns the launches of (a)
+    and (c)."""
     cfg = model.cfg
     traffic = MESH_SERVE_SMOKE_TRAFFIC if smoke else MESH_SERVE_TRAFFIC
     launches = {"paged_attention": 0, "rmsnorm": 0}
@@ -6478,6 +6513,8 @@ def phase_serve_mesh(torch, model, serve_figures, device="cuda",
                                     args.max_new, seed=args.seed))
         _add(launches, got)
         jobs = _mesh_cli_start(work, device, smoke)
+        if start_with is not None:
+            start_with()
         f32, got = _mesh_f32(torch, cfg, model, traffic, device)
         _add(launches, got)
         emit({"phase": "serve_mesh", "part": "f32", **f32})
@@ -6489,6 +6526,288 @@ def phase_serve_mesh(torch, model, serve_figures, device="cuda",
     emit({"phase": "serve_mesh", "part": "distributed", **cli,
           "launches": launches})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# serve_tp: the serving mesh's model axis across process ranks
+# ---------------------------------------------------------------------------
+
+# (b) the distributed CLI on a 1,2 mesh: two model ranks of qwen3-0.6b
+# FULL sharing the card over gloo, a slice of phase 5's traffic, in bf16
+# and in f32; (c) a SIGKILLed model rank
+TP_CLI = ["--arch", "qwen3-0.6b", "--requests", "8", "--slots", "8",
+          "--prompt-lens", "128,256,512", "--max-new", "16", "--mesh", "1,2",
+          "--dist-backend", "gloo", "--step-timeout", "120"]
+TP_CLI_SMOKE = ["--smoke", "--prompt-lens", "8,16", "--max-new", "8"]
+TP_DRILL = ["--requests", "4", "--max-new", "16", "--step-timeout", "30",
+            "--fault-spec", "kill@6:rank=1"]
+
+
+TP_RUNS = (("bf16", []), ("f32", ["--dtype", "float32"]))
+
+
+def tp_serve_rank(out_dir: str, ports: str, *argv) -> int:
+    """One rank of serve_tp: ``repro_torch.launch.distributed.main`` as
+    torchrun starts it, three times in this process, each on a
+    rendezvous port of its own (``ports``: the second and third): (b) in
+    bf16 and in f32, each run's kernel launches counted (the counters set
+    to 0 just before it) and written beside its ``--out-json``; then (c)
+    the drill, in which rank 1 SIGKILLs itself and rank 0 fails (the
+    worker's hard exit ends this process)."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.launch import distributed
+
+    counters = {"paged_attention": pa.paged_attention, "rmsnorm": rn.rmsnorm}
+    more = ports.split(",")
+    for i, (name, extra) in enumerate(TP_RUNS):
+        if i:
+            os.environ["MASTER_PORT"] = more[i - 1]
+        for fn in counters.values():
+            fn.launches = 0
+        rc = distributed.main(list(argv) + extra
+                              + ["--out-json", f"{out_dir}/{name}.json"])
+        with open(f"{out_dir}/{name}.launches.{os.environ['RANK']}.json",
+                  "w") as f:
+            json.dump({"rc": rc, "launches": {
+                n: fn.launches for n, fn in counters.items()}}, f)
+    os.environ["MASTER_PORT"] = more[-1]
+    print("[serve_tp] drill", flush=True)
+    return distributed.main(list(argv) + TP_DRILL)
+
+
+def serve_tp_start(work, device="cuda", smoke=False) -> dict:
+    """serve_tp's two ranks (:func:`tp_serve_rank`: (b) in bf16, then in
+    f32, then (c)'s drill, in one pair of processes), started in
+    ``work``; their output is read line by line with its arrival
+    times."""
+    import threading
+
+    from repro_torch.launch import mesh
+
+    base = TP_CLI + (TP_CLI_SMOKE if smoke else []) + ["--device", device]
+    ports = set()
+    while len(ports) < 2:
+        ports.add(mesh.find_free_port())
+    procs = mesh.start(
+        _rank_argv("tp_serve_rank", work, ",".join(map(str, ports)), *base),
+        2, dict(os.environ, PYTHONUNBUFFERED="1"),
+        stdout=lambda r: subprocess.PIPE, stderr=lambda r: subprocess.STDOUT)
+    lines = {0: [], 1: []}
+    readers = []
+    for r, proc in enumerate(procs):
+        proc.stdout = io.TextIOWrapper(proc.stdout, errors="replace")
+        readers.append(threading.Thread(target=_stamped,
+                                        args=(proc, lines[r]), daemon=True))
+        readers[-1].start()
+    return {"work": work, "procs": procs, "lines": lines,
+            "readers": readers}
+
+
+def serve_tp_stop(jobs) -> None:
+    """Kill whatever of serve_tp's ranks still runs (a failed check must
+    leave no process behind)."""
+    for p in jobs.get("procs", ()):
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def _tp_wait(jobs) -> dict:
+    """Wait for serve_tp's ranks: the drill ends them, rank 1 by its
+    SIGKILL and rank 0 on its own, naming the dead peer, within the step
+    timeout.  Returns (c)'s figures."""
+    procs, lines = jobs["procs"], jobs["lines"]
+    try:
+        rcs = [p.wait(timeout=MESH_JOB_S) for p in procs]
+    finally:
+        serve_tp_stop(jobs)
+    for t in jobs["readers"]:
+        t.join(timeout=10)
+    text = {r: "\n".join(ln for _, ln in lines[r]) for r in lines}
+    jobs["text"] = text
+    drill_t = next((t for t, ln in lines[1] if "[serve_tp] drill" in ln),
+                   None)
+    killed = next((t for t, ln in lines[1]
+                   if "SIGKILL self at step 6 (rank 1)" in ln), None)
+    failed = next((t for t, ln in lines[0]
+                   if "peer process likely died" in ln), None)
+    limit = float(TP_DRILL[TP_DRILL.index("--step-timeout") + 1])
+    check(rcs[1] == -9 and rcs[0] == 1 and None not in (drill_t, killed,
+                                                        failed),
+          f"serve_tp: the drill did not kill rank 1 and fail rank 0 (rc "
+          f"{rcs}):\n" + text[0][-3000:] + "\n" + text[1][-1500:])
+    check(failed - killed < limit, f"serve_tp: rank 0 failed "
+          f"{failed - killed:.3f} s after its peer's SIGKILL, over the "
+          f"{limit} s step timeout")
+    return {"kill_step": 6, "rcs": rcs, "step_timeout_s": limit,
+            "rank0_failed_after_s": round(failed - killed, 3)}
+
+
+def _tp_job(torch, cfg, jobs, name, dtype, ref_tokens, gaps,
+            device) -> tuple:
+    """(b) one run: both ranks' streams equal (the gathered logits) and
+    equal the single-device scheduler's save partings at a top-2 gap
+    below ``dtype``'s rule (counted); each rank's launches exact (one
+    paged launch an attention layer a decode step over its 8 q heads, the
+    norms of every model call); the model group's collectives a decode
+    step.  Returns the run's figures and launches."""
+    from repro_torch.models.lm import layer_specs
+
+    work = jobs["work"]
+    outs = []
+    for r in range(2):
+        path = f"{work}/{name}.json" + (f".p{r}" if r else "")
+        check(os.path.exists(path), f"serve_tp: no {name} output of rank "
+              f"{r}:\n" + jobs["text"][r][-3000:])
+        with open(path) as f:
+            outs.append(json.load(f))
+    check(outs[0]["results"] == outs[1]["results"],
+          f"serve_tp {name}: the two model ranks' streams differ")
+    want = {str(k): v for k, v in ref_tokens.items()}
+    partings = _partings(want, outs[0]["results"],
+                         {(str(r), i): g for (r, i), g in gaps.items()},
+                         SPEC_TIE[dtype])
+    check(all(p["tie"] for p in partings),
+          f"serve_tp {name}: streams part from the single-device ones "
+          f"away from a tie: {partings}")
+    attn = sum(s.kind == "a" for s in layer_specs(cfg))
+    launches = {"paged_attention": 0, "rmsnorm": 0}
+    per_rank = []
+    for r in range(2):
+        with open(f"{work}/{name}.launches.{r}.json") as f:
+            got = json.load(f)
+        st = outs[r]["stats"]
+        check(got["rc"] == 0, f"serve_tp {name} rank {r} rc {got['rc']}")
+        _launch_check(torch, device, got["launches"], {
+            "paged_attention": attn * st["decode_steps"],
+            "rmsnorm": _norms_per_forward(cfg)
+            * (st["decode_steps"] + st["prefill_chunks"])},
+            f"serve_tp {name} rank {r}")
+        per_rank.append(got["launches"])
+        for k in launches:
+            launches[k] += got["launches"][k]
+    st = outs[0]["stats"]
+    mg = outs[0]["model_group"]
+    steps = max(st["decode_steps"], 1)
+    check(mg["decode"]["calls"] == (2 * attn + 2) * st["decode_steps"],
+          f"serve_tp {name}: {mg['decode']['calls']} model-group "
+          f"collectives in {st['decode_steps']} decode steps, not "
+          f"{2 * attn + 2} a step")
+    return {"dtype": dtype, "requests": len(want),
+            "tokens_per_s": st["tokens_per_s"],
+            "tpot_mean_s": st["tpot_mean_s"],
+            "ttft_p50_s": st["ttft_p50_s"],
+            "decode_steps": st["decode_steps"],
+            "paged_attention_per_decode_step_per_rank":
+                per_rank[0]["paged_attention"] / steps,
+            "launches_per_rank": per_rank,
+            "collectives_per_decode_step": mg["decode"]["calls"] / steps,
+            "collective_ms_per_decode_step":
+                1e3 * mg["decode"]["seconds"] / steps,
+            "collective_bytes_per_decode_step": mg["decode"]["bytes"] / steps,
+            "model_group_all": mg["all"],
+            "plan_ms_per_step": 1e3 * outs[0]["channel"]["broadcast_s"]
+            / max(outs[0]["channel"]["broadcasts"], 1),
+            "partings": partings, "parting_count": len(partings)}, launches
+
+
+@exact_f32
+def _tp_f32_ref(torch, cfg, traffic, device, reqs) -> tuple:
+    """The single-device scheduler over (b)'s trace in f32, TF32 off (its
+    top-2 gaps recorded), on the weights the CLI's ``--dtype float32``
+    draws: ``init_lm`` from the seed in f32, not bf16 weights cast up."""
+    from repro_torch.configs.base import replace
+    from repro_torch.models.lm import init_lm
+
+    gaps = {}
+    cfg32 = replace(cfg, dtype="float32")
+    model = init_lm(cfg32, seed=0, device=device)
+    fig, tokens, launches = _mesh_serve_run(
+        torch, cfg32, model, traffic, device, gaps=gaps, requests=reqs)
+    del model
+    return fig, tokens, gaps, launches
+
+
+def phase_serve_tp(torch, model, serve_figures, device="cuda", smoke=False,
+                   jobs=None):
+    """The serving mesh's ``model`` axis (phase 37, after serve_mesh, on
+    phase 5's model): (a) the paged kernel and RMSNorm at a model rank's
+    shapes (qwen3 at model 2: 8 q heads over 4 kv heads), (b) the
+    distributed CLI on a 1,2 mesh in bf16 and f32 against the
+    single-device scheduler in this process on the same weights and
+    trace, (c) a SIGKILLed model rank.  ``jobs``: (b)'s and (c)'s ranks
+    when :func:`serve_tp_start` started them already (main starts them
+    inside serve_mesh's window of ranks); else they start here.  Returns
+    the launches of (b) and the single-device references, and (a)'s
+    cases."""
+    from repro_torch.configs.base import replace
+    from repro_torch.launch.distributed import build_parser
+    from repro_torch.launch.serve import build_requests, parse_lens
+
+    t_phase = time.perf_counter()
+    cuda = str(device).startswith("cuda")
+    cases = {"paged_attention": [], "rmsnorm": []}
+    if cuda:
+        timer = Timer(torch)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(2)
+        lengths = torch.randint(170, 570, (8,), generator=gen,
+                                device="cuda").tolist()
+        cases["paged_attention"].append(_paged_check(
+            torch, timer, gen, 8, 8, 4, 128, 16, 1, "bfloat16", lengths))
+        cases["rmsnorm"].append(_rms_check(torch, timer, gen, (8, 4, 128),
+                                           "bfloat16"))
+        del timer
+        emit({"phase": "serve_tp", "part": "kernels", "cases": [
+            {k: c[k] for k in ("kernel", "dtype", "max_abs_err",
+                               "kernel_ms", "plain_ms", "bound_ms",
+                               "library_ms") if k in c}
+            for rows in cases.values() for c in rows]})
+    cfg = replace(model.cfg, dtype="bfloat16")
+    args = build_parser().parse_args(TP_CLI + (TP_CLI_SMOKE if smoke
+                                               else []))
+    traffic = dict(n_req=args.requests, slots=args.slots,
+                   prompt_lens=parse_lens(args.prompt_lens),
+                   max_new=args.max_new)
+    reqs = build_requests(cfg, args.requests, traffic["prompt_lens"],
+                          args.max_new, seed=args.seed)
+    launches = {"paged_attention": 0, "rmsnorm": 0}
+    if jobs is None:
+        jobs = serve_tp_start(tempfile.mkdtemp(prefix="chip_smoke_serve_tp_"),
+                              device, smoke)
+    work = jobs["work"]
+    try:
+        # the references while the ranks start: f32 on the f32 draw, then
+        # bf16 on phase 5's model (f32 after serve_mesh; f32 -> bf16 is
+        # exact, the CLI's bf16 draw)
+        f32_fig, f32_tokens, f32_gaps, got = _tp_f32_ref(
+            torch, cfg, traffic, device, reqs)
+        _add(launches, got)
+        model.to(torch.bfloat16)
+        bf16_gaps = {}
+        bf16_fig, bf16_tokens, got = _mesh_serve_run(
+            torch, cfg, model, traffic, device, gaps=bf16_gaps,
+            requests=reqs)
+        _add(launches, got)
+        refs_s = time.perf_counter() - t_phase
+        drill = _tp_wait(jobs)
+        runs = {}
+        for name, dtype, tokens, gaps in (
+                ("bf16", "bfloat16", bf16_tokens, bf16_gaps),
+                ("f32", "float32", f32_tokens, f32_gaps)):
+            runs[name], got = _tp_job(torch, cfg, jobs, name, dtype, tokens,
+                                      gaps, device)
+            _add(launches, got)
+    finally:
+        serve_tp_stop(jobs)
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "serve_tp", "part": "distributed", "arch": cfg.name,
+          "mesh": "1,2", **traffic, "ranks": runs,
+          "single_device": {"bf16": bf16_fig, "f32": f32_fig},
+          "phase5": serve_figures, "drill": drill, "launches": launches,
+          "refs_done_s": refs_s, "wall_s": time.perf_counter() - t_phase})
+    return launches, cases
 
 
 def main() -> int:
@@ -6526,7 +6845,23 @@ def main() -> int:
     release(torch)
     serve_launches, serve_figures, serve_model = phase_serve(torch)
     release(torch)
-    mesh_serve_launches = phase_serve_mesh(torch, serve_model, serve_figures)
+    # serve_tp's ranks start and serve inside serve_mesh's window of ranks
+    tp_jobs = {}
+    try:
+        mesh_serve_launches = phase_serve_mesh(
+            torch, serve_model, serve_figures,
+            start_with=lambda: tp_jobs.update(serve_tp_start(
+                tempfile.mkdtemp(prefix="chip_smoke_serve_tp_"))))
+    except BaseException:
+        if tp_jobs:
+            serve_tp_stop(tp_jobs)
+            shutil.rmtree(tp_jobs["work"], ignore_errors=True)
+        raise
+    release(torch)
+    tp_launches, tp_cases = phase_serve_tp(torch, serve_model, serve_figures,
+                                           jobs=tp_jobs)
+    for name, rows in tp_cases.items():
+        cases[name].extend(rows)
     del serve_model
     release(torch)
     phase_recompute(torch)
@@ -6613,6 +6948,7 @@ def main() -> int:
                "serve_swap": swap_launches, "serve_spec": spec_launches,
                "serve_arena": arena_launches,
                "ltfb_mesh": mesh_launches, "serve_mesh": mesh_serve_launches,
+               "serve_tp": tp_launches,
                **arch_launches}
     kernels = []
     for name, rows in cases.items():

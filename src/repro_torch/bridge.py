@@ -28,6 +28,8 @@ other weights (conv, ``A_log``, ``r_h``, biases, scales, and the MoE
 router and expert stacks, which the port keeps as JAX does) keep JAX's
 layout.
 
+:func:`shard_from_jax` carries the tree straight to one model rank's
+tensor-parallel shard (:mod:`repro_torch.parallel.tensor`).
 :func:`opt_state_from_jax` carries an optimizer state of
 ``repro.optim.optimizers`` the same way (Adam, AdamW, SGD and Adafactor).
 :func:`params_to_jax_layout` and :func:`opt_state_to_jax_layout` go back:
@@ -146,6 +148,19 @@ def load_jax_params(model: LM, tree) -> LM:
     values are cast to the model's dtype and device)."""
     model.load_state_dict(params_from_jax(tree, model.cfg), strict=True)
     return model
+
+
+def shard_from_jax(tree, cfg: ModelConfig, mesh, rank: int, group=None,
+                   device="cuda") -> LM:
+    """Model rank ``rank``'s tensor-parallel shard over ``mesh``'s
+    ``model`` axis, straight from the JAX tree: the full state dict on
+    the host, cut by :func:`repro_torch.parallel.tensor.plan_shards` (the
+    cut :func:`~repro_torch.parallel.tensor.shard_lm` makes of a full
+    model) and loaded once on ``device``, its collectives on ``group``."""
+    from repro_torch.parallel.tensor import build_shard, plan_shards
+
+    return build_shard(plan_shards(cfg, mesh), params_from_jax(tree, cfg),
+                       rank, group, device)
 
 
 def opt_state_from_jax(opt_state, cfg: ModelConfig) -> Dict[str, object]:

@@ -3,14 +3,23 @@
 Runs :class:`repro_torch.serve.mesh.MeshScheduler` across OS processes,
 one rank a device (``cuda:LOCAL_RANK % device_count``, as
 :func:`repro_torch.launch.mesh.init_ranks` pins it; ranks share a card
-over ``--dist-backend gloo``).  Every rank holds a full model replica
-(the same seed) on its own per-process ``--mesh``; rank 0 decides
+over ``--dist-backend gloo``).  ``--mesh DATA,MODEL``: DATA splits each
+replica's slots and page pools into in-process shards, and MODEL cuts
+the weights and KV heads over MODEL ranks (N / MODEL replicas of MODEL
+ranks each, on the ``('replica', 'model')`` grid of
+:func:`repro_torch.launch.mesh.make_serve_mesh`; the model group's
+collectives run on the default group's backend, gloo for ranks sharing a
+card, nccl for a card a rank).  JAX's MODEL counts local devices inside
+one process; the port's spans process ranks, because a port process
+drives one device.  Every replica holds the whole model (the same seed),
+whole or cut over its model ranks; rank 0 decides
 (admission, hot swap, submits, cancels, arena promotions) and broadcasts
 a :class:`~repro_torch.serve.mesh.StepPlan` every step over a gloo group
 of the plan channel's own, followers replay it and land in an identical
 state, and each plan broadcast and stats gather waits at most
 ``--step-timeout`` seconds, so a dead peer makes the survivors raise
-instead of hanging.
+instead of hanging; a dead model peer makes its survivors' next
+collective on the model group raise within the same limit.
 
 Two modes in one CLI:
 
@@ -30,6 +39,8 @@ Two modes in one CLI:
       --requests 4 --max-new 8 --out-json /tmp/dist.json
   python -m repro_torch.launch.distributed --procs 2 --smoke --device cpu \
       --mesh 2,1 --out-json /tmp/dist.json
+  python -m repro_torch.launch.distributed --procs 2 --mesh 1,2 \
+      --dist-backend gloo --out-json /tmp/tp.json
 """
 from __future__ import annotations
 
@@ -44,7 +55,7 @@ from repro_torch.launch import mesh as mesh_lib
 
 def build_parser() -> argparse.ArgumentParser:
     """The distributed CLI's argument parser: JAX's flags and defaults,
-    and the port's ``--device`` and ``--dist-backend``."""
+    and the port's ``--device``, ``--dtype`` and ``--dist-backend``."""
     ap = argparse.ArgumentParser(
         prog="repro_torch.launch.distributed",
         description="Multi-process mesh serving over torch.distributed "
@@ -76,10 +87,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-runnable)")
     ap.add_argument("--mesh", default="1,1",
-                    help="per-process mesh 'DATA,MODEL': each process "
-                         "holds a full replica whose slots and page pools "
-                         "split into DATA shards on its device (MODEL > 1 "
-                         "is ROADMAP.md queue A6 (c))")
+                    help="mesh 'DATA,MODEL': each replica's slots and "
+                         "page pools split into DATA shards on its device; "
+                         "MODEL > 1 cuts the weights and KV heads over "
+                         "MODEL process ranks (--procs a multiple of it)")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=0,
                     help="per-request cap + pool sizing (0 = fit the "
@@ -155,6 +166,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="where each rank's replica, pools and kernels "
                          "run (cuda: card LOCAL_RANK %% count); cuda "
                          "raises when no card is visible")
+    ap.add_argument("--dtype", default=None,
+                    choices=("float32", "bfloat16"),
+                    help="serve in this dtype instead of the config's "
+                         "(weights drawn in f32 from the seed, then cast)")
     ap.add_argument("--dist-backend", default=None,
                     choices=("nccl", "gloo"),
                     help="the default process group's backend (default: "
@@ -189,9 +204,12 @@ def spawn(args, argv: List[str]) -> int:
     ``<journal>.r<k>`` and resuming from the previous generation's, so the
     combined output equals an uninterrupted run's."""
     from repro_torch.launch.serve import parse_lens
-    from repro_torch.serve.mesh import ServeMesh, parse_mesh
+    from repro_torch.serve.mesh import check_model_axis, parse_mesh
 
-    ServeMesh(*parse_mesh(args.mesh))   # fail fast on a bad or unported mesh
+    data, model = parse_mesh(args.mesh)  # fail fast on a bad mesh ...
+    if data < 1 or model < 1:
+        raise ValueError(f"mesh axes must be >= 1, got {args.mesh!r}")
+    check_model_axis(model, args.procs)  # ... or one --procs cannot hold
     parse_lens(args.prompt_lens)        # ... and on a bad trace spec
     passthrough = _strip_flags(argv, ("--procs",))
     restarts = max(0, int(args.restart_on_failure or 0))
@@ -242,14 +260,18 @@ def run_worker(args) -> int:
     rank, world, device = _join(args)
     import torch.distributed as dist
 
+    from repro_torch.configs.base import replace
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import build_requests, parse_lens
     from repro_torch.models.lm import init_lm
     from repro_torch.serve import journal as journal_mod
     from repro_torch.serve import telemetry as telemetry_mod
+    from repro_torch.parallel.tensor import tensor_parallel
     from repro_torch.serve.mesh import MeshScheduler, parse_mesh
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.dtype:
+        cfg = replace(cfg, dtype=args.dtype)
     # the same seed on every rank: identical replica weights
     model = init_lm(cfg, seed=args.seed, device=device)
     lens = parse_lens(args.prompt_lens)
@@ -277,10 +299,18 @@ def run_worker(args) -> int:
         num_slots=args.slots, max_len=max_len,
         journal=journal, faults=faults, arena=arena,
         draft_params=draft, spec_tokens=spec_tokens, device=device)
+    tp = tensor_parallel(sched.session.model)
+    shard = ""
+    if tp is not None:
+        rank_cfg = sched.session.model.cfg
+        cut = ",".join(k for k in ("heads", "mlp", "vocab")
+                       if getattr(tp.plan, k))
+        shard = (f" model_rank={tp.rank}/{tp.size} heads="
+                 f"{rank_cfg.num_heads}/{rank_cfg.num_kv_heads} cut={cut}")
     print(f"[dist] rank={rank}/{world} arch={cfg.name} device={device} "
           f"mesh={args.mesh} feed={args.feed} "
           f"slots={sched.pool.num_slots} "
-          f"channel={type(sched.channel).__name__}", flush=True)
+          f"channel={type(sched.channel).__name__}{shard}", flush=True)
     reqs = build_requests(cfg, args.requests, lens, args.max_new,
                           temperature=args.temperature, seed=args.seed)
     prefixes: dict = {}
@@ -333,7 +363,11 @@ def run_worker(args) -> int:
                        for rid, toks in results.items()},
            "stats": sched.stats.as_dict(),
            # the plan channel's host seconds (ProcessGroupChannel only)
-           "channel": getattr(sched.channel, "timing", None)}
+           "channel": getattr(sched.channel, "timing", None),
+           # the model group's collectives (model > 1 only)
+           "model_group": None if tp is None else {
+               "all": dict(tp.timing),
+               "decode": dict(sched.session.decode_collectives)}}
     if arena is not None:
         out["arena"] = arena.snapshot()
     if rank == 0:

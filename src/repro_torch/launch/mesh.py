@@ -136,25 +136,53 @@ def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def build_groups(mesh: RankMesh) -> RankMesh:
+def build_groups(mesh: RankMesh, axes: Optional[Sequence[str]] = None,
+                 timeout_s: Optional[float] = None) -> RankMesh:
     """Create a process group for every line of ``mesh`` along each axis
-    (a collective: every rank of the default group calls it with the same
-    mesh) and keep this rank's."""
+    (``axes``: only those) and keep this rank's; a collective: every rank
+    of the default group calls it with the same mesh.  A line of every
+    rank reuses the default group, unless ``timeout_s`` is given: then
+    every group is new (the default group's backend), each collective on
+    it waiting at most ``timeout_s``."""
     if not dist.is_initialized():
         raise RankLayoutError(
             "no process group: call init_ranks() first (launch with "
             "torchrun or repro_torch.launch.mesh.spawn)")
     layout(mesh.shape, mesh.axes, dist.get_world_size())
     me = dist.get_rank()
-    for axis in mesh.axes:
+    kw = {} if timeout_s is None else {
+        "timeout": datetime.timedelta(seconds=timeout_s),
+        "backend": dist.get_backend()}
+    for axis in (mesh.axes if axes is None else axes):
         for ranks in mesh.lines(axis):
-            if ranks == list(range(dist.get_world_size())):
+            if ranks == list(range(dist.get_world_size())) and not kw:
                 group = dist.group.WORLD
             else:
-                group = dist.new_group(ranks)
+                group = dist.new_group(ranks, **kw)
             if me in ranks:
                 mesh.groups[axis] = group
     return mesh
+
+
+def serve_layout(model: int, world: Optional[int] = None) -> RankMesh:
+    """The serving grid ``('replica', 'model')``: ``world / model``
+    replicas of ``model`` ranks each, a replica's model ranks adjacent
+    (rank ``r * model + m`` is replica ``r``'s model rank ``m``)."""
+    world = world_size() if world is None else world
+    if model < 1 or world % model:
+        raise RankLayoutError(f"{world} ranks do not split into replicas "
+                              f"of {model} model ranks")
+    return layout((world // model, model), ("replica", "model"), world)
+
+
+def make_serve_mesh(model: int,
+                    timeout_s: float = DEFAULT_TIMEOUT_S) -> RankMesh:
+    """The serving grid with a model group per replica (the default
+    group's backend: ``gloo`` for ranks sharing a card or on the CPU,
+    ``nccl`` for a card a rank), each collective on it waiting at most
+    ``timeout_s``, so a dead model peer makes the survivors raise."""
+    return build_groups(serve_layout(model, world_size()), axes=("model",),
+                        timeout_s=timeout_s)
 
 
 def make_ltfb_mesh(trainers: int, per_trainer_model: int = 16) -> RankMesh:
@@ -199,6 +227,11 @@ def _env_int(name: str, default: Optional[int] = None) -> int:
                 "repro_torch.launch.mesh.spawn")
         return default
     return int(val)
+
+
+def world_env() -> int:
+    """``WORLD_SIZE`` of a launched job (1 when unset)."""
+    return int(os.environ.get("WORLD_SIZE", "1"))
 
 
 def launched() -> bool:

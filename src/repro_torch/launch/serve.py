@@ -58,7 +58,12 @@ and ``--resume-journal`` restores the arena's state from the journal.
 DATA private shards on the one device, paged attention read once a
 shard, every step's decisions round-tripping the step plan's wire format.
 Several processes serve one mesh through
-``python -m repro_torch.launch.distributed``.
+``python -m repro_torch.launch.distributed``.  ``--mesh DATA,MODEL`` with
+MODEL > 1 cuts the weights over MODEL process ranks: the CLI then runs as
+the ranks of a job (``torchrun --nproc-per-node N``, a card a rank over
+nccl, or :func:`repro_torch.launch.mesh.spawn`), rank 0 serving the trace
+and the others replaying its plans; alone it raises naming
+``repro_torch.launch.distributed``.
 
   python -m repro_torch.launch.serve --arch qwen3-0.6b
   python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke --device cpu
@@ -97,6 +102,7 @@ from repro_torch.configs.icf_cyclegan import SMOKE as CYCLEGAN_SMOKE
 from repro_torch.configs.registry import ARCHS, get_config
 from repro_torch.data import jag
 from repro_torch.data.tokens import token_stream
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.icf_cyclegan import init_cyclegan
 from repro_torch.models.lm import init_lm
 from repro_torch.serve import journal as journal_mod
@@ -248,6 +254,15 @@ def run_lm(args) -> Dict[str, object]:
             "swap) and --draft-ckpt (challengers ARE the drafters); "
             "drop those flags")
     device = resolve_device(args.device)
+    rank, world = 0, 1
+    if args.mesh and mesh_lib.launched() and mesh_lib.world_env() > 1:
+        # a rank of a job (torchrun or the spawner): the model axis spans
+        # the ranks; rank 0 serves, the others replay its plans
+        if args.gateway:
+            raise SystemExit("--gateway serves from one process; a "
+                             "multi-rank mesh serves the request trace")
+        ranks = mesh_lib.init_ranks(None, args.device)
+        rank, world, device = ranks.rank, ranks.world, ranks.device
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.dtype:
         cfg = replace(cfg, dtype=args.dtype)
@@ -269,13 +284,13 @@ def run_lm(args) -> Dict[str, object]:
         # into these two models
         draft_model = init_lm(cfg, seed=args.seed, device=device)
     journal = None
-    if args.journal:
+    if args.journal and rank == 0:      # host 0 journals a mesh's requests
         journal = journal_mod.RequestJournal(args.journal)
         print(f"[serve] journal: {args.journal} (write-ahead, fsync "
               f"per step)")
     faults = None
     if args.fault_spec:
-        faults = FaultInjector(args.fault_spec)
+        faults = FaultInjector(args.fault_spec, rank=rank)
         print(f"[serve] fault harness armed: {args.fault_spec}")
     max_len = args.max_len or max(parse_lens(args.prompt_lens)) \
         + args.max_new
@@ -313,6 +328,12 @@ def run_lm(args) -> Dict[str, object]:
         print(f"[serve] journal: replayed {len(entries)} request(s) from "
               f"{args.resume_journal} (requeued "
               f"{sched.stats.journal_replayed} unfinished)")
+    if rank > 0:
+        results = sched.run_follower()
+        print(f"[serve] rank={rank}/{world} replayed rank 0's plans: "
+              f"{len(results)} results")
+        return {"stats": sched.stats.as_dict(), "results": results,
+                "device": str(device)}
     if args.gateway:
         out = run_gateway(args, sched, journal_entries=entries)
         _maybe_write_trace(args, sched)
@@ -341,6 +362,8 @@ def run_lm(args) -> Dict[str, object]:
         except ValueError as e:     # counted in the rejected stat
             print(f"[serve] rejected request {r.rid}: {e}")
     results = sched.run()
+    if world > 1:
+        sched.shutdown()
     if prefixes:
         results = journal_mod.stitched_results(results, prefixes)
     sched.stats.report()
@@ -512,8 +535,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "and every page pool split into DATA private "
                          "shards on the one device, paged attention read "
                          "once a shard, admission decided on host 0 and "
-                         "broadcast as a step plan (lm workload; MODEL > "
-                         "1 is ROADMAP.md queue A6 (c))")
+                         "broadcast as a step plan (lm workload); MODEL "
+                         "> 1 cuts the weights over MODEL process ranks "
+                         "and runs only as ranks of a job (torchrun, or "
+                         "repro_torch.launch.distributed)")
     ap.add_argument("--swap-mode", default="immediate",
                     choices=("immediate", "drain"),
                     help="hot-swap policy: immediate applies new weights "

@@ -22,6 +22,12 @@ Weights live in ``nn.Linear`` modules,
 stored ``(d_out, d_in)`` (JAX keeps ``(d_in, d_out)``; the bridge
 transposes).
 
+On a tensor-parallel shard (:mod:`repro_torch.parallel.tensor`) the
+attention and MLP modules hold their cut of the heads and of d_ff and a
+``tp`` whose all-reduce sums the row-parallel ``wo`` outputs
+(:meth:`Attention.project_out`, :func:`mlp_block`); with ``tp`` None the
+ops are the single-device ones.
+
 Unlike the JAX package, which returns a new pool from every step (the
 update is functional and the old pool donated), the paged and dense decode
 functions here write the new K/V into the pools and rows **in place** with
@@ -165,6 +171,16 @@ class Attention(nn.Module):
         if cfg.qk_norm:
             self.q_norm = RMSNorm(hd, cfg.norm_eps, dtype)
             self.k_norm = RMSNorm(hd, cfg.norm_eps, dtype)
+        # the model axis (:class:`repro_torch.parallel.tensor.
+        # TensorParallel`) when this rank holds a cut of the heads: ``wo``
+        # is row-parallel and its partial sums are all-reduced
+        self.tp = None
+
+    def project_out(self, out: torch.Tensor) -> torch.Tensor:
+        """``wo`` over the heads' output (..., q_dim), summed over the
+        model ranks when the heads are cut across them."""
+        y = self.wo(out)
+        return y if self.tp is None else self.tp.all_reduce(y)
 
     def project_qkv(self, x: torch.Tensor, cos: torch.Tensor,
                     sin: torch.Tensor):
@@ -220,7 +236,7 @@ def attention_block(attn: Attention, x: torch.Tensor, cos: torch.Tensor,
     q, k, v = attn.project_qkv(x, cos, sin)
     out = causal_attention(q, k, v, impl=cfg.attn_impl,
                            k_chunk=cfg.attn_chunk)
-    return attn.wo(out.reshape(B, S, cfg.q_dim))
+    return attn.project_out(out.reshape(B, S, cfg.q_dim))
 
 
 class PagedWrite(NamedTuple):
@@ -389,7 +405,7 @@ def attention_prefill(attn: Attention, x: torch.Tensor, cos: torch.Tensor,
     q, k, v = attn.project_qkv(x, cos, sin)
     out = causal_attention(q, k, v, impl=cfg.attn_impl,
                            k_chunk=cfg.attn_chunk)
-    return attn.wo(out.reshape(B, S, cfg.q_dim)), {"k": k, "v": v}
+    return attn.project_out(out.reshape(B, S, cfg.q_dim)), {"k": k, "v": v}
 
 
 def attention_decode(attn: Attention, x: torch.Tensor, cache: Cache,
@@ -420,7 +436,7 @@ def attention_decode(attn: Attention, x: torch.Tensor, cache: Cache,
     scores = scores.masked_fill(~valid[:, :, None, None, :], float("-inf"))
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bthgk,bkhd->bthgd", p.to(v.dtype), v)
-    return attn.wo(out.reshape(B, K, cfg.q_dim))
+    return attn.project_out(out.reshape(B, K, cfg.q_dim))
 
 
 def init_paged_attention_cache(cfg: ModelConfig, num_pages: int,
@@ -469,7 +485,7 @@ def attention_decode_paged(attn: Attention, x: torch.Tensor, cache: Cache,
     else:
         out = ops.paged_attention(q, cache["k"], cache["v"], w.tables,
                                   w.lengths)
-    return attn.wo(out.reshape(B, K, attn.cfg.q_dim))
+    return attn.project_out(out.reshape(B, K, attn.cfg.q_dim))
 
 
 def attention_prefill_paged(attn: Attention, x: torch.Tensor, cache: Cache,
@@ -490,7 +506,7 @@ def attention_prefill_paged(attn: Attention, x: torch.Tensor, cache: Cache,
     _write_pages(cache, k, v, w)
     out = causal_attention(q, k, v, impl=cfg.attn_impl,
                            k_chunk=cfg.attn_chunk)
-    return attn.wo(out.reshape(1, P, cfg.q_dim))
+    return attn.project_out(out.reshape(1, P, cfg.q_dim))
 
 
 def attention_chunk_paged(attn: Attention, x: torch.Tensor, cache: Cache,
@@ -520,7 +536,7 @@ def attention_chunk_paged(attn: Attention, x: torch.Tensor, cache: Cache,
     s = s.masked_fill(~w.mask, float("-inf"))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("hgqk,khd->qhgd", p, vg).to(x.dtype)
-    return attn.wo(out.reshape(1, C, cfg.q_dim))
+    return attn.project_out(out.reshape(1, C, cfg.q_dim))
 
 
 # ---------------------------------------------------------------------------
@@ -536,11 +552,17 @@ class MLP(nn.Module):
         self.wi = nn.Linear(d, d_ff, bias=False, dtype=dtype)
         self.wg = nn.Linear(d, d_ff, bias=False, dtype=dtype)
         self.wo = nn.Linear(d_ff, d, bias=False, dtype=dtype)
+        # the model axis when this rank holds a cut of d_ff (``wi``/``wg``
+        # column-parallel, ``wo`` row-parallel, its partial sums
+        # all-reduced), as on :class:`Attention`
+        self.tp = None
 
 
 def mlp_block(mlp: MLP, x: torch.Tensor) -> torch.Tensor:
-    """``silu(x Wg) * (x Wi)`` then ``Wo``."""
-    return mlp.wo(F.silu(mlp.wg(x)) * mlp.wi(x))
+    """``silu(x Wg) * (x Wi)`` then ``Wo`` (summed over the model ranks
+    when d_ff is cut across them)."""
+    y = mlp.wo(F.silu(mlp.wg(x)) * mlp.wi(x))
+    return y if mlp.tp is None else mlp.tp.all_reduce(y)
 
 
 # ---------------------------------------------------------------------------

@@ -42,6 +42,12 @@ a new cache pytree each call and donates the old one.
 Every stack trains: the recurrent mixers' scans carry gradients through
 their backward kernels (``kernels/ops.py``), and a ``remat`` policy runs
 a recurrent block's scan forward again inside the backward.
+
+A tensor-parallel shard (:func:`repro_torch.parallel.tensor.shard_lm`)
+runs the same entry points: its ``tp`` carries the model group, so the
+token lookup is vocab-parallel and the logits are gathered into the full
+vocab (:func:`_embed`, :func:`_logits`); a whole model's ``tp`` is None
+and it issues no collective.
 """
 from __future__ import annotations
 
@@ -200,6 +206,10 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = nn.Linear(cfg.d_model, cfg.vocab_size,
                                      bias=False, dtype=dt)
+        # the model axis of a tensor-parallel shard
+        # (:func:`repro_torch.parallel.tensor.shard_lm`): with its vocab
+        # cut, the lookup and the logits go through its collectives
+        self.tp = None
 
     @property
     def device(self) -> torch.device:
@@ -368,11 +378,25 @@ def _attention(attn: L.Attention, h: torch.Tensor, cos: torch.Tensor,
     raise ValueError(f"unknown mode {mode!r}")
 
 
+def _embed(model: LM, tokens: torch.Tensor) -> torch.Tensor:
+    """The token embedding; on a shard whose vocab is cut over the model
+    ranks, the vocab-parallel lookup (each rank's rows, all-reduced)."""
+    if model.tp is None or model.tp.vocab is None:
+        return model.embed(tokens)
+    return model.tp.embed(model.embed.weight, tokens)
+
+
 def _logits(model: LM, x: torch.Tensor) -> torch.Tensor:
     x = model.final_norm(x)
     if model.cfg.tie_embeddings:
-        return F.linear(x, model.embed.weight)
-    return model.lm_head(x)
+        logits = F.linear(x, model.embed.weight)
+    else:
+        logits = model.lm_head(x)
+    if model.tp is None or model.tp.vocab is None:
+        return logits
+    # every rank's vocab slice, gathered in vocab order: each rank then
+    # holds the full row and samples the same token
+    return model.tp.gather_vocab(logits)
 
 
 def _rope(model: LM, positions: torch.Tensor):
@@ -447,7 +471,7 @@ def lm_forward(model: LM, tokens: Optional[torch.Tensor],
     if remat not in REMAT:
         raise ValueError(f"unknown remat {remat!r}; one of {REMAT}")
     cfg = model.cfg
-    x = model.embed(tokens) if embeds is None \
+    x = _embed(model, tokens) if embeds is None \
         else embeds.to(L.torch_dtype(cfg))
     B, S = x.shape[:2]
     if positions is None:
@@ -530,7 +554,7 @@ def lm_prefill(model: LM, tokens: torch.Tensor, cache: List[L.Cache],
     write = L.chunk_write(hist_len, prompt_len, C, tables, bs, null_page)
     positions = hist_len + torch.arange(C, device=tokens.device)[None]
     cos, sin = _text_rope(model, positions)
-    x = model.embed(tokens)
+    x = _embed(model, tokens)
     for block, layer_cache in zip(model.blocks, cache):
         x, _ = _apply_block(block, x, cos, sin, "chunk", layer_cache, write)
     return _logits(model, x[:, last_pos:last_pos + 1])
@@ -558,7 +582,7 @@ def lm_prefill_exact(model: LM, tokens: torch.Tensor, cache: List[L.Cache],
         L.chunk_write(0, P, P, tables, geometry[1], geometry[0])
     positions = torch.arange(P, device=tokens.device)[None]
     cos, sin = _text_rope(model, positions)
-    x = model.embed(tokens)
+    x = _embed(model, tokens)
     for block, layer_cache in zip(model.blocks, cache):
         x, _ = _apply_block(block, x, cos, sin, "prefill", layer_cache,
                             write, slot)
@@ -587,7 +611,7 @@ def lm_prefill_dense(model: LM, tokens: torch.Tensor,
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     cos, sin = _text_rope(model, positions)
-    x = model.embed(tokens)
+    x = _embed(model, tokens)
     cache: List[L.Cache] = []
     for block in model.blocks:
         cache.append({})
@@ -645,7 +669,7 @@ def lm_decode(model: LM, tokens: torch.Tensor, cache: List[L.Cache],
     positions = index.clamp(min=0)[:, None] \
         + torch.arange(K, device=tokens.device)[None]
     cos, sin = _text_rope(model, positions)
-    x = model.embed(tokens)
+    x = _embed(model, tokens)
     for block, layer_cache in zip(model.blocks, cache):
         x, _ = _apply_block(block, x, cos, sin, "decode", layer_cache, write,
                             valid=valid)

@@ -12,7 +12,9 @@ speculative decoding) use :class:`repro_torch.serve.scheduler.Scheduler`.
 With ``mesh`` (a :class:`~repro_torch.serve.mesh.ServeMesh`) the batch's
 session is the serving mesh's (:func:`repro_torch.serve.mesh.
 make_engine_session`): dense slot rows whose batch divides into the
-``data`` shards, as JAX's ``Engine(mesh=...)``.
+``data`` shards, as JAX's ``Engine(mesh=...)``; with ``model`` > 1 (a
+rank of a job, :class:`~repro_torch.serve.mesh.ServeMesh`) the rows hold
+this rank's kv heads and the model is its tensor-parallel shard.
 
 Sampling runs on the device: greedy argmax, or at temperature > 0 a draw
 from ``softmax(logits / temperature)`` through an explicit
@@ -52,6 +54,8 @@ class Engine:
         if batch not in self._sessions and self.mesh is not None:
             self._sessions[batch] = make_engine_session(
                 self.cfg, self.model, self.mesh, batch, self.max_len)
+            # on a model axis > 1 that is this rank's shard from here on
+            self.model = self._sessions[batch].model
         elif batch not in self._sessions:
             self._sessions[batch] = DecodeSession(
                 self.cfg, self.model,

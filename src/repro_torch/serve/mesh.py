@@ -11,9 +11,22 @@ own sub-pool of every paged KV pool with its own null page, and its own
 :class:`~repro_torch.serve.kv_cache.PagedLayout`); decode and verify
 attention run once a shard over that shard's view of the pool with its
 tables rebased (:func:`repro_torch.kernels.ops.paged_attention_sharded`),
-so no row reads another shard's pages.  The ``model`` axis (the weights
-tensor-parallel over ``model``, JAX's ``SERVE_RULES``) needs the port of
-``parallel/sharding.py`` and is refused (ROADMAP.md queue A6 (c)).
+so no row reads another shard's pages.
+
+**The ``model`` axis spans process ranks.**  JAX lays ``model`` over the
+local devices of one process; a port process drives one device, so a
+mesh with ``model = M > 1`` runs in a job of ``R * M`` ranks
+(``python -m repro_torch.launch.distributed --procs N --mesh D,M``, or
+torchrun): ``R`` replicas of ``M`` model ranks each, on the ``('replica',
+'model')`` grid of :func:`repro_torch.launch.mesh.make_serve_mesh`.  Each
+model rank holds its cut of the weights
+(:func:`repro_torch.parallel.tensor.shard_lm` under JAX's
+``MESH_SERVE_RULES``) and of every KV pool (the rank's kv heads), and
+the model group's collectives (an all-reduce after each row-parallel
+``wo``, the vocab-parallel lookup, the logits gathered in vocab order)
+keep the ranks' activations and sampled tokens identical.  In one
+process ``model > 1`` raises.  The speculative round (A18), MoE FFNs
+(A19) and recurrent or hybrid mixers (A20) are refused at ``model > 1``.
 
 **Across processes the port follows JAX's multi-process design**: every
 rank holds a full replica on its own device (JAX's ``local_mesh=True``)
@@ -37,6 +50,7 @@ from __future__ import annotations
 import datetime
 import json
 import time
+import zlib
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -44,7 +58,11 @@ import numpy as np
 import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.mesh import RankLayoutError
 from repro_torch.models import lm
+from repro_torch.parallel.tensor import (plan_shards, shard_lm,
+                                         tensor_parallel)
 from repro_torch.serve.kv_cache import PagedLayout, SlotLayout, blocks_for
 from repro_torch.serve.scheduler import Request, Scheduler
 from repro_torch.serve.session import DecodeSession, MeshDecodeSession
@@ -52,8 +70,9 @@ from repro_torch.serve.telemetry import stats_snapshot
 
 __all__ = ["LoopbackChannel", "MeshDecodeSession", "MeshScheduler",
            "PlanChannel", "ProcessGroupChannel", "ServeMesh", "StepPlan",
-           "decode_request", "encode_request", "make_engine_session",
-           "make_plan_channel", "parse_mesh"]
+           "check_model_axis", "decode_request", "encode_request",
+           "make_engine_session", "make_plan_channel", "mesh_model",
+           "parse_mesh"]
 
 
 # ---------------------------------------------------------------------------
@@ -82,14 +101,34 @@ def parse_mesh(spec: str) -> Tuple[int, int]:
     raise ValueError(f"cannot parse mesh spec {spec!r}")
 
 
+def check_model_axis(model: int, world: Optional[int]) -> None:
+    """Raise :class:`~repro_torch.launch.mesh.RankLayoutError` unless a
+    ``model`` axis of this size can be laid over ``world`` process ranks
+    (``None``: no process group).  ``model = 1`` always can."""
+    if model <= 1:
+        return
+    if world is None or world % model:
+        have = "one process with no process group" if world is None \
+            else f"a job of {world} ranks"
+        raise RankLayoutError(
+            f"a serving mesh with model={model} spans process ranks: each "
+            f"of the {model} model ranks of a replica holds its cut of the "
+            f"weights on its own device, so it runs in a job of a multiple "
+            f"of {model} ranks, not in {have}; launch it with `python -m "
+            f"repro_torch.launch.distributed --procs N --mesh DATA,{model}` "
+            f"(or torchrun)")
+
+
 @dataclass(frozen=True)
 class ServeMesh:
     """A serving mesh's ``(data, model)`` axis sizes.
 
     ``data`` shards the decode batch and every page pool into private
-    sub-pools on one device.  ``model`` > 1 raises: the weights'
-    tensor parallelism needs ``parallel/sharding.py`` (ROADMAP.md queue
-    A6 (c)).
+    sub-pools on one device.  ``model`` > 1 cuts the weights and the KV
+    heads over that many process ranks: it needs this process to be a
+    rank of a job whose size ``model`` divides
+    (:func:`check_model_axis`), else it raises naming
+    ``repro_torch.launch.distributed``.
     """
 
     data: int = 1
@@ -99,12 +138,29 @@ class ServeMesh:
         if self.data < 1 or self.model < 1:
             raise ValueError(f"mesh axes must be >= 1, got data={self.data} "
                              f"model={self.model}")
-        if self.model > 1:
-            raise NotImplementedError(
-                f"a serving mesh with model={self.model}: tensor "
-                "parallelism of the weights over `model` needs "
-                "parallel/sharding.py, not ported to repro_torch yet; see "
-                "ROADMAP.md queue A6 (c)")
+        check_model_axis(self.model, dist.get_world_size()
+                         if dist.is_initialized() else None)
+
+
+def mesh_model(model: lm.LM, mesh: ServeMesh,
+               timeout_s: float = mesh_lib.DEFAULT_TIMEOUT_S) -> lm.LM:
+    """The model this rank serves on ``mesh``: ``model`` itself at
+    ``model = 1`` or when it is a shard already; else this rank's shard
+    (:func:`repro_torch.parallel.tensor.shard_lm`) with its collectives
+    on a model group of its own (:func:`repro_torch.launch.mesh.
+    make_serve_mesh`; every rank of the job calls this together, and
+    each collective waits at most ``timeout_s``)."""
+    tp = tensor_parallel(model)
+    if tp is not None:
+        if tp.size != mesh.model:
+            raise ValueError(f"a shard over {tp.size} model ranks on a mesh "
+                             f"with model={mesh.model}")
+        return model
+    if mesh.model == 1:
+        return model
+    ranks = mesh_lib.make_serve_mesh(mesh.model, timeout_s=timeout_s)
+    coords = ranks.coords(dist.get_rank())
+    return shard_lm(model, mesh, coords[1], ranks.groups["model"])
 
 
 # ---------------------------------------------------------------------------
@@ -314,8 +370,10 @@ def make_engine_session(cfg: ModelConfig, model: lm.LM, mesh: ServeMesh,
         raise ValueError(
             f"engine batch {batch} must be divisible by the mesh data "
             f"axis ({mesh.data})")
+    model = mesh_model(model, mesh)
+    rows = plan_shards(cfg, mesh).rank_cfg if mesh.model > 1 else cfg
     return MeshDecodeSession(cfg, model, SlotLayout(
-        cfg, batch, max_len, device=model.device))
+        rows, batch, max_len, device=model.device))
 
 
 # ---------------------------------------------------------------------------
@@ -342,9 +400,14 @@ class MeshScheduler(Scheduler):
       width-split subset dispatch is off (a subset of rows would leave
       its shards).
 
-    ``model`` is the replica's :class:`~repro_torch.models.lm.LM`;
-    ``mesh`` a :class:`ServeMesh` (or ``mesh_shape`` its sizes; default
-    one shard).  ``stats_every`` N: every N steps each rank ships a
+    ``model`` is the replica's :class:`~repro_torch.models.lm.LM` (the
+    full weights, or this rank's shard); ``mesh`` a :class:`ServeMesh`
+    (or ``mesh_shape`` its sizes; default one shard).  With ``model`` >
+    1 every rank of the job builds its shard (:func:`mesh_model`) and
+    pools of its kv heads; every rank replays rank 0's plan, and the
+    gathered logits keep the model ranks' streams identical, which the
+    stats exchange asserts (a digest of every token a rank accepted).
+    ``stats_every`` N: every N steps each rank ships a
     :func:`~repro_torch.serve.telemetry.stats_snapshot` to rank 0
     (``remote_stats``); it must be the same on every rank (0: never).
     The other keywords are :class:`Scheduler`'s.
@@ -365,6 +428,18 @@ class MeshScheduler(Scheduler):
         # rank-0 decisions waiting for the next step's plan
         self._pending_submits: List[Dict[str, Any]] = []
         self._pending_cancels: List[Tuple[Any, str]] = []
+        if mesh.model > 1 and kwargs.get("draft_params") is not None:
+            raise NotImplementedError(
+                f"speculative decoding on a serving mesh with model="
+                f"{mesh.model} (the drafter's sessions over the model "
+                "ranks) is not ported to repro_torch yet; see ROADMAP.md "
+                "queue A18")
+        model = mesh_model(model, mesh, timeout_s=step_timeout_s)
+        # the pools hold this rank's kv heads (None: the whole config's)
+        self._rank_cfg = plan_shards(cfg, mesh).rank_cfg \
+            if mesh.model > 1 else None
+        # crc32 over every (rid, token) this rank accepted, in order
+        self._digest = 0
         self.data_shards = mesh.data
         D = self.data_shards
         num_slots = kwargs.get("num_slots", 8)
@@ -381,6 +456,8 @@ class MeshScheduler(Scheduler):
 
     # -- construction hooks --------------------------------------------------
     def _make_layout(self, cfg: ModelConfig):
+        if cfg is self.cfg and self._rank_cfg is not None:
+            cfg = self._rank_cfg
         g = self._geom
         if self.paged:
             return PagedLayout(cfg, g["num_slots"], g["n_blocks"],
@@ -527,10 +604,24 @@ class MeshScheduler(Scheduler):
         if not self.stats_every or self._step_count % self.stats_every:
             return
         snap = stats_snapshot(self, rank=self.channel.rank)
+        snap["state_digest"] = self._digest
         got = self.channel.gather(json.dumps(snap).encode())
         if got is not None:
             snaps = [json.loads(p.decode()) for p in got]
+            digests = {int(s["rank"]): s.pop("state_digest") for s in snaps}
+            parted = sorted(r for r, d in digests.items()
+                            if d != self._digest)
+            if parted:
+                raise RuntimeError(
+                    f"rank(s) {parted} accepted other tokens than rank 0 by "
+                    f"step {self._step_count}: the replicas' states "
+                    "diverged")
             self.remote_stats = {int(s["rank"]): s for s in snaps}
+
+    def _accept_token(self, act, tok: int) -> None:
+        self._digest = zlib.crc32(f"{act.req.rid!r}:{int(tok)};".encode(),
+                                  self._digest)
+        super()._accept_token(act, tok)
 
     def shutdown(self) -> StepPlan:
         """Rank 0: broadcast the stop plan and close the channel; the

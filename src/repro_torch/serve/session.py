@@ -31,7 +31,10 @@ to a jitted step and rebinds the returned one.
 :class:`MeshDecodeSession` is the serving mesh's session (JAX's
 ``repro.serve.mesh.MeshDecodeSession``): over a pool split into data
 shards, its decode and verify steps read attention once a shard over that
-shard's sub-pool, and it refuses the explicit-tables subset step.
+shard's sub-pool, and it refuses the explicit-tables subset step.  On a
+mesh with ``model`` > 1 its model is the rank's tensor-parallel shard
+(:mod:`repro_torch.parallel.tensor`) and its pools hold the rank's kv
+heads; the steps are the same calls.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
+from repro_torch.parallel.tensor import tensor_parallel
 from repro_torch.serve.kv_cache import CacheLayout, PagedLayout
 
 
@@ -79,8 +83,12 @@ class DecodeSession:
     def set_params(self, params) -> None:
         """Hot-swap the weights between steps: ``params`` is a state dict
         in the port's layout (``{name: tensor}``, any device and dtype),
-        copied into the model on its device in its dtype.  The cache
-        layout depends only on the config, so the pools stay."""
+        copied into the model on its device in its dtype (on a
+        tensor-parallel shard, first cut to this rank's slices).  The
+        cache layout depends only on the config, so the pools stay."""
+        tp = tensor_parallel(self.model)
+        if tp is not None:
+            params = tp.plan.shard_state(params, tp.rank)
         with torch.no_grad():
             self.model.load_state_dict(params, strict=True)
 
@@ -247,6 +255,9 @@ class MeshDecodeSession(DecodeSession):
     def __init__(self, cfg: ModelConfig, model: lm.LM, layout: CacheLayout):
         super().__init__(cfg, model, layout)
         self.shards = getattr(layout, "data_shards", 1)
+        # the model group's collectives inside decode/verify steps (a
+        # shard's; :attr:`TensorParallel.timing` counts every call)
+        self.decode_collectives = {"calls": 0, "bytes": 0, "seconds": 0.0}
 
     def step(self, tokens: np.ndarray, index: np.ndarray,
              valid: Optional[np.ndarray] = None,
@@ -258,4 +269,11 @@ class MeshDecodeSession(DecodeSession):
             raise ValueError(
                 "row-subset / explicit-table steps cannot run on the mesh "
                 "(rows must stay in their data shard)")
-        return super().step(tokens, index, valid=valid, width=width)
+        tp = tensor_parallel(self.model)
+        if tp is None:
+            return super().step(tokens, index, valid=valid, width=width)
+        before = dict(tp.timing)
+        out = super().step(tokens, index, valid=valid, width=width)
+        for k in self.decode_collectives:
+            self.decode_collectives[k] += tp.timing[k] - before[k]
+        return out

@@ -164,11 +164,14 @@ def test_engine_refuses_sampling_without_a_generator_and_a_mesh():
     out = eng.generate(toks, 3, temperature=0.7, generator=gen)
     assert out.shape == (1, 7) and bool((out[:, :4] == 0).all())
     # a serving mesh: its data axis serves (the same tokens), its model
-    # axis is refused naming its queue
+    # axis spans process ranks and is refused in one process, naming the
+    # distributed CLI
+    from repro_torch.launch.mesh import RankLayoutError
     from repro_torch.serve.mesh import ServeMesh
     on_mesh = Engine(model.cfg, model, max_len=16, mesh=ServeMesh(1))
     assert torch.equal(on_mesh.generate(toks, 3), eng.generate(toks, 3))
-    with pytest.raises(NotImplementedError, match=r"A6 \(c\)"):
+    with pytest.raises(RankLayoutError,
+                       match=r"repro_torch\.launch\.distributed"):
         Engine(model.cfg, model, mesh=ServeMesh(1, 2))
     with pytest.raises(ValueError, match="max_len"):
         eng.generate(toks, 13)

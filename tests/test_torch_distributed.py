@@ -133,17 +133,22 @@ def test_parser_flags_and_defaults_match_jax():
                 for a in ap._actions if a.dest != "help"}
 
     got, want = table(tdist.build_parser()), table(jax_parser())
-    assert set(got) - set(want) == {"device", "dist_backend"}
+    assert set(got) - set(want) == {"device", "dtype", "dist_backend"}
     assert {k: got[k] for k in want} == want
     assert got["device"][1] == "cuda" and got["dist_backend"][1] is None
+    assert got["dtype"][1] is None
     args = tdist.build_parser().parse_args(
         ["--procs", "2", "--step-timeout", "5"])
     assert args.procs == 2 and args.step_timeout == 5.0
 
 
 def test_model_axis_is_refused_before_any_rank_starts():
-    with pytest.raises(NotImplementedError, match=r"A6 \(c\)"):
-        tdist.main(["--procs", "2", "--mesh", "2,2"])
+    """A model axis that ``--procs`` cannot hold (a multiple of MODEL
+    ranks) is refused by the spawner, naming the CLI's form."""
+    for procs, mesh in (("3", "2,2"), ("2", "1,4")):
+        with pytest.raises(tmesh.RankLayoutError,
+                           match="repro_torch.launch.distributed"):
+            tdist.main(["--procs", procs, "--mesh", mesh])
 
 
 def test_two_processes_serve_the_one_process_streams(jobs):

@@ -128,14 +128,26 @@ def test_parse_mesh_refuses_what_jax_refuses(spec):
 
 
 def test_model_axis_raises_naming_its_queue():
-    """``model > 1`` is parsed and refused, not ignored."""
+    """``model > 1`` is parsed, not ignored: in one process it is refused
+    naming the distributed CLI (the axis spans process ranks), and the
+    stacks it cannot cut yet name their queues (MoE A19, recurrent and
+    hybrid A20; the speculative round's A18 needs ranks and is held in
+    ``tests/test_torch_mesh_tp.py``)."""
+    from repro_torch.launch.mesh import RankLayoutError
+    from repro_torch.parallel.tensor import plan_shards
+
     assert tmesh.parse_mesh("2,2") == (2, 2)
     for make in (lambda: tmesh.ServeMesh(2, 2),
                  lambda: tmesh.MeshScheduler(
                      _cfgs("qwen3-0.6b")[1], _weights("qwen3-0.6b")[2],
                      mesh_shape=(1, 2), device="cpu", **KW)):
-        with pytest.raises(NotImplementedError, match=r"A6 \(c\)"):
+        with pytest.raises(RankLayoutError, match=r"spans process ranks.*"
+                           r"repro_torch\.launch\.distributed"):
             make()
+    for arch, queue in (("deepseek-moe-16b", "A19"), ("xlstm-125m", "A20"),
+                        ("jamba-1.5-large-398b", "A20")):
+        with pytest.raises(NotImplementedError, match=queue):
+            plan_shards(get_config(arch, smoke=True), {"model": 2})
     with pytest.raises(ValueError):
         tmesh.ServeMesh(0, 1)
     assert (tmesh.ServeMesh(4).data, tmesh.ServeMesh(4).model) == (4, 1)
